@@ -1,0 +1,384 @@
+// bounce_common.cuh — the forward bounce's device code, shared by the
+// forward kernel (bounce_step.cu) and the backward kernel
+// (bounce_step_bwd.cu), so that the backward replays each lane exactly as
+// the forward ran it.
+//
+// Every function here follows scheme_raytrace_torch/integrator/bounce.py:
+// step, op for op, with two forms of K1's own: cbrt for the fuzz radius and
+// a multiplied-out x^5 in Schlick (the JAX step keeps pow for Mosaic).
+// nvcc contracts mul+add into FMA (no --use_fast_math).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// Packed-scene layout: the offsets of scheme_raytrace_torch/integrator/
+// bounce.py (tests/test_torch_bounce.py holds each constant equal).
+constexpr int H_SKY_A = 0;
+constexpr int H_SKY_B = 3;
+constexpr int H_CAM_O = 6;
+constexpr int H_CAM_LL = 9;
+constexpr int H_CAM_H = 12;
+constexpr int H_CAM_V = 15;
+constexpr int H_CAM_U = 18;
+constexpr int H_CAM_VV = 21;
+constexpr int H_LENS_R = 24;
+constexpr int H_T0 = 25;
+constexpr int H_DT = 26;
+constexpr int HDR_SIZE = 27;
+
+constexpr int R_WN = 0;
+constexpr int R_K = 3;
+constexpr int R_A = 4;
+constexpr int R_KA0 = 7;
+constexpr int R_KA1 = 8;
+constexpr int R_B = 9;
+constexpr int R_KB0 = 12;
+constexpr int R_KB1 = 13;
+constexpr int R_VALID = 14;
+constexpr int R_MTYPE = 15;
+constexpr int R_ALB0 = 16;
+constexpr int R_ALB1 = 19;
+constexpr int R_TEXK = 22;
+constexpr int R_FUZZ = 23;
+constexpr int R_REF = 24;
+constexpr int RECT_SIZE = 26;
+
+constexpr int L_KIND = 0;
+constexpr int L_X0 = 1;
+constexpr int L_X1 = 2;
+constexpr int L_Z0 = 3;
+constexpr int L_Z1 = 4;
+constexpr int L_KY = 5;
+constexpr int L_C = 6;
+constexpr int L_RAD = 9;
+constexpr int LGT_SIZE = 11;
+
+// scene/objects.py MAT_* and scene/build.py TEX_CHECKER
+constexpr int MAT_LAMBERTIAN = 0;
+constexpr int MAT_METAL = 1;
+constexpr int MAT_DIELECTRIC = 2;
+constexpr int MAT_DIFFUSE_LIGHT = 3;
+constexpr int TEX_CHECKER = 1;
+
+// core/rng.py
+constexpr uint32_t CAMERA_DEPTH = 0xFFFFu;
+constexpr uint32_t PCG_MULT = 1664525u;
+constexpr uint32_t PCG_ADD = 1013904223u;
+
+constexpr double kPi = 3.141592653589793;
+constexpr double kTwoPi = 2.0 * kPi;
+
+constexpr int kThreads = 256;
+
+// Full-accuracy math for each precision (no implicit double promotion).
+template <typename T> struct Math;
+template <> struct Math<float> {
+  static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
+  static __device__ __forceinline__ float rsqrt(float x) { return rsqrtf(x); }
+  static __device__ __forceinline__ float cbrt(float x) { return cbrtf(x); }
+  static __device__ __forceinline__ float sin(float x) { return sinf(x); }
+  static __device__ __forceinline__ float cos(float x) { return cosf(x); }
+  static __device__ __forceinline__ float abs(float x) { return fabsf(x); }
+  static __device__ __forceinline__ float mul_rn(float a, float b) {
+    return __fmul_rn(a, b);
+  }
+  static __device__ __forceinline__ float add_rn(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+};
+template <> struct Math<double> {
+  static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
+  static __device__ __forceinline__ double rsqrt(double x) { return ::rsqrt(x); }
+  static __device__ __forceinline__ double cbrt(double x) { return ::cbrt(x); }
+  static __device__ __forceinline__ double sin(double x) { return ::sin(x); }
+  static __device__ __forceinline__ double cos(double x) { return ::cos(x); }
+  static __device__ __forceinline__ double abs(double x) { return ::fabs(x); }
+  static __device__ __forceinline__ double mul_rn(double a, double b) {
+    return __dmul_rn(a, b);
+  }
+  static __device__ __forceinline__ double add_rn(double a, double b) {
+    return __dadd_rn(a, b);
+  }
+};
+
+template <typename T> struct V3 { T x, y, z; };
+
+template <typename T>
+__device__ __forceinline__ V3<T> add(V3<T> a, V3<T> b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+template <typename T>
+__device__ __forceinline__ V3<T> sub(V3<T> a, V3<T> b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+template <typename T>
+__device__ __forceinline__ V3<T> scale(V3<T> a, T s) {
+  return {a.x * s, a.y * s, a.z * s};
+}
+template <typename T>
+__device__ __forceinline__ V3<T> mul(V3<T> a, V3<T> b) {
+  return {a.x * b.x, a.y * b.y, a.z * b.z};
+}
+template <typename T>
+__device__ __forceinline__ T dot(V3<T> a, V3<T> b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+template <typename T>
+__device__ __forceinline__ V3<T> cross(V3<T> a, V3<T> b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+// bounce.py unit3: v * rsqrt(max(v.v, 1e-12))
+template <typename T>
+__device__ __forceinline__ V3<T> unit(V3<T> a) {
+  T dd = dot(a, a);
+  T lo = T(1e-12);
+  return scale(a, Math<T>::rsqrt(dd < lo ? lo : dd));
+}
+
+template <typename T>
+__device__ __forceinline__ T ld(const T* __restrict__ pk, int k) {
+  return __ldg(pk + k);
+}
+template <typename T>
+__device__ __forceinline__ V3<T> ld3(const T* __restrict__ pk, int k) {
+  return {__ldg(pk + k), __ldg(pk + k + 1), __ldg(pk + k + 2)};
+}
+
+// One PCG4D round (core/rng.py _pcg4d) in uint32 arithmetic.
+__device__ __forceinline__ void pcg4d(uint32_t& a, uint32_t& b, uint32_t& c,
+                                      uint32_t& d) {
+  a = a * PCG_MULT + PCG_ADD;
+  b = b * PCG_MULT + PCG_ADD;
+  c = c * PCG_MULT + PCG_ADD;
+  d = d * PCG_MULT + PCG_ADD;
+  a += b * d; b += c * a; c += a * b; d += b * c;
+  a ^= a >> 16; b ^= b >> 16; c ^= c >> 16; d ^= d >> 16;
+  a += b * d; b += c * a; c += a * b; d += b * c;
+}
+
+// Column group `g` of the (seed, item, depth) stream: 4 uniforms in [0, 1)
+// from the top 24 bits (core/rng.py _to_unit; exact in both precisions).
+template <typename T>
+__device__ __forceinline__ void uniforms4(uint32_t seed, uint32_t item,
+                                          uint32_t depth, uint32_t g, T u[4]) {
+  uint32_t a = item, b = depth, c = g, d = seed;
+  pcg4d(a, b, c, d);
+  const T inv = T(1.0 / 16777216.0);
+  u[0] = T(int32_t(a >> 8)) * inv;
+  u[1] = T(int32_t(b >> 8)) * inv;
+  u[2] = T(int32_t(c >> 8)) * inv;
+  u[3] = T(int32_t(d >> 8)) * inv;
+}
+
+// onb.scm:8-16 + local: world vector from local (x, y, zc) about w.
+template <typename T>
+__device__ __forceinline__ V3<T> onb_local(V3<T> w, T x, T y, T zc) {
+  bool pick_y = Math<T>::abs(w.x) > T(0.9);
+  V3<T> a = {pick_y ? T(0) : T(1), pick_y ? T(1) : T(0), T(0)};
+  V3<T> v = unit(cross(w, a));
+  V3<T> u = cross(v, w);
+  return {x * u.x + y * v.x + zc * w.x, x * u.y + y * v.y + zc * w.y,
+          x * u.z + y * v.z + zc * w.z};
+}
+
+// Cosine-weighted direction about w (util.scm:37-44, B4 fixed).
+template <typename T>
+__device__ __forceinline__ V3<T> cosine_dir(T u1, T u2, V3<T> w) {
+  T phi = T(kTwoPi) * u1;
+  T sr2 = Math<T>::sqrt(u2);
+  T one_m = T(1) - u2;
+  T zc = Math<T>::sqrt(one_m < T(0) ? T(0) : one_m);
+  return unit(onb_local(w, Math<T>::cos(phi) * sr2, Math<T>::sin(phi) * sr2,
+                        zc));
+}
+
+template <typename T>
+__device__ __forceinline__ T cosine_value(V3<T> n, V3<T> d) {
+  T c = dot(n, d);
+  return (c < T(0) ? T(0) : c) * T(1.0 / kPi);
+}
+
+struct Statics {
+  int m, n_rects, rect_base, n_lights, lgt_base, light_sampling;
+  int nx, ny, max_depth;
+  uint32_t seed;
+};
+
+// The light that u_pick picks (pdfs.lights_sample_u's selection).
+template <typename T>
+__device__ __forceinline__ int pick_light(const Statics& s, T u_pick) {
+  const T scaled = u_pick * T(s.n_lights);
+  int l = 0;
+  while (l < s.n_lights - 1 && !(scaled >= T(l) && scaled < T(l + 1))) ++l;
+  return l;
+}
+
+// pdfs.lights_sample_u: direction from p toward the light that u_pick picks.
+template <typename T>
+__device__ V3<T> lights_sample(const T* __restrict__ pk, const Statics& s,
+                               T u_pick, T u_a, T u_b, T u_s1, T u_s2,
+                               V3<T> p) {
+  const int b = s.lgt_base + pick_light(s, u_pick) * LGT_SIZE;
+  if (ld(pk, b + L_KIND) < T(0.5)) {            // LIGHT_XZ_RECT
+    T x0 = ld(pk, b + L_X0), z0 = ld(pk, b + L_Z0);
+    V3<T> target = {x0 + u_a * (ld(pk, b + L_X1) - x0), ld(pk, b + L_KY),
+                    z0 + u_b * (ld(pk, b + L_Z1) - z0)};
+    return unit(sub(target, p));
+  }
+  V3<T> oc = sub(ld3(pk, b + L_C), p);          // LIGHT_SPHERE
+  T dist_sq = dot(oc, oc);
+  dist_sq = dist_sq < T(1e-12) ? T(1e-12) : dist_sq;
+  T radius = ld(pk, b + L_RAD);
+  T inner = T(1) - radius * radius / dist_sq;
+  T ctm = inner > T(0) ? Math<T>::sqrt(inner) : T(0);
+  T zc = T(1) + u_s2 * (ctm - T(1));
+  T phi = T(kTwoPi) * u_s1;
+  T zin = T(1) - zc * zc;
+  T sz = zin > T(0) ? Math<T>::sqrt(zin) : T(0);
+  return unit(onb_local(unit(oc), Math<T>::cos(phi) * sz,
+                        Math<T>::sin(phi) * sz, zc));
+}
+
+// pdfs.lights_value: mean hittable-PDF value of direction d over the lights.
+template <typename T>
+__device__ T lights_value(const T* __restrict__ pk, const Statics& s,
+                          V3<T> p, V3<T> d) {
+  T total = T(0);
+  for (int l = 0; l < s.n_lights; ++l) {
+    const int b = s.lgt_base + l * LGT_SIZE;
+    if (ld(pk, b + L_KIND) < T(0.5)) {
+      T ady = Math<T>::abs(d.y);
+      if (!(ady > T(1e-9))) continue;
+      T x0 = ld(pk, b + L_X0), x1 = ld(pk, b + L_X1);
+      T z0 = ld(pk, b + L_Z0), z1 = ld(pk, b + L_Z1);
+      T t = (ld(pk, b + L_KY) - p.y) / d.y;
+      T hx = p.x + t * d.x;
+      T hz = p.z + t * d.z;
+      if (t > T(1e-3) && t < T(1e8) && hx >= x0 && hx <= x1 && hz >= z0 &&
+          hz <= z1) {
+        T denom = ady * ((x1 - x0) * (z1 - z0));
+        total += t * t / (denom < T(1e-12) ? T(1e-12) : denom);
+      }
+    } else {
+      V3<T> oc = sub(ld3(pk, b + L_C), p);
+      T dist_sq = dot(oc, oc);
+      T radius = ld(pk, b + L_RAD);
+      T r2 = radius * radius;
+      if (!(dist_sq > r2)) continue;
+      T ratio = r2 / (dist_sq < T(1e-12) ? T(1e-12) : dist_sq);
+      ratio = ratio < T(0) ? T(0) : (ratio > T(1) ? T(1) : ratio);
+      T ctm = Math<T>::sqrt(T(1) - ratio);
+      T solid = T(kTwoPi) * (T(1) - ctm);
+      if (dot(unit(d), unit(oc)) >= ctm)
+        total += T(1) / (solid < T(1e-12) ? T(1e-12) : solid);
+    }
+  }
+  return total * T(1.0 / double(s.n_lights));
+}
+
+// The camera ray of a fresh lane (main.scm:452-469; bounce.py _camera_ray).
+template <typename T>
+__device__ __forceinline__ void camera_ray(const T* __restrict__ pk,
+                                           const Statics& s, uint32_t item,
+                                           T px, T py, V3<T>& o, V3<T>& d,
+                                           T& time) {
+  T u[8];
+  uniforms4<T>(s.seed, item, CAMERA_DEPTH, 0u, u);
+  uniforms4<T>(s.seed, item, CAMERA_DEPTH, 1u, u + 4);
+  T sx = (px + u[0]) * T(1.0 / double(s.nx));
+  T ty = (py + u[1]) * T(1.0 / double(s.ny));
+  T r = Math<T>::sqrt(u[2]);
+  T phi = T(kTwoPi) * u[3];
+  T lens = ld(pk, H_LENS_R);
+  T rdx = lens * r * Math<T>::cos(phi);
+  T rdy = lens * r * Math<T>::sin(phi);
+  V3<T> off = add(scale(ld3(pk, H_CAM_U), rdx), scale(ld3(pk, H_CAM_VV), rdy));
+  V3<T> org = ld3(pk, H_CAM_O);
+  V3<T> ll = ld3(pk, H_CAM_LL), hor = ld3(pk, H_CAM_H), ver = ld3(pk, H_CAM_V);
+  o = add(org, off);
+  d = unit(V3<T>{ll.x + sx * hor.x + ty * ver.x - org.x - off.x,
+                 ll.y + sx * hor.y + ty * ver.y - org.y - off.y,
+                 ll.z + sx * hor.z + ty * ver.z - org.z - off.z});
+  time = ld(pk, H_T0) + u[4] * ld(pk, H_DT);
+}
+
+// Closest hit: the rect sweep in pack order (geometry.scm:33-50).  Returns
+// the winner's pk offset (-1 on a miss) and its t in best_t.  The strict <
+// keeps the first of equal-t rects, as _merge_rec does.
+template <typename T>
+__device__ __forceinline__ int closest_rect(const T* __restrict__ pk,
+                                            const Statics& s, V3<T> o,
+                                            V3<T> d, T t_min, T t_max,
+                                            T& best_t) {
+  best_t = t_max;
+  int best_b = -1;
+  for (int r = 0; r < s.n_rects; ++r) {
+    const int b = s.rect_base + r * RECT_SIZE;
+    V3<T> wn = ld3(pk, b + R_WN);
+    T dn = dot(d, wn);
+    if (dn == T(0)) continue;                   // ray in the rect plane
+    T t = (ld(pk, b + R_K) - dot(o, wn)) / dn;  // geometry.scm:378-379
+    if (!(t >= t_min && t <= t_max && t < best_t)) continue;
+    if (!(ld(pk, b + R_VALID) > T(0.5))) continue;
+    V3<T> av = ld3(pk, b + R_A), bv = ld3(pk, b + R_B);
+    T pa = dot(o, av) + t * dot(d, av);
+    T pb = dot(o, bv) + t * dot(d, bv);
+    if (pa >= ld(pk, b + R_KA0) && pa <= ld(pk, b + R_KA1) &&
+        pb >= ld(pk, b + R_KB0) && pb <= ld(pk, b + R_KB1)) {
+      best_t = t;
+      best_b = b;
+    }
+  }
+  return best_b;
+}
+
+// The hit point o + t d, rounded as the plain step rounds it: a product,
+// then a sum, never fused into an FMA.  On a plane through the origin (the
+// floor y = 0) the plain step gets p.y = 0 exactly where a fused form leaves
+// a residual of either sign, and the checker texture's sign test reads it.
+template <typename T>
+__device__ __forceinline__ V3<T> ray_at(V3<T> o, T t, V3<T> d) {
+  return {Math<T>::add_rn(o.x, Math<T>::mul_rn(t, d.x)),
+          Math<T>::add_rn(o.y, Math<T>::mul_rn(t, d.y)),
+          Math<T>::add_rn(o.z, Math<T>::mul_rn(t, d.z))};
+}
+
+// The winner's albedo: constant, or checker (texture.scm:12-23).
+template <typename T>
+__device__ __forceinline__ bool checker_odd(const T* __restrict__ pk, int b,
+                                            V3<T> p) {
+  if (ld(pk, b + R_TEXK) != T(TEX_CHECKER)) return false;
+  T sines = Math<T>::sin(T(10) * p.x) * Math<T>::sin(T(10) * p.y) *
+            Math<T>::sin(T(10) * p.z);
+  return sines < T(0);
+}
+
+// Metal's unit-ball draw (util.scm:9-15, analytic; cbrt for the radius).
+template <typename T>
+__device__ __forceinline__ V3<T> fuzz_ball(const T u[4]) {
+  T bz = T(2) * u[1] - T(1);
+  T bphi = T(kTwoPi) * u[2];
+  T br = Math<T>::cbrt(u[3]);
+  T one_m = T(1) - bz * bz;
+  T bs = Math<T>::sqrt(one_m < T(0) ? T(0) : one_m);
+  return {br * bs * Math<T>::cos(bphi), br * bs * Math<T>::sin(bphi), br * bz};
+}
+
+// Dielectric's reflect-or-refract choice (material.scm:76-101): the
+// Schlick reflectance, with x^5 multiplied out.
+template <typename T>
+__device__ __forceinline__ T schlick_prob(T ref_idx, T cosine, bool refr_ok) {
+  T r0 = (T(1) - ref_idx) / (T(1) + (ref_idx == T(-1) ? T(1) : ref_idx));
+  r0 = r0 * r0;
+  T x = T(1) - cosine;
+  x = x < T(0) ? T(0) : x;
+  T x2 = x * x;
+  T schlick = r0 + (T(1) - r0) * (x2 * x2 * x);
+  return refr_ok ? schlick : T(1);
+}
+
+}  // namespace

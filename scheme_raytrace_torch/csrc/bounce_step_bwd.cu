@@ -1,0 +1,658 @@
+// bounce_step_bwd.cu — the backward of one fused bounce, for sm_90a.
+//
+// Replaces the Pallas TPU kernel
+//     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_bwd
+// for the Cornell slice (ROADMAP B1.1, the coverage of bounce_step.cu).
+// Given the step's INPUTS and the cotangents of its five float outputs
+// (o', d', time', rad', tp'), it returns the cotangents of (pk, o, d, time,
+// rad, tp): the exact vector-Jacobian product of
+// scheme_raytrace_torch/integrator/bounce.py:step, whose plain VJP
+// (bounce.step_vjp, torch autograd) is its oracle.
+//
+// Design.  One thread per lane, 256 threads per block.  Each lane replays
+// the forward with the device functions of bounce_common.cuh, the same
+// code bounce_step.cu runs, so the backward sees the lane the forward saw;
+// the residuals are the step's inputs and nothing else.  Then it runs the
+// adjoint of the branch the lane took, written by hand section by section
+// (camera regeneration, hit point, sky, emission, checker select, the
+// mixture-PDF lambertian with its light sample and light value, metal,
+// dielectric, the final selects).  Comparisons carry no gradient, so a lane
+// touches only the header (camera and sky), its winning rect's normal,
+// plane constant, albedos, fuzz and index, and the light blocks.
+//
+// The pk cotangent: each lane keeps its contributions in registers; each
+// touched slot is summed over the warp with a shuffle butterfly, the warp
+// sums go to a [warps, P] array in shared memory, and one pass adds the
+// warps in order into this block's row of the (blocks, P) partials, which
+// the wrapper sums over blocks.  No float atomics: two identical launches
+// give bitwise-equal partials.  Light slots are recomputed per light in the
+// reduction (the light count is a runtime value) instead of being kept.
+//
+// Conventions.  Where the plain step clamps (torch.clamp), the gradient
+// passes at a tie, as in torch (JAX's maximum would split it 0.5/0.5).  The
+// adjoint guards exactly where the forward guards (the where-selected
+// denominators and square roots) and adds no guard of its own.  One place
+// differs from autograd by construction: a rect that loses the closest-hit
+// sweep gets no cotangent here, where autograd multiplies its (finite or,
+// for a ray nearly in its plane, overflowing) t-derivative by zero.
+//
+// What bounds it on an H100.  Per lane it reads the 19 inputs and 13
+// cotangents and writes 13 cotangents, about 180 B in f32 (4.5 MB at the
+// reverse pool's 24,576 lanes, plus 96 x 506 partials), and computes the
+// forward's ~1 kflop and about as much again for the adjoint.  The warp
+// reductions add 5 shuffles per touched slot and warp (up to about 250
+// slots for Cornell).  Register pressure, not bandwidth, is the expected
+// limit; PERF.md holds what was measured.
+
+#include "bounce_common.cuh"
+
+namespace {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarps = kThreads / 32;
+
+// Reverse of y = unit(a): dL/da from dL/dy.
+template <typename T>
+__device__ __forceinline__ V3<T> unit_adj(V3<T> a, V3<T> gy) {
+  const T q = dot(a, a);
+  const T lo = T(1e-12);
+  const T s = Math<T>::rsqrt(q < lo ? lo : q);
+  const T gq = q >= lo ? T(-0.5) * s * s * s * dot(gy, a) : T(0);
+  return add(scale(gy, s), scale(a, T(2) * gq));
+}
+
+// Reverse of onb_local(w, x, y, zc): adds dL/dw to gw, returns dL/dx,
+// dL/dy and dL/dzc.
+template <typename T>
+__device__ __forceinline__ void onb_local_adj(V3<T> w, T x, T y, T zc,
+                                              V3<T> g, V3<T>& gw, T& gx,
+                                              T& gy, T& gzc) {
+  const bool pick_y = Math<T>::abs(w.x) > T(0.9);
+  const V3<T> a = {pick_y ? T(0) : T(1), pick_y ? T(1) : T(0), T(0)};
+  const V3<T> cr = cross(w, a);
+  const V3<T> v = unit(cr);
+  const V3<T> u = cross(v, w);
+  gx = dot(g, u);
+  gy = dot(g, v);
+  gzc = dot(g, w);
+  const V3<T> gu = scale(g, x);
+  V3<T> gv = scale(g, y);
+  gw = add(gw, scale(g, zc));
+  gv = add(gv, cross(w, gu));                     // u = cross(v, w)
+  gw = add(gw, cross(gu, v));
+  gw = add(gw, cross(a, unit_adj(cr, gv)));       // v = unit(cross(w, a))
+}
+
+// Reverse of cosine_dir(u1, u2, w) in w.
+template <typename T>
+__device__ __forceinline__ V3<T> cosine_dir_adj(T u1, T u2, V3<T> w,
+                                                V3<T> g_dir) {
+  const T phi = T(kTwoPi) * u1;
+  const T sr2 = Math<T>::sqrt(u2);
+  const T one_m = T(1) - u2;
+  const T zc = Math<T>::sqrt(one_m < T(0) ? T(0) : one_m);
+  const T x = Math<T>::cos(phi) * sr2, y = Math<T>::sin(phi) * sr2;
+  V3<T> gw = {T(0), T(0), T(0)};
+  T gx, gy, gzc;
+  onb_local_adj(w, x, y, zc, unit_adj(onb_local(w, x, y, zc), g_dir), gw, gx,
+                gy, gzc);
+  return gw;
+}
+
+// Reverse of refl = d - wn * (2 d.wn): adds to g_d and g_wn.
+template <typename T>
+__device__ __forceinline__ void reflect_adj(V3<T> d, V3<T> wn, V3<T> g,
+                                            V3<T>& g_d, V3<T>& g_wn) {
+  const T k = T(2) * dot(d, wn);
+  const T g_dd = T(-2) * dot(g, wn);
+  g_d = add(g_d, add(g, scale(wn, g_dd)));
+  g_wn = add(g_wn, add(scale(g, -k), scale(d, g_dd)));
+}
+
+// Reverse of lights_sample in p and in the slots of light block b (the
+// picked one), for the cotangent g_dir of the sampled direction: adds to
+// g_p and to gl (indexed by the L_* offsets).
+template <typename T>
+__device__ void light_sample_adj(const T* __restrict__ pk, int b, T u_a,
+                                 T u_b, T u_s1, T u_s2, V3<T> p, V3<T> g_dir,
+                                 V3<T>& g_p, T gl[LGT_SIZE]) {
+  if (ld(pk, b + L_KIND) < T(0.5)) {            // LIGHT_XZ_RECT
+    const T x0 = ld(pk, b + L_X0), z0 = ld(pk, b + L_Z0);
+    const V3<T> target = {x0 + u_a * (ld(pk, b + L_X1) - x0),
+                          ld(pk, b + L_KY),
+                          z0 + u_b * (ld(pk, b + L_Z1) - z0)};
+    const V3<T> gt = unit_adj(sub(target, p), g_dir);
+    g_p = sub(g_p, gt);
+    gl[L_X0] += gt.x * (T(1) - u_a);
+    gl[L_X1] += gt.x * u_a;
+    gl[L_KY] += gt.y;
+    gl[L_Z0] += gt.z * (T(1) - u_b);
+    gl[L_Z1] += gt.z * u_b;
+    return;
+  }
+  const T lo = T(1e-12);                        // LIGHT_SPHERE
+  const V3<T> oc = sub(ld3(pk, b + L_C), p);
+  const T q = dot(oc, oc);
+  const T dist_sq = q < lo ? lo : q;
+  const T radius = ld(pk, b + L_RAD);
+  const T inner = T(1) - radius * radius / dist_sq;
+  const bool outside = inner > T(0);
+  const T ctm = outside ? Math<T>::sqrt(inner) : T(0);
+  const T zc = T(1) + u_s2 * (ctm - T(1));
+  const T phi = T(kTwoPi) * u_s1;
+  const T zin = T(1) - zc * zc;
+  const bool z_ok = zin > T(0);
+  const T sz = z_ok ? Math<T>::sqrt(zin) : T(0);
+  const T cph = Math<T>::cos(phi), sph = Math<T>::sin(phi);
+  const V3<T> w = unit(oc);
+  const V3<T> g_v1 = unit_adj(onb_local(w, cph * sz, sph * sz, zc), g_dir);
+  V3<T> g_w = {T(0), T(0), T(0)};
+  T gx, gy, g_zc;
+  onb_local_adj(w, cph * sz, sph * sz, zc, g_v1, g_w, gx, gy, g_zc);
+  const T g_sz = gx * cph + gy * sph;
+  const T g_zin = z_ok ? T(0.5) * g_sz / sz : T(0);
+  g_zc += T(-2) * zc * g_zin;
+  const T g_ctm = g_zc * u_s2;
+  const T g_inner = outside ? T(0.5) * g_ctm / ctm : T(0);
+  const T g_dsq = g_inner * (radius * radius / (dist_sq * dist_sq));
+  V3<T> g_oc = unit_adj(oc, g_w);
+  if (q >= lo) g_oc = add(g_oc, scale(oc, T(2) * g_dsq));
+  gl[L_C] += g_oc.x;
+  gl[L_C + 1] += g_oc.y;
+  gl[L_C + 2] += g_oc.z;
+  gl[L_RAD] += g_inner * (T(-2) * radius / dist_sq);
+  g_p = sub(g_p, g_oc);
+}
+
+// Reverse of light block b's term of lights_value (before the mean), for
+// its cotangent g_val: adds to g_p, g_d and gl.
+template <typename T>
+__device__ void light_value_adj(const T* __restrict__ pk, int b, V3<T> p,
+                                V3<T> d, T g_val, V3<T>& g_p, V3<T>& g_d,
+                                T gl[LGT_SIZE]) {
+  const T lo = T(1e-12);
+  if (ld(pk, b + L_KIND) < T(0.5)) {
+    const T ady = Math<T>::abs(d.y);
+    if (!(ady > T(1e-9))) return;
+    const T x0 = ld(pk, b + L_X0), x1 = ld(pk, b + L_X1);
+    const T z0 = ld(pk, b + L_Z0), z1 = ld(pk, b + L_Z1);
+    const T t = (ld(pk, b + L_KY) - p.y) / d.y;
+    const T hx = p.x + t * d.x;
+    const T hz = p.z + t * d.z;
+    if (!(t > T(1e-3) && t < T(1e8) && hx >= x0 && hx <= x1 && hz >= z0 &&
+          hz <= z1))
+      return;
+    const T area = (x1 - x0) * (z1 - z0);
+    const T den = ady * area;
+    const T denom = den < lo ? lo : den;
+    const T g_t = g_val * T(2) * t / denom;          // v = t * t / denom
+    const T g_den = den >= lo ? -g_val * t * t / (denom * denom) : T(0);
+    const T g_area = g_den * ady;
+    gl[L_X1] += g_area * (z1 - z0);
+    gl[L_X0] -= g_area * (z1 - z0);
+    gl[L_Z1] += g_area * (x1 - x0);
+    gl[L_Z0] -= g_area * (x1 - x0);
+    const T g_num = g_t / d.y;                       // t = (ky - p.y) / d.y
+    gl[L_KY] += g_num;
+    g_p.y -= g_num;
+    const T sgn = d.y > T(0) ? T(1) : (d.y < T(0) ? T(-1) : T(0));
+    g_d.y += -g_t * t / d.y + g_den * area * sgn;
+    return;
+  }
+  const V3<T> oc = sub(ld3(pk, b + L_C), p);
+  const T dist_sq = dot(oc, oc);
+  const T radius = ld(pk, b + L_RAD);
+  const T r2 = radius * radius;
+  if (!(dist_sq > r2)) return;
+  const T mdsq = dist_sq < lo ? lo : dist_sq;
+  const T x = r2 / mdsq;
+  const T ratio = x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
+  const T ctm = Math<T>::sqrt(T(1) - ratio);
+  const T solid = T(kTwoPi) * (T(1) - ctm);
+  if (!(dot(unit(d), unit(oc)) >= ctm)) return;
+  const T ms = solid < lo ? lo : solid;              // v = 1 / ms
+  const T g_solid = solid >= lo ? -g_val / (ms * ms) : T(0);
+  const T g_ctm = -T(kTwoPi) * g_solid;
+  const T g_ratio = -T(0.5) * g_ctm / ctm;
+  const T g_x = (x >= T(0) && x <= T(1)) ? g_ratio : T(0);
+  const T g_mdsq = -g_x * r2 / (mdsq * mdsq);
+  gl[L_RAD] += g_x / mdsq * T(2) * radius;
+  if (dist_sq >= lo) {
+    const V3<T> g_oc = scale(oc, T(2) * g_mdsq);
+    gl[L_C] += g_oc.x;
+    gl[L_C + 1] += g_oc.y;
+    gl[L_C + 2] += g_oc.z;
+    g_p = sub(g_p, g_oc);
+  }
+}
+
+// Sum over the warp in a fixed butterfly order; every lane gets the sum.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+template <typename T>
+struct BwdParams {
+  const T* pk;
+  const int32_t* gitem;
+  const T* px;
+  const T* py;
+  const bool* fresh;
+  const bool* alive;
+  const int32_t* depth;
+  const T* in[13];     // ox oy oz dx dy dz time rx ry rz tx ty tz
+  const T* ct[13];     // cotangents of the same columns after the bounce
+  T* dpk_part;         // [blocks, P]
+  T* out[13];          // cotangents of the input columns
+  Statics s;
+  int P;
+  T t_min, t_max;
+};
+
+// A lane's pk cotangent, kept for the block reduction: the header slots,
+// its winning rect's slots, and what the light slots' recomputation needs.
+template <typename T>
+struct LaneGrads {
+  T hdr[HDR_SIZE];
+  bool cam, sky;     // the camera / sky slots are touched
+  int win;           // the winning rect's pk offset (-1: none)
+  bool odd;          // its checker picked ALB1
+  V3<T> wn;          // -> R_WN
+  T k;               // -> R_K
+  V3<T> alb;         // -> R_ALB0, or R_ALB1 when odd
+  T fuzz, ref;       // -> R_FUZZ, R_REF
+  bool lam_ls;       // a light-sampled lambertian scatter
+  V3<T> lp, ldir;    // its hit point and direction
+  T g_lv;            // the cotangent of each light's lights_value term
+  int l_pick;        // the sampled light (-1: the cosine lobe)
+  T lu[4];           // the light sample's uniforms
+  V3<T> g_ls;        // the cotangent of the sampled direction
+};
+
+// The adjoint of lane i: replays the forward, writes the lane's 13 input
+// cotangents and leaves its pk cotangent in c (zeroed, win = l_pick = -1,
+// by the caller).
+template <typename T>
+__device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
+                                             LaneGrads<T>& c) {
+  const Statics& s = prm.s;
+  const T* __restrict__ pk = prm.pk;
+  const T lo = T(1e-12);
+  const uint32_t item = uint32_t(prm.gitem[i]);
+  const bool fresh = prm.fresh[i];
+  const bool alive = prm.alive[i];
+  const int depth = prm.depth[i];
+  V3<T> o = {prm.in[0][i], prm.in[1][i], prm.in[2][i]};
+  V3<T> d = {prm.in[3][i], prm.in[4][i], prm.in[5][i]};
+  T time = prm.in[6][i];
+  V3<T> tp = {prm.in[10][i], prm.in[11][i], prm.in[12][i]};
+  const V3<T> go = {prm.ct[0][i], prm.ct[1][i], prm.ct[2][i]};
+  const V3<T> gd = {prm.ct[3][i], prm.ct[4][i], prm.ct[5][i]};
+  const T g_time = prm.ct[6][i];
+  const V3<T> g_rad = {prm.ct[7][i], prm.ct[8][i], prm.ct[9][i]};
+  const V3<T> gtp = {prm.ct[10][i], prm.ct[11][i], prm.ct[12][i]};
+
+  // --- forward replay: regeneration and the closest hit --------------
+  if (fresh) {
+    camera_ray<T>(pk, s, item, prm.px[i], prm.py[i], o, d, time);
+    tp = {T(1), T(1), T(1)};
+  }
+  T best_t;
+  const int b = closest_rect<T>(pk, s, o, d, prm.t_min, prm.t_max, best_t);
+  const bool hit = b >= 0;
+  const T t_eff = hit ? best_t : T(0);
+  const V3<T> p = ray_at(o, t_eff, d);
+
+  // --- the scatter and its adjoint (material.scm), then the selects ----
+  // rad' = rad + sky + emission, so rad's cotangent passes through.
+  V3<T> g_o = {T(0), T(0), T(0)}, g_d = {T(0), T(0), T(0)};
+  V3<T> g_p = {T(0), T(0), T(0)}, g_tp = {T(0), T(0), T(0)};
+  bool scattering = false;
+  if (alive && hit) {
+    c.win = b;
+    const V3<T> wn = ld3(pk, b + R_WN);
+    const T mtype = ld(pk, b + R_MTYPE);
+    c.odd = checker_odd<T>(pk, b, p);
+    const V3<T> alb = ld3(pk, b + (c.odd ? R_ALB1 : R_ALB0));
+    // emission (material.scm:103-111)
+    if (mtype == T(MAT_DIFFUSE_LIGHT) && dot(wn, d) < T(0)) {
+      g_tp = add(g_tp, mul(g_rad, alb));
+      c.alb = add(c.alb, mul(g_rad, tp));
+    }
+    if (depth < s.max_depth) {
+      T u[8];
+      if (mtype == T(MAT_LAMBERTIAN)) {
+        uniforms4<T>(s.seed, item, uint32_t(depth), 0u, u);
+        if (s.light_sampling) {
+          uniforms4<T>(s.seed, item, uint32_t(depth), 1u, u + 4);
+          const bool use_light = u[2] < T(0.5);
+          const V3<T> dir =
+              use_light
+                  ? lights_sample<T>(pk, s, u[3], u[4], u[5], u[6], u[7], p)
+                  : cosine_dir<T>(u[0], u[1], wn);
+          const T cw = dot(wn, dir);
+          const T cv = (cw < T(0) ? T(0) : cw) * T(1.0 / kPi);
+          const T pdf = T(0.5) * cv + T(0.5) * lights_value<T>(pk, s, p, dir);
+          const T den = pdf < lo ? lo : pdf;
+          const T ratio = cv / den;
+          if (pdf > T(0)) {
+            scattering = true;                // tp' = tp * alb * ratio
+            const V3<T> g_mult = mul(gtp, tp);
+            g_tp = add(g_tp, mul(gtp, scale(alb, ratio)));
+            c.alb = add(c.alb, scale(g_mult, ratio));
+            const T g_ratio = dot(g_mult, alb);
+            const T g_pdf = pdf >= lo ? -g_ratio * cv / (den * den) : T(0);
+            const T g_cv = g_ratio / den + T(0.5) * g_pdf;
+            const T g_c = cw >= T(0) ? g_cv * T(1.0 / kPi) : T(0);
+            g_p = go;
+            V3<T> g_dir = add(gd, scale(wn, g_c));
+            c.wn = add(c.wn, scale(dir, g_c));
+            c.lam_ls = true;
+            c.lp = p;
+            c.ldir = dir;
+            c.g_lv = T(0.5) * g_pdf * T(1.0 / double(s.n_lights));
+            T gl[LGT_SIZE];                   // the reduction redoes these
+#pragma unroll
+            for (int k = 0; k < LGT_SIZE; ++k) gl[k] = T(0);
+            for (int l = 0; l < s.n_lights; ++l)
+              light_value_adj<T>(pk, s.lgt_base + l * LGT_SIZE, p, dir,
+                                 c.g_lv, g_p, g_dir, gl);
+            if (use_light) {
+              c.l_pick = pick_light(s, u[3]);
+              c.lu[0] = u[4]; c.lu[1] = u[5]; c.lu[2] = u[6]; c.lu[3] = u[7];
+              c.g_ls = g_dir;
+              light_sample_adj<T>(pk, s.lgt_base + c.l_pick * LGT_SIZE, u[4],
+                                  u[5], u[6], u[7], p, g_dir, g_p, gl);
+            } else {
+              c.wn = add(c.wn, cosine_dir_adj<T>(u[0], u[1], wn, g_dir));
+            }
+          }
+        } else {
+          scattering = true;                  // tp' = tp * alb
+          g_tp = add(g_tp, mul(gtp, alb));
+          c.alb = add(c.alb, mul(gtp, tp));
+          g_p = go;
+          c.wn = add(c.wn, cosine_dir_adj<T>(u[0], u[1], wn, gd));
+        }
+      } else if (mtype == T(MAT_METAL)) {
+        uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
+        const V3<T> ball = fuzz_ball<T>(u);
+        const T fuzz = ld(pk, b + R_FUZZ);
+        const V3<T> fuzzed =
+            add(sub(d, scale(wn, T(2) * dot(d, wn))), scale(ball, fuzz));
+        if (dot(fuzzed, wn) > T(0)) {
+          scattering = true;                  // tp' = tp * alb
+          g_tp = add(g_tp, mul(gtp, alb));
+          c.alb = add(c.alb, mul(gtp, tp));
+          g_p = go;
+          const V3<T> g_f = unit_adj(fuzzed, gd);
+          c.fuzz = dot(g_f, ball);
+          reflect_adj(d, wn, g_f, g_d, c.wn);
+        }
+      } else if (mtype == T(MAT_DIELECTRIC)) {
+        uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
+        scattering = true;                    // tp' = tp
+        g_tp = add(g_tp, gtp);
+        g_p = go;
+        const T ref_idx = ld(pk, b + R_REF);
+        const T dd = dot(d, wn);
+        const bool exiting = dd > T(0);
+        const V3<T> own = exiting ? scale(wn, T(-1)) : wn;
+        const T q = ref_idx == T(0) ? T(1) : ref_idx;
+        const T ni = exiting ? ref_idx : T(1) / q;
+        const T cosine = exiting ? dd * ref_idx : -dd;
+        const T dtn = dot(d, own);
+        const T disc = T(1) - ni * ni * (T(1) - dtn * dtn);
+        const bool refr_ok = disc > T(0);
+        const T safe = Math<T>::sqrt(refr_ok ? disc : T(1));
+        const V3<T> refr =
+            sub(scale(sub(d, scale(own, dtn)), ni), scale(own, safe));
+        const V3<T> refl = sub(d, scale(wn, T(2) * dot(d, wn)));
+        if (u[0] < schlick_prob<T>(ref_idx, cosine, refr_ok)) {
+          reflect_adj(d, wn, unit_adj(refl, gd), g_d, c.wn);
+        } else {
+          // refr = ni (d - own dtn) - own safe
+          const V3<T> g_r = unit_adj(refr, gd);
+          T g_ni = dot(g_r, sub(d, scale(own, dtn)));
+          T g_dtn = -ni * dot(g_r, own);
+          V3<T> g_own = scale(g_r, -(ni * dtn) - safe);
+          g_d = add(g_d, scale(g_r, ni));
+          const T g_safe = -dot(g_r, own);
+          const T g_disc = refr_ok ? T(0.5) * g_safe / safe : T(0);
+          g_ni += g_disc * (T(-2) * ni * (T(1) - dtn * dtn));
+          g_dtn += g_disc * (T(2) * ni * ni * dtn);
+          g_d = add(g_d, scale(own, g_dtn));       // dtn = d . own
+          g_own = add(g_own, scale(d, g_dtn));
+          c.wn = exiting ? sub(c.wn, g_own) : add(c.wn, g_own);
+          if (exiting) {
+            c.ref += g_ni;
+          } else if (ref_idx != T(0)) {
+            c.ref += -g_ni / (q * q);
+          }
+        }
+      }
+    }
+  }
+  if (!scattering) {                          // o', d', tp' pass through
+    g_o = go;
+    g_d = add(g_d, gd);
+    g_tp = add(g_tp, gtp);
+  }
+
+  // --- sky on a miss (main.scm:91-98) ---------------------------------
+  if (alive && !hit) {
+    c.sky = true;
+    const T sky_t = T(0.5) * (d.y + T(1));
+    const V3<T> sa = ld3(pk, H_SKY_A), sb = ld3(pk, H_SKY_B);
+    const V3<T> sky = {(T(1) - sky_t) * sa.x + sky_t * sb.x,
+                       (T(1) - sky_t) * sa.y + sky_t * sb.y,
+                       (T(1) - sky_t) * sa.z + sky_t * sb.z};
+    g_tp = add(g_tp, mul(g_rad, sky));
+    const V3<T> g_sky = mul(g_rad, tp);
+    c.hdr[H_SKY_A] = g_sky.x * (T(1) - sky_t);
+    c.hdr[H_SKY_A + 1] = g_sky.y * (T(1) - sky_t);
+    c.hdr[H_SKY_A + 2] = g_sky.z * (T(1) - sky_t);
+    c.hdr[H_SKY_B] = g_sky.x * sky_t;
+    c.hdr[H_SKY_B + 1] = g_sky.y * sky_t;
+    c.hdr[H_SKY_B + 2] = g_sky.z * sky_t;
+    g_d.y += T(0.5) * dot(g_sky, sub(sb, sa));
+  }
+
+  // --- hit point p = o + t d, t = (K - o.wn) / (d.wn) -------------------
+  g_o = add(g_o, g_p);
+  if (hit) {
+    g_d = add(g_d, scale(g_p, t_eff));
+    const V3<T> wn = ld3(pk, b + R_WN);
+    const T dn = dot(d, wn);
+    const T g_t = dot(g_p, d);
+    const T g_num = g_t / dn;
+    const T g_dn = -g_t * best_t / dn;
+    c.k = g_num;
+    g_o = sub(g_o, scale(wn, g_num));
+    g_d = add(g_d, scale(wn, g_dn));
+    c.wn = add(c.wn, add(scale(o, -g_num), scale(d, g_dn)));
+  }
+
+  // --- regeneration: a fresh lane's cotangents go to the camera --------
+  if (fresh) {
+    c.cam = true;
+    T u[8];
+    uniforms4<T>(s.seed, item, CAMERA_DEPTH, 0u, u);
+    uniforms4<T>(s.seed, item, CAMERA_DEPTH, 1u, u + 4);
+    const T sx = (prm.px[i] + u[0]) * T(1.0 / double(s.nx));
+    const T ty = (prm.py[i] + u[1]) * T(1.0 / double(s.ny));
+    const T r = Math<T>::sqrt(u[2]);
+    const T phi = T(kTwoPi) * u[3];
+    const T lens = ld(pk, H_LENS_R);
+    const T rdx = lens * r * Math<T>::cos(phi);
+    const T rdy = lens * r * Math<T>::sin(phi);
+    const V3<T> cu = ld3(pk, H_CAM_U), cv = ld3(pk, H_CAM_VV);
+    const V3<T> off = add(scale(cu, rdx), scale(cv, rdy));
+    const V3<T> org = ld3(pk, H_CAM_O);
+    const V3<T> ll = ld3(pk, H_CAM_LL), hor = ld3(pk, H_CAM_H),
+                ver = ld3(pk, H_CAM_V);
+    const V3<T> dv = {ll.x + sx * hor.x + ty * ver.x - org.x - off.x,
+                      ll.y + sx * hor.y + ty * ver.y - org.y - off.y,
+                      ll.z + sx * hor.z + ty * ver.z - org.z - off.z};
+    const V3<T> g_dv = unit_adj(dv, g_d);
+    const V3<T> g_org = sub(g_o, g_dv);               // o = org + off
+    const V3<T> g_off = sub(g_o, g_dv);
+    const T g_rdx = dot(g_off, cu), g_rdy = dot(g_off, cv);
+    const V3<T> gs[6] = {g_org, g_dv, scale(g_dv, sx), scale(g_dv, ty),
+                         scale(g_off, rdx), scale(g_off, rdy)};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {       // H_CAM_O .. H_CAM_VV, 3 apart
+      c.hdr[H_CAM_O + 3 * k] = gs[k].x;
+      c.hdr[H_CAM_O + 3 * k + 1] = gs[k].y;
+      c.hdr[H_CAM_O + 3 * k + 2] = gs[k].z;
+    }
+    c.hdr[H_LENS_R] = g_rdx * (r * Math<T>::cos(phi)) +
+                      g_rdy * (r * Math<T>::sin(phi));
+    c.hdr[H_T0] = g_time;
+    c.hdr[H_DT] = g_time * u[4];
+    g_o = g_d = g_tp = V3<T>{T(0), T(0), T(0)};
+  }
+
+  const bool keep = !fresh;
+  prm.out[0][i] = g_o.x;  prm.out[1][i] = g_o.y;  prm.out[2][i] = g_o.z;
+  prm.out[3][i] = g_d.x;  prm.out[4][i] = g_d.y;  prm.out[5][i] = g_d.z;
+  prm.out[6][i] = keep ? g_time : T(0);
+  prm.out[7][i] = keep ? g_rad.x : T(0);
+  prm.out[8][i] = keep ? g_rad.y : T(0);
+  prm.out[9][i] = keep ? g_rad.z : T(0);
+  prm.out[10][i] = g_tp.x;  prm.out[11][i] = g_tp.y;  prm.out[12][i] = g_tp.z;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bounce_step_bwd_kernel(const BwdParams<T> prm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* red = reinterpret_cast<T*>(smem_raw);       // [kWarps, P] warp sums
+  const Statics& s = prm.s;
+  const T* __restrict__ pk = prm.pk;
+  const int P = prm.P;
+  for (int k = threadIdx.x; k < kWarps * P; k += kThreads) red[k] = T(0);
+  __syncthreads();
+
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  LaneGrads<T> c = {};
+  c.win = c.l_pick = -1;
+  if (i < s.m) lane_adjoint(prm, i, c);
+
+  // --- pk cotangent: warp sums into shared memory ------------------------
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* wred = red + warp * P;
+  if (__any_sync(kFullMask, c.cam || c.sky)) {
+#pragma unroll
+    for (int k = 0; k < HDR_SIZE; ++k) {
+      const T v = warp_sum(c.hdr[k]);
+      if (lane == 0) wred[k] = v;
+    }
+  }
+  for (int r = 0; r < s.n_rects; ++r) {
+    const int b = s.rect_base + r * RECT_SIZE;
+    const bool mine = c.win == b;
+    if (!__any_sync(kFullMask, mine)) continue;
+    const T z = T(0);
+    const V3<T> a0 = mine && !c.odd ? c.alb : V3<T>{z, z, z};
+    const V3<T> a1 = mine && c.odd ? c.alb : V3<T>{z, z, z};
+    const T vals[12] = {mine ? c.wn.x : z, mine ? c.wn.y : z,
+                        mine ? c.wn.z : z, mine ? c.k : z,
+                        a0.x, a0.y, a0.z, a1.x, a1.y, a1.z,
+                        mine ? c.fuzz : z, mine ? c.ref : z};
+    const int slot[12] = {R_WN, R_WN + 1, R_WN + 2, R_K,
+                          R_ALB0, R_ALB0 + 1, R_ALB0 + 2,
+                          R_ALB1, R_ALB1 + 1, R_ALB1 + 2, R_FUZZ, R_REF};
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const T v = warp_sum(vals[k]);
+      if (lane == 0) wred[b + slot[k]] = v;
+    }
+  }
+  if (__any_sync(kFullMask, c.lam_ls)) {
+    for (int l = 0; l < s.n_lights; ++l) {
+      const int b = s.lgt_base + l * LGT_SIZE;
+      T gl[LGT_SIZE];
+#pragma unroll
+      for (int k = 0; k < LGT_SIZE; ++k) gl[k] = T(0);
+      V3<T> scratch_p = {T(0), T(0), T(0)}, scratch_d = scratch_p;
+      if (c.lam_ls)
+        light_value_adj<T>(pk, b, c.lp, c.ldir, c.g_lv, scratch_p, scratch_d,
+                           gl);
+      if (l == c.l_pick)
+        light_sample_adj<T>(pk, b, c.lu[0], c.lu[1], c.lu[2], c.lu[3], c.lp,
+                            c.g_ls, scratch_p, gl);
+#pragma unroll
+      for (int k = L_X0; k <= L_RAD; ++k) {     // L_KIND is compared only
+        const T v = warp_sum(gl[k]);
+        if (lane == 0) wred[b + k] = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  // --- this block's row of the partials: the warps added in order -------
+  T* part = prm.dpk_part + size_t(blockIdx.x) * P;
+  for (int k = threadIdx.x; k < P; k += kThreads) {
+    T acc = red[k];
+    for (int w = 1; w < kWarps; ++w) acc += red[w * P + k];
+    part[k] = acc;
+  }
+}
+
+template <typename T>
+int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
+               double t_max, cudaStream_t stream) {
+  BwdParams<T> prm;
+  prm.pk = static_cast<const T*>(ptrs[0]);
+  prm.gitem = static_cast<const int32_t*>(ptrs[1]);
+  prm.px = static_cast<const T*>(ptrs[2]);
+  prm.py = static_cast<const T*>(ptrs[3]);
+  prm.fresh = static_cast<const bool*>(ptrs[4]);
+  prm.alive = static_cast<const bool*>(ptrs[5]);
+  prm.depth = static_cast<const int32_t*>(ptrs[6]);
+  for (int k = 0; k < 13; ++k) prm.in[k] = static_cast<const T*>(ptrs[7 + k]);
+  for (int k = 0; k < 13; ++k) prm.ct[k] = static_cast<const T*>(ptrs[20 + k]);
+  prm.dpk_part = static_cast<T*>(ptrs[33]);
+  for (int k = 0; k < 13; ++k) prm.out[k] = static_cast<T*>(ptrs[34 + k]);
+  prm.s = s;
+  prm.P = P;
+  prm.t_min = T(t_min);
+  prm.t_max = T(t_max);
+  const size_t smem = size_t(kWarps) * P * sizeof(T);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        bounce_step_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (s.m + kThreads - 1) / kThreads;
+  bounce_step_bwd_kernel<T><<<blocks, kThreads, smem, stream>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes by integrator/bounce.py:step_cuda_bwd.
+// ptrs: 47 device pointers — pk; gitem px py fresh alive depth and the 13
+// float lane columns (the step's inputs); the 13 cotangents of its float
+// outputs; the (ceil(m / 256), P) pk partials; the 13 lane cotangents
+// (outputs).  Launches on `stream` without synchronising and returns the
+// CUDA error (0 = launched).
+extern "C" int srt_bounce_step_bwd(int is_f64, void* const* ptrs, int m,
+                                   int P, int n_rects, int rect_base,
+                                   int n_lights, int lgt_base,
+                                   int light_sampling, int nx, int ny,
+                                   int max_depth, uint32_t seed, double t_min,
+                                   double t_max, void* stream) {
+  if (m <= 0) return 0;
+  Statics s{m, n_rects, rect_base, n_lights, lgt_base, light_sampling,
+            nx, ny, max_depth, seed};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_bwd<double>(ptrs, s, P, t_min, t_max, st)
+                : launch_bwd<float>(ptrs, s, P, t_min, t_max, st);
+}

@@ -801,12 +801,12 @@ def _kernel():
     return fn
 
 
-def _check_lane(name, x, dtype, m, device):
+def _check_lane(name, x, dtype, m, device, fn="step_cuda"):
     if x.dtype != dtype or x.shape != (m,) or x.device != device:
-        raise ValueError(f"step_cuda: {name} must be a [{m}] {dtype} tensor on "
+        raise ValueError(f"{fn}: {name} must be a [{m}] {dtype} tensor on "
                          f"{device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
     if not x.is_contiguous():
-        raise ValueError(f"step_cuda: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
@@ -860,3 +860,163 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     return ((outs[0], outs[1], outs[2]), (outs[3], outs[4], outs[5]), outs[6],
             (outs[7], outs[8], outs[9]), (outs[10], outs[11], outs[12]),
             scattering)
+
+
+# ---------------------------------------------------------------------------
+# Reverse mode: the port of `as_pallas_vjp` (K1 forward, K2 backward)
+# ---------------------------------------------------------------------------
+
+# Launches of the bounce_step_bwd kernel in this process, counted like
+# LAUNCHES.
+BWD_LAUNCHES = 0
+
+
+def flat_lanes(o, d, time, rad, tp):
+    """(o, d, time, rad, tp) -> the 13 lane tensors, in the kernels' order."""
+    return (*o, *d, time, *rad, *tp)
+
+
+def split_lanes(x):
+    """Inverse of flat_lanes: 13 lane tensors -> (o, d, time, rad, tp)."""
+    return (tuple(x[0:3]), tuple(x[3:6]), x[6], tuple(x[7:10]),
+            tuple(x[10:13]))
+
+
+def step_vjp(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
+             o, d, time, rad, tp, ct_o, ct_d, ct_time, ct_rad, ct_tp):
+    """The plain VJP of `step`: torch.autograd.grad of its five float
+    outputs against the cotangents (ct_o, ct_d, ct_time, ct_rad, ct_tp).
+
+    Returns (dpk, do, dd, dtime, drad, dtp).  It is the oracle of the
+    bounce_step_bwd kernel; nothing on the CUDA path calls it."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_()
+                  for x in (pk, *flat_lanes(o, d, time, rad, tp))]
+        out = step(plan, leaves[0], gitem, px, py, fresh, alive, depth,
+                   *split_lanes(leaves[1:]))
+        grads = torch.autograd.grad(
+            flat_lanes(*out[:5]), leaves,
+            flat_lanes(ct_o, ct_d, ct_time, ct_rad, ct_tp), allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return (grads[0], *split_lanes(grads[1:]))
+
+
+def _kernel_bwd():
+    """The bounce_step_bwd library, built at first use; argtypes declared."""
+    from ..utils import cuda_build
+    lib = cuda_build.load("bounce_step_bwd")
+    fn = lib.srt_bounce_step_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+                       + [ctypes.c_int] * 10
+                       + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
+                  o, d, time, rad, tp, ct_o, ct_d, ct_time, ct_rad, ct_tp):
+    """`step_vjp` through the CUDA kernel csrc/bounce_step_bwd.cu (the port
+    of the Pallas `as_pallas_bwd`): it replays the step from its inputs and
+    runs the adjoint, lane by lane.
+
+    Takes the step's inputs as `step_cuda` does and the 13 cotangent lanes
+    in the float lanes' dtype, all contiguous on one CUDA device.  Returns
+    (dpk, do, dd, dtime, drad, dtp) as new tensors; dpk is the sum over
+    blocks of the kernel's (ceil(m / 256), P) partials, taken in a fixed
+    order, so two identical calls give bitwise-equal results."""
+    global BWD_LAUNCHES
+    check_covered(plan)
+    dev = px.device
+    if dev.type != "cuda":
+        raise ValueError(f"step_cuda_bwd takes CUDA tensors, got {dev}")
+    dt = px.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"step_cuda_bwd: float32 or float64 lanes, got {dt}")
+    m = px.shape[0]
+    lanes = flat_lanes(o, d, time, rad, tp)
+    cts = flat_lanes(ct_o, ct_d, ct_time, ct_rad, ct_tp)
+    names = ("ox", "oy", "oz", "dx", "dy", "dz", "time", "rx", "ry", "rz",
+             "tx", "ty", "tz")
+    fn = "step_cuda_bwd"
+    for name, x in (("px", px), ("py", py), *zip(names, lanes),
+                    *zip(["ct_" + n for n in names], cts)):
+        _check_lane(name, x, dt, m, dev, fn)
+    for name, x in (("gitem", gitem), ("depth", depth)):
+        _check_lane(name, x, torch.int32, m, dev, fn)
+    for name, x in (("fresh", fresh), ("alive", alive)):
+        _check_lane(name, x, torch.bool, m, dev, fn)
+    _check_lane("pk", pk, dt, plan.size, dev, fn)
+
+    # one row of dpk partials per 256-lane block of the kernel
+    partials = torch.empty(-(-m // 256), plan.size, dtype=dt, device=dev)
+    outs = [torch.empty_like(px) for _ in range(13)]
+    # the order of srt_bounce_step_bwd's pointer array: pk, 19 lanes in,
+    # 13 cotangents, the partials, 13 lane cotangents out
+    tensors = (pk, gitem, px, py, fresh, alive, depth, *lanes, *cts,
+               partials, *outs)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    kernel = _kernel_bwd()
+    with torch.cuda.device(dev):
+        err = kernel(int(dt == torch.float64), ptrs, m, plan.size,
+                     plan.n_rects, plan.rect_base, plan.n_lights,
+                     plan.lgt_base, int(plan.light_sampling), plan.nx,
+                     plan.ny, plan.max_depth, plan.seed & 0xFFFFFFFF,
+                     cfg_mod.SHADOW_EPS, cfg_mod.BIG,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"bounce_step_bwd kernel launch failed: CUDA error {err}")
+    BWD_LAUNCHES += 1
+    return (partials.sum(dim=0), *split_lanes(outs))
+
+
+class BounceStep(torch.autograd.Function):
+    """`step` with a hand-written backward: the `as_pallas_vjp` contract.
+
+    The residuals are the step's inputs, nothing else; the backward replays
+    the step.  Cotangents reach pk, o, d, time, rad and tp; px, py, gitem,
+    fresh, alive and depth get None, and `scattering` is not
+    differentiable.  `pair` is the (forward, backward) implementation:
+    (step_cuda, step_cuda_bwd) on the card (`step_cuda_vjp`); the CPU tests
+    drive the same plumbing with (step, step_vjp)."""
+
+    @staticmethod
+    def forward(ctx, pair, plan, pk, gitem, px, py, fresh, alive, depth,
+                *lanes):
+        out = pair[0](plan, pk, gitem, px, py, fresh, alive, depth,
+                      *split_lanes(lanes))
+        ctx.pair, ctx.plan = pair, plan
+        ctx.save_for_backward(pk, gitem, px, py, fresh, alive, depth, *lanes)
+        ctx.mark_non_differentiable(out[5])
+        return (*flat_lanes(*out[:5]), out[5])
+
+    @staticmethod
+    def backward(ctx, *cts):
+        pk, gitem, px, py, fresh, alive, depth, *lanes = ctx.saved_tensors
+        # autograd hands some cotangents over as strided views (the pool's
+        # torch.stack of the radiance lanes): the kernel takes dense lanes
+        cts = [c.contiguous() for c in cts[:13]]
+        dpk, *grads = ctx.pair[1](ctx.plan, pk, gitem, px, py, fresh, alive,
+                                  depth, *split_lanes(lanes), *split_lanes(cts))
+        return (None, None, dpk, None, None, None, None, None, None,
+                *flat_lanes(*grads))
+
+
+def step_with_vjp(pair, plan: BouncePlan, pk, gitem, px, py, fresh, alive,
+                  depth, o, d, time, rad, tp):
+    """`step`'s signature and results, differentiated by `pair`'s
+    backward (BounceStep)."""
+    out = BounceStep.apply(pair, plan, pk, gitem, px, py, fresh, alive,
+                           depth, *flat_lanes(o, d, time, rad, tp))
+    return (*split_lanes(out[:13]), out[13])
+
+
+def step_cuda_vjp(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
+                  o, d, time, rad, tp):
+    """`step` on the card for reverse mode: forward through the
+    bounce_step kernel (K1), backward through bounce_step_bwd (K2)."""
+    return step_with_vjp((step_cuda, step_cuda_bwd), plan, pk, gitem, px,
+                         py, fresh, alive, depth, o, d, time, rad, tp)

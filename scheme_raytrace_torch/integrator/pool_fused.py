@@ -25,6 +25,13 @@ What differs from the JAX module:
   * the framebuffer and the in-lane pixel sums are updated in place.
   * the step is picked by the device: CUDA tensors go through the kernel
     (`bounce.step_cuda`), CPU tensors through the plain `bounce.step`.
+
+With `static_iters` the pool runs a fixed number of iterations with no host
+sync: the reverse-mode form (integrator/diff_fused.py), the JAX module's
+fixed-length scan.  Every update there is out of place, so nothing autograd
+saves is changed later; on the card the step is `bounce.step_cuda_vjp`
+(the K1 forward and K2 backward kernels), on the CPU the plain `step`
+under torch autograd.
 """
 
 from __future__ import annotations
@@ -42,9 +49,9 @@ def _wrap_i32(x):
 
 
 def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
-                      total_pix=None):
+                      total_pix=None, static_iters=None):
     """Trace config.spp passes over raw0's pixels; return (raw, segments,
-    iters).
+    iters), or (raw, segments, leftover) with `static_iters`.
 
     raw0: [n_pix, 3] running radiance sums (the whole frame, or a row band
     whose first pixel is `pix0` of a `total_pix`-pixel frame).
@@ -52,15 +59,24 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
     offsets the RNG keys so a resumed render draws fresh samples.
     segments: exact count of path segments traced (0-d int64 tensor);
     iters: pool iterations run, i.e. step launches (Python int).
+    static_iters: run exactly ceil(static_iters / FLUSH_EVERY) blocks of
+    FLUSH_EVERY iterations at the reverse-mode pool size, out of place and
+    with no host sync; leftover (0-d int64 tensor) counts the lanes still
+    alive plus the pixels never issued, and must be 0 for a whole image.
     """
     n_pix = raw0.shape[0]
     total_pix = config.n_pixels if total_pix is None else total_pix
     spp = config.spp
     plan = bounce.make_plan(scene, config)
     dev, dtype = raw0.device, raw0.dtype
-    step = bounce.step_cuda if dev.type == "cuda" else bounce.step
+    reverse = static_iters is not None
+    if dev.type == "cuda":
+        step = bounce.step_cuda_vjp if reverse else bounce.step_cuda
+    else:
+        step = bounce.step
 
-    pool_cap = max(128, config.resolve_pool_rays() // 128 * 128)
+    pool_cap = max(128, config.resolve_pool_rays(reverse=reverse)
+                   // 128 * 128)
     n_work = n_pix
     m = max(128, min(pool_cap, (n_work + 127) // 128 * 128))
     pk = bounce.pack(scene, cam, plan, dtype)
@@ -96,12 +112,18 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
 
             # --- fold the finished path into its pixel's sum ----------------
             path_done = alive & ~scattering
-            acc += torch.where(path_done[:, None], torch.stack(rad, 1), 0.0)
+            folded = torch.where(path_done[:, None], torch.stack(rad, 1), 0.0)
             pixel_done = path_done & (pass_idx >= spp - 1)
             more = path_done & ~pixel_done           # next pass, same pixel
-            raw.index_add_(0, torch.where(pixel_done, pixg - pix0, spill),
-                           acc)
-            acc.masked_fill_(pixel_done[:, None], 0.0)
+            dest = torch.where(pixel_done, pixg - pix0, spill)
+            if reverse:
+                acc = acc + folded
+                raw = raw.index_add(0, dest, acc)
+                acc = torch.where(pixel_done[:, None], 0.0, acc)
+            else:
+                acc += folded
+                raw.index_add_(0, dest, acc)
+                acc.masked_fill_(pixel_done[:, None], 0.0)
 
             # --- re-issue freed lanes the next pixels ----------------------
             done_i = pixel_done.to(torch.int64)
@@ -118,10 +140,17 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
                              py)
             depth = torch.where(scattering, depth + 1,
                                 torch.where(fresh, 0, depth))
-            segments += alive.sum()
+            if reverse:
+                segments = segments + alive.sum()
+            else:
+                segments += alive.sum()
             alive = scattering | fresh
             next_w = torch.clamp(next_w + done_i.sum(), max=n_work)
             iters += 1
-        if not bool(alive.any()):
+        if reverse:
+            if iters >= static_iters:
+                leftover = alive.sum() + (n_work - next_w)
+                return raw[:n_pix], segments, leftover
+        elif not bool(alive.any()):
             break
     return raw[:n_pix], segments, iters

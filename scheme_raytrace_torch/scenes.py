@@ -193,6 +193,30 @@ def cornell_box() -> SceneSpec:
     return SceneSpec(objs, cornell_camera(), "gradient")
 
 
+def cornell_materials() -> SceneSpec:
+    """Not a reference scene: the coverage scene of the fused bounce
+    kernels' Cornell slice.  The Cornell room with a fuzzy-metal left wall,
+    a checker floor, a glass short box and a mirror tall box, seen through
+    a lens aperture, with a sphere as a second light-sampling target beside
+    the ceiling light, so one plan takes every rule the kernels cover."""
+    walls = _cornell_walls(light_wide=False)
+    walls[0] = ob.FlipNormals(ob.yz_rect(0, 555, 0, 555, 555,
+                                         ob.Metal((0.8, 0.85, 0.88), 0.2)))
+    walls[4] = ob.xz_rect(0, 555, 0, 555, 0, ob.Lambertian(CHECKER))
+    objs = walls + [
+        ob.Translate(ob.RotateY(ob.Box((0, 0, 0), (165, 165, 165),
+                                       ob.Dielectric(1.5)), -18.0),
+                     (130, 0, 65)),
+        ob.Translate(ob.RotateY(ob.Box((0, 0, 0), (165, 330, 165),
+                                       ob.Metal((0.9, 0.9, 0.9), 0.0)), 15.0),
+                     (265, 0, 295)),
+    ]
+    lights = [walls[2], ob.Sphere((400.0, 450.0, 200.0), 40.0,
+                                  ob.DiffuseLight((2.0, 2.0, 2.0)))]
+    return SceneSpec(objs, dict(cornell_camera(), aperture=20.0,
+                                focus_dist=800.0), "gradient", lights)
+
+
 def cornell_bezier() -> SceneSpec:
     """main.scm:353-373 — Cornell walls + one fat bezier (w=10)."""
     objs = _cornell_walls(light_wide=False) + [

@@ -29,8 +29,7 @@ from scheme_raytrace_torch.integrator import pool as t_pool
 from scheme_raytrace_torch.scene import build as t_build
 from scheme_raytrace_torch.scene import objects as t_ob
 
-CU_SOURCE = (pathlib.Path(tb.__file__).resolve().parent.parent / "csrc"
-             / "bounce_step.cu")
+CSRC = pathlib.Path(tb.__file__).resolve().parent.parent / "csrc"
 LAYOUT = re.compile(r"^(H|R|S|L|M|K|B)_[A-Z0-9]+$|_SIZE$")
 
 
@@ -45,8 +44,11 @@ def test_layout_constants_match_jax():
 
 
 def test_cuda_source_constants_match():
+    # the kernels' shared layout and RNG constants (bounce_common.cuh) and
+    # any a kernel source declares itself
+    text = "".join(p.read_text() for p in sorted(CSRC.glob("*.cu*")))
     consts = dict(re.findall(r"constexpr (?:int|uint32_t) (\w+) = (\w+)u?;",
-                             CU_SOURCE.read_text()))
+                             text))
     consts = {k: int(v.rstrip("u"), 0) for k, v in consts.items()}
     expect = {n: getattr(tb, n) for n in consts if hasattr(tb, n)}
     expect.update({n: getattr(t_ob, n) for n in consts if n.startswith("MAT_")})

@@ -1,5 +1,7 @@
-"""PyTorch port on the card: the CUDA bounce kernel against the plain step,
-and the CUDA render against the config-4 golden.
+"""PyTorch port on the card: the CUDA bounce kernels against their plain
+versions (the forward kernel against the plain step, the backward kernel
+against the plain VJP), the CUDA render against the config-4 golden, and
+the differentiable render on the card against the forward render.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -15,8 +17,8 @@ import torch
 
 from scheme_raytrace_torch import render, scenes
 from scheme_raytrace_torch.config import RenderConfig
-from scheme_raytrace_torch.integrator import bounce
-from scheme_raytrace_torch.scene import compile_scene
+from scheme_raytrace_torch.integrator import bounce, diff_fused
+from scheme_raytrace_torch.scene import build, compile_scene
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "config4_cornell_light.npz")
@@ -31,10 +33,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cornell(dtype, device):
-    spec = scenes.cornell_box()
+def _cornell(dtype, device, spec_fn=scenes.cornell_box):
+    spec = spec_fn()
     scene = compile_scene(spec.objects, sky=spec.sky, dtype=dtype,
-                          device=device)
+                          lights=spec.lights, device=device)
     return scene, spec.camera(dtype=dtype, aspect=1.0, device=device)
 
 
@@ -133,3 +135,102 @@ def test_cuda_render_matches_config4_golden(cuda):
     diff = np.abs(img - ref)
     assert diff.mean() < 5e-3, diff.mean()
     assert (diff.max(axis=-1) > 0.05).mean() < 0.01
+
+
+def _vjp_lanes(grads):
+    return grads[0], torch.stack(bounce.flat_lanes(*grads[1:]))
+
+
+@pytest.mark.parametrize("case", ["cornell-light", "cornell-cosine",
+                                  "materials-light"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_step_cuda_bwd_matches_step_vjp(cuda, dtype, case):
+    # chip_smoke.py's bounds.  f64: lane cotangents within rtol / atol 1e-9
+    # and dpk within 1e-8 of max|dpk| (its sums run in another order).  f32:
+    # tests/test_bounce_vjp.py's rtol 1e-3 and atol 1e-5 * max(1, max|ref|),
+    # on the lanes whose forward the kernel and the plain step agree on (at
+    # most 0.1% may not; they get zero cotangent).
+    m = 24 * 1024
+    spec_fn = (scenes.cornell_materials if case.startswith("materials")
+               else scenes.cornell_box)
+    scene, cam = _cornell(dtype, cuda, spec_fn)
+    cfg = RenderConfig(nx=512, ny=512, spp=1, max_depth=100,
+                       light_sampling=case.endswith("light"))
+    plan = bounce.make_plan(scene, cfg)
+    pk = bounce.pack(scene, cam, plan, dtype)
+    ins = _lane_inputs(m, cfg.nx, cfg.ny, cfg.max_depth, dtype, cuda)
+    keep = torch.ones(m, dtype=torch.bool, device=cuda)
+    if dtype == torch.float32:
+        (g, g_sc), (w, w_sc) = [
+            (torch.stack([*o, *d, t, *r, *tp]), sc)
+            for o, d, t, r, tp, sc in (bounce.step_cuda(plan, pk, *ins),
+                                       bounce.step(plan, pk, *ins))]
+        keep = (g_sc == w_sc) & ((g - w).abs()
+                                 <= 1e-3 + 1e-4 * w.abs()).all(0)
+    assert int((~keep).sum()) <= m // 1000
+    r = np.random.default_rng(7)
+    cts = [torch.where(keep, torch.tensor(x, dtype=dtype, device=cuda), 0.0)
+           for x in r.normal(size=(13, m))]
+    cts = bounce.split_lanes(cts)
+    want_pk, want = _vjp_lanes(bounce.step_vjp(plan, pk, *ins, *cts))
+    before = bounce.BWD_LAUNCHES
+    got_pk, got = _vjp_lanes(bounce.step_cuda_bwd(plan, pk, *ins, *cts))
+    torch.cuda.synchronize()
+    assert bounce.BWD_LAUNCHES == before + 1
+    assert torch.isfinite(got).all() and torch.isfinite(got_pk).all()
+    err, pk_err = (got - want).abs(), (got_pk - want_pk).abs()
+    if dtype == torch.float64:
+        assert not (err > 1e-9 + 1e-9 * want.abs()).any()
+        assert pk_err.max() <= 1e-8 * want_pk.abs().max()
+    else:
+        scale = torch.clamp(want[:, keep].abs().amax(1), min=1.0)
+        assert not ((err > 1e-5 * scale[:, None] + 1e-3 * want.abs())
+                    & keep).any()
+        assert not (pk_err > 1e-5 * max(1.0, float(want_pk.abs().max()))
+                    + 1e-3 * want_pk.abs()).any()
+
+
+def test_step_cuda_bwd_rejects_bad_inputs(cuda):
+    scene, cam = _cornell(torch.float32, cuda)
+    cfg = RenderConfig(nx=8, ny=8, spp=1, max_depth=8, light_sampling=True)
+    plan = bounce.make_plan(scene, cfg)
+    pk = bounce.pack(scene, cam, plan, torch.float32)
+    ins = _lane_inputs(256, 8, 8, 8, torch.float32, cuda)
+    cts = [torch.ones(256, device=cuda) for _ in range(13)]
+    before = bounce.BWD_LAUNCHES
+    bad = list(cts)
+    bad[7] = cts[7].double()                           # mixed precision
+    with pytest.raises(ValueError, match="ct_rx"):
+        bounce.step_cuda_bwd(plan, pk, *ins, *bounce.split_lanes(bad))
+    bad = list(cts)
+    bad[0] = torch.ones(256, 3, device=cuda)[:, 0]     # a strided view
+    with pytest.raises(ValueError, match="contiguous"):
+        bounce.step_cuda_bwd(plan, pk, *ins, *bounce.split_lanes(bad))
+    with pytest.raises(ValueError, match="pk"):
+        bounce.step_cuda_bwd(plan, pk[:-1], *ins, *bounce.split_lanes(cts))
+    assert bounce.BWD_LAUNCHES == before
+
+
+def test_diff_render_on_card_equals_forward(cuda):
+    scene, cam = _cornell(torch.float32, cuda)
+    cfg = RenderConfig(nx=32, ny=32, spp=2, max_depth=100, seed=0,
+                       light_sampling=True)
+    n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
+    params, rest = build.partition(scene)
+    params = {k: v.clone().requires_grad_() for k, v in params.items()}
+    fwd, bwd = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    raw, segs, leftover = diff_fused.render_diff_fused(
+        build.combine(params, rest), cam, cfg, n_iters)
+    grads = torch.autograd.grad(raw.mean(), list(params.values()),
+                                allow_unused=True)
+    torch.cuda.synchronize()
+    assert int(leftover) == 0
+    assert bounce.LAUNCHES - fwd == bounce.BWD_LAUNCHES - bwd > 0
+    state, f_segs, _ = render.render_with_stats(
+        scene, cam, cfg, render.init_state(cfg, device=cuda))
+    assert int(segs) == int(f_segs)
+    assert torch.equal(raw.detach(), state.raw_sum.reshape(-1, 3))
+    grads = [g for g in grads if g is not None]
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert any(g.abs().max() > 0 for g in grads)

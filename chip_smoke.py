@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives scheme_raytrace_torch's two main paths on the card, the forward
-render and the fwd+bwd training step of the Cornell box with mixture-PDF
-light sampling (BASELINE config 4), in phases; any failure raises and the
-exit code is non-zero:
+Drives scheme_raytrace_torch's paths on the card: the forward render and
+the fwd+bwd training step of the Cornell box with mixture-PDF light
+sampling (BASELINE config 4), the forward render through the three strided
+work pools, and the op and loop probes, in phases; any failure raises and
+the exit code is non-zero:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit and the CUDA version PyTorch was built with;
-  2. build: compiles csrc/bounce_step.cu and csrc/bounce_step_bwd.cu with
-     nvcc (sm_90a), both at once, and loads them;
+  2. build: compiles the six kernels of csrc/ with nvcc (sm_90a), all at
+     once (one nvcc each), and loads them;
   3. forward kernel against plain: the CUDA bounce kernel against the plain
      PyTorch step on the same inputs, at the forward pool's width (65,536
      lanes), light sampling on and off, in float32 and float64, with times;
@@ -30,7 +31,19 @@ exit code is non-zero:
      render under torch.profiler for the device-time breakdown;
   8. full-size fwd+bwd: 512x512 spp8 depth 100, one warm-up then five
      chained training steps (params -= 1e-6 grad), peak memory, and one
-     step under torch.profiler.
+     step under torch.profiler;
+  9. packed kernel against plain: the packed-state kernel (K3) against the
+     plain step_packed on random packed Cornell states at 65,536 lanes;
+ 10. persistent kernel: one chunk of the persistent kernel (K4) bitwise
+     equal to as many K3 launches, against the plain chunk, with times for
+     several chunk lengths;
+ 11. the strided pools at full size: 512x512 spp16 depth 100 through
+     render_pool_strided (K1), render_pool_packed (K3) and
+     render_pool_persistent (K4), timed as phase 7 times the FIFO pool,
+     each with phase 7's exact segment count and its image to rtol 1e-5,
+     and one render of each under torch.profiler;
+ 12. probes: the op probe (K5) and the nine loop probes (K6) against their
+     plain versions.
 
 The last two lines are the kernel table and the device line, as JSON.
 Imports nothing of JAX.
@@ -51,8 +64,11 @@ import torch
 
 from scheme_raytrace_torch import render, scenes
 from scheme_raytrace_torch.config import RenderConfig
-from scheme_raytrace_torch.integrator import bounce, diff_fused, pool_fused
+from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
+                                              pool_fused, pool_packed,
+                                              pool_strided)
 from scheme_raytrace_torch.scene import build, compile_scene
+from scheme_raytrace_torch.tools import probe_loops, probe_ops
 from scheme_raytrace_torch.utils import cuda_build
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -78,7 +94,12 @@ FULL_BWD = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0,
 # max|ref|) per output, on the lanes whose forward agrees (F32_TOL).
 BWD_F64 = dict(rtol=1e-9, atol=1e-9, dpk=1e-8)
 BWD_F32 = dict(rtol=1e-3, atol=1e-5)
-KERNELS = ("bounce_step", "bounce_step_bwd")
+KERNELS = ("bounce_step", "bounce_step_bwd", "bounce_packed",
+           "bounce_persist", "probe_ops", "probe_loops")
+CHUNK_TS = (8, 16, 32, 64)    # K4 chunk lengths timed (CHUNK_T stays 32)
+# K5: outputs of the int path exact, the transcendental ones within 2e-6
+# relative (nvcc's sinf/cosf/powf against PyTorch's, a few ulp apart)
+PROBE_RTOL = 2e-6
 
 
 def log(*a):
@@ -101,7 +122,7 @@ def phase_device():
 
 
 def phase_build():
-    """Both kernels compile at once (one nvcc each)."""
+    """The kernels compile at once (one nvcc each)."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
         list(ex.map(cuda_build.load, KERNELS))
@@ -481,6 +502,8 @@ def phase_full(dev):
     float(st.raw_sum[0, 0, 0])
     warm = time.perf_counter() - t0
     total_iters += iters
+    # the warm-up render (sample_base 0, from zeros): phase 11's reference
+    first = dict(image=st.raw_sum.reshape(-1, 3).clone(), segments=int(segs))
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -503,7 +526,8 @@ def phase_full(dev):
     if not np.isfinite(mean).all() or mean.max() <= 0.0:
         raise AssertionError("[full] frame is not finite or is black")
     log(f"[full] frame mean {mean.mean():.4f} max {mean.max():.3f}")
-    return dict(segments=segs, iters=iters, median_s=med, launches=launches)
+    return dict(segments=segs, iters=iters, median_s=med, launches=launches,
+                first=first)
 
 
 def phase_profile(dev):
@@ -595,6 +619,367 @@ def phase_full_bwd(dev):
                 bwd_launches=bwd_launches, peak=peak)
 
 
+# --- the strided work pools (K3, K4) and the probes (K5, K6) ------------
+
+
+def packed_state(m, n_work, max_depth, device, seed=0):
+    """A numpy-seeded packed pool state ([N_PACKED, m] float32): items in
+    [0, 1.1 n_work) (some lanes drained), fresh lanes, depths with some at
+    the cap, origins inside the box, unit directions, nonzero radiance and
+    throughput (tests/test_torch_cuda.py's kind)."""
+    r = np.random.default_rng(seed)
+    st = np.zeros((bounce.N_PACKED, m), np.float32)
+    ints = st.view(np.int32)
+    ints[0] = r.integers(0, n_work + n_work // 10, m)
+    st[1] = r.random(m) < 0.3
+    ints[2] = r.integers(0, 4, m)
+    ints[2][r.random(m) < 0.05] = max_depth
+    st[3:6] = r.random((3, m)) * 500.0
+    dvec = r.normal(size=(3, m))
+    st[6:9] = dvec / np.linalg.norm(dvec, axis=0, keepdims=True)
+    st[10:13] = r.random((3, m))
+    st[13:16] = r.uniform(0.1, 1.0, (3, m))
+    return torch.tensor(st, device=device)
+
+
+def packed_setup(dev):
+    """The f32 Cornell plan and pk of the 512^2 spp16 render, its strided
+    queue at the forward pool's width, and a sample base on the card."""
+    scene, cam = cornell(torch.float32, dev)
+    plan = pool_strided.pool_plan(scene, FULL)
+    pk = bounce.pack(scene, cam, plan, torch.float32)
+    n_pix = FULL.n_pixels
+    q = dict(m=M, n_work=n_pix * FULL.spp, n_pix=n_pix, pix0=0,
+             total_pix=n_pix)
+    return plan, pk, q, torch.tensor([5], dtype=torch.int32, device=dev)
+
+
+def packed_disagreeing(got, want):
+    """Lanes where an int row, the fresh row or a float row (outside
+    F32_TOL) differs, or the result is not finite."""
+    g_i, w_i = got.view(torch.int32), want.view(torch.int32)
+    off = ((got[3:] - want[3:]).abs()
+           > F32_TOL["atol"] + F32_TOL["rtol"] * want[3:].abs()).any(0)
+    return (off | (g_i[0] != w_i[0]) | (got[1] != want[1])
+            | (g_i[2] != w_i[2]) | ~torch.isfinite(got[3:]).all(0))
+
+
+def device_ms(fn, n):
+    """Device time per call of fn() (torch.profiler, n calls), summed over
+    its kernels; with the launch count per call.  For the plain versions:
+    the profiler can miss device events of a short window (on an H100 it
+    has recorded 7 of 10 K4 launches, 15 or none of 20 K3 launches), so
+    the kernels' own times come from kernel_ms."""
+    _, tab = device_kernels(fn, n=n)
+    return (sum(us for us, _ in tab.values()) / 1e3,
+            sum(k for _, k in tab.values()))
+
+
+def kernel_ms(fn, n=20):
+    """Device time per fn() call, from CUDA events: a sleep kernel holds
+    the stream while the host queues n calls, so the calls run back to
+    back, with no host time between them; the event at the sleep's end and
+    one after the last call give their time, divided by n.  The sleep must
+    outlast the queueing (with a margin); it is doubled until it does."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 10 ** 8                  # about 50 ms at the H100's clock
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        ev[2].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / n
+        cycles *= 2
+    raise AssertionError("kernel_ms: the host queued slower than the sleep")
+
+
+def phase_packed_kernel(dev):
+    plan, pk, q, sb = packed_setup(dev)
+    state = packed_state(M, q["n_work"], plan.max_depth, dev)
+    want = bounce.step_packed(plan, pk, sb, state, **q)
+    got = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    again = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("[packed-kernel] two launches differ")
+    bad = packed_disagreeing(got, want)
+    n_bad = int(bad.sum())
+    max_err = float((got[3:] - want[3:]).abs()[:, ~bad].max())
+    k_ms = kernel_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
+                                                     **q))
+    p_ms, p_launches = device_ms(lambda: bounce.step_packed(
+        plan, pk, sb, state, **q), 5)
+    k_wall = median_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
+                                                       **q))
+    p_wall = median_ms(lambda: bounce.step_packed(plan, pk, sb, state, **q),
+                       n=5)
+    live = int((state.view(torch.int32)[0] < q["n_work"]).sum())
+    log(f"[packed-kernel] f32 m={M} ({live} live lanes): kernel vs plain "
+        f"step_packed: lanes disagreeing {n_bad} (an int row, fresh, or a "
+        f"float row outside rtol {F32_TOL['rtol']:g} atol "
+        f"{F32_TOL['atol']:g}); max abs err on the other lanes "
+        f"{max_err:.3e}; two launches bitwise equal")
+    log(f"[packed-kernel] device time per call: kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms ({p_launches:.0f} launches); elapsed per call "
+        f"(median): kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms")
+    if n_bad > MAX_FLIP_FRAC * M:
+        raise AssertionError(f"[packed-kernel] {n_bad} lanes disagree")
+    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms)
+
+
+def k3_chunk(plan, pk, sb, state, q, T):
+    """T K3 launches from `state`, with the flush rows and segment counts
+    the persistent kernel writes, derived on the card."""
+    flush = torch.empty(T, 4, q["m"], dtype=torch.float32, device=state.device)
+    segs = torch.empty(T, dtype=torch.int32, device=state.device)
+    for t in range(T):
+        item = state.view(torch.int32)[0]
+        segs[t] = (item < q["n_work"]).sum()
+        state = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+        done = state[1] != 0.0
+        flush.view(torch.int32)[t, 0] = torch.where(done, item % q["n_pix"],
+                                                    -1)
+        flush[t, 1:] = torch.where(done, state[10:13], 0.0)
+    return state, flush, segs
+
+
+def phase_persist_kernel(dev):
+    plan, pk, q, sb = packed_setup(dev)
+    state = packed_state(M, q["n_work"], plan.max_depth, dev, seed=1)
+    T = persist.CHUNK_T
+    got = persist.chunk_cuda(plan, pk, sb, state, T=T, **q)
+    want = k3_chunk(plan, pk, sb, state, q, T)
+    torch.cuda.synchronize()
+    same = [torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                        w.view(torch.int32) if w.is_floating_point() else w)
+            for g, w in zip(got, want)]
+    log(f"[persist-kernel] one K4 chunk of T={T} against {T} K3 launches "
+        f"from the same state: state, flush rows, segments bitwise equal: "
+        f"{same}; segments {int(got[2].sum())}")
+    if not all(same):
+        raise AssertionError("[persist-kernel] K4 differs from K3 launches")
+    # against the plain chunk at T = 4.  Each iteration is held on its own:
+    # one K4 iteration from each state of the plain chain, within F32_TOL on
+    # all but 0.1% of the lanes (f32 flips), as K1 and K3 are.  The chained
+    # comparison (K4 over 4 iterations against the plain chain) is logged:
+    # there the f32 rounding differences of each bounce compound.
+    Tp = 4
+    chain, n_bad, max_err = state, [], 0.0
+    w_rows = []
+    for t in range(Tp):
+        w_st, w_fl, w_sg = persist.chunk_plain(plan, pk, sb, chain, T=1, **q)
+        g_st, g_fl, g_sg = persist.chunk_cuda(plan, pk, sb, chain, T=1, **q)
+        bad = (packed_disagreeing(g_st, w_st)
+               | (g_fl[0, 0].view(torch.int32) != w_fl[0, 0].view(torch.int32))
+               | ((g_fl[0, 1:] - w_fl[0, 1:]).abs() > F32_TOL["atol"]
+                  + F32_TOL["rtol"] * w_fl[0, 1:].abs()).any(0)
+               | (g_sg != w_sg).any())
+        n_bad.append(int(bad.sum()))
+        max_err = max(max_err, float((g_st[3:] - w_st[3:]).abs()[:, ~bad]
+                                     .max()))
+        w_rows.append(w_fl[0])
+        chain = w_st
+    g_st, g_fl, _ = persist.chunk_cuda(plan, pk, sb, state, T=Tp, **q)
+    ints = ((g_st.view(torch.int32)[0] != chain.view(torch.int32)[0])
+            | (g_st[1] != chain[1])
+            | (g_st.view(torch.int32)[2] != chain.view(torch.int32)[2]))
+    for t in range(Tp):
+        ints |= (g_fl[t, 0].view(torch.int32)
+                 != w_rows[t][0].view(torch.int32))
+    off = packed_disagreeing(g_st, chain)
+    log(f"[persist-kernel] K4 vs chunk_plain, one iteration from each of "
+        f"the plain chain's {Tp} states: lanes disagreeing {n_bad} (bound "
+        f"{MAX_FLIP_FRAC * M:g} each); max abs err on the other lanes "
+        f"{max_err:.3e}")
+    log(f"[persist-kernel] K4 over {Tp} chained iterations against the "
+        f"plain chain: lanes off F32_TOL {int(off.sum())}, of which item, "
+        f"fresh, depth or a flushed pixel differ on {int(ints.sum())} (the "
+        f"f32 differences of each bounce compound along the chain)")
+    if max(n_bad) > MAX_FLIP_FRAC * M:
+        raise AssertionError(f"[persist-kernel] {n_bad} lanes disagree")
+    # device time per chunk at several chunk lengths (CHUNK_T stays 32)
+    per_t = {}
+    for t_len in sorted(set(CHUNK_TS) | {T}):
+        per_t[t_len] = kernel_ms(lambda: persist.chunk_cuda(
+            plan, pk, sb, state, T=t_len, **q), 10)
+    k_ms = per_t[T]
+    p_ms, p_launches = device_ms(lambda: persist.chunk_plain(
+        plan, pk, sb, state, T=T, **q), 1)
+    k3_ms = kernel_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
+                                                      **q))
+    log(f"[persist-kernel] device time per chunk: "
+        + ", ".join(f"T={t} {ms:.4f} ms ({ms / t * 1e3:.2f} us/iteration)"
+                    for t, ms in per_t.items())
+        + f"; one K3 launch {k3_ms * 1e3:.2f} us; plain chunk_plain T={T} "
+        f"{p_ms:.3f} ms ({p_launches:.0f} launches)")
+    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, per_t=per_t)
+
+
+POOLS = (("strided", pool_strided.render_pool_strided, "LAUNCHES"),
+         ("packed", pool_packed.render_pool_packed, "PACKED_LAUNCHES"),
+         ("persistent", persist.render_pool_persistent, "PERSIST_LAUNCHES"))
+
+
+def launch_counts():
+    return dict(LAUNCHES=bounce.LAUNCHES,
+                PACKED_LAUNCHES=bounce.PACKED_LAUNCHES,
+                PERSIST_LAUNCHES=persist.PERSIST_LAUNCHES)
+
+
+def reset_counts():
+    bounce.LAUNCHES = bounce.PACKED_LAUNCHES = 0
+    persist.PERSIST_LAUNCHES = 0
+
+
+def phase_pools_full(dev, full):
+    """The three strided pools at 512^2 spp16, each through its entry point
+    with the counts reset just before: one warm-up render from zeros, then
+    five chained renders, timed as phase_full times them."""
+    scene, cam = cornell(torch.float32, dev)
+    ref, ref_segs = full["first"]["image"], full["first"]["segments"]
+    raw0 = torch.zeros(FULL.n_pixels, 3, device=dev)
+    results = {}
+    for name, fn, count in POOLS:
+        reset_counts()
+        t0 = time.perf_counter()
+        raw, segs, iters = fn(scene, cam, FULL, raw0, 0)
+        float(raw[0, 0])
+        warm = time.perf_counter() - t0
+        first_raw, first_segs, first_iters = raw, int(segs), iters
+        total_iters, times, base = iters, [], 0
+        for _ in range(5):
+            base += FULL.spp
+            t0 = time.perf_counter()
+            raw, segs, iters = fn(scene, cam, FULL, raw, base)
+            float(raw[0, 0])
+            times.append(time.perf_counter() - t0)
+            total_iters += iters
+        counts = launch_counts()
+        segs = int(segs)
+        med = statistics.median(times)
+        launches = {k: v for k, v in counts.items() if v}
+        log(f"[pools-full] {name}: m={M} segments {first_segs} (FIFO "
+            f"{ref_segs}) in {first_iters} iterations (FIFO "
+            f"{full['iters']}); last render {segs} segments in {iters} "
+            f"iterations; warm-up {warm * 1e3:.1f} ms; times_ms "
+            f"{[round(t * 1e3, 2) for t in times]}; median {med * 1e3:.2f} "
+            f"ms -> {segs / med:.4e} rays/s; launches over 6 renders "
+            f"{launches}")
+        expect = total_iters // (persist.CHUNK_T if name == "persistent"
+                                 else 1)
+        if counts[count] != expect or set(launches) != {count}:
+            raise AssertionError(f"[pools-full] {name}: launches {launches},"
+                                 f" expected {count} = {expect}")
+        if first_segs != ref_segs or segs != full["segments"]:
+            raise AssertionError(f"[pools-full] {name}: segments "
+                                 f"{first_segs}/{segs} != FIFO "
+                                 f"{ref_segs}/{full['segments']}")
+        err = (first_raw - ref).abs()
+        lim = 1e-5 * float(ref.abs().max()) + 1e-5 * ref.abs()
+        n_out = int((err > lim).sum())
+        rel = float((err / ref.abs().clamp(min=1e-30)).max())
+        log(f"[pools-full] {name}: warm-up image against the FIFO pool's: "
+            f"max abs err {float(err.max()):.3e}, max rel err {rel:.3e}, "
+            f"entries outside rtol 1e-5 / atol 1e-5 max|ref|: {n_out}")
+        if n_out or not torch.isfinite(first_raw).all():
+            raise AssertionError(f"[pools-full] {name}: image off the FIFO "
+                                 f"pool's")
+        results[name] = dict(segments=segs, iters=iters, median_s=med,
+                             launches=counts[count], image=first_raw)
+    # reproducible on the card: a second persistent render, bitwise
+    again, _, _ = persist.render_pool_persistent(scene, cam, FULL, raw0, 0)
+    same = torch.equal(again, results["persistent"]["image"])
+    same_sp = all(torch.equal(results[n]["image"], results["strided"]["image"])
+                  for n in ("packed", "persistent"))
+    log(f"[pools-full] two persistent renders bitwise equal: {same}; the "
+        f"three strided pools' images bitwise equal: {same_sp}")
+    if not same:
+        raise AssertionError("[pools-full] two persistent renders differ")
+    for name, fn, _ in POOLS:
+        st_raw = torch.zeros(FULL.n_pixels, 3, device=dev)
+        wall_ms, table = device_kernels(lambda: fn(scene, cam, FULL, st_raw,
+                                                   0))
+        if not table:
+            log(f"[pools-full] {name}: the profiler recorded no device time: "
+                f"not measured")
+            continue
+        busy_ms = sum(us for us, _ in table.values()) / 1e3
+        rows = sorted(((us, k, n_) for n_, (us, k) in table.items()),
+                      reverse=True)
+        log(f"[pools-full] {name} profile: {wall_ms:.1f} ms wall under the "
+            f"profiler, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%})"
+            f", {sum(k for _, k, _ in rows):.0f} kernel launches")
+        for us, k, n_ in rows[:8]:
+            log(f"[pools-full]   {us / 1e3:8.3f} ms {k:6.0f} x  {n_[:90]}")
+        results[name]["busy"] = busy_ms / wall_ms
+    return results
+
+
+def phase_probes(dev):
+    """K5 and K6: the probes' own entry points with the counts reset just
+    before (the path), then each kernel against its plain version."""
+    probe_ops.LAUNCHES = probe_loops.LAUNCHES = 0
+    ops_line = probe_ops.main()
+    loops_ok = probe_loops.main()
+    launches = dict(probe_ops=probe_ops.LAUNCHES,
+                    probe_loops=probe_loops.LAUNCHES)
+    log(f"[probes] probe_ops.main(): {ops_line}; probe_loops.main(): "
+        f"{loops_ok}; launches {launches}")
+    if not all(loops_ok.values()) or not ops_line.startswith("ok: True"):
+        raise AssertionError("[probes] a probe's main failed")
+    if launches != dict(probe_ops=1, probe_loops=len(probe_loops.CASES)):
+        raise AssertionError(f"[probes] kernel launches {launches}")
+    pack, item = probe_ops.inputs(dev)
+    r = np.random.default_rng(0)
+    rand = torch.tensor(r.integers(-2 ** 31, 2 ** 31, (8, 128),
+                                   dtype=np.int64).astype(np.int32),
+                        device=dev)
+    ops_err = 0.0
+    for it in (item, rand):
+        want = probe_ops.probe_plain(pack, it)
+        got = probe_ops.probe_cuda(pack, it)
+        ints = want == torch.round(want)
+        rel = float(((got - want).abs() / want.abs())[~ints].max())
+        exact = torch.equal(got[ints], want[ints])
+        ops_err = max(ops_err, float((got - want).abs().max()))
+        log(f"[probes] K5 on {'the tool' if it is item else 'random'} items: "
+            f"int-path outputs ({int(ints.sum())}) exact: {exact}; "
+            f"transcendental outputs max rel err {rel:.3e} (bound "
+            f"{PROBE_RTOL:g})")
+        if not exact or rel > PROBE_RTOL:
+            raise AssertionError("[probes] K5 against its plain version")
+    x = probe_loops.inputs(device=dev)
+    for name in probe_loops.CASES:
+        same = torch.equal(probe_loops.loops_cuda(name, x),
+                           probe_loops.CASES[name](x))
+        if not same:
+            raise AssertionError(f"[probes] K6 case {name} differs from its "
+                                 f"plain version")
+    log(f"[probes] K6: all {len(probe_loops.CASES)} cases bitwise equal to "
+        f"their plain versions")
+    k5_ms = kernel_ms(lambda: probe_ops.probe_cuda(pack, item))
+    k5_plain, k5_pl = device_ms(lambda: probe_ops.probe_plain(pack, item), 5)
+    k6_ms = kernel_ms(lambda: [probe_loops.loops_cuda(n, x)
+                               for n in probe_loops.CASES], 5)
+    k6_plain, k6_pl = device_ms(lambda: [probe_loops.CASES[n](x)
+                                         for n in probe_loops.CASES], 1)
+    log(f"[probes] device time: K5 {k5_ms * 1e3:.2f} us per launch, plain "
+        f"{k5_plain * 1e3:.2f} us ({k5_pl:.0f} launches); K6 "
+        f"{k6_ms:.4f} ms for the nine cases (one launch each), plain "
+        f"{k6_plain:.2f} ms ({k6_pl:.0f} launches)")
+    return dict(launches=launches, k5=dict(max_abs_err=ops_err, ms=k5_ms,
+                                           plain_ms=k5_plain),
+                k6=dict(max_abs_err=0.0, ms=k6_ms, plain_ms=k6_plain))
+
+
 def main():
     dev, smi = phase_device()
     phase_build()
@@ -605,32 +990,75 @@ def main():
     full = phase_full(dev)
     phase_profile(dev)
     full_bwd = phase_full_bwd(dev)
+    packed = phase_packed_kernel(dev)
+    chunk = phase_persist_kernel(dev)
+    pools = phase_pools_full(dev, full)
+    probes = phase_probes(dev)
+    k1_launches = (full["launches"] + full_bwd["launches"]
+                   + pools["strided"]["launches"])
     log(f"[paths] bounce_step launches: forward render {full['launches']}, "
-        f"fwd+bwd step {full_bwd['launches']}; bounce_step_bwd launches: "
-        f"fwd+bwd step {full_bwd['bwd_launches']}")
+        f"fwd+bwd step {full_bwd['launches']}, strided pool "
+        f"{pools['strided']['launches']}; bounce_step_bwd launches: "
+        f"fwd+bwd step {full_bwd['bwd_launches']}; bounce_packed launches: "
+        f"packed pool {pools['packed']['launches']}; bounce_persist "
+        f"launches: persistent pool {pools['persistent']['launches']}; "
+        f"probes {probes['launches']}")
     f32 = [k for k in kern if k["name"].startswith("f32")]
     main_case = next(k for k in kern if k["name"] == "f32-light")
     f32_bwd = [k for k in kern_bwd if k["name"].startswith("f32")]
     main_bwd = next(k for k in kern_bwd if k["name"] == "f32-cornell-light")
+    src = "scheme_raytrace_torch/csrc/"
     log(smi)
     print(json.dumps({"kernels": [{
         "name": "bounce_step",
         "route": "cuda",
-        "source": "scheme_raytrace_torch/csrc/bounce_step.cu",
+        "source": src + "bounce_step.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1576",
-        "launches": full["launches"] + full_bwd["launches"],
+        "launches": k1_launches,
         "max_abs_err": max(k["max_abs_err"] for k in f32),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
     }, {
         "name": "bounce_step_bwd",
         "route": "cuda",
-        "source": "scheme_raytrace_torch/csrc/bounce_step_bwd.cu",
+        "source": src + "bounce_step_bwd.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1687",
         "launches": full_bwd["bwd_launches"],
         "max_abs_err": max(k["max_abs_err"] for k in f32_bwd),
         "ms": main_bwd["ms"],
         "plain_ms": main_bwd["plain_ms"],
+    }, {
+        "name": "bounce_packed",
+        "route": "cuda",
+        "source": src + "bounce_packed.cu",
+        "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1900",
+        "launches": pools["packed"]["launches"],
+        "max_abs_err": packed["max_abs_err"],
+        "ms": packed["ms"],
+        "plain_ms": packed["plain_ms"],
+    }, {
+        "name": "bounce_persist",
+        "route": "cuda",
+        "source": src + "bounce_persist.cu",
+        "replaces": "scheme_raytrace_tpu/integrator/persist.py:114",
+        "launches": pools["persistent"]["launches"],
+        "max_abs_err": chunk["max_abs_err"],
+        "ms": chunk["ms"],
+        "plain_ms": chunk["plain_ms"],
+    }, {
+        "name": "probe_ops",
+        "route": "cuda",
+        "source": src + "probe_ops.cu",
+        "replaces": "tools/probe_pallas_ops.py:50",
+        "launches": probes["launches"]["probe_ops"],
+        **probes["k5"],
+    }, {
+        "name": "probe_loops",
+        "route": "cuda",
+        "source": src + "probe_loops.cu",
+        "replaces": "tools/repro_mosaic_crash.py:19",
+        "launches": probes["launches"]["probe_loops"],
+        **probes["k6"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,7 @@ def unit(a, eps: float = 0.0):
     """vec.scm:60-62 — normalize; optional eps guards 0-length."""
     n = length(a)
     if eps:
-        n = torch.clamp(n, min=eps)
+        n = torch.maximum(n, n.new_tensor(eps))    # JAX's tie gradient
     return a / n[..., None]
 
 

@@ -1,7 +1,9 @@
 // bounce_common.cuh — the forward bounce's device code, shared by the
-// forward kernel (bounce_step.cu) and the backward kernel
-// (bounce_step_bwd.cu), so that the backward replays each lane exactly as
-// the forward ran it.
+// forward kernel (bounce_step.cu), the backward kernel (bounce_step_bwd.cu),
+// the packed-state kernel (bounce_packed.cu) and the persistent kernel
+// (bounce_persist.cu).  The backward replays each lane exactly as the
+// forward ran it, and the three forward kernels run one lane body
+// (bounce_lane), so they trace identical paths from identical inputs.
 //
 // Every function here follows scheme_raytrace_torch/integrator/bounce.py:
 // step, op for op, with two forms of K1's own: cbrt for the fuzz radius and
@@ -379,6 +381,177 @@ __device__ __forceinline__ T schlick_prob(T ref_idx, T cosine, bool refr_ok) {
   T x2 = x * x;
   T schlick = r0 + (T(1) - r0) * (x2 * x2 * x);
   return refr_ok ? schlick : T(1);
+}
+
+// One bounce of one lane (bounce.py:step): regenerate a fresh lane's camera
+// ray, sweep the rects for the closest hit, add the sky on a miss and the
+// emission on a hit, and scatter by the winner's material.  o, d, time,
+// rad and tp are updated in place; returns `scattering`.  Lanes that cannot
+// scatter (dead, missed, at the bounce cap) skip the shading, and only the
+// winning material's rule runs, with only the PCG4D column groups that
+// rule draws from.
+template <typename T>
+__device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
+                                            const Statics& s, T t_min,
+                                            T t_max, uint32_t item, T px,
+                                            T py, bool fresh, bool alive,
+                                            int depth, V3<T>& o, V3<T>& d,
+                                            T& time, V3<T>& rad, V3<T>& tp) {
+  // --- regenerate fresh lanes (camera rays; main.scm:452-469) ------------
+  if (fresh) {
+    camera_ray<T>(pk, s, item, px, py, o, d, time);
+    rad = {T(0), T(0), T(0)};
+    tp = {T(1), T(1), T(1)};
+  }
+
+  // --- closest hit: rect sweep in pack order (geometry.scm:33-50) --------
+  T best_t;
+  const int best_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t);
+  const bool hit = best_b >= 0;
+  const T t_eff = hit ? best_t : T(0);          // miss: p = o
+  const V3<T> p = ray_at(o, t_eff, d);
+
+  // --- sky on a miss (main.scm:91-98) ---------------------------------------
+  if (alive && !hit) {
+    T sky_t = T(0.5) * (d.y + T(1));
+    V3<T> sa = ld3(pk, H_SKY_A), sb = ld3(pk, H_SKY_B);
+    V3<T> sky = {(T(1) - sky_t) * sa.x + sky_t * sb.x,
+                 (T(1) - sky_t) * sa.y + sky_t * sb.y,
+                 (T(1) - sky_t) * sa.z + sky_t * sb.z};
+    rad = add(rad, mul(tp, sky));
+  }
+
+  bool scattering = false;
+  if (alive && hit) {
+    const V3<T> wn = ld3(pk, best_b + R_WN);
+    const T mtype = ld(pk, best_b + R_MTYPE);
+    // --- albedo: constant or checker (texture.scm:12-23) ---------------
+    const V3<T> alb =
+        ld3(pk, best_b + (checker_odd<T>(pk, best_b, p) ? R_ALB1 : R_ALB0));
+    // --- emission (material.scm:103-111) --------------------------------
+    if (mtype == T(MAT_DIFFUSE_LIGHT) && dot(wn, d) < T(0))
+      rad = add(rad, mul(tp, alb));
+
+    if (depth < s.max_depth) {
+      V3<T> dir, mult;
+      bool sc_ok = false;
+      T u[8];
+      if (mtype == T(MAT_LAMBERTIAN)) {
+        // material.scm:24-39, mixture pdf per pdf.scm intent
+        uniforms4<T>(s.seed, item, uint32_t(depth), 0u, u);
+        if (s.light_sampling) {
+          uniforms4<T>(s.seed, item, uint32_t(depth), 1u, u + 4);
+          dir = u[2] < T(0.5)
+                    ? lights_sample<T>(pk, s, u[3], u[4], u[5], u[6], u[7], p)
+                    : cosine_dir<T>(u[0], u[1], wn);
+          T cv = cosine_value(wn, dir);
+          T pdf = T(0.5) * cv + T(0.5) * lights_value<T>(pk, s, p, dir);
+          mult = scale(alb, cv / (pdf < T(1e-12) ? T(1e-12) : pdf));
+          sc_ok = pdf > T(0);
+        } else {
+          dir = cosine_dir<T>(u[0], u[1], wn);
+          mult = alb;
+          sc_ok = true;
+        }
+      } else if (mtype == T(MAT_METAL)) {
+        // material.scm:45-57; fuzz ball from util.scm:9-15 (analytic)
+        uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
+        V3<T> ball = fuzz_ball<T>(u);
+        V3<T> refl = sub(d, scale(wn, T(2) * dot(d, wn)));
+        V3<T> fuzzed = add(refl, scale(ball, ld(pk, best_b + R_FUZZ)));
+        sc_ok = dot(fuzzed, wn) > T(0);
+        dir = unit(fuzzed);
+        mult = alb;
+      } else if (mtype == T(MAT_DIELECTRIC)) {
+        // material.scm:76-101
+        uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
+        T ref_idx = ld(pk, best_b + R_REF);
+        T dd = dot(d, wn);
+        bool exiting = dd > T(0);
+        V3<T> own = exiting ? scale(wn, T(-1)) : wn;
+        T ni = exiting ? ref_idx : T(1) / (ref_idx == T(0) ? T(1) : ref_idx);
+        T cosine = exiting ? dd * ref_idx : -dd;
+        T dtn = dot(d, own);
+        T disc = T(1) - ni * ni * (T(1) - dtn * dtn);
+        bool refr_ok = disc > T(0);
+        T safe = Math<T>::sqrt(refr_ok ? disc : T(1));
+        V3<T> refr = sub(scale(sub(d, scale(own, dtn)), ni), scale(own, safe));
+        V3<T> refl = sub(d, scale(wn, T(2) * dot(d, wn)));
+        dir = unit(u[0] < schlick_prob<T>(ref_idx, cosine, refr_ok) ? refl
+                                                                    : refr);
+        mult = {T(1), T(1), T(1)};
+        sc_ok = true;
+      }
+      if (sc_ok) {
+        scattering = true;
+        tp = mul(tp, mult);
+        o = p;
+        d = dir;
+      }
+    }
+  }
+  return scattering;
+}
+
+// --- The packed pool state (bounce.py N_PACKED; persist.py N_STATE) -------
+// A lane's state is one column of a [N_PACKED, m] float32 array, one value
+// per row: item (int32 bits), fresh (0/1), depth (int32 bits), o, d, time,
+// rad, tp.  The int rows are only ever moved and reinterpreted
+// (__float_as_int / __int_as_float), never touched by float arithmetic:
+// small ints are denormal floats.
+constexpr int N_PACKED = 16;
+
+// The strided work queue of the packed and persistent pools.
+struct Queue {
+  int m, n_work, n_pix, pix0, total_pix;
+};
+
+// One iteration of the strided pool on a lane's packed state v
+// (bounce.py:1937-1970, persist.py:69-111): the lane's work item `item`
+// renders global pixel pix0 + item % n_pix of pass item / n_pix, keyed by
+// gitem = (sample_base + item / n_pix) * total_pix + pix0 + item % n_pix,
+// wrapped as the JAX int32 is (uint32 arithmetic here: signed overflow is
+// undefined in C++).  A lane whose path terminates re-issues itself the
+// item m further on.  Lanes with item >= n_work are drained and change
+// nothing but their fresh and depth words (both become 0), as in the
+// reference, where the step runs on them with alive = false.  Returns
+// alive; `terminated` and `pix` (item % n_pix) describe the finished path.
+__device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
+                                            const Statics& s, float t_min,
+                                            float t_max, const Queue& q,
+                                            int32_t sample_base,
+                                            float v[N_PACKED],
+                                            bool& terminated, int& pix) {
+  const int32_t item = __float_as_int(v[0]);
+  const bool fresh = v[1] != 0.0f;
+  const int32_t depth = __float_as_int(v[2]);
+  const bool alive = item < q.n_work;
+  pix = item % q.n_pix;
+  bool scattering = false;
+  if (alive) {
+    const int32_t gpix = q.pix0 + pix;
+    const uint32_t gitem =
+        (uint32_t(sample_base) + uint32_t(item / q.n_pix)) *
+            uint32_t(q.total_pix) + uint32_t(gpix);
+    V3<float> o = {v[3], v[4], v[5]};
+    V3<float> d = {v[6], v[7], v[8]};
+    float time = v[9];
+    V3<float> rad = {v[10], v[11], v[12]};
+    V3<float> tp = {v[13], v[14], v[15]};
+    scattering = bounce_lane<float>(pk, s, t_min, t_max, gitem,
+                                    float(gpix % s.nx), float(gpix / s.nx),
+                                    fresh, true, depth, o, d, time, rad, tp);
+    v[3] = o.x;  v[4] = o.y;  v[5] = o.z;
+    v[6] = d.x;  v[7] = d.y;  v[8] = d.z;
+    v[9] = time;
+    v[10] = rad.x;  v[11] = rad.y;  v[12] = rad.z;
+    v[13] = tp.x;  v[14] = tp.y;  v[15] = tp.z;
+  }
+  terminated = alive && !scattering;
+  if (terminated) v[0] = __int_as_float(int32_t(uint32_t(item) + uint32_t(q.m)));
+  v[1] = terminated ? 1.0f : 0.0f;
+  v[2] = __int_as_float(scattering ? depth + 1 : 0);
+  return alive;
 }
 
 }  // namespace

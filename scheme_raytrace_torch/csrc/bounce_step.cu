@@ -8,9 +8,11 @@
 // mixture-PDF light sampling over xz-rect and sphere lights (or the plain
 // cosine lobe), and the lambertian / metal / dielectric scatter rules.
 // Its plain PyTorch twin is scheme_raytrace_torch/integrator/bounce.py:step,
-// which follows the JAX step op for op.  The device functions live in
-// bounce_common.cuh, which the backward kernel (bounce_step_bwd.cu) shares
-// so that it replays each lane exactly as this kernel ran it.
+// which follows the JAX step op for op.  The lane body (bounce_lane) and
+// the device functions live in bounce_common.cuh, which the backward kernel
+// (bounce_step_bwd.cu) shares so that it replays each lane exactly as this
+// kernel ran it, and the packed and persistent kernels share so that they
+// trace the same paths.
 //
 // Design.  One thread per lane, 256 threads per block.  Every lane reads
 // and writes its own SoA columns (19 in, 14 out), so neighbouring threads
@@ -70,109 +72,15 @@ bounce_step_kernel(const Params<T> prm) {
   if (i >= s.m) return;
   const T* __restrict__ pk = prm.pk;
 
-  const uint32_t item = uint32_t(prm.gitem[i]);
-  const bool alive = prm.alive[i];
-  const int depth = prm.depth[i];
   V3<T> o = {prm.in[0][i], prm.in[1][i], prm.in[2][i]};
   V3<T> d = {prm.in[3][i], prm.in[4][i], prm.in[5][i]};
   T time = prm.in[6][i];
   V3<T> rad = {prm.in[7][i], prm.in[8][i], prm.in[9][i]};
   V3<T> tp = {prm.in[10][i], prm.in[11][i], prm.in[12][i]};
-
-  // --- regenerate fresh lanes (camera rays; main.scm:452-469) ------------
-  if (prm.fresh[i]) {
-    camera_ray<T>(pk, s, item, prm.px[i], prm.py[i], o, d, time);
-    rad = {T(0), T(0), T(0)};
-    tp = {T(1), T(1), T(1)};
-  }
-
-  // --- closest hit: rect sweep in pack order (geometry.scm:33-50) --------
-  T best_t;
-  const int best_b = closest_rect<T>(pk, s, o, d, prm.t_min, prm.t_max,
-                                     best_t);
-  const bool hit = best_b >= 0;
-  const T t_eff = hit ? best_t : T(0);          // miss: p = o
-  const V3<T> p = ray_at(o, t_eff, d);
-
-  // --- sky on a miss (main.scm:91-98) ---------------------------------------
-  if (alive && !hit) {
-    T sky_t = T(0.5) * (d.y + T(1));
-    V3<T> sa = ld3(pk, H_SKY_A), sb = ld3(pk, H_SKY_B);
-    V3<T> sky = {(T(1) - sky_t) * sa.x + sky_t * sb.x,
-                 (T(1) - sky_t) * sa.y + sky_t * sb.y,
-                 (T(1) - sky_t) * sa.z + sky_t * sb.z};
-    rad = add(rad, mul(tp, sky));
-  }
-
-  bool scattering = false;
-  if (alive && hit) {
-    const V3<T> wn = ld3(pk, best_b + R_WN);
-    const T mtype = ld(pk, best_b + R_MTYPE);
-    // --- albedo: constant or checker (texture.scm:12-23) ---------------
-    const V3<T> alb =
-        ld3(pk, best_b + (checker_odd<T>(pk, best_b, p) ? R_ALB1 : R_ALB0));
-    // --- emission (material.scm:103-111) --------------------------------
-    if (mtype == T(MAT_DIFFUSE_LIGHT) && dot(wn, d) < T(0))
-      rad = add(rad, mul(tp, alb));
-
-    if (depth < s.max_depth) {
-      V3<T> dir, mult;
-      bool sc_ok = false;
-      T u[8];
-      if (mtype == T(MAT_LAMBERTIAN)) {
-        // material.scm:24-39, mixture pdf per pdf.scm intent
-        uniforms4<T>(s.seed, item, uint32_t(depth), 0u, u);
-        if (s.light_sampling) {
-          uniforms4<T>(s.seed, item, uint32_t(depth), 1u, u + 4);
-          dir = u[2] < T(0.5)
-                    ? lights_sample<T>(pk, s, u[3], u[4], u[5], u[6], u[7], p)
-                    : cosine_dir<T>(u[0], u[1], wn);
-          T cv = cosine_value(wn, dir);
-          T pdf = T(0.5) * cv + T(0.5) * lights_value<T>(pk, s, p, dir);
-          mult = scale(alb, cv / (pdf < T(1e-12) ? T(1e-12) : pdf));
-          sc_ok = pdf > T(0);
-        } else {
-          dir = cosine_dir<T>(u[0], u[1], wn);
-          mult = alb;
-          sc_ok = true;
-        }
-      } else if (mtype == T(MAT_METAL)) {
-        // material.scm:45-57; fuzz ball from util.scm:9-15 (analytic)
-        uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
-        V3<T> ball = fuzz_ball<T>(u);
-        V3<T> refl = sub(d, scale(wn, T(2) * dot(d, wn)));
-        V3<T> fuzzed = add(refl, scale(ball, ld(pk, best_b + R_FUZZ)));
-        sc_ok = dot(fuzzed, wn) > T(0);
-        dir = unit(fuzzed);
-        mult = alb;
-      } else if (mtype == T(MAT_DIELECTRIC)) {
-        // material.scm:76-101
-        uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
-        T ref_idx = ld(pk, best_b + R_REF);
-        T dd = dot(d, wn);
-        bool exiting = dd > T(0);
-        V3<T> own = exiting ? scale(wn, T(-1)) : wn;
-        T ni = exiting ? ref_idx : T(1) / (ref_idx == T(0) ? T(1) : ref_idx);
-        T cosine = exiting ? dd * ref_idx : -dd;
-        T dtn = dot(d, own);
-        T disc = T(1) - ni * ni * (T(1) - dtn * dtn);
-        bool refr_ok = disc > T(0);
-        T safe = Math<T>::sqrt(refr_ok ? disc : T(1));
-        V3<T> refr = sub(scale(sub(d, scale(own, dtn)), ni), scale(own, safe));
-        V3<T> refl = sub(d, scale(wn, T(2) * dot(d, wn)));
-        dir = unit(u[0] < schlick_prob<T>(ref_idx, cosine, refr_ok) ? refl
-                                                                    : refr);
-        mult = {T(1), T(1), T(1)};
-        sc_ok = true;
-      }
-      if (sc_ok) {
-        scattering = true;
-        tp = mul(tp, mult);
-        o = p;
-        d = dir;
-      }
-    }
-  }
+  const bool scattering = bounce_lane<T>(
+      pk, s, prm.t_min, prm.t_max, uint32_t(prm.gitem[i]), prm.px[i],
+      prm.py[i], prm.fresh[i], prm.alive[i], prm.depth[i], o, d, time, rad,
+      tp);
 
   prm.out[0][i] = o.x;  prm.out[1][i] = o.y;  prm.out[2][i] = o.z;
   prm.out[3][i] = d.x;  prm.out[4][i] = d.y;  prm.out[5][i] = d.z;

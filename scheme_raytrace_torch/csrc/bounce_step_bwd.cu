@@ -28,10 +28,11 @@
 // give bitwise-equal partials.  Light slots are recomputed per light in the
 // reduction (the light count is a runtime value) instead of being kept.
 //
-// Conventions.  Where the plain step clamps (torch.clamp), the gradient
-// passes at a tie, as in torch (JAX's maximum would split it 0.5/0.5).  The
-// adjoint guards exactly where the forward guards (the where-selected
-// denominators and square roots) and adds no guard of its own.  One place
+// Conventions.  Every clamp of the plain step is a maximum (or a clip), and
+// its adjoint goes through max_adj: at a tie the cotangent splits 0.5/0.5,
+// as in JAX's maximum.  The adjoint guards exactly where the forward guards
+// (the where-selected denominators and square roots) and adds no guard of
+// its own.  One place
 // differs from autograd by construction: a rect that loses the closest-hit
 // sweep gets no cotangent here, where autograd multiplies its (finite or,
 // for a ray nearly in its plane, overflowing) t-derivative by zero.
@@ -51,13 +52,33 @@ namespace {
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarps = kThreads / 32;
 
+// The adjoint of every clamp of the plain step, y = max(x, c): the share of
+// y's cotangent g that reaches x.  All of it above c, none below, and half
+// at a tie, as JAX's maximum (and torch.maximum) split it.
+template <typename T>
+__device__ __forceinline__ T max_adj(T x, T c, T g) {
+  return x > c ? g : (x == c ? T(0.5) * g : T(0));
+}
+
+// y = min(x, c), the other side of a clip.
+template <typename T>
+__device__ __forceinline__ T min_adj(T x, T c, T g) {
+  return max_adj(c, x, g);
+}
+
+// y = clip(x, lo, hi) = min(max(x, lo), hi).
+template <typename T>
+__device__ __forceinline__ T clip_adj(T x, T lo, T hi, T g) {
+  return max_adj(x, lo, min_adj(x < lo ? lo : x, hi, g));
+}
+
 // Reverse of y = unit(a): dL/da from dL/dy.
 template <typename T>
 __device__ __forceinline__ V3<T> unit_adj(V3<T> a, V3<T> gy) {
   const T q = dot(a, a);
   const T lo = T(1e-12);
   const T s = Math<T>::rsqrt(q < lo ? lo : q);
-  const T gq = q >= lo ? T(-0.5) * s * s * s * dot(gy, a) : T(0);
+  const T gq = max_adj(q, lo, T(-0.5) * s * s * s * dot(gy, a));
   return add(scale(gy, s), scale(a, T(2) * gq));
 }
 
@@ -156,7 +177,7 @@ __device__ void light_sample_adj(const T* __restrict__ pk, int b, T u_a,
   const T g_inner = outside ? T(0.5) * g_ctm / ctm : T(0);
   const T g_dsq = g_inner * (radius * radius / (dist_sq * dist_sq));
   V3<T> g_oc = unit_adj(oc, g_w);
-  if (q >= lo) g_oc = add(g_oc, scale(oc, T(2) * g_dsq));
+  g_oc = add(g_oc, scale(oc, T(2) * max_adj(q, lo, g_dsq)));
   gl[L_C] += g_oc.x;
   gl[L_C + 1] += g_oc.y;
   gl[L_C + 2] += g_oc.z;
@@ -186,7 +207,7 @@ __device__ void light_value_adj(const T* __restrict__ pk, int b, V3<T> p,
     const T den = ady * area;
     const T denom = den < lo ? lo : den;
     const T g_t = g_val * T(2) * t / denom;          // v = t * t / denom
-    const T g_den = den >= lo ? -g_val * t * t / (denom * denom) : T(0);
+    const T g_den = max_adj(den, lo, -g_val * t * t / (denom * denom));
     const T g_area = g_den * ady;
     gl[L_X1] += g_area * (z1 - z0);
     gl[L_X0] -= g_area * (z1 - z0);
@@ -211,19 +232,17 @@ __device__ void light_value_adj(const T* __restrict__ pk, int b, V3<T> p,
   const T solid = T(kTwoPi) * (T(1) - ctm);
   if (!(dot(unit(d), unit(oc)) >= ctm)) return;
   const T ms = solid < lo ? lo : solid;              // v = 1 / ms
-  const T g_solid = solid >= lo ? -g_val / (ms * ms) : T(0);
+  const T g_solid = max_adj(solid, lo, -g_val / (ms * ms));
   const T g_ctm = -T(kTwoPi) * g_solid;
   const T g_ratio = -T(0.5) * g_ctm / ctm;
-  const T g_x = (x >= T(0) && x <= T(1)) ? g_ratio : T(0);
+  const T g_x = clip_adj(x, T(0), T(1), g_ratio);
   const T g_mdsq = -g_x * r2 / (mdsq * mdsq);
   gl[L_RAD] += g_x / mdsq * T(2) * radius;
-  if (dist_sq >= lo) {
-    const V3<T> g_oc = scale(oc, T(2) * g_mdsq);
-    gl[L_C] += g_oc.x;
-    gl[L_C + 1] += g_oc.y;
-    gl[L_C + 2] += g_oc.z;
-    g_p = sub(g_p, g_oc);
-  }
+  const V3<T> g_oc = scale(oc, T(2) * max_adj(dist_sq, lo, g_mdsq));
+  gl[L_C] += g_oc.x;
+  gl[L_C + 1] += g_oc.y;
+  gl[L_C + 2] += g_oc.z;
+  g_p = sub(g_p, g_oc);
 }
 
 // Sum over the warp in a fixed butterfly order; every lane gets the sum.
@@ -345,9 +364,9 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
             g_tp = add(g_tp, mul(gtp, scale(alb, ratio)));
             c.alb = add(c.alb, scale(g_mult, ratio));
             const T g_ratio = dot(g_mult, alb);
-            const T g_pdf = pdf >= lo ? -g_ratio * cv / (den * den) : T(0);
+            const T g_pdf = max_adj(pdf, lo, -g_ratio * cv / (den * den));
             const T g_cv = g_ratio / den + T(0.5) * g_pdf;
-            const T g_c = cw >= T(0) ? g_cv * T(1.0 / kPi) : T(0);
+            const T g_c = max_adj(cw, T(0), g_cv * T(1.0 / kPi));
             g_p = go;
             V3<T> g_dir = add(gd, scale(wn, g_c));
             c.wn = add(c.wn, scale(dir, g_c));

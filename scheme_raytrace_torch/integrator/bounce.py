@@ -72,8 +72,20 @@ def where3(m, a, b):
     return tuple(torch.where(m, x, y) for x, y in zip(a, b))
 
 
+def _max(x, c):
+    """jnp.maximum(x, c) for a constant c: at a tie the gradient splits
+    0.5 / 0.5 between the two sides, as in JAX (torch.clamp would pass all
+    of it to x)."""
+    return torch.maximum(x, x.new_tensor(c))
+
+
+def _clip(x, lo, hi):
+    """jnp.clip(x, lo, hi) with JAX's tie gradients (see _max)."""
+    return torch.minimum(_max(x, lo), x.new_tensor(hi))
+
+
 def unit3(a, eps=1e-12):
-    inv = torch.rsqrt(torch.clamp(dot3(a, a), min=eps))
+    inv = torch.rsqrt(_max(dot3(a, a), eps))
     return scale3(a, inv)
 
 
@@ -568,13 +580,13 @@ def _cosine_dir(u1, u2, w):
     """Cosine-weighted direction about w (util.scm:37-44, B4 fixed)."""
     phi = _TWO_PI * u1
     sr2 = torch.sqrt(u2)
-    zc = torch.sqrt(torch.clamp(1.0 - u2, min=0.0))
+    zc = torch.sqrt(_max(1.0 - u2, 0.0))
     return unit3(_onb_local(w, torch.cos(phi) * sr2, torch.sin(phi) * sr2,
                             zc))
 
 
 def _cosine_value(n, d):
-    return torch.clamp(dot3(n, d), min=0.0) * (1.0 / _PI)
+    return _max(dot3(n, d), 0.0) * (1.0 / _PI)
 
 
 def _lights_sample(plan, pk, u_pick, u_a, u_b, u_s1, u_s2, p):
@@ -596,7 +608,7 @@ def _lights_sample(plan, pk, u_pick, u_a, u_b, u_s1, u_s2, p):
 
         c = _v(pk, b + L_C)
         oc = sub3(c, p)
-        dist_sq = torch.clamp(dot3(oc, oc), min=1e-12)
+        dist_sq = _max(dot3(oc, oc), 1e-12)
         radius = pk[b + L_RAD]
         inner = 1.0 - radius * radius / dist_sq
         outside = inner > 0.0
@@ -630,7 +642,7 @@ def _lights_value(plan, pk, p, d):
         t = torch.where(inside, t_raw, 1.0)
         area = (pk[b + L_X1] - pk[b + L_X0]) * (pk[b + L_Z1] - pk[b + L_Z0])
         denom = torch.where(inside,
-                            torch.clamp(torch.abs(d[1]) * area, min=1e-12),
+                            _max(torch.abs(d[1]) * area, 1e-12),
                             1.0)
         rect_v = torch.where(inside, t * t / denom, 0.0)
         # sphere (RTROYL 12.2)
@@ -639,13 +651,12 @@ def _lights_value(plan, pk, p, d):
         dist_sq = dot3(oc, oc)
         radius = pk[b + L_RAD]
         outside = dist_sq > radius * radius
-        ratio = torch.clamp(radius * radius / torch.clamp(dist_sq, min=1e-12),
-                            0.0, 1.0)
+        ratio = _clip(radius * radius / _max(dist_sq, 1e-12), 0.0, 1.0)
         ctm = torch.sqrt(torch.where(outside, 1.0 - ratio, 1.0))
         solid = _TWO_PI * (1.0 - ctm)
         cos_dir = dot3(unit3(d), unit3(oc))
         hitting = outside & (cos_dir >= ctm)
-        sph_v = torch.where(hitting, 1.0 / torch.clamp(solid, min=1e-12), 0.0)
+        sph_v = torch.where(hitting, 1.0 / _max(solid, 1e-12), 0.0)
         total = total + torch.where(is_rect, rect_v, sph_v)
     return total * (1.0 / plan.n_lights)
 
@@ -718,7 +729,7 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
         pdf = 0.5 * _cosine_value(wn, lam_dir) + 0.5 * _lights_value(
             plan, pk, p, lam_dir)
         s_pdf = _cosine_value(wn, lam_dir)
-        ratio = s_pdf / torch.clamp(pdf, min=1e-12)
+        ratio = s_pdf / _max(pdf, 1e-12)
         lam_mult = scale3(alb, ratio)
         lam_ok = pdf > 0.0
     else:
@@ -730,7 +741,7 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     bz = 2.0 * u[9] - 1.0
     bphi = _TWO_PI * u[10]
     br = torch.pow(u[11], 1.0 / 3.0)             # the JAX step's cbrt form
-    bs = torch.sqrt(torch.clamp(1.0 - bz * bz, min=0.0))
+    bs = torch.sqrt(_max(1.0 - bz * bz, 0.0))
     ball = (br * bs * torch.cos(bphi), br * bs * torch.sin(bphi), br * bz)
 
     # --- metal (material.scm:45-57) ------------------------------------------
@@ -755,8 +766,7 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
                  for i in range(3))
     r0 = (1.0 - ref_idx) / (1.0 + torch.where(ref_idx == -1.0, 1.0, ref_idx))
     r0 = r0 * r0
-    schlick = r0 + (1.0 - r0) * torch.pow(
-        torch.clamp(1.0 - cosine, min=0.0), 5.0)
+    schlick = r0 + (1.0 - r0) * torch.pow(_max(1.0 - cosine, 0.0), 5.0)
     reflect_prob = torch.where(refr_ok, schlick, 1.0)
     take_refl = u[8] < reflect_prob
     diel_dir = unit3(where3(take_refl, refl, refr))
@@ -1020,3 +1030,149 @@ def step_cuda_vjp(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     bounce_step kernel (K1), backward through bounce_step_bwd (K2)."""
     return step_with_vjp((step_cuda, step_cuda_bwd), plan, pk, gitem, px,
                          py, fresh, alive, depth, o, d, time, rad, tp)
+
+
+# ---------------------------------------------------------------------------
+# The packed pool state: the port of `as_pallas_packed` (K3)
+# ---------------------------------------------------------------------------
+
+# Rows of the packed pool state, a [N_PACKED, m] float32 tensor (the JAX
+# (N_PACKED * m / 128, 128) buffer, row group for row group): item, fresh,
+# depth, o (3), d (3), time, rad (3), tp (3).  Rows 0 (item) and 2 (depth)
+# hold int32 bits, read with .view(torch.int32) and never touched by float
+# arithmetic.
+N_PACKED = 16
+
+# Launches of the bounce_packed kernel in this process, counted like
+# LAUNCHES.
+PACKED_LAUNCHES = 0
+
+
+def wrap_i32(x):
+    """int64 tensor -> int32 with two's-complement wraparound."""
+    return (((x + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31).to(torch.int32)
+
+
+def strided_item(item, sample_base, n_pix, pix0, total_pix, nx, dtype):
+    """The strided queue's work item -> (gitem, px, py, local pixel).
+
+    item (int64) renders frame pixel pix0 + item % n_pix of pass
+    item // n_pix; its RNG key is the global (pass, pixel) id
+    (sample_base + pass) * total_pix + pixel, wrapped to int32 as in JAX."""
+    pixl = item % n_pix
+    gpix = pix0 + pixl
+    gitem = wrap_i32((sample_base + item // n_pix) * total_pix + gpix)
+    return gitem, (gpix % nx).to(dtype), (gpix // nx).to(dtype), pixl
+
+
+def initial_packed_state(m, device):
+    """The packed state of a fresh pool: lane L holds item L, fresh."""
+    state = torch.zeros(N_PACKED, m, dtype=torch.float32, device=device)
+    state.view(torch.int32)[0] = torch.arange(m, dtype=torch.int32,
+                                              device=device)
+    state[1] = 1.0
+    return state
+
+
+def step_packed(plan: BouncePlan, pk, sample_base, state, m, n_work, n_pix,
+                pix0, total_pix):
+    """One strided-pool iteration on the packed state, in plain PyTorch:
+    the computation of the JAX `as_pallas_packed` (bounce.py:1923-1970),
+    built on `step`.
+
+    state: [N_PACKED, m] float32; sample_base: int or integer tensor.
+    Lanes with item >= n_work are drained (alive = false).  A lane whose
+    path terminates takes the item m further on, with fresh = 1 and its
+    finished radiance left in the rad rows.  Returns the new state (a new
+    tensor; the input is unchanged)."""
+    st_i = state.view(torch.int32)
+    item = st_i[0]
+    depth = st_i[2]
+    fresh = state[1] != 0.0
+    alive = item < n_work
+    base = torch.as_tensor(sample_base, device=state.device).to(torch.int64)
+    gitem, px, py, _ = strided_item(item.to(torch.int64), base, n_pix, pix0,
+                                    total_pix, plan.nx, torch.float32)
+    lanes = split_lanes(state[3:])
+    o, d, time, rad, tp, scattering = step(plan, pk, gitem, px, py,
+                                           fresh & alive, alive, depth,
+                                           *lanes)
+    terminated = alive & ~scattering
+    out = torch.empty_like(state)
+    out_i = out.view(torch.int32)
+    out_i[0] = torch.where(terminated, item + m, item)
+    out[1] = terminated.to(torch.float32)
+    out_i[2] = torch.where(scattering, depth + 1, 0)
+    out[3:] = torch.stack(flat_lanes(o, d, time, rad, tp))
+    return out
+
+
+def _kernel_packed():
+    """The bounce_packed library, built at first use; argtypes declared."""
+    from ..utils import cuda_build
+    lib = cuda_build.load("bounce_packed")
+    fn = lib.srt_bounce_packed
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
+                       + [ctypes.c_int] * 13
+                       + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_packed(fn, plan: BouncePlan, pk, sample_base, state, m):
+    """The checks of the packed kernels' wrappers; returns sample_base as a
+    [1] int32 tensor on the state's device."""
+    check_covered(plan)
+    dev = state.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} takes CUDA tensors, got {dev}")
+    if (state.dtype != torch.float32 or state.shape != (N_PACKED, m)
+            or not state.is_contiguous()):
+        raise ValueError(f"{fn}: state must be a contiguous [{N_PACKED}, {m}]"
+                         f" float32 tensor, got {tuple(state.shape)} "
+                         f"{state.dtype}")
+    _check_lane("pk", pk, torch.float32, plan.size, dev, fn)
+    sb = torch.as_tensor(sample_base, device=dev)
+    if sb.is_floating_point() or sb.numel() != 1:
+        raise ValueError(f"{fn}: sample_base must be one integer")
+    return sb.to(torch.int32).reshape(1)
+
+
+def queue_args(plan: BouncePlan, m, n_work, n_pix, pix0, total_pix):
+    """The int arguments the packed kernels share, in their C order."""
+    return (m, n_work, n_pix, pix0, total_pix, plan.n_rects, plan.rect_base,
+            plan.n_lights, plan.lgt_base, int(plan.light_sampling), plan.nx,
+            plan.ny, plan.max_depth, plan.seed & 0xFFFFFFFF,
+            cfg_mod.SHADOW_EPS, cfg_mod.BIG)
+
+
+def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,
+                     n_pix, pix0, total_pix):
+    """`step_packed` through the CUDA kernel csrc/bounce_packed.cu (the port
+    of the Pallas `as_pallas_packed`): same signature and results to the
+    kernel's rounding (it contracts mul+add into FMAs, as K1 does).
+
+    state: a contiguous [N_PACKED, m] float32 tensor on a CUDA device; pk
+    [plan.size] float32 on it; sample_base an int or an integer tensor (a
+    CUDA tensor is read by the kernel, with no host sync).  Returns the new
+    state as a new tensor; launches on the current stream without
+    synchronising and raises if the launch is refused."""
+    global PACKED_LAUNCHES
+    fn = "step_packed_cuda"
+    sb = check_packed(fn, plan, pk, sample_base, state, m)
+    out = torch.empty_like(state)
+    ptrs = (ctypes.c_void_p * 4)(pk.data_ptr(), sb.data_ptr(),
+                                 state.data_ptr(), out.data_ptr())
+    kernel = _kernel_packed()
+    dev = state.device
+    with torch.cuda.device(dev):
+        err = kernel(ptrs, *queue_args(plan, m, n_work, n_pix, pix0,
+                                       total_pix),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"bounce_packed kernel launch failed: CUDA error "
+                           f"{err}")
+    PACKED_LAUNCHES += 1
+    return out

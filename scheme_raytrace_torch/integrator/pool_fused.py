@@ -43,11 +43,6 @@ from . import bounce
 FLUSH_EVERY = 8     # bounce iterations between drain checks (host syncs)
 
 
-def _wrap_i32(x):
-    """int64 tensor -> int32 with two's-complement wraparound."""
-    return (((x + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31).to(torch.int32)
-
-
 def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
                       total_pix=None, static_iters=None):
     """Trace config.spp passes over raw0's pixels; return (raw, segments,
@@ -105,7 +100,7 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
     iters = 0
     while True:
         for _ in range(FLUSH_EVERY):
-            gitem = _wrap_i32((base + pass_idx) * total_pix + pixg)
+            gitem = bounce.wrap_i32((base + pass_idx) * total_pix + pixg)
             o, d, time, rad, tp, scattering = step(
                 plan, pk, gitem, px, py, fresh, alive, depth,
                 o, d, time, rad, tp)

@@ -1,7 +1,10 @@
-"""PyTorch port on the card: the CUDA bounce kernels against their plain
-versions (the forward kernel against the plain step, the backward kernel
-against the plain VJP), the CUDA render against the config-4 golden, and
-the differentiable render on the card against the forward render.
+"""PyTorch port on the card: the CUDA kernels against their plain versions
+(K1 against the plain step, K2 against the plain VJP, also at a tie, K3
+against `step_packed`, K4 bitwise against T launches of K3, the K5 and K6
+probes against theirs), a build or launch failure of each new kernel
+raising, the CUDA render against the config-4 golden, and the
+differentiable renders on the card (the FIFO and the strided pool's)
+against their forward renders.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -10,6 +13,7 @@ The file imports no JAX, so it also runs where only PyTorch is installed:
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -17,8 +21,12 @@ import torch
 
 from scheme_raytrace_torch import render, scenes
 from scheme_raytrace_torch.config import RenderConfig
-from scheme_raytrace_torch.integrator import bounce, diff_fused
+from scheme_raytrace_torch.core import rng
+from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
+                                              pool_strided)
 from scheme_raytrace_torch.scene import build, compile_scene
+from scheme_raytrace_torch.tools import probe_loops, probe_ops
+from scheme_raytrace_torch.utils import cuda_build
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "config4_cornell_light.npz")
@@ -234,3 +242,254 @@ def test_diff_render_on_card_equals_forward(cuda):
     grads = [g for g in grads if g is not None]
     assert all(torch.isfinite(g).all() for g in grads)
     assert any(g.abs().max() > 0 for g in grads)
+
+
+def test_strided_static_form_on_card_equals_drain(cuda):
+    # the strided pool's reverse form (K1 forward, K2 backward through
+    # BounceStep) drains, equals its drain form (K1) bitwise, launches K2
+    # once per iteration, and gives finite gradients
+    scene, cam = _cornell(torch.float32, cuda)
+    cfg = RenderConfig(nx=16, ny=16, spp=2, max_depth=12, seed=0,
+                       light_sampling=True, pool_rays=128)
+    raw0 = torch.zeros(cfg.n_pixels, 3, device=cuda)
+    want, w_segs, iters = pool_strided.render_pool_strided(scene, cam, cfg,
+                                                           raw0, 0)
+    params, rest = build.partition(scene)
+    params = {k: v.clone().requires_grad_() for k, v in params.items()}
+    fwd, bwd = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    raw, segs, leftover = pool_strided.render_pool_strided(
+        build.combine(params, rest), cam, cfg, raw0, 0, static_iters=iters)
+    grads = torch.autograd.grad(raw.mean(), list(params.values()),
+                                allow_unused=True)
+    torch.cuda.synchronize()
+    assert int(leftover) == 0 and int(segs) == int(w_segs)
+    assert bounce.LAUNCHES - fwd == bounce.BWD_LAUNCHES - bwd == iters
+    assert torch.equal(raw.detach(), want)
+    grads = [g for g in grads if g is not None]
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert any(g.abs().max() > 0 for g in grads)
+
+
+def tie_lane(plan, pk, dtype_np):
+    """The step's inputs for one lane whose light sample is a tie of unit3's
+    1e-12 guard, and the packed vector with the Cornell light shrunk to the
+    point (50, 1e-6, 50): the lane goes straight down onto the floor at
+    p = (50, 0, 50) (exact: o + t d with t = o.y), takes a light sample, and
+    target - p = (0, 1e-6, 0) has the squared length 1e-12 in float32 and
+    float64 alike.  Shared with tests/test_torch_ties.py.  Returns (pk,
+    ints, lanes): ints = (gitem, px, py, fresh, alive, depth), lanes the 13
+    float lanes, all numpy."""
+    pk = np.array(pk, dtype=dtype_np)
+    b = plan.lgt_base
+    pk[b + bounce.L_X0] = pk[b + bounce.L_X1] = 50.0
+    pk[b + bounce.L_Z0] = pk[b + bounce.L_Z1] = 50.0
+    pk[b + bounce.L_KY] = 1e-6
+    depth = 1
+    # a gitem whose lambertian bounce at this depth takes the light sample
+    gitem = next(g for g in range(1000) if float(rng.hash_uniforms_tuple(
+        plan.seed, torch.tensor([g], dtype=torch.int32), depth, 3)[2]) < 0.5)
+    ints = (np.array([gitem], np.int32), np.array([3.0], dtype_np),
+            np.array([4.0], dtype_np), np.array([False]), np.array([True]),
+            np.array([depth], np.int32))
+    lanes = [np.array([v], dtype_np) for v in
+             (50.0, 100.0, 50.0, 0.0, -1.0, 0.0, 0.0, 0.1, 0.2, 0.3, 0.9,
+              0.8, 0.7)]
+    return pk, ints, lanes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_step_cuda_bwd_at_a_tie_matches_step_vjp(cuda, dtype):
+    # K2 splits the cotangent 0.5 / 0.5 at unit3's guard, as the plain VJP
+    # (and JAX) do; the bounds of test_step_cuda_bwd_matches_step_vjp
+    scene, cam = _cornell(dtype, cuda)
+    cfg = RenderConfig(nx=16, ny=16, spp=1, max_depth=8, light_sampling=True)
+    plan = bounce.make_plan(scene, cfg)
+    pk, ints, lanes = tie_lane(plan, bounce.pack(scene, cam, plan, dtype)
+                               .cpu().numpy(), np.float64)
+    f = lambda x: torch.tensor(x, dtype=dtype, device=cuda)
+    pk = f(pk)
+    ins = (torch.tensor(ints[0], device=cuda), f(ints[1]), f(ints[2]),
+           torch.tensor(ints[3], device=cuda),
+           torch.tensor(ints[4], device=cuda),
+           torch.tensor(ints[5], device=cuda),
+           *bounce.split_lanes([f(x) for x in lanes]))
+    out = bounce.step_cuda(plan, pk, *ins)
+    assert bool(out[5][0]) and float(out[1][1][0]) > 0.99   # scatters up
+    cts = bounce.split_lanes([f(np.array([v])) for v in np.linspace(
+        -1.0, 1.0, 13)])
+    want_pk, want = _vjp_lanes(bounce.step_vjp(plan, pk, *ins, *cts))
+    got_pk, got = _vjp_lanes(bounce.step_cuda_bwd(plan, pk, *ins, *cts))
+    torch.cuda.synchronize()
+    assert float(want_pk[plan.lgt_base + bounce.L_KY]) != 0.0
+    err, pk_err = (got - want).abs(), (got_pk - want_pk).abs()
+    if dtype == torch.float64:
+        assert not (err > 1e-9 + 1e-9 * want.abs()).any()
+        assert pk_err.max() <= 1e-8 * want_pk.abs().max()
+    else:
+        scale = torch.clamp(want.abs().amax(1), min=1.0)
+        assert not (err > 1e-5 * scale[:, None] + 1e-3 * want.abs()).any()
+        assert not (pk_err > 1e-5 * max(1.0, float(want_pk.abs().max()))
+                    + 1e-3 * want_pk.abs()).any()
+
+
+# --- the packed-state kernels (K3, K4) ----------------------------------
+
+M_POOL = 64 * 1024            # the forward pool's width at 512^2
+
+
+def packed_state(m, n_work, max_depth, device, seed=0):
+    """A numpy-seeded packed pool state ([N_PACKED, m] float32): items in
+    [0, 1.1 n_work) (some lanes drained), fresh lanes, depths with some at
+    the cap, origins inside the box, unit directions, nonzero radiance and
+    throughput.  Shared with chip_smoke.py's kind of inputs."""
+    r = np.random.default_rng(seed)
+    st = np.zeros((bounce.N_PACKED, m), np.float32)
+    ints = st.view(np.int32)
+    ints[0] = r.integers(0, n_work + n_work // 10, m)
+    st[1] = r.random(m) < 0.3
+    ints[2] = r.integers(0, 4, m)
+    ints[2][r.random(m) < 0.05] = max_depth
+    st[3:6] = r.random((3, m)) * 500.0
+    dvec = r.normal(size=(3, m))
+    st[6:9] = dvec / np.linalg.norm(dvec, axis=0, keepdims=True)
+    st[10:13] = r.random((3, m))
+    st[13:16] = r.uniform(0.1, 1.0, (3, m))
+    return torch.tensor(st, device=device)
+
+
+def _packed_plan(cuda):
+    scene, cam = _cornell(torch.float32, cuda)
+    cfg = RenderConfig(nx=512, ny=512, spp=16, max_depth=100,
+                       light_sampling=True)
+    plan = bounce.make_plan(scene, cfg)
+    q = dict(m=M_POOL, n_work=cfg.n_pixels * cfg.spp, n_pix=cfg.n_pixels,
+             pix0=0, total_pix=cfg.n_pixels)
+    return plan, bounce.pack(scene, cam, plan, torch.float32), q
+
+
+def test_step_packed_cuda_matches_step_packed(cuda):
+    # chip_smoke's K1 bounds: float rows within rtol 1e-4 / atol 1e-3 and
+    # the int rows equal, on all but 0.1% of the lanes (f32 flips)
+    plan, pk, q = _packed_plan(cuda)
+    state = packed_state(q["m"], q["n_work"], plan.max_depth, cuda)
+    sb = torch.tensor([5], dtype=torch.int32, device=cuda)
+    want = bounce.step_packed(plan, pk, sb, state, **q)
+    before = bounce.PACKED_LAUNCHES
+    got = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    again = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    torch.cuda.synchronize()
+    assert bounce.PACKED_LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    g_i, w_i = got.view(torch.int32), want.view(torch.int32)
+    off = ((g_i[0] != w_i[0]) | (got[1] != want[1]) | (g_i[2] != w_i[2])
+           | ((got[3:] - want[3:]).abs()
+              > 1e-3 + 1e-4 * want[3:].abs()).any(0))
+    assert torch.isfinite(got[3:]).all()
+    assert int(off.sum()) <= q["m"] // 1000, int(off.sum())
+
+
+def test_chunk_cuda_equals_packed_launches(cuda):
+    # one K4 launch of T iterations is bitwise equal to T K3 launches: the
+    # state, every flush row, and the segment counts
+    plan, pk, q = _packed_plan(cuda)
+    state = packed_state(q["m"], q["n_work"], plan.max_depth, cuda, seed=1)
+    sb = torch.tensor([3], dtype=torch.int32, device=cuda)
+    T = persist.CHUNK_T
+    before = persist.PERSIST_LAUNCHES
+    got_state, got_flush, got_segs = persist.chunk_cuda(plan, pk, sb, state,
+                                                        T=T, **q)
+    assert persist.PERSIST_LAUNCHES == before + 1
+    st = state
+    flush = torch.empty_like(got_flush)
+    segs = torch.empty_like(got_segs)
+    for t in range(T):
+        item = st.view(torch.int32)[0]
+        segs[t] = (item < q["n_work"]).sum()
+        st = bounce.step_packed_cuda(plan, pk, sb, st, **q)
+        done = st[1] != 0.0
+        flush.view(torch.int32)[t, 0] = torch.where(done, item % q["n_pix"],
+                                                    -1)
+        flush[t, 1:] = torch.where(done, st[10:13], 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got_state.view(torch.int32), st.view(torch.int32))
+    assert torch.equal(got_flush.view(torch.int32), flush.view(torch.int32))
+    assert torch.equal(got_segs, segs)
+    assert int(segs.sum()) > 0
+
+
+def test_probe_ops_cuda_matches_plain(cuda):
+    pack, item = probe_ops.inputs(cuda)
+    r = np.random.default_rng(0)
+    items = (item, torch.tensor(r.integers(-2 ** 31, 2 ** 31, (8, 128),
+                                           dtype=np.int64).astype(np.int32),
+                                device=cuda))
+    for it in items:
+        want = probe_ops.probe_plain(pack, it)
+        got = probe_ops.probe_cuda(pack, it)
+        ints = want == torch.round(want)
+        assert torch.equal(got[ints], want[ints])
+        rel = (got - want).abs()[~ints] / want.abs()[~ints]
+        assert float(rel.max()) <= 2e-6
+
+
+@pytest.mark.parametrize("name", list(probe_loops.CASES))
+def test_probe_loops_cuda_matches_plain(cuda, name):
+    x = probe_loops.inputs(seed=2, device=cuda)
+    assert torch.equal(probe_loops.loops_cuda(name, x),
+                       probe_loops.CASES[name](x))
+
+
+def _packed_call(cuda, which):
+    """A call of one of the new kernels' wrappers on valid inputs."""
+    if which in ("bounce_packed", "bounce_persist"):
+        plan, pk, q = _packed_plan(cuda)
+        q = dict(q, m=256)
+        state = packed_state(256, q["n_work"], plan.max_depth, cuda)
+        if which == "bounce_packed":
+            return lambda: bounce.step_packed_cuda(plan, pk, 0, state, **q)
+        return lambda: persist.chunk_cuda(plan, pk, 0, state, T=2, **q)
+    if which == "probe_ops":
+        return lambda: probe_ops.probe_cuda(*probe_ops.inputs(cuda))
+    return lambda: probe_loops.loops_cuda("fori",
+                                          probe_loops.inputs(device=cuda))
+
+
+NEW_KERNELS = {  # library -> (wrapper module, its loader, its launch count)
+    "bounce_packed": (bounce, "_kernel_packed", "PACKED_LAUNCHES"),
+    "bounce_persist": (persist, "_kernel", "PERSIST_LAUNCHES"),
+    "probe_ops": (probe_ops, "_kernel", "LAUNCHES"),
+    "probe_loops": (probe_loops, "_kernel", "LAUNCHES"),
+}
+
+
+@pytest.mark.parametrize("which", sorted(NEW_KERNELS))
+def test_new_kernel_build_failure_raises(cuda, which, tmp_path,
+                                         monkeypatch):
+    # a source that does not compile raises, and nothing is launched
+    src = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, src)
+    with open(src / f"{which}.cu", "a") as f:
+        f.write("\n#error deliberately broken\n")
+    monkeypatch.setattr(cuda_build, "CSRC", src)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(cuda_build.LOADED, which, raising=False)
+    mod, _, count = NEW_KERNELS[which]
+    call = _packed_call(cuda, which)
+    before = getattr(mod, count)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        call()
+    assert getattr(mod, count) == before
+
+
+@pytest.mark.parametrize("which", sorted(NEW_KERNELS))
+def test_new_kernel_launch_failure_raises(cuda, which, monkeypatch):
+    # a refused launch (the C side returns a CUDA error) raises and is not
+    # counted
+    mod, loader, count = NEW_KERNELS[which]
+    monkeypatch.setattr(mod, loader, lambda: (lambda *args: 98))
+    call = _packed_call(cuda, which)
+    before = getattr(mod, count)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        call()
+    assert getattr(mod, count) == before

@@ -1,0 +1,94 @@
+"""PyTorch port, the kernel probes against the JAX package's tools.
+
+  * K5, the op probe: `tools/probe_ops.probe_plain` against the body of
+    tools/probe_pallas_ops.py (`kernel`) run through `pl.pallas_call` in
+    interpret mode, on the tool's own inputs and on random int32 items
+    (negative ones included): outputs that come from the int path exactly,
+    the transcendental ones within 2e-6 relative (sin, cos and pow are
+    rounded differently by XLA and PyTorch);
+  * K6, the loop probes: each `tools/probe_loops.CASES` function against the
+    jnp case of tools/repro_mosaic_crash.py, bitwise.  The JAX cases run op
+    by op (`jax.disable_jit`): compiled, XLA's CPU compiler contracts
+    a * c + b into an FMA, where PyTorch (and the CUDA kernel, with
+    __fmul_rn / __fadd_rn) rounds the product and the sum apart, and a mask
+    such as a * a < 4 then flips on some lanes.
+
+The CUDA kernels run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+
+import importlib.util
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from scheme_raytrace_torch.tools import probe_loops, probe_ops
+
+TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
+
+
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}",
+                                                  TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def repro():
+    return _tool("repro_mosaic_crash")
+
+
+def _pallas_probe(pack, item):
+    kernel = _tool("probe_pallas_ops").kernel
+    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
+    return np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(item.shape, jnp.float32),
+        in_specs=[vmem, vmem], out_specs=vmem, interpret=True)(
+            jnp.asarray(pack), jnp.asarray(item)))
+
+
+@pytest.mark.parametrize("items", ["tool", "random"])
+def test_probe_ops_matches_pallas_interpret(items):
+    pack, item = probe_ops.inputs()
+    if items == "random":
+        r = np.random.default_rng(0)
+        item = torch.as_tensor(r.integers(-2 ** 31, 2 ** 31, (8, 128),
+                                          dtype=np.int64).astype(np.int32))
+    want = _pallas_probe(pack.numpy(), item.numpy())
+    got = probe_ops.probe(pack, item).numpy()
+    assert np.isfinite(got).all()
+    # the select's int branch: pix's x coordinate, exact
+    u_small = want != np.round(want)
+    assert u_small.any() and (~u_small).any()
+    np.testing.assert_array_equal(got[~u_small], want[~u_small])
+    np.testing.assert_allclose(got[u_small], want[u_small], rtol=2e-6)
+
+
+@pytest.mark.parametrize("name", list(probe_loops.CASES))
+def test_probe_loops_match_jax_cases(repro, name):
+    assert list(probe_loops.CASES) == list(repro.CASES)
+    x = probe_loops.inputs(seed=1)
+    with jax.disable_jit():
+        want = np.asarray(repro.CASES[name](jnp.asarray(x.numpy())))
+    got = probe_loops.loops(name, x)
+    assert got.shape == probe_loops.SHAPE and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_probe_wrappers_take_cuda_tensors_only():
+    before = probe_ops.LAUNCHES, probe_loops.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        probe_ops.probe_cuda(*probe_ops.inputs())
+    with pytest.raises(ValueError, match="CUDA"):
+        probe_loops.loops_cuda("fori", probe_loops.inputs())
+    with pytest.raises(KeyError, match="no loop case"):
+        probe_loops.loops_cuda("nope", probe_loops.inputs())
+    assert (probe_ops.LAUNCHES, probe_loops.LAUNCHES) == before

@@ -5,8 +5,9 @@
 Drives scheme_raytrace_torch's paths on the card: the forward render and
 the fwd+bwd training step of the Cornell box with mixture-PDF light
 sampling (BASELINE config 4), the forward render through the three strided
-work pools, and the op and loop probes, in phases; any failure raises and
-the exit code is non-zero:
+work pools, the op and loop probes, and the sphere scenes up to the RTOW
+final scene (227 spheres) forward and fwd+bwd, in phases; any failure
+raises and the exit code is non-zero:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit and the CUDA version PyTorch was built with;
@@ -26,10 +27,10 @@ the exit code is non-zero:
      drained queue, the image equal to the forward render's bitwise,
      deterministic gradients, one backward launch per forward launch, and
      in float64 the AD gradient against central finite differences;
-  7. full-size forward: 512x512 spp16 depth 100, one warm-up then five
+  7. full-size forward: 512x512 spp16 depth 100, one warm-up then three
      chained timed renders (rays/s counted as exact path segments), and one
      render under torch.profiler for the device-time breakdown;
-  8. full-size fwd+bwd: 512x512 spp8 depth 100, one warm-up then five
+  8. full-size fwd+bwd: 512x512 spp8 depth 100, one warm-up then three
      chained training steps (params -= 1e-6 grad), peak memory, and one
      step under torch.profiler;
   9. packed kernel against plain: the packed-state kernel (K3) against the
@@ -43,10 +44,27 @@ the exit code is non-zero:
      each with phase 7's exact segment count and its image to rtol 1e-5,
      and one render of each under torch.profiler;
  12. probes: the op probe (K5) and the nine loop probes (K6) against their
-     plain versions.
+     plain versions;
+ 13. the kernels on the sphere scenes: K1 against the plain step (65,536
+     lanes) and K2 against the plain VJP (24,576 lanes) on test_scene under
+     the gradient sky, a moving-sphere scene and the RTOW final scene
+     (random_scene(seed=0): 227 spheres, P = 4,794), float32 and float64;
+     K3 against step_packed and one K4 chunk bitwise equal to 32 K3
+     launches on the RTOW scene;
+ 14. sphere renders against their references: parity configs 1
+     (three_spheres) and 2 (the RTOW final scene) against their goldens,
+     compiled with no `device` (the card is the default); the
+     differentiable render of three_spheres against its forward render
+     (bitwise) and, in float64, against finite differences;
+ 15. the sphere slice at full width: the RTOW final scene at 512x512 spp8
+     depth 100, forward through render_with_stats (FIFO pool, K1) and the
+     persistent pool (K4) with equal segments, and the fwd+bwd step through
+     render_diff_fused (K1 and K2), timed and profiled as phases 7-8 and 11.
 
-The last two lines are the kernel table and the device line, as JSON.
-Imports nothing of JAX.
+Every kernel's bound is printed beside its time: the larger of its bytes
+over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
+last two lines are the kernel table and the device line, as JSON.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -94,6 +112,34 @@ FULL_BWD = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0,
 # max|ref|) per output, on the lanes whose forward agrees (F32_TOL).
 BWD_F64 = dict(rtol=1e-9, atol=1e-9, dpk=1e-8)
 BWD_F32 = dict(rtol=1e-3, atol=1e-5)
+# The sphere scenes.  Parity configs 1 and 2 at their goldens' sizes
+# (scheme_raytrace_tpu/parity.py), and the RTOW final scene at the size
+# tools/bench_scenes.py renders a scene (512^2 spp8 depth 100; no emitter,
+# so no light sampling).
+CONFIG1 = RenderConfig(nx=64, ny=64, spp=10, max_depth=100, seed=0)
+CONFIG2 = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
+RTOW = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0)
+# AD against finite differences needs few paths: every path is a chance
+# that +-eps moves a hit across a silhouette, which FD sees and AD's
+# interior derivative leaves out (at 64^2 spp10 depth 100 FD of a centre is
+# dominated by such flips).  So that check runs parity config 1's big
+# gradient workload: 16^2, depth 3, the loss over the centre sphere's
+# interior (window_big), at spp 4.
+FD_CFG = RenderConfig(nx=16, ny=16, spp=4, max_depth=3, seed=0, dtype="f64")
+FD_WINDOW = (6, 10, 6, 10)
+# The card's published peaks (NVIDIA H100 SXM data sheet): the bound of a
+# kernel is the larger of its bytes over the memory rate and its operations
+# over the float32 rate outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# A floor of the float operations of one bounce, counted from the code: a
+# rect probe's two dots, difference and quotient (12); a sphere probe's
+# o - c, two dots, r r and the discriminant (18), and 12 more for a moving
+# centre; a fresh lane's camera ray (60) and a scattering lane's shading
+# (100), both without their transcendentals.  Probes that pass a test do
+# more; the floor keeps the bound a bound.
+RECT_FLOPS, SPHERE_FLOPS, MOVING_FLOPS = 12, 18, 12
+CAMERA_FLOPS, SHADE_FLOPS = 60, 100
 KERNELS = ("bounce_step", "bounce_step_bwd", "bounce_packed",
            "bounce_persist", "probe_ops", "probe_loops")
 CHUNK_TS = (8, 16, 32, 64)    # K4 chunk lengths timed (CHUNK_T stays 32)
@@ -144,11 +190,13 @@ def cornell(dtype, device, spec_fn=scenes.cornell_box):
     return scene, spec.camera(dtype=dtype, aspect=1.0, device=device)
 
 
-def lane_inputs(m, config, dtype, device, seed=0):
+def lane_inputs(m, config, dtype, device, seed=0, box=None):
     """Numpy-seeded lanes of the kinds tests/test_bounce.py draws: random
     gitems (negatives included), pixels, fresh/alive masks, depths (some
     at the cap), origins inside the box, unit directions, and nonzero
-    radiance/throughput."""
+    radiance/throughput.  `box` (lo, hi) scales the origins to a sphere
+    scene and draws the lanes' times in [0, 1); without it the origins lie
+    in Cornell's 0..500 cube and the times are 0."""
     r = np.random.default_rng(seed)
     gitem = r.integers(-2 ** 31, 2 ** 31, m, dtype=np.int64).astype(np.int32)
     px = r.integers(0, config.nx, m)
@@ -162,12 +210,17 @@ def lane_inputs(m, config, dtype, device, seed=0):
     dvec /= np.linalg.norm(dvec, axis=0, keepdims=True)
     rad = r.random((3, m))
     tp = r.uniform(0.1, 1.0, (3, m))
+    times = np.zeros(m)
+    if box is not None:
+        lo, hi = (np.asarray(b, np.float64)[:, None] for b in box)
+        o = lo + o / 500.0 * (hi - lo)
+        times = r.random(m)
     f = lambda x: torch.tensor(x, dtype=dtype, device=device)
     return (torch.tensor(gitem, device=device), f(px), f(py),
             torch.tensor(fresh, device=device),
             torch.tensor(alive, device=device),
             torch.tensor(depth, device=device), tuple(f(x) for x in o),
-            tuple(f(x) for x in dvec), f(np.zeros(m)),
+            tuple(f(x) for x in dvec), f(times),
             tuple(f(x) for x in rad), tuple(f(x) for x in tp))
 
 
@@ -233,64 +286,146 @@ def errors(got, want, tol):
             float((got[0] - want[0]).abs()[:, ~bad].max()))
 
 
+def moving_spec():
+    """The moving-sphere scene of tests/test_bounce.py."""
+    from scheme_raytrace_torch.scene import objects as ob
+    objs = [ob.Sphere((0, -100.5, -1), 100, ob.Lambertian((0.6, 0.6, 0.2))),
+            ob.MovingSphere((0, 0, -1), (0, 0.4, -1), 0.0, 1.0, 0.5,
+                            ob.Lambertian((0.2, 0.3, 0.7)))]
+    return scenes.SceneSpec(objs, scenes.default_camera(), "gradient")
+
+
+# name -> (spec, sky, the box the lane origins are drawn from): test_scene
+# under the gradient sky (its own sky is black with no emitter), the
+# moving-sphere scene, and the RTOW final scene (227 spheres, P = 4,794)
+SPHERE_SCENES = {
+    "test": (scenes.test_scene, "gradient", ((-2, -0.4, -3), (2, 1.5, 1))),
+    "moving": (moving_spec, "gradient", ((-2, -0.4, -3), (2, 1.5, 1))),
+    "rtow": (lambda: scenes.random_scene(seed=0), "gradient",
+             ((-6, 0.0, -6), (10, 2.5, 10))),
+}
+
+
+def sphere_scene(name, dtype, device):
+    """(scene, camera, lane box, f32 atol) of a SPHERE_SCENES entry.  The
+    atol is Cornell's 1e-3 at its 0..555 scale, scaled to this scene's: its
+    largest centre coordinate or radius (the ground sphere's)."""
+    spec_fn, sky, box = SPHERE_SCENES[name]
+    spec = spec_fn()
+    scene = compile_scene(spec.objects, sky=sky, dtype=dtype, device=device)
+    scale = max(float(scene.sph_c0.abs().max()), float(scene.sph_c1.abs().max()),
+                float(scene.sph_r.abs().max()))
+    cam = spec.camera(dtype=dtype, aspect=1.0, device=device)
+    return scene, cam, box, 1e-3 * scale / 555.0
+
+
+def sweep_flops(plan):
+    """The floor of one lane's closest-hit sweep (see RECT_FLOPS)."""
+    return (plan.n_rects * RECT_FLOPS + plan.n_spheres
+            * (SPHERE_FLOPS + (MOVING_FLOPS if plan.has_moving else 0)))
+
+
+def bound(n_bytes, flops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(plan, m, ins, scattering):
+    """K1 in f32: 6 queue columns (18 B), 13 floats in, 13 out and one
+    bool a lane, and pk once; every lane sweeps."""
+    flops = (m * sweep_flops(plan) + int(ins[3].sum()) * CAMERA_FLOPS
+             + int(scattering.sum()) * SHADE_FLOPS)
+    return bound(m * (18 + 13 * 4 + 13 * 4 + 1) + plan.size * 4, flops)
+
+
+def check_k1(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None):
+    """K1 against the plain step on one (scene, config, dtype) at the
+    forward pool's width: agreement, flips, times, bound."""
+    plan = bounce.pool_plan(scene, cfg)
+    pk = bounce.pack(scene, cam, plan, dtype)
+    ins = lane_inputs(M, cfg, dtype, dev, box=box)
+    want = flat(bounce.step(plan, pk, *ins))
+    got = flat(bounce.step_cuda(plan, pk, *ins))
+    torch.cuda.synchronize()
+    tol = dict(F64_TOL if dtype == torch.float64 else F32_TOL)
+    if atol is not None and dtype == torch.float32:
+        tol["atol"] = atol
+    n_bad, n_sc, max_err = errors(got, want, tol)
+    log(f"[{tag}] {name}: m={M} P={plan.size} scattering "
+        f"{int(want[1].sum())} lanes; kernel vs plain: lanes disagreeing "
+        f"{n_bad} (scattering differs on {n_sc}; bounds rtol "
+        f"{tol['rtol']:g} atol {tol['atol']:.3g}); max abs err on the other "
+        f"lanes {max_err:.3e}")
+    if dtype == torch.float32 and n_bad:
+        # which side took the rounding: on the disagreeing lanes, both
+        # f32 versions against the plain step in f64 on the same
+        # (exactly widened) inputs
+        wide = lambda x: (tuple(t.double() for t in x)
+                          if isinstance(x, tuple) else
+                          x.double() if x.is_floating_point() else x)
+        ref = flat(bounce.step(plan, pk.double(),
+                               *[wide(x) for x in ins]))[0]
+        lanes = disagreeing(got, want, tol)
+        k_err = (got[0].double() - ref).abs()[:, lanes].amax(0)
+        p_err = (want[0].double() - ref).abs()[:, lanes].amax(0)
+        log(f"[{tag}] {name}: of the {n_bad} disagreeing lanes the "
+            f"kernel is nearer the f64 step on "
+            f"{int((k_err < p_err).sum())}, the plain f32 step on "
+            f"{int((p_err < k_err).sum())}")
+    k_wall = median_ms(lambda: bounce.step_cuda(plan, pk, *ins))
+    p_wall = median_ms(lambda: bounce.step(plan, pk, *ins), n=5)
+    _, k_tab = device_kernels(
+        lambda: bounce.step_cuda(plan, pk, *ins), n=20)
+    _, p_tab = device_kernels(lambda: bounce.step(plan, pk, *ins), n=3)
+    # per recorded launch: the profiler can drop device events of a short
+    # window (see device_ms), which a division by the calls made reads low
+    k_launches = sum(k for _, k in k_tab.values())
+    k_ms = sum(us for us, _ in k_tab.values()) / max(k_launches, 1e-9) / 1e3
+    p_ms = sum(us for us, _ in p_tab.values()) / 1e3
+    p_launches = sum(k for _, k in p_tab.values())
+    b_ms, b_by = k1_bound(plan, M, ins, want[1])
+    log(f"[{tag}] {name}: device time per step: kernel {k_ms:.4f} ms "
+        f"({k_launches:.2f} launches recorded a call), plain {p_ms:.4f} ms "
+        f"({p_launches:.0f} "
+        f"launches); elapsed per call (median, host included): "
+        f"kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms; f32 bound "
+        f"{b_ms * 1e3:.2f} us ({b_by})")
+    limit = 0 if dtype == torch.float64 else MAX_FLIP_FRAC * M
+    if n_bad > limit:
+        raise AssertionError(f"[{tag}] {name}: {n_bad} lanes disagree "
+                             f"(limit {limit:g})")
+    return dict(name=name, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                wall_ms=k_wall, plain_wall_ms=p_wall, bad=n_bad,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def dtype_name(dtype):
+    return "f64" if dtype == torch.float64 else "f32"
+
+
 def phase_kernel(dev):
     results = []
     for dtype in (torch.float32, torch.float64):
         for ls in (True, False):
-            cfg = FULL.replace(light_sampling=ls)
             scene, cam = cornell(dtype, dev)
-            plan = bounce.make_plan(scene, cfg)
-            pk = bounce.pack(scene, cam, plan, dtype)
-            ins = lane_inputs(M, cfg, dtype, dev)
-            want = flat(bounce.step(plan, pk, *ins))
-            got = flat(bounce.step_cuda(plan, pk, *ins))
-            torch.cuda.synchronize()
-            tol = F64_TOL if dtype == torch.float64 else F32_TOL
-            n_bad, n_sc, max_err = errors(got, want, tol)
-            name = f"{'f64' if dtype == torch.float64 else 'f32'}-" \
-                   f"{'light' if ls else 'cosine'}"
-            log(f"[kernel] {name}: m={M} scattering {int(want[1].sum())} "
-                f"lanes; kernel vs plain: lanes disagreeing {n_bad} "
-                f"(scattering differs on {n_sc}; bounds rtol {tol['rtol']:g} "
-                f"atol {tol['atol']:g}); max abs err on the other lanes "
-                f"{max_err:.3e}")
-            if dtype == torch.float32 and n_bad:
-                # which side took the rounding: on the disagreeing lanes,
-                # both f32 versions against the plain step in f64 on the
-                # same (exactly widened) inputs
-                wide = lambda x: (tuple(t.double() for t in x)
-                                  if isinstance(x, tuple) else
-                                  x.double() if x.is_floating_point() else x)
-                ref = flat(bounce.step(plan, pk.double(),
-                                       *[wide(x) for x in ins]))[0]
-                lanes = disagreeing(got, want, tol)
-                k_err = (got[0].double() - ref).abs()[:, lanes].amax(0)
-                p_err = (want[0].double() - ref).abs()[:, lanes].amax(0)
-                log(f"[kernel] {name}: of the {n_bad} disagreeing lanes the "
-                    f"kernel is nearer the f64 step on "
-                    f"{int((k_err < p_err).sum())}, the plain f32 step on "
-                    f"{int((p_err < k_err).sum())}")
-            k_wall = median_ms(lambda: bounce.step_cuda(plan, pk, *ins))
-            p_wall = median_ms(lambda: bounce.step(plan, pk, *ins))
-            _, k_tab = device_kernels(
-                lambda: bounce.step_cuda(plan, pk, *ins), n=20)
-            _, p_tab = device_kernels(lambda: bounce.step(plan, pk, *ins),
-                                      n=5)
-            k_ms = sum(us for us, _ in k_tab.values()) / 1e3
-            p_ms = sum(us for us, _ in p_tab.values()) / 1e3
-            k_launches = sum(k for _, k in k_tab.values())
-            p_launches = sum(k for _, k in p_tab.values())
-            log(f"[kernel] {name}: device time per step: kernel {k_ms:.4f} ms "
-                f"({k_launches:.0f} launch), plain {p_ms:.4f} ms ({p_launches:.0f} "
-                f"launches); elapsed per call (median of 20, host included): "
-                f"kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms")
-            limit = 0 if dtype == torch.float64 else MAX_FLIP_FRAC * M
-            if n_bad > limit:
-                raise AssertionError(f"[kernel] {name}: {n_bad} lanes disagree "
-                                     f"(limit {limit:g})")
-            results.append(dict(name=name, max_abs_err=max_err, ms=k_ms,
-                                plain_ms=p_ms, wall_ms=k_wall,
-                                plain_wall_ms=p_wall, bad=n_bad))
+            results.append(check_k1(
+                "kernel", f"{dtype_name(dtype)}-{'light' if ls else 'cosine'}",
+                scene, cam, FULL.replace(light_sampling=ls), dtype, dev))
+    return results
+
+
+def phase_kernel_spheres(dev):
+    """K1 on the sphere scenes: static spheres with the hollow negative
+    radius, a moving sphere, and the 227-sphere RTOW final scene."""
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        for name in SPHERE_SCENES:
+            scene, cam, box, atol = sphere_scene(name, dtype, dev)
+            results.append(check_k1(
+                "kernel-spheres", f"{dtype_name(dtype)}-{name}", scene, cam,
+                RTOW, dtype, dev, box=box, atol=atol))
     return results
 
 
@@ -299,116 +434,211 @@ def lanes_of(grads):
     return grads[0], torch.stack(bounce.flat_lanes(*grads[1:]))
 
 
+def k2_bound(plan, m, ins, scattering):
+    """K2 in f32: the step's 19 inputs (70 B a lane), 13 cotangents in and
+    13 out, pk once and one row of partials per 256-lane block; the replay
+    of the forward and the adjoint of the scattering lanes."""
+    flops = (m * sweep_flops(plan) + int(ins[3].sum()) * CAMERA_FLOPS
+             + 2 * int(scattering.sum()) * SHADE_FLOPS)
+    n_bytes = m * (70 + 26 * 4) + plan.size * 4 * (1 + -(-m // 256))
+    return bound(n_bytes, flops)
+
+
+def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
+             given_rays_dpk=False):
+    """K2 against the plain VJP on one (scene, config, dtype) at the
+    reverse pool's width: bounds, two launches bitwise equal, times.
+
+    `given_rays_dpk` (the sphere scenes; it acts in f32): the dpk sums are
+    held on the lanes whose rays are given, and the fresh lanes' share is
+    logged.  A fresh lane's ray comes from camera_ray, where the kernel
+    fuses products and sums that the plain step rounds one by one; the two
+    directions differ by an ulp, and a ground sphere of radius 100 or 1000
+    amplifies that (bq = oc.d with |oc| the radius; a hit near the horizon
+    has sqrt(disc) near 0 and an adjoint proportional to 1 / sqrt(disc))
+    into differences of a few percent in the f32 camera and sphere slots,
+    where the plain f32 VJP is itself that far, or further, from the plain
+    f64 VJP.  With given rays the probe is bitwise the plain step's and
+    every slot keeps the bounds (measured: within 3% of them on 15 draws).
+    The lanes' cotangents are held on every lane, and in f64 every slot on
+    every lane."""
+    f64 = dtype == torch.float64
+    plan = bounce.pool_plan(scene, cfg)
+    pk = bounce.pack(scene, cam, plan, dtype)
+    ins = lane_inputs(M_BWD, cfg, dtype, dev, seed=3, box=box)
+    r = np.random.default_rng(103)
+    cts = [torch.tensor(x, dtype=dtype, device=dev)
+           for x in r.normal(size=(13, M_BWD))]
+    # f32: lanes whose forward the kernel and the plain step take
+    # differently (the forward phases' flips) are left out, and given zero
+    # cotangent for the dpk comparison
+    keep = torch.ones(M_BWD, dtype=torch.bool, device=dev)
+    fwd = flat(bounce.step(plan, pk, *ins))
+    if not f64:
+        tol = dict(F32_TOL, atol=F32_TOL["atol"] if atol is None else atol)
+        keep = ~disagreeing(flat(bounce.step_cuda(plan, pk, *ins)), fwd, tol)
+    n_out = int((~keep).sum())
+    if n_out > MAX_FLIP_FRAC * M_BWD:
+        raise AssertionError(f"[{tag}] {name}: {n_out} lanes "
+                             f"flip in the forward")
+    cts = bounce.split_lanes([torch.where(keep, c, 0.0)
+                              for c in cts])
+    want_pk, want = lanes_of(bounce.step_vjp(plan, pk, *ins, *cts))
+    got_pk, got = lanes_of(bounce.step_cuda_bwd(plan, pk, *ins, *cts))
+    again_pk, again = lanes_of(bounce.step_cuda_bwd(plan, pk, *ins,
+                                                    *cts))
+    torch.cuda.synchronize()
+    if not (torch.equal(got_pk, again_pk) and torch.equal(got, again)):
+        raise AssertionError(f"[{tag}] {name}: two identical "
+                             f"launches differ")
+    err = (got - want).abs()
+    if f64:
+        lane_bad = (err > BWD_F64["atol"]
+                    + BWD_F64["rtol"] * want.abs()).any(0)
+        pk_lim = BWD_F64["dpk"] * float(want_pk.abs().max())
+        pk_bad = int(((got_pk - want_pk).abs() > pk_lim).sum())
+    else:
+        scale = torch.clamp(want[:, keep].abs().amax(1), min=1.0)
+        lane_bad = (err > BWD_F32["atol"] * scale[:, None]
+                    + BWD_F32["rtol"] * want.abs()).any(0) & keep
+        pk_lim = (BWD_F32["atol"] * max(1.0, float(want_pk.abs().max()))
+                  + BWD_F32["rtol"] * want_pk.abs())
+        pk_off = (got_pk - want_pk).abs() > pk_lim
+        if given_rays_dpk:
+            given = bounce.split_lanes([torch.where(ins[3], 0.0, c)
+                                        for c in bounce.flat_lanes(*cts)])
+            w_pk = bounce.step_vjp(plan, pk, *ins, *given)[0]
+            g_pk = bounce.step_cuda_bwd(plan, pk, *ins, *given)[0]
+            lim = (BWD_F32["atol"] * max(1.0, float(w_pk.abs().max()))
+                   + BWD_F32["rtol"] * w_pk.abs())
+            log(f"[{tag}] {name}: dpk over all lanes: {int(pk_off.sum())} "
+                f"slots outside the bounds, the worst at "
+                f"{float(((got_pk - want_pk).abs() / pk_lim).max()):.2f} of "
+                f"its bound (the fresh lanes' share, logged); over the "
+                f"{int((keep & ~ins[3]).sum())} lanes with given rays the "
+                f"worst slot is at {float(((g_pk - w_pk).abs() / lim).max()):.3f}"
+                f" of its bound (held)")
+            pk_off = (g_pk - w_pk).abs() > lim
+        pk_bad = int(pk_off.sum())
+    n_bad = int(lane_bad.sum())
+    max_err = float(err[:, keep].max())
+    pk_err = float((got_pk - want_pk).abs().max()
+                   / want_pk.abs().max())
+    args = (plan, pk, *ins, *cts)
+    k_wall = median_ms(lambda: bounce.step_cuda_bwd(*args))
+    p_wall = median_ms(lambda: bounce.step_vjp(*args), n=3)
+    _, k_tab = device_kernels(lambda: bounce.step_cuda_bwd(*args),
+                              n=20)
+    _, p_tab = device_kernels(lambda: bounce.step_vjp(*args), n=2)
+    # per recorded launch of each kernel (see check_k1)
+    per_launch = {n_: us / k / 1e3 for n_, (us, k) in k_tab.items()}
+    k_ms = sum(t for n_, t in per_launch.items()
+               if "bounce_step_bwd_kernel" in n_)
+    k_all = sum(per_launch.values())
+    p_ms = sum(us for us, _ in p_tab.values()) / 1e3
+    p_launches = sum(k for _, k in p_tab.values())
+    b_ms, b_by = k2_bound(plan, M_BWD, ins, fwd[1])
+    log(f"[{tag}] {name}: m={M_BWD} P={plan.size}; lanes left "
+        f"out (forward flips) {n_out}; lanes outside the bounds "
+        f"{n_bad}, max abs err {max_err:.3e}; dpk slots outside "
+        f"{pk_bad}, max err / max|dpk| {pk_err:.3e}; time cotangent max "
+        f"{float(want[6].abs().max()):.3e}; two launches bitwise equal")
+    log(f"[{tag}] {name}: device time per call: kernel "
+        f"{k_ms:.4f} ms (with the partials' sum {k_all:.4f} ms), plain "
+        f"VJP {p_ms:.4f} ms ({p_launches:.0f} launches); elapsed per "
+        f"call (median): kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms; "
+        f"f32 bound {b_ms * 1e3:.2f} us ({b_by})")
+    if n_bad or pk_bad:
+        raise AssertionError(f"[{tag}] {name}: {n_bad} lanes and "
+                             f"{pk_bad} dpk slots outside the bounds")
+    return dict(name=name, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                wall_ms=k_wall, plain_wall_ms=p_wall, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 def phase_kernel_bwd(dev):
     results = []
     cases = (("cornell-light", scenes.cornell_box, True),
              ("cornell-cosine", scenes.cornell_box, False),
              ("materials-light", scenes.cornell_materials, True))
     for dtype in (torch.float32, torch.float64):
-        f64 = dtype == torch.float64
         for case, spec_fn, ls in cases:
-            name = f"{'f64' if f64 else 'f32'}-{case}"
-            cfg = FULL_BWD.replace(light_sampling=ls)
             scene, cam = cornell(dtype, dev, spec_fn)
-            plan = bounce.make_plan(scene, cfg)
-            pk = bounce.pack(scene, cam, plan, dtype)
-            ins = lane_inputs(M_BWD, cfg, dtype, dev, seed=3)
-            r = np.random.default_rng(103)
-            cts = [torch.tensor(x, dtype=dtype, device=dev)
-                   for x in r.normal(size=(13, M_BWD))]
-            # f32: lanes whose forward the kernel and the plain step take
-            # differently (phase 3's flips) are left out, and given zero
-            # cotangent for the dpk comparison
-            keep = torch.ones(M_BWD, dtype=torch.bool, device=dev)
-            if not f64:
-                keep = ~disagreeing(flat(bounce.step_cuda(plan, pk, *ins)),
-                                    flat(bounce.step(plan, pk, *ins)),
-                                    F32_TOL)
-            n_out = int((~keep).sum())
-            if n_out > MAX_FLIP_FRAC * M_BWD:
-                raise AssertionError(f"[kernel-bwd] {name}: {n_out} lanes "
-                                     f"flip in the forward")
-            cts = bounce.split_lanes([torch.where(keep, c, 0.0)
-                                      for c in cts])
-            want_pk, want = lanes_of(bounce.step_vjp(plan, pk, *ins, *cts))
-            got_pk, got = lanes_of(bounce.step_cuda_bwd(plan, pk, *ins, *cts))
-            again_pk, again = lanes_of(bounce.step_cuda_bwd(plan, pk, *ins,
-                                                            *cts))
-            torch.cuda.synchronize()
-            if not (torch.equal(got_pk, again_pk) and torch.equal(got, again)):
-                raise AssertionError(f"[kernel-bwd] {name}: two identical "
-                                     f"launches differ")
-            err = (got - want).abs()
-            if f64:
-                lane_bad = (err > BWD_F64["atol"]
-                            + BWD_F64["rtol"] * want.abs()).any(0)
-                pk_lim = BWD_F64["dpk"] * float(want_pk.abs().max())
-                pk_bad = int(((got_pk - want_pk).abs() > pk_lim).sum())
-            else:
-                scale = torch.clamp(want[:, keep].abs().amax(1), min=1.0)
-                lane_bad = (err > BWD_F32["atol"] * scale[:, None]
-                            + BWD_F32["rtol"] * want.abs()).any(0) & keep
-                pk_lim = (BWD_F32["atol"] * max(1.0, float(want_pk.abs().max()))
-                          + BWD_F32["rtol"] * want_pk.abs())
-                pk_bad = int(((got_pk - want_pk).abs() > pk_lim).sum())
-            n_bad = int(lane_bad.sum())
-            max_err = float(err[:, keep].max())
-            pk_err = float((got_pk - want_pk).abs().max()
-                           / want_pk.abs().max())
-            args = (plan, pk, *ins, *cts)
-            k_wall = median_ms(lambda: bounce.step_cuda_bwd(*args))
-            p_wall = median_ms(lambda: bounce.step_vjp(*args), n=5)
-            _, k_tab = device_kernels(lambda: bounce.step_cuda_bwd(*args),
-                                      n=20)
-            _, p_tab = device_kernels(lambda: bounce.step_vjp(*args), n=3)
-            k_ms = sum(us for n_, (us, _) in k_tab.items()
-                       if "bounce_step_bwd_kernel" in n_) / 1e3
-            k_all = sum(us for us, _ in k_tab.values()) / 1e3
-            p_ms = sum(us for us, _ in p_tab.values()) / 1e3
-            p_launches = sum(k for _, k in p_tab.values())
-            log(f"[kernel-bwd] {name}: m={M_BWD} P={plan.size}; lanes left "
-                f"out (forward flips) {n_out}; lanes outside the bounds "
-                f"{n_bad}, max abs err {max_err:.3e}; dpk slots outside "
-                f"{pk_bad}, max err / max|dpk| {pk_err:.3e}; two launches "
-                f"bitwise equal")
-            log(f"[kernel-bwd] {name}: device time per call: kernel "
-                f"{k_ms:.4f} ms (with the partials' sum {k_all:.4f} ms), plain "
-                f"VJP {p_ms:.4f} ms ({p_launches:.0f} launches); elapsed per "
-                f"call (median): kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms")
-            if n_bad or pk_bad:
-                raise AssertionError(f"[kernel-bwd] {name}: {n_bad} lanes and "
-                                     f"{pk_bad} dpk slots outside the bounds")
-            results.append(dict(name=name, max_abs_err=max_err, ms=k_ms,
-                                plain_ms=p_ms, wall_ms=k_wall,
-                                plain_wall_ms=p_wall))
+            results.append(check_k2(
+                "kernel-bwd", f"{dtype_name(dtype)}-{case}", scene, cam,
+                FULL_BWD.replace(light_sampling=ls), dtype, dev))
     return results
+
+
+def phase_kernel_bwd_spheres(dev):
+    """K2 on the sphere scenes; the f64 launch on the RTOW scene is the
+    P = 4,794 case, whose [warps, P] reduction would not fit a block's
+    shared memory."""
+    results = []
+    for dtype in (torch.float32, torch.float64):
+        for name in SPHERE_SCENES:
+            scene, cam, box, atol = sphere_scene(name, dtype, dev)
+            results.append(check_k2(
+                "kernel-bwd-spheres", f"{dtype_name(dtype)}-{name}", scene,
+                cam, RTOW, dtype, dev, box=box, atol=atol,
+                given_rays_dpk=True))
+    return results
+
+
+def check_golden(tag, scene, cam, cfg, golden):
+    """An f32 render against an f64 oracle golden with the bounds of
+    tests/test_parity.py; one kernel launch per pool iteration."""
+    start = bounce.LAUNCHES
+    mean, state = render.render_image(scene, cam, cfg)
+    launches = bounce.LAUNCHES - start
+    start = bounce.LAUNCHES
+    state2, segs, iters = render.render_with_stats(
+        scene, cam, cfg, render.init_state(cfg))
+    launches2 = bounce.LAUNCHES - start
+    if not (launches == launches2 == iters):
+        raise AssertionError(f"[{tag}] launches {launches}/{launches2} != "
+                             f"pool iterations {iters}")
+    if not torch.equal(state.raw_sum, state2.raw_sum):
+        raise AssertionError(f"[{tag}] two identical renders differ")
+    ref = np.load(golden)["image"]
+    img = mean.cpu().numpy().astype(np.float64)
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        raise AssertionError(f"[{tag}] image shape or finiteness")
+    diff = np.abs(img - ref)
+    mae, outliers = diff.mean(), (diff.max(axis=-1) > 0.05).mean()
+    log(f"[{tag}] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth}: "
+        f"segments {int(segs)} iters {iters} "
+        f"launches {launches}; MAE {mae:.3e} (< 5e-3), pixels off by > 0.05: "
+        f"{outliers:.4%} (< 1%)")
+    if not (mae < 5e-3 and outliers < 0.01):
+        raise AssertionError(f"[{tag}] image outside the golden's bounds")
 
 
 def phase_golden(dev):
     scene, cam = cornell(torch.float32, dev)
-    start = bounce.LAUNCHES
-    mean, state = render.render_image(scene, cam, CONFIG4)
-    launches = bounce.LAUNCHES - start
-    start = bounce.LAUNCHES
-    state2, segs, iters = render.render_with_stats(
-        scene, cam, CONFIG4, render.init_state(CONFIG4, device=dev))
-    launches2 = bounce.LAUNCHES - start
-    if not (launches == launches2 == iters):
-        raise AssertionError(f"[golden] launches {launches}/{launches2} != "
-                             f"pool iterations {iters}")
-    if not torch.equal(state.raw_sum, state2.raw_sum):
-        raise AssertionError("[golden] two identical renders differ")
-    ref = np.load(GOLDEN)["image"]
-    img = mean.cpu().numpy().astype(np.float64)
-    if img.shape != ref.shape or not np.isfinite(img).all():
-        raise AssertionError("[golden] image shape or finiteness")
-    diff = np.abs(img - ref)
-    mae, outliers = diff.mean(), (diff.max(axis=-1) > 0.05).mean()
-    log(f"[golden] 64x64 spp8 depth100: segments {int(segs)} iters {iters} "
-        f"launches {launches}; MAE {mae:.3e} (< 5e-3), pixels off by > 0.05: "
-        f"{outliers:.4%} (< 1%)")
-    if not (mae < 5e-3 and outliers < 0.01):
-        raise AssertionError("[golden] image outside the config-4 bounds")
+    check_golden("golden", scene, cam, CONFIG4, GOLDEN)
+
+
+def spec_scene(spec, dtype, dev=None):
+    """A SceneSpec compiled with its own sky; with no `dev` the scene and
+    camera land on the card, the port's default."""
+    scene = compile_scene(spec.objects, sky=spec.sky, dtype=dtype,
+                          lights=spec.lights, device=dev)
+    return scene, spec.camera(dtype=dtype, aspect=1.0, device=dev)
+
+
+def phase_golden_spheres(dev):
+    """Parity configs 1 and 2 against their goldens.  The scenes are
+    compiled with no `device`: they must land on the card."""
+    for name, spec, cfg in (
+            ("config1_three_spheres", scenes.three_spheres(), CONFIG1),
+            ("config2_rtow_final", scenes.random_scene(seed=0), CONFIG2)):
+        scene, cam = spec_scene(spec, torch.float32)
+        if scene.device.type != "cuda" or cam.lookfrom.device.type != "cuda":
+            raise AssertionError("[golden-spheres] the default device is "
+                                 "not the card")
+        check_golden(f"golden-spheres {name}", scene, cam, cfg,
+                     os.path.join(ROOT, "tests", "goldens", name + ".npz"))
 
 
 def fwd_bwd(scene, cam, cfg, n_iters, params, rest, loss_fn):
@@ -425,12 +655,10 @@ def fwd_bwd(scene, cam, cfg, n_iters, params, rest, loss_fn):
     return raw.detach(), loss.detach(), segs, leftover, grads
 
 
-def phase_diff(dev):
-    """The differentiable render at config 4's size: drained, equal to the
-    forward image, deterministic, one backward launch per forward launch;
-    in float64 the AD gradient against central finite differences."""
-    scene, cam = cornell(torch.float32, dev)
-    cfg = CONFIG4
+def check_diff(tag, scene, cam, cfg):
+    """The f32 differentiable render: drained, equal to the forward image
+    bitwise, deterministic gradients, one backward launch per forward
+    launch."""
     n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
     params, rest = build.partition(scene)
     mean = lambda raw: raw.mean()
@@ -441,12 +669,12 @@ def phase_diff(dev):
     launches, bwd_launches = bounce.LAUNCHES, bounce.BWD_LAUNCHES
     blocks = -(-n_iters // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
     st, f_segs, _ = render.render_with_stats(
-        scene, cam, cfg, render.init_state(cfg, device=dev))
+        scene, cam, cfg, render.init_state(cfg))
     same_image = torch.equal(raw, st.raw_sum.reshape(-1, 3))
     _, _, _, _, grads2 = fwd_bwd(scene, cam, cfg, n_iters, params, rest, mean)
     same_grads = all(torch.equal(grads[k], grads2[k]) for k in grads)
     finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
-    log(f"[diff] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} f32: "
+    log(f"[{tag}] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} f32: "
         f"n_iters {n_iters} -> {blocks} pool "
         f"iterations; leftover {int(leftover)}; segments {int(segs)} "
         f"(forward {int(f_segs)}); launches forward {launches} backward "
@@ -454,22 +682,34 @@ def phase_diff(dev):
         f"{same_image}; two steps' gradients bitwise equal: {same_grads}; "
         f"finite: {finite}")
     if int(leftover) != 0 or int(segs) != int(f_segs):
-        raise AssertionError("[diff] the queue did not drain")
+        raise AssertionError(f"[{tag}] the queue did not drain")
     if not (launches == bwd_launches == blocks):
-        raise AssertionError(f"[diff] launches {launches}/{bwd_launches} != "
+        raise AssertionError(f"[{tag}] launches {launches}/{bwd_launches} != "
                              f"{blocks} pool iterations")
     if not (same_image and same_grads and finite):
-        raise AssertionError("[diff] image, determinism or finiteness")
+        raise AssertionError(f"[{tag}] image, determinism or finiteness")
+    return n_iters
 
-    scene, cam = cornell(torch.float64, dev)
-    cfg = CONFIG4.replace(dtype="f64")
+
+def check_fd(tag, scene, cam, cfg, probes, eps, window=None):
+    """f64: the AD gradient of the mean image (over `window`'s rows and
+    columns, if given) against central finite differences, per probe
+    (leaf, index); returns {probe: (AD, FD)}."""
     n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
     params, rest = build.partition(scene)
+
+    def loss_fn(raw):
+        img = raw.reshape(cfg.ny, cfg.nx, 3)
+        if window is not None:
+            img = img[window[0]:window[1], window[2]:window[3]]
+        return img.mean()
+
     _, _, _, leftover, grads = fwd_bwd(scene, cam, cfg, n_iters, params, rest,
-                                       mean)
-    eps = 1e-2
+                                       loss_fn)
+    if int(leftover) != 0:
+        raise AssertionError(f"[{tag}] the f64 render did not drain")
     out = {}
-    for leaf, idx in (("tex_color", (0, 0)), ("rect_k", (0,))):
+    for leaf, idx in probes:
         def loss_at(x):
             p = dict(params)
             p[leaf] = params[leaf].clone()
@@ -478,36 +718,72 @@ def phase_diff(dev):
                 raw, _, lo = diff_fused.render_diff_fused(
                     build.combine(p, rest), cam, cfg, n_iters)
             if int(lo) != 0:
-                raise AssertionError("[diff] an FD render did not drain")
-            return float(raw.mean())
+                raise AssertionError(f"[{tag}] an FD render did not drain")
+            return float(loss_fn(raw))
         ad = float(grads[leaf][idx])
         fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
         out[leaf] = (ad, fd)
-        log(f"[diff] f64 d mean(image) / d {leaf}{list(idx)}: AD {ad:.8e}, "
-            f"central FD (eps {eps:g}) {fd:.8e}, rel diff "
+        log(f"[{tag}] f64 {cfg.nx}x{cfg.ny} spp{cfg.spp} "
+            f"depth{cfg.max_depth} d mean(image) / d {leaf}{list(idx)}: AD "
+            f"{ad:.8e}, central FD (eps {eps:g}) {fd:.8e}, rel diff "
             f"{abs(ad - fd) / max(abs(fd), 1e-30):.3e}")
+    return out
+
+
+def phase_diff(dev):
+    """The differentiable render at config 4's size: drained, equal to the
+    forward image, deterministic, one backward launch per forward launch;
+    in float64 the AD gradient against central finite differences."""
+    scene, cam = cornell(torch.float32, dev)
+    n_iters = check_diff("diff", scene, cam, CONFIG4)
+    scene, cam = cornell(torch.float64, dev)
+    out = check_fd("diff", scene, cam, CONFIG4.replace(dtype="f64"),
+                   (("tex_color", (0, 0)), ("rect_k", (0,))), 1e-2)
     ad, fd = out["tex_color"]
-    if int(leftover) != 0 or not abs(ad - fd) < 0.01 * abs(fd):
+    if not abs(ad - fd) < 0.01 * abs(fd):
         raise AssertionError("[diff] f64 tex_color AD not within 1% of FD")
     return dict(n_iters=n_iters)
 
 
-def phase_full(dev):
-    scene, cam = cornell(torch.float32, dev)
+def phase_diff_spheres(dev):
+    """The differentiable render of three_spheres at config 1's size, and
+    in float64 config 1's probes (a centre component, the radius, an
+    albedo of the centre sphere) against finite differences on FD_CFG."""
+    scene, cam = spec_scene(scenes.three_spheres(), torch.float32, dev)
+    check_diff("diff-spheres", scene, cam, CONFIG1)
+    scene, cam = spec_scene(scenes.three_spheres(), torch.float64, dev)
+    out = check_fd("diff-spheres", scene, cam, FD_CFG,
+                   (("sph_c0", (1, 1)), ("sph_r", (1,)),
+                    ("tex_color", (1, 0))), 1e-4, FD_WINDOW)
+    for leaf, (ad, fd) in out.items():
+        if not abs(ad - fd) < 0.01 * abs(fd):
+            raise AssertionError(f"[diff-spheres] f64 {leaf} AD not within "
+                                 f"1% of FD")
+
+
+N_TIMED = 3         # chained timed renders or steps after the warm-up
+
+
+def run_full(tag, what, scene, cam, cfg):
+    """The forward main path through render_with_stats (the FIFO pool, K1):
+    one warm-up render from zeros, then N_TIMED chained renders.  Sets
+    bounce.LAUNCHES to 0 just before and reads it just after."""
     bounce.LAUNCHES = 0                       # the main path's count starts
     total_iters = 0
     t0 = time.perf_counter()
     st, segs, iters = render.render_with_stats(
-        scene, cam, FULL, render.init_state(FULL, device=dev))
+        scene, cam, cfg, render.init_state(cfg))
     float(st.raw_sum[0, 0, 0])
     warm = time.perf_counter() - t0
     total_iters += iters
-    # the warm-up render (sample_base 0, from zeros): phase 11's reference
-    first = dict(image=st.raw_sum.reshape(-1, 3).clone(), segments=int(segs))
+    # the warm-up render (sample_base 0, from zeros): the strided pools'
+    # reference
+    first = dict(image=st.raw_sum.reshape(-1, 3).clone(), segments=int(segs),
+                 iters=iters)
     times = []
-    for _ in range(5):
+    for _ in range(N_TIMED):
         t0 = time.perf_counter()
-        st, segs, iters = render.render_with_stats(scene, cam, FULL, st)
+        st, segs, iters = render.render_with_stats(scene, cam, cfg, st)
         float(st.raw_sum[0, 0, 0])
         times.append(time.perf_counter() - t0)
         total_iters += iters
@@ -515,45 +791,73 @@ def phase_full(dev):
     segs = int(segs)
     med = statistics.median(times)
     mean = (st.raw_sum / st.sample_count.to(torch.float32)).cpu().numpy()
-    log(f"[full] {FULL.nx}x{FULL.ny} spp{FULL.spp} depth{FULL.max_depth} "
-        f"light-sampled: m={M} segments {segs} "
-        f"iters {iters}; warm-up {warm * 1e3:.1f} ms; times_ms "
-        f"{[round(t * 1e3, 2) for t in times]}; median {med * 1e3:.2f} ms -> "
-        f"{segs / med:.4e} rays/s; launches {launches} over 6 renders")
+    log(f"[{tag}] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} "
+        f"{what}: m={cfg.resolve_pool_rays()} warm-up segments "
+        f"{first['segments']} in {first['iters']} iterations; last render "
+        f"segments {segs} iters {iters}; warm-up {warm * 1e3:.1f} ms; "
+        f"times_ms {[round(t * 1e3, 2) for t in times]}; median "
+        f"{med * 1e3:.2f} ms -> {segs / med:.4e} rays/s; launches "
+        f"{launches} over {N_TIMED + 1} renders")
     if launches != total_iters or launches == 0:
-        raise AssertionError(f"[full] launches {launches} != pool iterations "
+        raise AssertionError(f"[{tag}] launches {launches} != pool iterations "
                              f"{total_iters}")
     if not np.isfinite(mean).all() or mean.max() <= 0.0:
-        raise AssertionError("[full] frame is not finite or is black")
-    log(f"[full] frame mean {mean.mean():.4f} max {mean.max():.3f}")
+        raise AssertionError(f"[{tag}] frame is not finite or is black")
+    log(f"[{tag}] frame mean {mean.mean():.4f} max {mean.max():.3f}")
     return dict(segments=segs, iters=iters, median_s=med, launches=launches,
                 first=first)
 
 
-def phase_profile(dev):
-    """One 512^2 render under torch.profiler: device time by kernel and the
-    card's busy share of the render's wall time."""
+def phase_full(dev):
     scene, cam = cornell(torch.float32, dev)
-    st = render.init_state(FULL, device=dev)
-    wall_ms, table = device_kernels(
-        lambda: render.render_with_stats(scene, cam, FULL, st))
+    full = run_full("full", "light-sampled", scene, cam, FULL)
+    # the count PERF.md records for this render since the port began
+    log(f"[full] Cornell warm-up render: {full['first']['segments']} segments "
+        f"in {full['first']['iters']} FIFO iterations (recorded: 11646756 in "
+        f"224)")
+    return full
+
+
+def log_profile(tag, wall_ms, table, ours=()):
+    """The device-time breakdown of one profiled run; returns the busy
+    share (None when the profiler recorded no device time)."""
     if not table:
-        log("[profile] the profiler recorded no device time: not measured")
-        return
+        log(f"[{tag}] the profiler recorded no device time: not measured")
+        return None
     busy_ms = sum(us for us, _ in table.values()) / 1e3
     rows = sorted(((us, k, name) for name, (us, k) in table.items()),
                   reverse=True)
-    log(f"[profile] one render: {wall_ms:.1f} ms wall under the profiler, "
+    log(f"[{tag}] one run: {wall_ms:.1f} ms wall under the profiler, "
         f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), "
         f"{sum(k for _, k, _ in rows):.0f} kernel launches")
-    for us, k, name in rows[:12]:
-        log(f"[profile]   {us / 1e3:8.3f} ms {k:6.0f} x  {name[:90]}")
+    for us, k, name in rows[:8]:
+        log(f"[{tag}]   {us / 1e3:8.3f} ms {k:6.0f} x  {name[:90]}")
+    for us, k, name in rows:
+        if any(o in name for o in ours):
+            log(f"[{tag}]   ours: {us / 1e3:8.3f} ms {k:6.0f} x "
+                f"{us / k:8.2f} us each  {name[:70]}")
+    return busy_ms / wall_ms
 
 
-def phase_full_bwd(dev):
-    """512^2 spp8 fwd+bwd steps, as bench.py:_measure_fwd_bwd times them."""
+def profile_render(tag, scene, cam, cfg):
+    """One forward render under torch.profiler: device time by kernel and
+    the card's busy share of the render's wall time."""
+    st = render.init_state(cfg)
+    wall_ms, table = device_kernels(
+        lambda: render.render_with_stats(scene, cam, cfg, st))
+    return log_profile(tag, wall_ms, table, ours=("bounce_step",))
+
+
+def phase_profile(dev):
     scene, cam = cornell(torch.float32, dev)
-    cfg = FULL_BWD
+    profile_render("profile", scene, cam, FULL)
+
+
+def run_full_bwd(tag, what, scene, cam, cfg):
+    """fwd+bwd steps as bench.py:_measure_fwd_bwd times them: calibration,
+    a warm-up, then N_TIMED steps chained by params -= 1e-6 grad; the counts
+    are set to 0 just before and read just after.  Then one step under
+    torch.profiler."""
     t0 = time.perf_counter()
     n_iters = diff_fused.calibrate_iters(scene, cam, cfg, slack=1.1)
     calib = time.perf_counter() - t0
@@ -566,10 +870,10 @@ def phase_full_bwd(dev):
     float(loss)
     warm = time.perf_counter() - t0
     if int(leftover) != 0:
-        raise AssertionError("[full-bwd] warm-up did not drain")
+        raise AssertionError(f"[{tag}] warm-up did not drain")
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(5):
+    for _ in range(N_TIMED):
         params = {k: v - 1e-6 * grads[k] for k, v in params.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -579,54 +883,50 @@ def phase_full_bwd(dev):
         float(loss)
         times.append(time.perf_counter() - t0)
         if int(leftover) != 0:
-            raise AssertionError("[full-bwd] a timed step did not drain")
+            raise AssertionError(f"[{tag}] a timed step did not drain")
     launches, bwd_launches = bounce.LAUNCHES, bounce.BWD_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     segs = int(segs)
     med = statistics.median(times)
     blocks = -(-n_iters // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
-    log(f"[full-bwd] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} "
-        f"light-sampled f32: m={cfg.resolve_pool_rays(reverse=True)} "
+    steps = N_TIMED + 1
+    log(f"[{tag}] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} "
+        f"{what} f32: m={cfg.resolve_pool_rays(reverse=True)} "
         f"n_iters {n_iters} (calibration {calib * 1e3:.1f} ms) -> {blocks} "
         f"pool iterations; segments {segs}; warm-up {warm * 1e3:.1f} ms; "
         f"times_ms {[round(t * 1e3, 2) for t in times]}; median "
         f"{med * 1e3:.2f} ms -> {segs / med:.4e} fwd+bwd rays/s; peak memory "
         f"{peak / 2 ** 30:.3f} GiB; launches forward {launches} backward "
-        f"{bwd_launches} over 6 steps")
-    if not (launches == bwd_launches == 6 * blocks):
-        raise AssertionError(f"[full-bwd] launches {launches}/{bwd_launches}"
-                             f" != 6 x {blocks}")
+        f"{bwd_launches} over {steps} steps")
+    if not (launches == bwd_launches == steps * blocks):
+        raise AssertionError(f"[{tag}] launches {launches}/{bwd_launches}"
+                             f" != {steps} x {blocks}")
     if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
-        raise AssertionError("[full-bwd] gradients are not finite")
+        raise AssertionError(f"[{tag}] gradients are not finite")
+    touched = sorted(k for k, g in grads.items() if bool((g != 0).any()))
+    log(f"[{tag}] every float leaf's gradient finite; nonzero for {touched}")
     wall_ms, table = device_kernels(lambda: fwd_bwd(
         scene, cam, cfg, n_iters, params, rest, loss_fn))
-    if not table:
-        log("[full-bwd] the profiler recorded no device time: not measured")
-    else:
-        busy_ms = sum(us for us, _ in table.values()) / 1e3
-        rows = sorted(((us, k, name) for name, (us, k) in table.items()),
-                      reverse=True)
-        log(f"[full-bwd] one step: {wall_ms:.1f} ms wall under the profiler, "
-            f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), "
-            f"{sum(k for _, k, _ in rows):.0f} kernel launches")
-        for us, k, name in rows[:12]:
-            log(f"[full-bwd]   {us / 1e3:8.3f} ms {k:6.0f} x  {name[:90]}")
-        for us, k, name in rows:
-            if "bounce_step" in name:
-                log(f"[full-bwd]   ours: {us / 1e3:8.3f} ms {k:6.0f} x "
-                    f"{us / k:8.2f} us each  {name[:70]}")
+    log_profile(tag, wall_ms, table, ours=("bounce_step",))
     return dict(segments=segs, median_s=med, launches=launches,
-                bwd_launches=bwd_launches, peak=peak)
+                bwd_launches=bwd_launches, peak=peak, iters=blocks)
+
+
+def phase_full_bwd(dev):
+    """512^2 spp8 fwd+bwd steps of the light-sampled Cornell box."""
+    scene, cam = cornell(torch.float32, dev)
+    return run_full_bwd("full-bwd", "light-sampled", scene, cam, FULL_BWD)
 
 
 # --- the strided work pools (K3, K4) and the probes (K5, K6) ------------
 
 
-def packed_state(m, n_work, max_depth, device, seed=0):
+def packed_state(m, n_work, max_depth, device, seed=0, box=None):
     """A numpy-seeded packed pool state ([N_PACKED, m] float32): items in
     [0, 1.1 n_work) (some lanes drained), fresh lanes, depths with some at
     the cap, origins inside the box, unit directions, nonzero radiance and
-    throughput (tests/test_torch_cuda.py's kind)."""
+    throughput (tests/test_torch_cuda.py's kind).  `box` (lo, hi) scales the
+    origins to a sphere scene and draws the times in [0, 1)."""
     r = np.random.default_rng(seed)
     st = np.zeros((bounce.N_PACKED, m), np.float32)
     ints = st.view(np.int32)
@@ -639,27 +939,33 @@ def packed_state(m, n_work, max_depth, device, seed=0):
     st[6:9] = dvec / np.linalg.norm(dvec, axis=0, keepdims=True)
     st[10:13] = r.random((3, m))
     st[13:16] = r.uniform(0.1, 1.0, (3, m))
+    if box is not None:
+        lo, hi = (np.asarray(b, np.float32)[:, None] for b in box)
+        st[3:6] = lo + st[3:6] / 500.0 * (hi - lo)
+        st[9] = r.random(m)
     return torch.tensor(st, device=device)
 
 
-def packed_setup(dev):
-    """The f32 Cornell plan and pk of the 512^2 spp16 render, its strided
-    queue at the forward pool's width, and a sample base on the card."""
-    scene, cam = cornell(torch.float32, dev)
-    plan = pool_strided.pool_plan(scene, FULL)
+def packed_setup(dev, scene=None, cam=None, cfg=FULL):
+    """The f32 plan and pk of a full-size render (the 512^2 spp16 Cornell
+    box unless a scene is given), its strided queue at the forward pool's
+    width, and a sample base on the card."""
+    if scene is None:
+        scene, cam = cornell(torch.float32, dev)
+    plan = bounce.pool_plan(scene, cfg)
     pk = bounce.pack(scene, cam, plan, torch.float32)
-    n_pix = FULL.n_pixels
-    q = dict(m=M, n_work=n_pix * FULL.spp, n_pix=n_pix, pix0=0,
+    n_pix = cfg.n_pixels
+    q = dict(m=M, n_work=n_pix * cfg.spp, n_pix=n_pix, pix0=0,
              total_pix=n_pix)
     return plan, pk, q, torch.tensor([5], dtype=torch.int32, device=dev)
 
 
-def packed_disagreeing(got, want):
+def packed_disagreeing(got, want, atol=F32_TOL["atol"]):
     """Lanes where an int row, the fresh row or a float row (outside
-    F32_TOL) differs, or the result is not finite."""
+    F32_TOL's rtol and `atol`) differs, or the result is not finite."""
     g_i, w_i = got.view(torch.int32), want.view(torch.int32)
     off = ((got[3:] - want[3:]).abs()
-           > F32_TOL["atol"] + F32_TOL["rtol"] * want[3:].abs()).any(0)
+           > atol + F32_TOL["rtol"] * want[3:].abs()).any(0)
     return (off | (g_i[0] != w_i[0]) | (got[1] != want[1])
             | (g_i[2] != w_i[2]) | ~torch.isfinite(got[3:]).all(0))
 
@@ -701,38 +1007,64 @@ def kernel_ms(fn, n=20):
     raise AssertionError("kernel_ms: the host queued slower than the sleep")
 
 
-def phase_packed_kernel(dev):
-    plan, pk, q, sb = packed_setup(dev)
-    state = packed_state(M, q["n_work"], plan.max_depth, dev)
+def packed_bound(plan, q, state, T=1, segs=None):
+    """K3 (T = 1) and K4 in f32: the 16 state words in and out, pk once,
+    and per iteration K4's 4 flush words; only live lanes are traced (the
+    count of each iteration for K4, `segs`)."""
+    m = q["m"]
+    live = int((state.view(torch.int32)[0] < q["n_work"]).sum())
+    traced = live if segs is None else int(segs.sum())
+    fresh = int(((state[1] != 0.0)
+                 & (state.view(torch.int32)[0] < q["n_work"])).sum())
+    flops = (traced * (sweep_flops(plan) + SHADE_FLOPS)
+             + fresh * CAMERA_FLOPS)
+    n_bytes = m * 2 * bounce.N_PACKED * 4 + plan.size * 4 + 4
+    if segs is not None:
+        n_bytes += T * (4 * m * 4 + 4)
+    return bound(n_bytes, flops)
+
+
+def check_k3(tag, setup, state, atol=F32_TOL["atol"]):
+    plan, pk, q, sb = setup
     want = bounce.step_packed(plan, pk, sb, state, **q)
     got = bounce.step_packed_cuda(plan, pk, sb, state, **q)
     again = bounce.step_packed_cuda(plan, pk, sb, state, **q)
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-        raise AssertionError("[packed-kernel] two launches differ")
-    bad = packed_disagreeing(got, want)
+        raise AssertionError(f"[{tag}] two launches differ")
+    bad = packed_disagreeing(got, want, atol)
     n_bad = int(bad.sum())
     max_err = float((got[3:] - want[3:]).abs()[:, ~bad].max())
     k_ms = kernel_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
                                                      **q))
     p_ms, p_launches = device_ms(lambda: bounce.step_packed(
-        plan, pk, sb, state, **q), 5)
+        plan, pk, sb, state, **q), 3)
     k_wall = median_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
                                                        **q))
     p_wall = median_ms(lambda: bounce.step_packed(plan, pk, sb, state, **q),
-                       n=5)
+                       n=3)
     live = int((state.view(torch.int32)[0] < q["n_work"]).sum())
-    log(f"[packed-kernel] f32 m={M} ({live} live lanes): kernel vs plain "
-        f"step_packed: lanes disagreeing {n_bad} (an int row, fresh, or a "
-        f"float row outside rtol {F32_TOL['rtol']:g} atol "
-        f"{F32_TOL['atol']:g}); max abs err on the other lanes "
+    b_ms, b_by = packed_bound(plan, q, state)
+    log(f"[{tag}] K3 f32 m={M} P={plan.size} ({live} live lanes): kernel vs "
+        f"plain step_packed: lanes disagreeing {n_bad} (an int row, fresh, "
+        f"or a float row outside rtol {F32_TOL['rtol']:g} atol "
+        f"{atol:.3g}); max abs err on the other lanes "
         f"{max_err:.3e}; two launches bitwise equal")
-    log(f"[packed-kernel] device time per call: kernel {k_ms:.4f} ms, plain "
+    log(f"[{tag}] K3 device time per call: kernel {k_ms:.4f} ms, plain "
         f"{p_ms:.4f} ms ({p_launches:.0f} launches); elapsed per call "
-        f"(median): kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms")
+        f"(median): kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms; bound "
+        f"{b_ms * 1e3:.2f} us ({b_by})")
     if n_bad > MAX_FLIP_FRAC * M:
-        raise AssertionError(f"[packed-kernel] {n_bad} lanes disagree")
-    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms)
+        raise AssertionError(f"[{tag}] {n_bad} lanes disagree")
+    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_packed_kernel(dev):
+    setup = packed_setup(dev)
+    plan, _, q, _ = setup
+    return check_k3("packed-kernel", setup,
+                    packed_state(M, q["n_work"], plan.max_depth, dev))
 
 
 def k3_chunk(plan, pk, sb, state, q, T):
@@ -751,9 +1083,8 @@ def k3_chunk(plan, pk, sb, state, q, T):
     return state, flush, segs
 
 
-def phase_persist_kernel(dev):
-    plan, pk, q, sb = packed_setup(dev)
-    state = packed_state(M, q["n_work"], plan.max_depth, dev, seed=1)
+def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
+    plan, pk, q, sb = setup
     T = persist.CHUNK_T
     got = persist.chunk_cuda(plan, pk, sb, state, T=T, **q)
     want = k3_chunk(plan, pk, sb, state, q, T)
@@ -761,11 +1092,11 @@ def phase_persist_kernel(dev):
     same = [torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
                         w.view(torch.int32) if w.is_floating_point() else w)
             for g, w in zip(got, want)]
-    log(f"[persist-kernel] one K4 chunk of T={T} against {T} K3 launches "
+    log(f"[{tag}] one K4 chunk of T={T} against {T} K3 launches "
         f"from the same state: state, flush rows, segments bitwise equal: "
         f"{same}; segments {int(got[2].sum())}")
     if not all(same):
-        raise AssertionError("[persist-kernel] K4 differs from K3 launches")
+        raise AssertionError(f"[{tag}] K4 differs from K3 launches")
     # against the plain chunk at T = 4.  Each iteration is held on its own:
     # one K4 iteration from each state of the plain chain, within F32_TOL on
     # all but 0.1% of the lanes (f32 flips), as K1 and K3 are.  The chained
@@ -777,9 +1108,9 @@ def phase_persist_kernel(dev):
     for t in range(Tp):
         w_st, w_fl, w_sg = persist.chunk_plain(plan, pk, sb, chain, T=1, **q)
         g_st, g_fl, g_sg = persist.chunk_cuda(plan, pk, sb, chain, T=1, **q)
-        bad = (packed_disagreeing(g_st, w_st)
+        bad = (packed_disagreeing(g_st, w_st, atol)
                | (g_fl[0, 0].view(torch.int32) != w_fl[0, 0].view(torch.int32))
-               | ((g_fl[0, 1:] - w_fl[0, 1:]).abs() > F32_TOL["atol"]
+               | ((g_fl[0, 1:] - w_fl[0, 1:]).abs() > atol
                   + F32_TOL["rtol"] * w_fl[0, 1:].abs()).any(0)
                | (g_sg != w_sg).any())
         n_bad.append(int(bad.sum()))
@@ -794,20 +1125,20 @@ def phase_persist_kernel(dev):
     for t in range(Tp):
         ints |= (g_fl[t, 0].view(torch.int32)
                  != w_rows[t][0].view(torch.int32))
-    off = packed_disagreeing(g_st, chain)
-    log(f"[persist-kernel] K4 vs chunk_plain, one iteration from each of "
+    off = packed_disagreeing(g_st, chain, atol)
+    log(f"[{tag}] K4 vs chunk_plain, one iteration from each of "
         f"the plain chain's {Tp} states: lanes disagreeing {n_bad} (bound "
         f"{MAX_FLIP_FRAC * M:g} each); max abs err on the other lanes "
         f"{max_err:.3e}")
-    log(f"[persist-kernel] K4 over {Tp} chained iterations against the "
+    log(f"[{tag}] K4 over {Tp} chained iterations against the "
         f"plain chain: lanes off F32_TOL {int(off.sum())}, of which item, "
         f"fresh, depth or a flushed pixel differ on {int(ints.sum())} (the "
         f"f32 differences of each bounce compound along the chain)")
     if max(n_bad) > MAX_FLIP_FRAC * M:
-        raise AssertionError(f"[persist-kernel] {n_bad} lanes disagree")
+        raise AssertionError(f"[{tag}] {n_bad} lanes disagree")
     # device time per chunk at several chunk lengths (CHUNK_T stays 32)
     per_t = {}
-    for t_len in sorted(set(CHUNK_TS) | {T}):
+    for t_len in sorted(set(chunk_ts) | {T}):
         per_t[t_len] = kernel_ms(lambda: persist.chunk_cuda(
             plan, pk, sb, state, T=t_len, **q), 10)
     k_ms = per_t[T]
@@ -815,12 +1146,37 @@ def phase_persist_kernel(dev):
         plan, pk, sb, state, T=T, **q), 1)
     k3_ms = kernel_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
                                                       **q))
-    log(f"[persist-kernel] device time per chunk: "
+    log(f"[{tag}] device time per chunk: "
         + ", ".join(f"T={t} {ms:.4f} ms ({ms / t * 1e3:.2f} us/iteration)"
                     for t, ms in per_t.items())
         + f"; one K3 launch {k3_ms * 1e3:.2f} us; plain chunk_plain T={T} "
         f"{p_ms:.3f} ms ({p_launches:.0f} launches)")
-    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, per_t=per_t)
+    b_ms, b_by = packed_bound(plan, q, state, T, got[2])
+    log(f"[{tag}] K4 bound for this chunk of T={T}: {b_ms * 1e3:.2f} us "
+        f"({b_by})")
+    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, per_t=per_t,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_persist_kernel(dev):
+    setup = packed_setup(dev)
+    plan, _, q, _ = setup
+    return check_k4("persist-kernel", setup,
+                    packed_state(M, q["n_work"], plan.max_depth, dev, seed=1))
+
+
+def phase_packed_spheres(dev):
+    """K3 against step_packed, and one K4 chunk bitwise equal to 32 K3
+    launches, on the RTOW final scene's packed states."""
+    scene, cam, box, atol = sphere_scene("rtow", torch.float32, dev)
+    setup = packed_setup(dev, scene, cam, RTOW)
+    plan, _, q, _ = setup
+    k3 = check_k3("packed-spheres", setup, packed_state(
+        M, q["n_work"], plan.max_depth, dev, box=box), atol)
+    k4 = check_k4("persist-spheres", setup, packed_state(
+        M, q["n_work"], plan.max_depth, dev, seed=1, box=box), atol,
+        chunk_ts=())
+    return k3, k4
 
 
 POOLS = (("strided", pool_strided.render_pool_strided, "LAUNCHES"),
@@ -839,26 +1195,26 @@ def reset_counts():
     persist.PERSIST_LAUNCHES = 0
 
 
-def phase_pools_full(dev, full):
-    """The three strided pools at 512^2 spp16, each through its entry point
-    with the counts reset just before: one warm-up render from zeros, then
-    five chained renders, timed as phase_full times them."""
-    scene, cam = cornell(torch.float32, dev)
+def run_pools(tag, pools, scene, cam, cfg, full, dev):
+    """Strided pools at full size, each through its entry point with the
+    counts reset just before: one warm-up render from zeros, then N_TIMED
+    chained renders, timed as run_full times the FIFO pool (`full`, whose
+    segments and warm-up image each must give)."""
     ref, ref_segs = full["first"]["image"], full["first"]["segments"]
-    raw0 = torch.zeros(FULL.n_pixels, 3, device=dev)
+    raw0 = torch.zeros(cfg.n_pixels, 3, device=dev)
     results = {}
-    for name, fn, count in POOLS:
+    for name, fn, count in pools:
         reset_counts()
         t0 = time.perf_counter()
-        raw, segs, iters = fn(scene, cam, FULL, raw0, 0)
+        raw, segs, iters = fn(scene, cam, cfg, raw0, 0)
         float(raw[0, 0])
         warm = time.perf_counter() - t0
         first_raw, first_segs, first_iters = raw, int(segs), iters
         total_iters, times, base = iters, [], 0
-        for _ in range(5):
-            base += FULL.spp
+        for _ in range(N_TIMED):
+            base += cfg.spp
             t0 = time.perf_counter()
-            raw, segs, iters = fn(scene, cam, FULL, raw, base)
+            raw, segs, iters = fn(scene, cam, cfg, raw, base)
             float(raw[0, 0])
             times.append(time.perf_counter() - t0)
             total_iters += iters
@@ -866,61 +1222,83 @@ def phase_pools_full(dev, full):
         segs = int(segs)
         med = statistics.median(times)
         launches = {k: v for k, v in counts.items() if v}
-        log(f"[pools-full] {name}: m={M} segments {first_segs} (FIFO "
+        log(f"[{tag}] {name}: m={M} segments {first_segs} (FIFO "
             f"{ref_segs}) in {first_iters} iterations (FIFO "
-            f"{full['iters']}); last render {segs} segments in {iters} "
+            f"{full['first']['iters']}); last render {segs} segments in {iters} "
             f"iterations; warm-up {warm * 1e3:.1f} ms; times_ms "
             f"{[round(t * 1e3, 2) for t in times]}; median {med * 1e3:.2f} "
-            f"ms -> {segs / med:.4e} rays/s; launches over 6 renders "
+            f"ms -> {segs / med:.4e} rays/s; launches over {N_TIMED + 1} renders "
             f"{launches}")
         expect = total_iters // (persist.CHUNK_T if name == "persistent"
                                  else 1)
         if counts[count] != expect or set(launches) != {count}:
-            raise AssertionError(f"[pools-full] {name}: launches {launches},"
+            raise AssertionError(f"[{tag}] {name}: launches {launches},"
                                  f" expected {count} = {expect}")
         if first_segs != ref_segs or segs != full["segments"]:
-            raise AssertionError(f"[pools-full] {name}: segments "
+            raise AssertionError(f"[{tag}] {name}: segments "
                                  f"{first_segs}/{segs} != FIFO "
                                  f"{ref_segs}/{full['segments']}")
         err = (first_raw - ref).abs()
         lim = 1e-5 * float(ref.abs().max()) + 1e-5 * ref.abs()
         n_out = int((err > lim).sum())
         rel = float((err / ref.abs().clamp(min=1e-30)).max())
-        log(f"[pools-full] {name}: warm-up image against the FIFO pool's: "
+        log(f"[{tag}] {name}: warm-up image against the FIFO pool's: "
             f"max abs err {float(err.max()):.3e}, max rel err {rel:.3e}, "
             f"entries outside rtol 1e-5 / atol 1e-5 max|ref|: {n_out}")
         if n_out or not torch.isfinite(first_raw).all():
-            raise AssertionError(f"[pools-full] {name}: image off the FIFO "
+            raise AssertionError(f"[{tag}] {name}: image off the FIFO "
                                  f"pool's")
         results[name] = dict(segments=segs, iters=iters, median_s=med,
                              launches=counts[count], image=first_raw)
     # reproducible on the card: a second persistent render, bitwise
-    again, _, _ = persist.render_pool_persistent(scene, cam, FULL, raw0, 0)
+    again, _, _ = persist.render_pool_persistent(scene, cam, cfg, raw0, 0)
     same = torch.equal(again, results["persistent"]["image"])
-    same_sp = all(torch.equal(results[n]["image"], results["strided"]["image"])
-                  for n in ("packed", "persistent"))
-    log(f"[pools-full] two persistent renders bitwise equal: {same}; the "
-        f"three strided pools' images bitwise equal: {same_sp}")
+    same_sp = all(torch.equal(r["image"], results["persistent"]["image"])
+                  for r in results.values())
+    log(f"[{tag}] two persistent renders bitwise equal: {same}; the "
+        f"{len(results)} strided pools' images bitwise equal: {same_sp}")
     if not same:
-        raise AssertionError("[pools-full] two persistent renders differ")
-    for name, fn, _ in POOLS:
-        st_raw = torch.zeros(FULL.n_pixels, 3, device=dev)
-        wall_ms, table = device_kernels(lambda: fn(scene, cam, FULL, st_raw,
+        raise AssertionError(f"[{tag}] two persistent renders differ")
+    for name, fn, _ in pools:
+        st_raw = torch.zeros(cfg.n_pixels, 3, device=dev)
+        wall_ms, table = device_kernels(lambda: fn(scene, cam, cfg, st_raw,
                                                    0))
         if not table:
-            log(f"[pools-full] {name}: the profiler recorded no device time: "
+            log(f"[{tag}] {name}: the profiler recorded no device time: "
                 f"not measured")
             continue
         busy_ms = sum(us for us, _ in table.values()) / 1e3
         rows = sorted(((us, k, n_) for n_, (us, k) in table.items()),
                       reverse=True)
-        log(f"[pools-full] {name} profile: {wall_ms:.1f} ms wall under the "
+        log(f"[{tag}] {name} profile: {wall_ms:.1f} ms wall under the "
             f"profiler, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%})"
             f", {sum(k for _, k, _ in rows):.0f} kernel launches")
         for us, k, n_ in rows[:8]:
-            log(f"[pools-full]   {us / 1e3:8.3f} ms {k:6.0f} x  {n_[:90]}")
+            log(f"[{tag}]   {us / 1e3:8.3f} ms {k:6.0f} x  {n_[:90]}")
         results[name]["busy"] = busy_ms / wall_ms
     return results
+
+
+def phase_pools_full(dev, full):
+    """The three strided pools on the 512^2 spp16 Cornell box."""
+    scene, cam = cornell(torch.float32, dev)
+    return run_pools("pools-full", POOLS, scene, cam, FULL, full, dev)
+
+
+def phase_full_spheres(dev):
+    """The sphere slice at full width: the RTOW final scene (227 spheres,
+    most of them moving) at 512^2 spp8 depth 100, forward through
+    render_with_stats (the FIFO pool, K1) and through the persistent pool
+    (K4) with equal segment counts, and the fwd+bwd step through
+    render_diff_fused (K1 and K2)."""
+    scene, cam = spec_scene(scenes.random_scene(seed=0), torch.float32, dev)
+    full = run_full("full-spheres", "RTOW final scene, 227 spheres", scene,
+                    cam, RTOW)
+    profile_render("full-spheres", scene, cam, RTOW)
+    pools = run_pools("full-spheres", POOLS[2:], scene, cam, RTOW, full, dev)
+    full_bwd = run_full_bwd("full-spheres-bwd", "RTOW final scene", scene,
+                            cam, RTOW)
+    return full, pools["persistent"], full_bwd
 
 
 def phase_probes(dev):
@@ -975,9 +1353,33 @@ def phase_probes(dev):
         f"{k5_plain * 1e3:.2f} us ({k5_pl:.0f} launches); K6 "
         f"{k6_ms:.4f} ms for the nine cases (one launch each), plain "
         f"{k6_plain:.2f} ms ({k6_pl:.0f} launches)")
-    return dict(launches=launches, k5=dict(max_abs_err=ops_err, ms=k5_ms,
-                                           plain_ms=k5_plain),
-                k6=dict(max_abs_err=0.0, ms=k6_ms, plain_ms=k6_plain))
+    # K5: 16 floats and 1,024 ints in, 1,024 floats out; per item two PCG
+    # rounds' share, a div/mod and four transcendentals, about 80 operations.
+    k5_b = bound(pack.numel() * 4 + 2 * item.numel() * 4, 80 * item.numel())
+    # K6: one (64, 128) float32 array in and out per case; the loops' float
+    # operations per element, counted from the cases (a product, a sum and a
+    # compare each count one): 200, 2,000, 8,000, 40, 4,000, 40, 4,000, 40,
+    # and 3 per iteration of the early-exit loop, which runs while any lane
+    # is below its threshold (all 100 when a lane starts under the fixed
+    # point -1/3 of a -> 1.3 a + 0.1, as with these inputs).
+    wa, trips = x.clone(), 0
+    done = torch.zeros_like(x, dtype=torch.bool)
+    while trips < 100 and not bool(done.all()):
+        wa2 = wa * 1.3 + 0.1
+        done |= wa2 > 100.0
+        wa = torch.where(done, wa, wa2)
+        trips += 1
+    per_elt = 200 + 2000 + 8000 + 40 + 4000 + 40 + 4000 + 40 + 3 * trips
+    k6_b = bound(len(probe_loops.CASES) * 2 * x.numel() * 4,
+                 per_elt * x.numel())
+    log(f"[probes] bounds: K5 {k5_b[0] * 1e6:.2f} ns ({k5_b[1]}), K6 "
+        f"{k6_b[0] * 1e3:.2f} us ({k6_b[1]}; the early-exit loop ran {trips} "
+        f"iterations)")
+    return dict(launches=launches,
+                k5=dict(max_abs_err=ops_err, ms=k5_ms, plain_ms=k5_plain,
+                        bound_ms=k5_b[0], bound_by=k5_b[1]),
+                k6=dict(max_abs_err=0.0, ms=k6_ms, plain_ms=k6_plain,
+                        bound_ms=k6_b[0], bound_by=k6_b[1]))
 
 
 def main():
@@ -994,20 +1396,34 @@ def main():
     chunk = phase_persist_kernel(dev)
     pools = phase_pools_full(dev, full)
     probes = phase_probes(dev)
+    kern_sph = phase_kernel_spheres(dev)
+    kern_bwd_sph = phase_kernel_bwd_spheres(dev)
+    packed_sph, chunk_sph = phase_packed_spheres(dev)
+    phase_golden_spheres(dev)
+    phase_diff_spheres(dev)
+    sph_full, sph_persist, sph_bwd = phase_full_spheres(dev)
     k1_launches = (full["launches"] + full_bwd["launches"]
-                   + pools["strided"]["launches"])
-    log(f"[paths] bounce_step launches: forward render {full['launches']}, "
-        f"fwd+bwd step {full_bwd['launches']}, strided pool "
-        f"{pools['strided']['launches']}; bounce_step_bwd launches: "
-        f"fwd+bwd step {full_bwd['bwd_launches']}; bounce_packed launches: "
-        f"packed pool {pools['packed']['launches']}; bounce_persist "
-        f"launches: persistent pool {pools['persistent']['launches']}; "
-        f"probes {probes['launches']}")
-    f32 = [k for k in kern if k["name"].startswith("f32")]
-    main_case = next(k for k in kern if k["name"] == "f32-light")
-    f32_bwd = [k for k in kern_bwd if k["name"].startswith("f32")]
-    main_bwd = next(k for k in kern_bwd if k["name"] == "f32-cornell-light")
+                   + pools["strided"]["launches"] + sph_full["launches"]
+                   + sph_bwd["launches"])
+    log(f"[paths] bounce_step launches: Cornell forward render "
+        f"{full['launches']}, fwd+bwd step {full_bwd['launches']}, strided "
+        f"pool {pools['strided']['launches']}, RTOW forward render "
+        f"{sph_full['launches']}, RTOW fwd+bwd step {sph_bwd['launches']}; "
+        f"bounce_step_bwd launches: Cornell fwd+bwd step "
+        f"{full_bwd['bwd_launches']}, RTOW fwd+bwd step "
+        f"{sph_bwd['bwd_launches']}; bounce_packed launches: packed pool "
+        f"{pools['packed']['launches']}; bounce_persist launches: Cornell "
+        f"persistent pool {pools['persistent']['launches']}, RTOW persistent "
+        f"pool {sph_persist['launches']}; probes {probes['launches']}")
+    f32 = [k for k in kern + kern_sph if k["name"].startswith("f32")]
+    f32_bwd = [k for k in kern_bwd + kern_bwd_sph
+               if k["name"].startswith("f32")]
+    pick = lambda rows, name: next(k for k in rows if k["name"] == name)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    on_rtow = lambda k: {key: k[key] for key in keys}
     src = "scheme_raytrace_torch/csrc/"
+    # no single PyTorch call computes a bounce step, a chunk of steps or a
+    # probe's loops: library_ms is null for every kernel
     log(smi)
     print(json.dumps({"kernels": [{
         "name": "bounce_step",
@@ -1015,36 +1431,39 @@ def main():
         "source": src + "bounce_step.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1576",
         "launches": k1_launches,
+        **on_rtow(pick(kern, "f32-light")),
         "max_abs_err": max(k["max_abs_err"] for k in f32),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
+        "library_ms": None,
+        "rtow_227_spheres": on_rtow(pick(kern_sph, "f32-rtow")),
     }, {
         "name": "bounce_step_bwd",
         "route": "cuda",
         "source": src + "bounce_step_bwd.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1687",
-        "launches": full_bwd["bwd_launches"],
+        "launches": full_bwd["bwd_launches"] + sph_bwd["bwd_launches"],
+        **on_rtow(pick(kern_bwd, "f32-cornell-light")),
         "max_abs_err": max(k["max_abs_err"] for k in f32_bwd),
-        "ms": main_bwd["ms"],
-        "plain_ms": main_bwd["plain_ms"],
+        "library_ms": None,
+        "rtow_227_spheres": on_rtow(pick(kern_bwd_sph, "f32-rtow")),
     }, {
         "name": "bounce_packed",
         "route": "cuda",
         "source": src + "bounce_packed.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1900",
         "launches": pools["packed"]["launches"],
-        "max_abs_err": packed["max_abs_err"],
-        "ms": packed["ms"],
-        "plain_ms": packed["plain_ms"],
+        **on_rtow(packed),
+        "library_ms": None,
+        "rtow_227_spheres": on_rtow(packed_sph),
     }, {
         "name": "bounce_persist",
         "route": "cuda",
         "source": src + "bounce_persist.cu",
         "replaces": "scheme_raytrace_tpu/integrator/persist.py:114",
-        "launches": pools["persistent"]["launches"],
-        "max_abs_err": chunk["max_abs_err"],
-        "ms": chunk["ms"],
-        "plain_ms": chunk["plain_ms"],
+        "launches": (pools["persistent"]["launches"]
+                     + sph_persist["launches"]),
+        **on_rtow(chunk),
+        "library_ms": None,
+        "rtow_227_spheres": on_rtow(chunk_sph),
     }, {
         "name": "probe_ops",
         "route": "cuda",
@@ -1052,6 +1471,7 @@ def main():
         "replaces": "tools/probe_pallas_ops.py:50",
         "launches": probes["launches"]["probe_ops"],
         **probes["k5"],
+        "library_ms": None,
     }, {
         "name": "probe_loops",
         "route": "cuda",
@@ -1059,6 +1479,7 @@ def main():
         "replaces": "tools/repro_mosaic_crash.py:19",
         "launches": probes["launches"]["probe_loops"],
         **probes["k6"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

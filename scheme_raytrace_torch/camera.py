@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from .config import resolve_device
 from .core import vecmath as vm
 from .ops import sampling
 
@@ -37,6 +38,8 @@ class Camera:
 def make_camera(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov=40.0, aspect=1.0,
                 aperture=0.0, focus_dist=10.0, time0=0.0, time1=0.0,
                 dtype=torch.float32, device=None) -> Camera:
+    """Camera on `device` (None: the card, config.resolve_device)."""
+    device = resolve_device(device)
     f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return Camera(f(lookfrom), f(lookat), f(vup), f(vfov), f(aspect),
                   f(aperture), f(focus_dist), f(time0), f(time1))
@@ -45,6 +48,7 @@ def make_camera(lookfrom, lookat, vup=(0.0, 1.0, 0.0), vfov=40.0, aspect=1.0,
 def camera_from_arrays(arrays: dict, device=None,
                        dtype=torch.float32) -> Camera:
     """Camera from numpy arrays of the JAX Camera's fields (same names)."""
+    device = resolve_device(device)
     return Camera(**{k: torch.tensor(arrays[k], dtype=dtype, device=device)
                      for k in CAMERA_FIELDS})
 

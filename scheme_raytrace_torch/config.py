@@ -9,7 +9,9 @@ on the GPU, and that happens here without touching the JAX package.
 Differences from the JAX config:
   * `jnp_dtype` becomes `torch_dtype`;
   * `use_pallas` is dropped: the device of the tensors picks the step
-    implementation (CUDA kernel for CUDA tensors, plain PyTorch on the CPU).
+    implementation (CUDA kernel for CUDA tensors, plain PyTorch on the CPU);
+  * `resolve_device` is the one place that turns an entry point's
+    `device=None` into the card.
 """
 
 from __future__ import annotations
@@ -35,6 +37,23 @@ KLEIN_SPHERE_R = 300.0        # geometry.scm:590-598
 SAH_T_TRI = 1.0               # geometry.scm:297
 SAH_T_AABB = 1.0              # geometry.scm:298
 GAMMA_QUANT = 255.99          # main.scm:463
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds its tensors on.
+
+    `None` means the current CUDA card: the port runs on the card unless the
+    caller asks for the CPU.  Where no CUDA device is present it raises
+    rather than carry on on the CPU by itself; `device="cpu"` is the request
+    for the plain PyTorch path."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available and no device was named: the port "
+            "runs on the card by default; pass device=\"cpu\" to run its "
+            "plain PyTorch path on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,10 @@
 // Every function here follows scheme_raytrace_torch/integrator/bounce.py:
 // step, op for op, with two forms of K1's own: cbrt for the fuzz radius and
 // a multiplied-out x^5 in Schlick (the JAX step keeps pow for Mosaic).
-// nvcc contracts mul+add into FMA (no --use_fast_math).
+// nvcc contracts mul+add into FMA (no --use_fast_math), except where a
+// comparison reads a value that cancels: the hit point (ray_at) and the
+// whole sphere probe (sphere_probe) round every product on its own, as the
+// plain step does.
 
 #pragma once
 
@@ -48,6 +51,33 @@ constexpr int R_TEXK = 22;
 constexpr int R_FUZZ = 23;
 constexpr int R_REF = 24;
 constexpr int RECT_SIZE = 26;
+
+constexpr int S_C0 = 0;
+constexpr int S_C1 = 3;
+constexpr int S_T0 = 6;
+constexpr int S_T1 = 7;
+constexpr int S_R = 8;
+constexpr int S_VALID = 9;
+constexpr int S_MTYPE = 10;
+constexpr int S_ALB0 = 11;
+constexpr int S_ALB1 = 14;
+constexpr int S_TEXK = 17;
+constexpr int S_FUZZ = 18;
+constexpr int S_REF = 19;
+constexpr int SPH_SIZE = 21;
+
+// A rect block and a sphere block end in the same material record (mtype,
+// alb0, alb1, texk, fuzz, ref, texs): the shading reads the winner's through
+// its mtype slot `mat` and these offsets from it, whatever its group.
+constexpr int kAlb0 = R_ALB0 - R_MTYPE;
+constexpr int kAlb1 = R_ALB1 - R_MTYPE;
+constexpr int kTexk = R_TEXK - R_MTYPE;
+constexpr int kFuzz = R_FUZZ - R_MTYPE;
+constexpr int kRef = R_REF - R_MTYPE;
+static_assert(S_ALB0 - S_MTYPE == kAlb0 && S_ALB1 - S_MTYPE == kAlb1 &&
+                  S_TEXK - S_MTYPE == kTexk && S_FUZZ - S_MTYPE == kFuzz &&
+                  S_REF - S_MTYPE == kRef,
+              "rect and sphere blocks share one material record");
 
 constexpr int L_KIND = 0;
 constexpr int L_X0 = 1;
@@ -205,7 +235,8 @@ __device__ __forceinline__ T cosine_value(V3<T> n, V3<T> d) {
 }
 
 struct Statics {
-  int m, n_rects, rect_base, n_lights, lgt_base, light_sampling;
+  int m, n_rects, rect_base, n_spheres, sph_base, has_moving;
+  int n_lights, lgt_base, light_sampling;
   int nx, ny, max_depth;
   uint32_t seed;
 };
@@ -338,6 +369,123 @@ __device__ __forceinline__ int closest_rect(const T* __restrict__ pk,
   return best_b;
 }
 
+// --- spheres (geometry.scm:149-153; bounce.py _sphere_hit) -----------------
+// The quadratic cancels: cq = oc.oc - r*r loses up to seven digits on a
+// ground sphere (radius 100 or 1000), and disc > 0, t > t_min and the
+// closest-hit `<` read the result.  So every product here that feeds a sum
+// is rounded on its own (mul_rn results are never contracted), in the plain
+// step's order, and the probe's t is bitwise the plain step's on the same
+// inputs; sqrt and division are IEEE.
+
+template <typename T>
+__device__ __forceinline__ T dot_rn(V3<T> a, V3<T> b) {
+  return Math<T>::add_rn(Math<T>::add_rn(Math<T>::mul_rn(a.x, b.x),
+                                         Math<T>::mul_rn(a.y, b.y)),
+                         Math<T>::mul_rn(a.z, b.z));
+}
+
+// What a sphere probe leaves for its caller: the forward keeps t, the
+// backward replays the winner's probe and reads the rest.
+template <typename T>
+struct SphereHit {
+  V3<T> c, oc;       // the centre at the lane's time, and o - c
+  T frac, sp;        // the moving centre's (time - t0) / sp
+  T bq, sq, t;
+  bool near;         // t is the near root -bq - sq (else -bq + sq)
+};
+
+// The centre of sphere block b at `time`: c0 + frac (c1 - c0), with the
+// span == 0 guard of the plain step; c0 itself in a scene with no moving
+// sphere.
+template <typename T>
+__device__ __forceinline__ void sphere_centre(const T* __restrict__ pk,
+                                              const Statics& s, int b, T time,
+                                              SphereHit<T>& h) {
+  const V3<T> c0 = ld3(pk, b + S_C0);
+  if (!s.has_moving) {
+    h.c = c0;
+    h.frac = T(0);
+    h.sp = T(1);
+    return;
+  }
+  const T t0 = ld(pk, b + S_T0);
+  const T span = ld(pk, b + S_T1) - t0;
+  h.sp = span == T(0) ? T(1) : span;
+  h.frac = (time - t0) / h.sp;
+  const V3<T> c1 = ld3(pk, b + S_C1);
+  h.c = {Math<T>::add_rn(c0.x, Math<T>::mul_rn(h.frac, c1.x - c0.x)),
+         Math<T>::add_rn(c0.y, Math<T>::mul_rn(h.frac, c1.y - c0.y)),
+         Math<T>::add_rn(c0.z, Math<T>::mul_rn(h.frac, c1.z - c0.z))};
+}
+
+// The JAX sphere_probe's candidate: true when the sphere at block b is hit
+// in (t_min, t_max), near root before far root, both bounds strict (rects
+// use >= and <=).
+template <typename T>
+__device__ __forceinline__ bool sphere_probe(const T* __restrict__ pk,
+                                             const Statics& s, int b, V3<T> o,
+                                             V3<T> d, T time, T t_min,
+                                             T t_max, SphereHit<T>& h) {
+  sphere_centre<T>(pk, s, b, time, h);
+  const T rr = ld(pk, b + S_R);
+  h.oc = sub(o, h.c);
+  h.bq = dot_rn(h.oc, d);
+  const T cq = Math<T>::add_rn(dot_rn(h.oc, h.oc), -Math<T>::mul_rn(rr, rr));
+  const T disc = Math<T>::add_rn(Math<T>::mul_rn(h.bq, h.bq), -cq);
+  if (!(disc > T(0))) return false;
+  h.sq = Math<T>::sqrt(disc);
+  const T t0 = -h.bq - h.sq;
+  const T t1 = -h.bq + h.sq;
+  h.near = t0 > t_min && t0 < t_max;
+  if (!h.near && !(t1 > t_min && t1 < t_max)) return false;
+  h.t = h.near ? t0 : t1;
+  return ld(pk, b + S_VALID) > T(0.5);
+}
+
+// The sphere sweep, after the rects, in pack order: one loop for any sphere
+// count.  It carries (best_t, winner) only; the winner's attributes are a
+// plain indexed load of its pk row afterwards, so no attribute atlas is
+// read.  best_t comes in as the rect sweep's; the strict < keeps a rect, or
+// an earlier sphere, at a tie.  Returns the winning sphere's pk offset, or
+// -1 when no sphere beats best_t.
+template <typename T>
+__device__ __forceinline__ int closest_sphere(const T* __restrict__ pk,
+                                              const Statics& s, V3<T> o,
+                                              V3<T> d, T time, T t_min,
+                                              T t_max, T& best_t) {
+  int best_b = -1;
+  for (int k = 0; k < s.n_spheres; ++k) {
+    const int b = s.sph_base + k * SPH_SIZE;
+    SphereHit<T> h;
+    if (sphere_probe<T>(pk, s, b, o, d, time, t_min, t_max, h) &&
+        h.t < best_t) {
+      best_t = h.t;
+      best_b = b;
+    }
+  }
+  return best_b;
+}
+
+// The closest hit over both groups: the winner's pk offset (-1 on a miss),
+// its t in best_t, and whether it is a sphere.
+template <typename T>
+__device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
+                                           const Statics& s, V3<T> o, V3<T> d,
+                                           T time, T t_min, T t_max,
+                                           T& best_t, bool& sph) {
+  const int rect_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t);
+  const int sph_b = closest_sphere<T>(pk, s, o, d, time, t_min, t_max, best_t);
+  sph = sph_b >= 0;
+  return sph ? sph_b : rect_b;
+}
+
+// A sphere's normal at hit point p: (p - c) / r, whose sign carries the
+// hollow-dielectric trick of a negative radius.
+template <typename T>
+__device__ __forceinline__ V3<T> sphere_normal(V3<T> p, V3<T> c, T rr) {
+  return scale(sub(p, c), T(1) / rr);
+}
+
 // The hit point o + t d, rounded as the plain step rounds it: a product,
 // then a sum, never fused into an FMA.  On a plane through the origin (the
 // floor y = 0) the plain step gets p.y = 0 exactly where a fused form leaves
@@ -349,11 +497,12 @@ __device__ __forceinline__ V3<T> ray_at(V3<T> o, T t, V3<T> d) {
           Math<T>::add_rn(o.z, Math<T>::mul_rn(t, d.z))};
 }
 
-// The winner's albedo: constant, or checker (texture.scm:12-23).
+// The winner's albedo: constant, or checker (texture.scm:12-23).  `mat` is
+// the winner's mtype slot.
 template <typename T>
-__device__ __forceinline__ bool checker_odd(const T* __restrict__ pk, int b,
+__device__ __forceinline__ bool checker_odd(const T* __restrict__ pk, int mat,
                                             V3<T> p) {
-  if (ld(pk, b + R_TEXK) != T(TEX_CHECKER)) return false;
+  if (ld(pk, mat + kTexk) != T(TEX_CHECKER)) return false;
   T sines = Math<T>::sin(T(10) * p.x) * Math<T>::sin(T(10) * p.y) *
             Math<T>::sin(T(10) * p.z);
   return sines < T(0);
@@ -384,8 +533,9 @@ __device__ __forceinline__ T schlick_prob(T ref_idx, T cosine, bool refr_ok) {
 }
 
 // One bounce of one lane (bounce.py:step): regenerate a fresh lane's camera
-// ray, sweep the rects for the closest hit, add the sky on a miss and the
-// emission on a hit, and scatter by the winner's material.  o, d, time,
+// ray, sweep the rects and the spheres for the closest hit, add the sky on
+// a miss and the emission on a hit, and scatter by the winner's material
+// (a sphere's normal comes from its hit point).  o, d, time,
 // rad and tp are updated in place; returns `scattering`.  Lanes that cannot
 // scatter (dead, missed, at the bounce cap) skip the shading, and only the
 // winning material's rule runs, with only the PCG4D column groups that
@@ -404,9 +554,11 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
     tp = {T(1), T(1), T(1)};
   }
 
-  // --- closest hit: rect sweep in pack order (geometry.scm:33-50) --------
+  // --- closest hit: rects, then spheres, in pack order (geometry.scm:33-50)
   T best_t;
-  const int best_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t);
+  bool sph;
+  const int best_b = closest_hit<T>(pk, s, o, d, time, t_min, t_max, best_t,
+                                    sph);
   const bool hit = best_b >= 0;
   const T t_eff = hit ? best_t : T(0);          // miss: p = o
   const V3<T> p = ray_at(o, t_eff, d);
@@ -423,11 +575,19 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
 
   bool scattering = false;
   if (alive && hit) {
-    const V3<T> wn = ld3(pk, best_b + R_WN);
-    const T mtype = ld(pk, best_b + R_MTYPE);
+    V3<T> wn;
+    if (sph) {
+      SphereHit<T> h;
+      sphere_centre<T>(pk, s, best_b, time, h);
+      wn = sphere_normal(p, h.c, ld(pk, best_b + S_R));
+    } else {
+      wn = ld3(pk, best_b + R_WN);
+    }
+    const int mat = best_b + (sph ? S_MTYPE : R_MTYPE);
+    const T mtype = ld(pk, mat);
     // --- albedo: constant or checker (texture.scm:12-23) ---------------
     const V3<T> alb =
-        ld3(pk, best_b + (checker_odd<T>(pk, best_b, p) ? R_ALB1 : R_ALB0));
+        ld3(pk, mat + (checker_odd<T>(pk, mat, p) ? kAlb1 : kAlb0));
     // --- emission (material.scm:103-111) --------------------------------
     if (mtype == T(MAT_DIFFUSE_LIGHT) && dot(wn, d) < T(0))
       rad = add(rad, mul(tp, alb));
@@ -458,14 +618,14 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
         uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
         V3<T> ball = fuzz_ball<T>(u);
         V3<T> refl = sub(d, scale(wn, T(2) * dot(d, wn)));
-        V3<T> fuzzed = add(refl, scale(ball, ld(pk, best_b + R_FUZZ)));
+        V3<T> fuzzed = add(refl, scale(ball, ld(pk, mat + kFuzz)));
         sc_ok = dot(fuzzed, wn) > T(0);
         dir = unit(fuzzed);
         mult = alb;
       } else if (mtype == T(MAT_DIELECTRIC)) {
         // material.scm:76-101
         uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
-        T ref_idx = ld(pk, best_b + R_REF);
+        T ref_idx = ld(pk, mat + kRef);
         T dd = dot(d, wn);
         bool exiting = dd > T(0);
         V3<T> own = exiting ? scale(wn, T(-1)) : wn;

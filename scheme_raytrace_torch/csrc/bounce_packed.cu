@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_packed
-// for the Cornell slice (ROADMAP B1.1, the coverage of bounce_step.cu): one
+// with the coverage of bounce_step.cu (rects, spheres, moving spheres): one
 // bounce of every lane plus the strided work re-issue (a lane whose path
 // terminates takes the item m further on), on the whole pool state held in
 // one [N_PACKED, m] float32 array with the int fields stored as their bits.
@@ -23,8 +23,8 @@
 //
 // What bounds it on an H100.  A lane moves 32 words of 4 B (8.4 MB at
 // m = 65,536, about 2.5 us at 3.35 TB/s), fewer than K1's 33 columns, and
-// computes K1's ~1 kflop.  Launch latency and the host glue of the packed
-// pool between launches are expected to dominate; PERF.md holds what was
+// computes what K1 computes: bytes bound it on Cornell, the sphere sweep's
+// operations on a scene of hundreds of spheres.  PERF.md holds what was
 // measured.
 
 #include "bounce_common.cuh"
@@ -65,7 +65,8 @@ bounce_packed_kernel(const PackedParams prm) {
 // synchronising and returns cudaGetLastError() (0 = launched).
 extern "C" int srt_bounce_packed(void* const* ptrs, int m, int n_work,
                                  int n_pix, int pix0, int total_pix,
-                                 int n_rects, int rect_base, int n_lights,
+                                 int n_rects, int rect_base, int n_spheres,
+                                 int sph_base, int has_moving, int n_lights,
                                  int lgt_base, int light_sampling, int nx,
                                  int ny, int max_depth, uint32_t seed,
                                  double t_min, double t_max, void* stream) {
@@ -75,8 +76,8 @@ extern "C" int srt_bounce_packed(void* const* ptrs, int m, int n_work,
   prm.sample_base = static_cast<const int32_t*>(ptrs[1]);
   prm.st_in = static_cast<const float*>(ptrs[2]);
   prm.st_out = static_cast<float*>(ptrs[3]);
-  prm.s = Statics{m, n_rects, rect_base, n_lights, lgt_base, light_sampling,
-                  nx, ny, max_depth, seed};
+  prm.s = Statics{m, n_rects, rect_base, n_spheres, sph_base, has_moving,
+                  n_lights, lgt_base, light_sampling, nx, ny, max_depth, seed};
   prm.q = Queue{m, n_work, n_pix, pix0, total_pix};
   prm.t_min = float(t_min);
   prm.t_max = float(t_max);

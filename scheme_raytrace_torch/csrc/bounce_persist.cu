@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/persist.py:_make_call (body _kernel)
-// for the Cornell slice (ROADMAP B1.1, the coverage of bounce_step.cu).  It
+// with the coverage of bounce_step.cu (rects, spheres, moving spheres).  It
 // takes the packed pool state (bounce_packed.cu's [N_PACKED, m] float32
 // layout) and returns the state after T iterations, the T flush rows
 // ([T, 4, m] float32: the finished path's pixel as int32 bits, -1 where the
@@ -24,13 +24,14 @@
 // Drained lanes (item >= n_work) run no-op iterations, as in the reference.
 //
 // Bitwise equal to T launches of bounce_packed.cu.  The iteration is the
-// same packed_step.  Between iterations the carried state passes through
-// an empty asm statement (opaque), so the compiler sees it as K3 does, as
-// values loaded from memory: no mul of one iteration is contracted with an
-// add of the next into an FMA.
+// same packed_step.  Between iterations the carried state (time included,
+// which feeds the moving spheres' centres) passes through an empty asm
+// statement (opaque), so the compiler sees it as K3 does, as values loaded
+// from memory: no mul of one iteration is contracted with an add of the
+// next into an FMA.
 //
-// What bounds it on an H100.  Per iteration a lane does K1's ~1 kflop and
-// writes 4 flush words (1 MB per iteration at m = 65,536); the state moves
+// What bounds it on an H100.  Per iteration a lane does K1's work (~1 kflop
+// on Cornell, ~10 kflop with 227 spheres) and writes 4 flush words (1 MB per iteration at m = 65,536); the state moves
 // once per launch.  A warp runs until its slowest lane's T paths are done
 // with their iterations; paths of different lengths diverge in the shading
 // branches.  Compute and divergence, not bandwidth, are the expected
@@ -103,7 +104,8 @@ bounce_persist_kernel(const PersistParams prm) {
 extern "C" int srt_bounce_persist(void* const* ptrs, int T, int m,
                                   int n_work, int n_pix, int pix0,
                                   int total_pix, int n_rects, int rect_base,
-                                  int n_lights, int lgt_base,
+                                  int n_spheres, int sph_base,
+                                  int has_moving, int n_lights, int lgt_base,
                                   int light_sampling, int nx, int ny,
                                   int max_depth, uint32_t seed, double t_min,
                                   double t_max, void* stream) {
@@ -116,8 +118,8 @@ extern "C" int srt_bounce_persist(void* const* ptrs, int T, int m,
   prm.flush = static_cast<float*>(ptrs[4]);
   prm.seg = static_cast<int32_t*>(ptrs[5]);
   prm.T = T;
-  prm.s = Statics{m, n_rects, rect_base, n_lights, lgt_base, light_sampling,
-                  nx, ny, max_depth, seed};
+  prm.s = Statics{m, n_rects, rect_base, n_spheres, sph_base, has_moving,
+                  n_lights, lgt_base, light_sampling, nx, ny, max_depth, seed};
   prm.q = Queue{m, n_work, n_pix, pix0, total_pix};
   prm.t_min = float(t_min);
   prm.t_max = float(t_max);

@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas TPU megakernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas  (its body: step)
-// for the Cornell slice (ROADMAP B1.1): regeneration of fresh lanes' camera
-// rays from PCG4D draws, the oriented-plane rect sweep with the closest-hit
-// material pick, the sky on a miss, constant and checker albedo, emission,
+// for ROADMAP B1.1-B1.3: regeneration of fresh lanes' camera rays from
+// PCG4D draws, the oriented-plane rect sweep and the sphere sweep (static
+// and moving spheres, any count) with the closest-hit material pick, the
+// sky on a miss, constant and checker albedo, emission,
 // mixture-PDF light sampling over xz-rect and sphere lights (or the plain
 // cosine lobe), and the lambertian / metal / dielectric scatter rules.
 // Its plain PyTorch twin is scheme_raytrace_torch/integrator/bounce.py:step,
@@ -20,10 +21,14 @@
 // Cornell) is read at plan offsets through the read-only data cache: every
 // thread of a warp reads the same address, which the cache broadcasts; this
 // takes the place of the TPU kernel's SMEM scalar view (_SmemPk).  The
-// plan's statics are kernel arguments.  Rects are swept in pack order with
-// the strict `<` of _merge_rec, so ties keep the first rect as on the TPU;
-// the sweep keeps only (t, winner offset) and reads the winner's material
-// once after the loop, which gives the same values as the running merge.
+// plan's statics are kernel arguments.  Rects, then spheres, are swept in
+// pack order with the strict `<` of _merge_rec, so ties keep the first
+// primitive as on the TPU; the sweep keeps only (t, winner offset) and reads
+// the winner's material once after the loop, which gives the same values as
+// the running merge.  That is the TPU kernel's slim sweep by construction:
+// the winner's attributes are an indexed load of its pk row, so there is one
+// sphere loop for any count (no unroll threshold, no chunking) and the
+// attribute atlas is never read.
 // Lanes that cannot scatter (dead, missed, at the bounce cap) skip the
 // shading, and only the winning material's rule runs, with only the PCG4D
 // column groups that rule draws from.
@@ -33,16 +38,20 @@
 // row tuning.  nvcc contracts mul+add into FMA (no --use_fast_math; sqrt,
 // division, sin and cos are IEEE / full-accuracy), except in the hit point
 // (ray_at), which the checker texture's sign test reads on planes through
-// the origin.  So the kernel agrees with the plain step to rounding, not
+// the origin, and in the sphere probe, whose quadratic cancels on a ground
+// sphere.  So the kernel agrees with the plain step to rounding, not
 // bitwise; the tolerances in chip_smoke.py and tests/test_torch_bounce.py
 // state how far.
 //
 // What bounds it on an H100.  Per bounce a lane moves about 33 values of
 // 4 B in and out (8.7 MB at m = 65,536 lanes, about 3 us at 3.35 TB/s).
-// The compute is about 18 rect probes (~25 flops each) plus the shading,
-// about 1 kflop a lane or 65 Mflop a launch, well under 1 ms of the card's
-// float32 rate.  At these sizes the launch and the PyTorch glue between
-// launches are expected to dominate; PERF.md holds what was measured.
+// On Cornell the compute is about 18 rect probes (~25 flops each) plus the
+// shading, about 1 kflop a lane: bytes bound it.  A sphere probe is about
+// 30 flops (40 with the moving centre), so the 227 spheres of the RTOW final
+// scene add about 9 kflop a lane, 0.6 Gflop a launch, about 9 us of the
+// card's 67 Tflop/s: there the sweep's operations bound it, and every lane
+// of a warp reads the same sphere row, which the cache broadcasts.
+// PERF.md holds what was measured.
 
 #include "bounce_common.cuh"
 
@@ -120,13 +129,14 @@ int launch(void* const* ptrs, const Statics& s, double t_min, double t_max,
 // (outputs).  Launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int srt_bounce_step(int is_f64, void* const* ptrs, int m,
-                               int n_rects, int rect_base, int n_lights,
+                               int n_rects, int rect_base, int n_spheres,
+                               int sph_base, int has_moving, int n_lights,
                                int lgt_base, int light_sampling, int nx,
                                int ny, int max_depth, uint32_t seed,
                                double t_min, double t_max, void* stream) {
   if (m <= 0) return 0;
-  Statics s{m, n_rects, rect_base, n_lights, lgt_base, light_sampling,
-            nx, ny, max_depth, seed};
+  Statics s{m, n_rects, rect_base, n_spheres, sph_base, has_moving,
+            n_lights, lgt_base, light_sampling, nx, ny, max_depth, seed};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch<double>(ptrs, s, t_min, t_max, st)
                 : launch<float>(ptrs, s, t_min, t_max, st);

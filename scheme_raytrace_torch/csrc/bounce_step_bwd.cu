@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_bwd
-// for the Cornell slice (ROADMAP B1.1, the coverage of bounce_step.cu).
-// Given the step's INPUTS and the cotangents of its five float outputs
+// with the coverage of bounce_step.cu (ROADMAP B1.1-B1.3: rects, spheres,
+// moving spheres, any sphere count).  Given the step's INPUTS and the cotangents of its five float outputs
 // (o', d', time', rad', tp'), it returns the cotangents of (pk, o, d, time,
 // rad, tp): the exact vector-Jacobian product of
 // scheme_raytrace_torch/integrator/bounce.py:step, whose plain VJP
@@ -17,15 +17,29 @@
 // (camera regeneration, hit point, sky, emission, checker select, the
 // mixture-PDF lambertian with its light sample and light value, metal,
 // dielectric, the final selects).  Comparisons carry no gradient, so a lane
-// touches only the header (camera and sky), its winning rect's normal,
-// plane constant, albedos, fuzz and index, and the light blocks.
+// touches only the header (camera and sky), its winner's slots and the
+// light blocks.  A winning rect takes cotangent in its normal, plane
+// constant, albedos, fuzz and index.  A winning sphere's normal is a
+// function of the hit point, so its cotangent flows back into o, d and t;
+// t's flows through the quadratic into o, d, the centres c0 and c1, the
+// radius and, for a moving sphere, time, t0 and t1 (the time cotangent is
+// an output, and reaches the camera header on fresh lanes).
 //
-// The pk cotangent: each lane keeps its contributions in registers; each
-// touched slot is summed over the warp with a shuffle butterfly, the warp
-// sums go to a [warps, P] array in shared memory, and one pass adds the
-// warps in order into this block's row of the (blocks, P) partials, which
-// the wrapper sums over blocks.  No float atomics: two identical launches
-// give bitwise-equal partials.  Light slots are recomputed per light in the
+// The pk cotangent: each lane keeps its contributions in registers.  P
+// grows with the scene (4,794 floats for the 227-sphere RTOW scene, where a
+// [warps, P] array in shared memory would take 307 KB in f64, over the
+// 227 KB a block may have), but a warp's lanes win at most 32 primitives.
+// So each warp loops over the distinct winners of its lanes, in lane
+// order, sums each winner's slots over the warp with a shuffle butterfly
+// and leaves (winner, sums) in its own list in shared memory; the header
+// slots and, per light, the light slots are summed the same way into small
+// per-warp arrays.  Then the block adds the warps' entries in warp order
+// into its row of the (blocks, P) partials in global memory (a list's
+// winners are distinct, so one warp's entries go in parallel), and the
+// wrapper sums the rows over blocks.  Shared memory does not depend on P
+// (38 KB in f64), no float atomics: two identical launches give
+// bitwise-equal partials, and a scene without spheres gets the sums it got
+// from the [warps, P] form.  Light slots are recomputed per light in the
 // reduction (the light count is a runtime value) instead of being kept.
 //
 // Conventions.  Every clamp of the plain step is a maximum (or a clip), and
@@ -33,17 +47,18 @@
 // as in JAX's maximum.  The adjoint guards exactly where the forward guards
 // (the where-selected denominators and square roots) and adds no guard of
 // its own.  One place
-// differs from autograd by construction: a rect that loses the closest-hit
-// sweep gets no cotangent here, where autograd multiplies its (finite or,
-// for a ray nearly in its plane, overflowing) t-derivative by zero.
+// differs from autograd by construction: a rect or a sphere that loses the
+// closest-hit sweep gets no cotangent here, where autograd multiplies its
+// (finite or, for a ray nearly in a rect's plane, overflowing) t-derivative
+// by zero.
 //
 // What bounds it on an H100.  Per lane it reads the 19 inputs and 13
 // cotangents and writes 13 cotangents, about 180 B in f32 (4.5 MB at the
-// reverse pool's 24,576 lanes, plus 96 x 506 partials), and computes the
-// forward's ~1 kflop and about as much again for the adjoint.  The warp
-// reductions add 5 shuffles per touched slot and warp (up to about 250
-// slots for Cornell).  Register pressure, not bandwidth, is the expected
-// limit; PERF.md holds what was measured.
+// reverse pool's 24,576 lanes, plus 96 x P partials), and computes the
+// forward's sweep and shading and about as much again for the adjoint: on
+// Cornell bytes bound it, on the 227-sphere scene the sweep's operations.
+// The warp reductions add 5 shuffles per touched slot, distinct winner and
+// warp.  PERF.md holds what was measured.
 
 #include "bounce_common.cuh"
 
@@ -273,17 +288,20 @@ struct BwdParams {
 };
 
 // A lane's pk cotangent, kept for the block reduction: the header slots,
-// its winning rect's slots, and what the light slots' recomputation needs.
+// its winner's slots, and what the light slots' recomputation needs.  The
+// winner is a sphere when win >= s.sph_base (pack order: rects first).
 template <typename T>
 struct LaneGrads {
   T hdr[HDR_SIZE];
   bool cam, sky;     // the camera / sky slots are touched
-  int win;           // the winning rect's pk offset (-1: none)
+  int win;           // the winner's pk offset (-1: none)
   bool odd;          // its checker picked ALB1
-  V3<T> wn;          // -> R_WN
-  T k;               // -> R_K
-  V3<T> alb;         // -> R_ALB0, or R_ALB1 when odd
-  T fuzz, ref;       // -> R_FUZZ, R_REF
+  V3<T> wn;          // -> R_WN; a sphere's S_C0
+  T k;               // -> R_K; a sphere's S_R
+  V3<T> c1;          // -> a moving scene's sphere: S_C1
+  T st0, st1;        // -> and S_T0, S_T1
+  V3<T> alb;         // -> the material's ALB0, or ALB1 when odd
+  T fuzz, ref;       // -> its FUZZ and REF
   bool lam_ls;       // a light-sampled lambertian scatter
   V3<T> lp, ldir;    // its hit point and direction
   T g_lv;            // the cotangent of each light's lights_value term
@@ -311,7 +329,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
   V3<T> tp = {prm.in[10][i], prm.in[11][i], prm.in[12][i]};
   const V3<T> go = {prm.ct[0][i], prm.ct[1][i], prm.ct[2][i]};
   const V3<T> gd = {prm.ct[3][i], prm.ct[4][i], prm.ct[5][i]};
-  const T g_time = prm.ct[6][i];
+  T g_time = prm.ct[6][i];
   const V3<T> g_rad = {prm.ct[7][i], prm.ct[8][i], prm.ct[9][i]};
   const V3<T> gtp = {prm.ct[10][i], prm.ct[11][i], prm.ct[12][i]};
 
@@ -321,22 +339,36 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
     tp = {T(1), T(1), T(1)};
   }
   T best_t;
-  const int b = closest_rect<T>(pk, s, o, d, prm.t_min, prm.t_max, best_t);
+  bool sph;
+  const int b = closest_hit<T>(pk, s, o, d, time, prm.t_min, prm.t_max,
+                               best_t, sph);
   const bool hit = b >= 0;
   const T t_eff = hit ? best_t : T(0);
   const V3<T> p = ray_at(o, t_eff, d);
+  // the winner's normal; a sphere's probe is replayed for the adjoint
+  SphereHit<T> sh;
+  T rr = T(1);
+  V3<T> wn = {T(0), T(1), T(0)};
+  if (hit && sph) {
+    sphere_probe<T>(pk, s, b, o, d, time, prm.t_min, prm.t_max, sh);
+    rr = ld(pk, b + S_R);
+    wn = sphere_normal(p, sh.c, rr);
+  } else if (hit) {
+    wn = ld3(pk, b + R_WN);
+  }
+  const int mat = b + (sph ? S_MTYPE : R_MTYPE);
 
   // --- the scatter and its adjoint (material.scm), then the selects ----
   // rad' = rad + sky + emission, so rad's cotangent passes through.
   V3<T> g_o = {T(0), T(0), T(0)}, g_d = {T(0), T(0), T(0)};
   V3<T> g_p = {T(0), T(0), T(0)}, g_tp = {T(0), T(0), T(0)};
+  V3<T> g_wn = {T(0), T(0), T(0)};            // the normal's cotangent
   bool scattering = false;
   if (alive && hit) {
     c.win = b;
-    const V3<T> wn = ld3(pk, b + R_WN);
-    const T mtype = ld(pk, b + R_MTYPE);
-    c.odd = checker_odd<T>(pk, b, p);
-    const V3<T> alb = ld3(pk, b + (c.odd ? R_ALB1 : R_ALB0));
+    const T mtype = ld(pk, mat);
+    c.odd = checker_odd<T>(pk, mat, p);
+    const V3<T> alb = ld3(pk, mat + (c.odd ? kAlb1 : kAlb0));
     // emission (material.scm:103-111)
     if (mtype == T(MAT_DIFFUSE_LIGHT) && dot(wn, d) < T(0)) {
       g_tp = add(g_tp, mul(g_rad, alb));
@@ -369,7 +401,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
             const T g_c = max_adj(cw, T(0), g_cv * T(1.0 / kPi));
             g_p = go;
             V3<T> g_dir = add(gd, scale(wn, g_c));
-            c.wn = add(c.wn, scale(dir, g_c));
+            g_wn = add(g_wn, scale(dir, g_c));
             c.lam_ls = true;
             c.lp = p;
             c.ldir = dir;
@@ -387,7 +419,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
               light_sample_adj<T>(pk, s.lgt_base + c.l_pick * LGT_SIZE, u[4],
                                   u[5], u[6], u[7], p, g_dir, g_p, gl);
             } else {
-              c.wn = add(c.wn, cosine_dir_adj<T>(u[0], u[1], wn, g_dir));
+              g_wn = add(g_wn, cosine_dir_adj<T>(u[0], u[1], wn, g_dir));
             }
           }
         } else {
@@ -395,12 +427,12 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
           g_tp = add(g_tp, mul(gtp, alb));
           c.alb = add(c.alb, mul(gtp, tp));
           g_p = go;
-          c.wn = add(c.wn, cosine_dir_adj<T>(u[0], u[1], wn, gd));
+          g_wn = add(g_wn, cosine_dir_adj<T>(u[0], u[1], wn, gd));
         }
       } else if (mtype == T(MAT_METAL)) {
         uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
         const V3<T> ball = fuzz_ball<T>(u);
-        const T fuzz = ld(pk, b + R_FUZZ);
+        const T fuzz = ld(pk, mat + kFuzz);
         const V3<T> fuzzed =
             add(sub(d, scale(wn, T(2) * dot(d, wn))), scale(ball, fuzz));
         if (dot(fuzzed, wn) > T(0)) {
@@ -410,14 +442,14 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
           g_p = go;
           const V3<T> g_f = unit_adj(fuzzed, gd);
           c.fuzz = dot(g_f, ball);
-          reflect_adj(d, wn, g_f, g_d, c.wn);
+          reflect_adj(d, wn, g_f, g_d, g_wn);
         }
       } else if (mtype == T(MAT_DIELECTRIC)) {
         uniforms4<T>(s.seed, item, uint32_t(depth), 2u, u);
         scattering = true;                    // tp' = tp
         g_tp = add(g_tp, gtp);
         g_p = go;
-        const T ref_idx = ld(pk, b + R_REF);
+        const T ref_idx = ld(pk, mat + kRef);
         const T dd = dot(d, wn);
         const bool exiting = dd > T(0);
         const V3<T> own = exiting ? scale(wn, T(-1)) : wn;
@@ -432,7 +464,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
             sub(scale(sub(d, scale(own, dtn)), ni), scale(own, safe));
         const V3<T> refl = sub(d, scale(wn, T(2) * dot(d, wn)));
         if (u[0] < schlick_prob<T>(ref_idx, cosine, refr_ok)) {
-          reflect_adj(d, wn, unit_adj(refl, gd), g_d, c.wn);
+          reflect_adj(d, wn, unit_adj(refl, gd), g_d, g_wn);
         } else {
           // refr = ni (d - own dtn) - own safe
           const V3<T> g_r = unit_adj(refr, gd);
@@ -446,7 +478,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
           g_dtn += g_disc * (T(2) * ni * ni * dtn);
           g_d = add(g_d, scale(own, g_dtn));       // dtn = d . own
           g_own = add(g_own, scale(d, g_dtn));
-          c.wn = exiting ? sub(c.wn, g_own) : add(c.wn, g_own);
+          g_wn = exiting ? sub(g_wn, g_own) : add(g_wn, g_own);
           if (exiting) {
             c.ref += g_ni;
           } else if (ref_idx != T(0)) {
@@ -481,19 +513,62 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
     g_d.y += T(0.5) * dot(g_sky, sub(sb, sa));
   }
 
-  // --- hit point p = o + t d, t = (K - o.wn) / (d.wn) -------------------
+  // --- a sphere's normal wn = (p - c) / r: back into p, c and r ---------
+  // (a dead lane's g_p and g_wn are zero: it scatters nothing)
+  V3<T> g_c = {T(0), T(0), T(0)};
+  T g_r = T(0);
+  if (alive && hit && sph) {
+    const T inv_r = T(1) / rr;
+    const V3<T> g_pc = scale(g_wn, inv_r);
+    g_p = add(g_p, g_pc);
+    g_c = scale(g_pc, T(-1));
+    g_r = -dot(g_wn, sub(p, sh.c)) * inv_r * inv_r;
+  }
+
+  // --- hit point p = o + t d --------------------------------------------
   g_o = add(g_o, g_p);
-  if (hit) {
+  if (alive && hit) {
     g_d = add(g_d, scale(g_p, t_eff));
-    const V3<T> wn = ld3(pk, b + R_WN);
-    const T dn = dot(d, wn);
     const T g_t = dot(g_p, d);
-    const T g_num = g_t / dn;
-    const T g_dn = -g_t * best_t / dn;
-    c.k = g_num;
-    g_o = sub(g_o, scale(wn, g_num));
-    g_d = add(g_d, scale(wn, g_dn));
-    c.wn = add(c.wn, add(scale(o, -g_num), scale(d, g_dn)));
+    if (sph) {
+      // t = -bq -/+ sq, sq = sqrt(disc), disc = bq bq - cq,
+      // cq = oc.oc - r r, bq = oc.d, oc = o - c (geometry.scm:149-153)
+      const T g_sq = sh.near ? -g_t : g_t;
+      const T g_disc = T(0.5) * g_sq / sh.sq;
+      const T g_bq = T(2) * sh.bq * g_disc - g_t;
+      const V3<T> g_oc =
+          add(scale(sh.oc, T(-2) * g_disc), scale(d, g_bq));
+      g_r += T(2) * rr * g_disc;
+      g_d = add(g_d, scale(sh.oc, g_bq));
+      g_o = add(g_o, g_oc);
+      g_c = sub(g_c, g_oc);
+      c.k = g_r;
+      if (s.has_moving) {
+        // c = c0 + frac (c1 - c0), frac = (time - t0) / sp, sp = span or 1
+        const V3<T> dc = sub(ld3(pk, b + S_C1), ld3(pk, b + S_C0));
+        c.wn = scale(g_c, T(1) - sh.frac);
+        c.c1 = scale(g_c, sh.frac);
+        const T g_num = dot(g_c, dc) / sh.sp;
+        g_time += g_num;
+        c.st0 = -g_num;
+        if (ld(pk, b + S_T1) - ld(pk, b + S_T0) != T(0)) {
+          const T g_sp = -g_num * sh.frac;
+          c.st1 = g_sp;
+          c.st0 -= g_sp;
+        }
+      } else {
+        c.wn = g_c;
+      }
+    } else {
+      // t = (K - o.wn) / (d.wn); the normal is a pk leaf
+      const T dn = dot(d, wn);
+      const T g_num = g_t / dn;
+      const T g_dn = -g_t * best_t / dn;
+      c.k = g_num;
+      g_o = sub(g_o, scale(wn, g_num));
+      g_d = add(g_d, scale(wn, g_dn));
+      c.wn = add(g_wn, add(scale(o, -g_num), scale(d, g_dn)));
+    }
   }
 
   // --- regeneration: a fresh lane's cotangents go to the camera --------
@@ -546,55 +621,109 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
   prm.out[10][i] = g_tp.x;  prm.out[11][i] = g_tp.y;  prm.out[12][i] = g_tp.z;
 }
 
+// The pk slots a winner's cotangent touches, in the order of its list entry:
+// the geometry vector (R_WN, a sphere's S_C0), the geometry scalar (R_K,
+// S_R), ALB0, ALB1, FUZZ, REF, and for a sphere of a moving scene S_C1,
+// S_T0 and S_T1.  A rect, or a sphere of a static scene, uses the first
+// kRectSlots.
+constexpr int kSlots = 17;
+constexpr int kRectSlots = 12;
+
+// Entry slot j of a rect (sph false) or sphere winner -> its offset in the
+// winner's pk block.
+__device__ __forceinline__ int win_slot(bool sph, int j) {
+  if (j < 3) return (sph ? S_C0 : R_WN) + j;
+  if (j == 3) return sph ? S_R : R_K;
+  if (j < kRectSlots) {
+    const int mat = sph ? S_MTYPE : R_MTYPE;
+    if (j < 7) return mat + kAlb0 + (j - 4);
+    if (j < 10) return mat + kAlb1 + (j - 7);
+    return mat + (j == 10 ? kFuzz : kRef);
+  }
+  if (j < 15) return S_C1 + (j - 12);
+  return j == 15 ? S_T0 : S_T1;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bounce_step_bwd_kernel(const BwdParams<T> prm) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* red = reinterpret_cast<T*>(smem_raw);       // [kWarps, P] warp sums
+  __shared__ T s_hdr[kWarps][HDR_SIZE];        // warp sums of the header
+  __shared__ T s_lgt[kWarps][LGT_SIZE];        // and of one light's slots
+  __shared__ T s_val[kWarps][32][kSlots];      // each warp's winner list
+  __shared__ int s_win[kWarps][32];
+  __shared__ int s_n[kWarps];
   const Statics& s = prm.s;
   const T* __restrict__ pk = prm.pk;
   const int P = prm.P;
-  for (int k = threadIdx.x; k < kWarps * P; k += kThreads) red[k] = T(0);
-  __syncthreads();
+  T* part = prm.dpk_part + size_t(blockIdx.x) * P;   // this block's row
+  for (int k = threadIdx.x; k < P; k += kThreads) part[k] = T(0);
 
   const int i = blockIdx.x * kThreads + threadIdx.x;
   LaneGrads<T> c = {};
   c.win = c.l_pick = -1;
   if (i < s.m) lane_adjoint(prm, i, c);
 
-  // --- pk cotangent: warp sums into shared memory ------------------------
+  // --- warp sums: the header, then one list entry per distinct winner ----
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* wred = red + warp * P;
   if (__any_sync(kFullMask, c.cam || c.sky)) {
 #pragma unroll
     for (int k = 0; k < HDR_SIZE; ++k) {
       const T v = warp_sum(c.hdr[k]);
-      if (lane == 0) wred[k] = v;
+      if (lane == 0) s_hdr[warp][k] = v;
     }
+  } else if (lane < HDR_SIZE) {
+    s_hdr[warp][lane] = T(0);
   }
-  for (int r = 0; r < s.n_rects; ++r) {
-    const int b = s.rect_base + r * RECT_SIZE;
+  int n = 0;
+  unsigned todo = __ballot_sync(kFullMask, c.win >= 0);
+  while (todo) {                       // winners in order of their first lane
+    const int b = __shfl_sync(kFullMask, c.win, __ffs(todo) - 1);
     const bool mine = c.win == b;
-    if (!__any_sync(kFullMask, mine)) continue;
+    todo &= ~__ballot_sync(kFullMask, mine);
+    const bool moving = b >= s.sph_base && s.has_moving;
     const T z = T(0);
     const V3<T> a0 = mine && !c.odd ? c.alb : V3<T>{z, z, z};
     const V3<T> a1 = mine && c.odd ? c.alb : V3<T>{z, z, z};
-    const T vals[12] = {mine ? c.wn.x : z, mine ? c.wn.y : z,
-                        mine ? c.wn.z : z, mine ? c.k : z,
-                        a0.x, a0.y, a0.z, a1.x, a1.y, a1.z,
-                        mine ? c.fuzz : z, mine ? c.ref : z};
-    const int slot[12] = {R_WN, R_WN + 1, R_WN + 2, R_K,
-                          R_ALB0, R_ALB0 + 1, R_ALB0 + 2,
-                          R_ALB1, R_ALB1 + 1, R_ALB1 + 2, R_FUZZ, R_REF};
+    const T vals[kSlots] = {
+        mine ? c.wn.x : z, mine ? c.wn.y : z, mine ? c.wn.z : z,
+        mine ? c.k : z, a0.x, a0.y, a0.z, a1.x, a1.y, a1.z,
+        mine ? c.fuzz : z, mine ? c.ref : z,
+        mine ? c.c1.x : z, mine ? c.c1.y : z, mine ? c.c1.z : z,
+        mine ? c.st0 : z, mine ? c.st1 : z};
 #pragma unroll
-    for (int k = 0; k < 12; ++k) {
-      const T v = warp_sum(vals[k]);
-      if (lane == 0) wred[b + slot[k]] = v;
+    for (int j = 0; j < kSlots; ++j) {
+      if (j < kRectSlots || moving) {
+        const T v = warp_sum(vals[j]);
+        if (lane == 0) s_val[warp][n][j] = v;
+      }
     }
+    if (lane == 0) s_win[warp][n] = b;
+    ++n;
   }
-  if (__any_sync(kFullMask, c.lam_ls)) {
-    for (int l = 0; l < s.n_lights; ++l) {
-      const int b = s.lgt_base + l * LGT_SIZE;
+  if (lane == 0) s_n[warp] = n;
+  __syncthreads();                     // the row is zeroed, the lists stand
+
+  // --- this block's row of the partials: the warps added in order -------
+  if (threadIdx.x < HDR_SIZE) {
+    T acc = s_hdr[0][threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) acc += s_hdr[w][threadIdx.x];
+    part[threadIdx.x] = acc;
+  }
+  for (int w = 0; w < kWarps; ++w) {   // one list's winners are distinct
+    for (int e = threadIdx.x; e < s_n[w] * kSlots; e += kThreads) {
+      const int b = s_win[w][e / kSlots], j = e % kSlots;
+      const bool sph = b >= s.sph_base;
+      if (j < kRectSlots || (sph && s.has_moving))
+        part[b + win_slot(sph, j)] += s_val[w][e / kSlots][j];
+    }
+    __syncthreads();
+  }
+
+  // --- the light slots, one light at a time ------------------------------
+  if (!__syncthreads_or(c.lam_ls)) return;
+  for (int l = 0; l < s.n_lights; ++l) {
+    const int b = s.lgt_base + l * LGT_SIZE;
+    if (__any_sync(kFullMask, c.lam_ls)) {
       T gl[LGT_SIZE];
 #pragma unroll
       for (int k = 0; k < LGT_SIZE; ++k) gl[k] = T(0);
@@ -608,18 +737,18 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
 #pragma unroll
       for (int k = L_X0; k <= L_RAD; ++k) {     // L_KIND is compared only
         const T v = warp_sum(gl[k]);
-        if (lane == 0) wred[b + k] = v;
+        if (lane == 0) s_lgt[warp][k] = v;
       }
+    } else if (lane < LGT_SIZE) {
+      s_lgt[warp][lane] = T(0);
     }
-  }
-  __syncthreads();
-
-  // --- this block's row of the partials: the warps added in order -------
-  T* part = prm.dpk_part + size_t(blockIdx.x) * P;
-  for (int k = threadIdx.x; k < P; k += kThreads) {
-    T acc = red[k];
-    for (int w = 1; w < kWarps; ++w) acc += red[w * P + k];
-    part[k] = acc;
+    __syncthreads();
+    if (threadIdx.x >= L_X0 && threadIdx.x <= L_RAD) {
+      T acc = s_lgt[0][threadIdx.x];
+      for (int w = 1; w < kWarps; ++w) acc += s_lgt[w][threadIdx.x];
+      part[b + threadIdx.x] = acc;
+    }
+    __syncthreads();
   }
 }
 
@@ -642,15 +771,8 @@ int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
   prm.P = P;
   prm.t_min = T(t_min);
   prm.t_max = T(t_max);
-  const size_t smem = size_t(kWarps) * P * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bounce_step_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const int blocks = (s.m + kThreads - 1) / kThreads;
-  bounce_step_bwd_kernel<T><<<blocks, kThreads, smem, stream>>>(prm);
+  bounce_step_bwd_kernel<T><<<blocks, kThreads, 0, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -664,13 +786,14 @@ int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
 // CUDA error (0 = launched).
 extern "C" int srt_bounce_step_bwd(int is_f64, void* const* ptrs, int m,
                                    int P, int n_rects, int rect_base,
-                                   int n_lights, int lgt_base,
+                                   int n_spheres, int sph_base,
+                                   int has_moving, int n_lights, int lgt_base,
                                    int light_sampling, int nx, int ny,
                                    int max_depth, uint32_t seed, double t_min,
                                    double t_max, void* stream) {
   if (m <= 0) return 0;
-  Statics s{m, n_rects, rect_base, n_lights, lgt_base, light_sampling,
-            nx, ny, max_depth, seed};
+  Statics s{m, n_rects, rect_base, n_spheres, sph_base, has_moving,
+            n_lights, lgt_base, light_sampling, nx, ny, max_depth, seed};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_bwd<double>(ptrs, s, P, t_min, t_max, st)
                 : launch_bwd<float>(ptrs, s, P, t_min, t_max, st);

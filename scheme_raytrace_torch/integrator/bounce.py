@@ -11,13 +11,15 @@ Two implementations of one step, picked by the device of the tensors:
     matches the JAX package to round-off), used for CPU tensors and as the
     oracle of the kernel;
   * `step_cuda` — the hand-written CUDA kernel csrc/bounce_step.cu (the
-    port of the Pallas megakernel `as_pallas`), used for CUDA tensors.
+    port of the Pallas megakernel `as_pallas`), used for CUDA tensors.  It
+    takes `pk` alone, from a `pool_plan` plan: no attribute atlas.
 
-Coverage (both implementations, the Cornell slice ROADMAP B1.1): rects,
-xz-rect and sphere lights with mixture-PDF light sampling, constant and
-checker albedo, emission, gradient/black sky, lambertian/metal/dielectric.
-Spheres, media, klein, bezier, perlin and image textures raise
-NotImplementedError (`check_covered`); `pack` covers every group.
+Coverage (both implementations, ROADMAP B1.1-B1.3): rects, spheres
+(static and moving, any count), xz-rect and sphere lights with mixture-PDF
+light sampling, constant and checker albedo, emission, gradient/black sky,
+lambertian/metal/dielectric.  Media, klein, bezier, perlin and image
+textures raise NotImplementedError (`check_covered`); `pack` covers every
+group.
 """
 
 from __future__ import annotations
@@ -245,6 +247,8 @@ class BouncePlan:
 
 # Sweep and routing constants of the JAX package (TPU-tuned; the port
 # re-sweeps them on the GPU once the groups that read them are ported).
+# UNROLL_MAX only decides `make_plan`'s attr_sweep, as there: the port's
+# sweeps have one form for any count.
 UNROLL_MAX = 64
 MAX_FUSED_PRIMS = 4096
 IMG_ROWS_MAX = 48
@@ -292,18 +296,36 @@ def make_plan(scene, config) -> BouncePlan:
         > UNROLL_MAX)
 
 
+def pool_plan(scene, config) -> BouncePlan:
+    """The plan every pool of the port runs: `make_plan` without the
+    attribute atlas.  The JAX pools drop `attr_sweep` in reverse mode and in
+    the strided pools, where their kernels cannot take the atlas; here no
+    path needs it (the plain step gathers the winner's `pk` row, the kernels
+    load it), so it is never built or passed."""
+    return dataclasses.replace(make_plan(scene, config), attr_sweep=False)
+
+
 def check_covered(plan: BouncePlan) -> None:
-    """Raise NotImplementedError for plans outside the ported slice."""
+    """Raise NotImplementedError for plans outside the ported slices."""
     missing = [name for name, present in (
-        ("spheres", plan.n_spheres), ("media", plan.n_media),
+        ("media", plan.n_media),
         ("klein", plan.n_kleins), ("bezier", plan.n_beziers),
         ("perlin textures", plan.has_perlin),
         ("image textures", plan.has_image)) if present]
     if missing:
         raise NotImplementedError(
-            f"the fused bounce step covers the Cornell slice (ROADMAP B1.1: "
-            f"rects, lights, constant/checker albedo); this plan needs "
+            f"the fused bounce step covers ROADMAP B1.1-B1.3 (rects, spheres, "
+            f"lights, constant/checker albedo); this plan needs "
             f"{', '.join(missing)}, which later B1 slices port")
+
+
+def check_kernel_plan(plan: BouncePlan) -> None:
+    """`check_covered` for the CUDA wrappers, which take `pk` alone: the
+    kernels load the winner's `pk` row and read no atlas (`pool_plan`)."""
+    check_covered(plan)
+    if plan.has_atlas:
+        raise ValueError("the bounce kernels take pk without an atlas: build "
+                         "the plan with bounce.pool_plan")
 
 
 def _sum3(x):
@@ -489,7 +511,7 @@ def pack(scene, cam, plan: BouncePlan, dtype):
 
 
 # ---------------------------------------------------------------------------
-# The plain step (Cornell slice), op for op the JAX `step`
+# The plain step (rects, spheres, lights), op for op the JAX `step`
 # ---------------------------------------------------------------------------
 
 
@@ -536,8 +558,79 @@ def _merge_rec(pk, best, ok, t, wn, base, a0_off, a1_off, m_off, tk_off,
     }
 
 
-def _intersect(plan, pk, o, d, t_min, t_max):
-    """Closest-hit rect sweep in pack order, material merged in."""
+def _sphere_hit(plan, sph, o, d, time, t_min, big):
+    """The JAX sphere_probe's candidate: (ok, t, centre) of the spheres
+    whose S_* attributes are `sph[k]`, each broadcast against the lanes
+    ([n, 1] columns for every sphere against every lane, or [m] gathered
+    rows for one sphere per lane).  t0 before t1, strict bounds."""
+    c0 = (sph[S_C0], sph[S_C0 + 1], sph[S_C0 + 2])
+    if plan.has_moving:
+        span = sph[S_T1] - sph[S_T0]
+        frac = (time - sph[S_T0]) / torch.where(span == 0.0, 1.0, span)
+        c = tuple(c0[i] + frac * (sph[S_C1 + i] - c0[i]) for i in range(3))
+    else:
+        c = c0
+    rr = sph[S_R]
+    oc = sub3(o, c)
+    bq = dot3(oc, d)                               # geometry.scm:149-153
+    cq = dot3(oc, oc) - rr * rr
+    disc = bq * bq - cq
+    okd = disc > 0.0
+    sq = torch.sqrt(torch.where(okd, disc, 1.0))
+    t0 = -bq - sq
+    t1 = -bq + sq
+    in0 = okd & (t0 > t_min) & (t0 < big)
+    in1 = okd & (t1 > t_min) & (t1 < big)
+    t = torch.where(in0, t0, torch.where(in1, t1, big))
+    return (in0 | in1) & (sph[S_VALID] > 0.5), t, c
+
+
+def _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max):
+    """Fold the sphere group into the running best record: what the JAX
+    step's unrolled sphere_probe merges, its _prim_loop and its slim sweep
+    all give, bitwise, for any sphere count.
+
+    The candidate t of every sphere against every lane is one [n, m]
+    tensor; its first-index argmin is the sweep's winner (the strict `<`
+    keeps the first of equal-t spheres), and one gather of the winner's row
+    of the `pk` sphere block carries its 21 attributes.  The winner is then
+    probed again from the gathered row, under autograd: the same t, and a
+    gradient that reaches the winner only."""
+    n = plan.n_spheres
+    block = pk_t[plan.sph_base:plan.sph_base + n * SPH_SIZE].reshape(
+        n, SPH_SIZE)
+    with torch.no_grad():
+        cols = block.detach().t()[:, :, None]                # [21, n, 1]
+        ok, t, _ = _sphere_hit(
+            plan, cols, tuple(x.detach() for x in o),
+            tuple(x.detach() for x in d), time.detach(), t_min, t_max)
+        idx = torch.argmin(torch.where(ok, t, math.inf), dim=0)
+    win = block[idx].unbind(1)                               # 21 x [m]
+    ok, t, c = _sphere_hit(plan, win, o, d, time, t_min, t_max)
+    closer = ok & (t < best["t"])
+    # normal (p - c)/r: sign(r) keeps the hollow-dielectric flip
+    inv_r = 1.0 / torch.where(closer, win[S_R], 1.0)
+    wn = tuple((o[i] + t * d[i] - c[i]) * inv_r for i in range(3))
+    v3 = lambda k: (win[k], win[k + 1], win[k + 2])
+    return {
+        "hit": best["hit"] | closer,
+        "t": torch.where(closer, t, best["t"]),
+        "wn": where3(closer, wn, best["wn"]),
+        "mtype": torch.where(closer, win[S_MTYPE], best["mtype"]),
+        "alb0": where3(closer, v3(S_ALB0), best["alb0"]),
+        "alb1": where3(closer, v3(S_ALB1), best["alb1"]),
+        "texk": torch.where(closer, win[S_TEXK], best["texk"]),
+        "texs": torch.where(closer, win[S_TEXS], best["texs"]),
+        "fuzz": torch.where(closer, win[S_FUZZ], best["fuzz"]),
+        "ref": torch.where(closer, win[S_REF], best["ref"]),
+    }
+
+
+def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
+    """Closest-hit sweep in pack order, material merged in: the rects,
+    unrolled (for any count: the JAX step's chunked loop above UNROLL_MAX
+    gives the unrolled merge's values), then the spheres.  pk is the
+    unbound scene vector, pk_t the tensor itself."""
     z = torch.zeros_like(o[0])
     best = {
         "hit": torch.zeros_like(o[0], dtype=torch.bool),
@@ -562,6 +655,8 @@ def _intersect(plan, pk, o, d, t_min, t_max):
         wn = tuple(w.expand_as(z) for w in wn_s)
         best = _merge_rec(pk, best, ok, t, wn, b, R_ALB0, R_ALB1, R_MTYPE,
                           R_TEXK, R_FUZZ, R_REF, R_TEXS)
+    if plan.n_spheres:
+        best = _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max)
     return best
 
 
@@ -669,10 +764,14 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     All lane arguments are [M] tensors; o/d/rad/tp are (x, y, z) tuples;
     gitem and depth are int32, fresh and alive bool.  Returns (o', d',
     time', rad', tp', scattering); the pool handles termination, the work
-    queue and the framebuffer.
+    queue and the framebuffer.  With `plan.has_atlas`, pk is `pack`'s
+    (pk, atlas) pair; the atlas is not read (see `_sweep_spheres`).
     """
     check_covered(plan)
+    if plan.has_atlas:
+        pk, _ = pk
     dt = px.dtype
+    pk_t = pk
     pk = pk.unbind(0)                  # 0-d tensors keep pk's own dtype
     # --- regenerate fresh lanes (camera rays; main.scm:452-469) -----------
     u_cam = rng.hash_uniforms_tuple(plan.seed, gitem, rng.CAMERA_DEPTH, 5,
@@ -687,7 +786,8 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     tp = where3(fresh, (one, one, one), tp)
 
     # --- closest hit (geometry.scm:33-50) ----------------------------------
-    rec = _intersect(plan, pk, o, d, cfg_mod.SHADOW_EPS, cfg_mod.BIG)
+    rec = _intersect(plan, pk, pk_t, o, d, time, cfg_mod.SHADOW_EPS,
+                     cfg_mod.BIG)
     hit = rec["hit"]
     t_eff = torch.where(hit, rec["t"], 0.0)       # miss: p = o (sanitized)
     p = tuple(o[i] + t_eff * d[i] for i in range(3))
@@ -804,11 +904,21 @@ def _kernel():
     fn = lib.srt_bounce_step
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 9
+                       + [ctypes.c_int] * 12
                        + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def scene_args(plan: BouncePlan):
+    """The plan's statics as the four bounce kernels take them, in their C
+    order: the groups' counts and pk offsets, the image size, the bounce
+    cap, the seed, and the hit interval."""
+    return (plan.n_rects, plan.rect_base, plan.n_spheres, plan.sph_base,
+            int(plan.has_moving), plan.n_lights, plan.lgt_base,
+            int(plan.light_sampling), plan.nx, plan.ny, plan.max_depth,
+            plan.seed & 0xFFFFFFFF, cfg_mod.SHADOW_EPS, cfg_mod.BIG)
 
 
 def _check_lane(name, x, dtype, m, device, fn="step_cuda"):
@@ -822,8 +932,9 @@ def _check_lane(name, x, dtype, m, device, fn="step_cuda"):
 def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
               o, d, time, rad, tp):
     """`step` through the CUDA kernel: same signature, same results to
-    floating-point tolerance (the kernel contracts mul+add into FMAs and
-    takes cbrt for the fuzz radius where `step` keeps the JAX pow form).
+    floating-point tolerance (the kernel contracts mul+add into FMAs,
+    outside the hit point and the sphere probe, and takes cbrt for the fuzz
+    radius where `step` keeps the JAX pow form).
 
     Every tensor must lie on one CUDA device, contiguous: pk [plan.size]
     and the float lanes in float32 or float64, gitem and depth int32, fresh
@@ -832,7 +943,7 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     synchronising and raises if the launch is refused.
     """
     global LAUNCHES
-    check_covered(plan)
+    check_kernel_plan(plan)
     dev = px.device
     if dev.type != "cuda":
         raise ValueError(f"step_cuda takes CUDA tensors, got {dev}")
@@ -859,10 +970,7 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     fn = _kernel()
     with torch.cuda.device(dev):
-        err = fn(int(dt == torch.float64), ptrs, m, plan.n_rects,
-                 plan.rect_base, plan.n_lights, plan.lgt_base,
-                 int(plan.light_sampling), plan.nx, plan.ny, plan.max_depth,
-                 plan.seed & 0xFFFFFFFF, cfg_mod.SHADOW_EPS, cfg_mod.BIG,
+        err = fn(int(dt == torch.float64), ptrs, m, *scene_args(plan),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"bounce_step kernel launch failed: CUDA error {err}")
@@ -919,7 +1027,7 @@ def _kernel_bwd():
     fn = lib.srt_bounce_step_bwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 10
+                       + [ctypes.c_int] * 13
                        + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -936,9 +1044,11 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     in the float lanes' dtype, all contiguous on one CUDA device.  Returns
     (dpk, do, dd, dtime, drad, dtp) as new tensors; dpk is the sum over
     blocks of the kernel's (ceil(m / 256), P) partials, taken in a fixed
-    order, so two identical calls give bitwise-equal results."""
+    order, so two identical calls give bitwise-equal results.  A winning
+    sphere takes cotangent in its centres, radius and, in a moving scene,
+    its times; dtime is then nonzero."""
     global BWD_LAUNCHES
-    check_covered(plan)
+    check_kernel_plan(plan)
     dev = px.device
     if dev.type != "cuda":
         raise ValueError(f"step_cuda_bwd takes CUDA tensors, got {dev}")
@@ -971,10 +1081,7 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     kernel = _kernel_bwd()
     with torch.cuda.device(dev):
         err = kernel(int(dt == torch.float64), ptrs, m, plan.size,
-                     plan.n_rects, plan.rect_base, plan.n_lights,
-                     plan.lgt_base, int(plan.light_sampling), plan.nx,
-                     plan.ny, plan.max_depth, plan.seed & 0xFFFFFFFF,
-                     cfg_mod.SHADOW_EPS, cfg_mod.BIG,
+                     *scene_args(plan),
                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(
@@ -1114,7 +1221,7 @@ def _kernel_packed():
     fn = lib.srt_bounce_packed
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 13
+                       + [ctypes.c_int] * 16
                        + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -1124,7 +1231,7 @@ def _kernel_packed():
 def check_packed(fn, plan: BouncePlan, pk, sample_base, state, m):
     """The checks of the packed kernels' wrappers; returns sample_base as a
     [1] int32 tensor on the state's device."""
-    check_covered(plan)
+    check_kernel_plan(plan)
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"{fn} takes CUDA tensors, got {dev}")
@@ -1141,11 +1248,9 @@ def check_packed(fn, plan: BouncePlan, pk, sample_base, state, m):
 
 
 def queue_args(plan: BouncePlan, m, n_work, n_pix, pix0, total_pix):
-    """The int arguments the packed kernels share, in their C order."""
-    return (m, n_work, n_pix, pix0, total_pix, plan.n_rects, plan.rect_base,
-            plan.n_lights, plan.lgt_base, int(plan.light_sampling), plan.nx,
-            plan.ny, plan.max_depth, plan.seed & 0xFFFFFFFF,
-            cfg_mod.SHADOW_EPS, cfg_mod.BIG)
+    """The queue and scene arguments the packed kernels share, in their C
+    order."""
+    return (m, n_work, n_pix, pix0, total_pix, *scene_args(plan))
 
 
 def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,

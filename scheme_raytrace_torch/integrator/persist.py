@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from . import bounce
-from .pool_strided import Framebuffer, pool_plan, pool_size
+from .pool_strided import Framebuffer, pool_size
 
 CHUNK_T = 32      # bounce iterations per launch (the reference's value)
 N_STATE = bounce.N_PACKED   # packed state rows: item, fresh, depth, o, d,
@@ -61,7 +61,7 @@ def _kernel():
     fn = lib.srt_bounce_persist
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 14
+                       + [ctypes.c_int] * 17
                        + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -117,7 +117,7 @@ def render_pool_persistent(scene, cam, config, raw0, sample_base, pix0=0,
     T = CHUNK_T
     dev = raw0.device
     chunk = chunk_cuda if dev.type == "cuda" else chunk_plain
-    plan = pool_plan(scene, config)
+    plan = bounce.pool_plan(scene, config)
     pk = bounce.pack(scene, cam, plan, torch.float32)
     sb = torch.as_tensor(sample_base, device=dev).to(torch.int32).reshape(1)
 

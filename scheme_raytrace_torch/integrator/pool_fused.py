@@ -62,7 +62,7 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
     n_pix = raw0.shape[0]
     total_pix = config.n_pixels if total_pix is None else total_pix
     spp = config.spp
-    plan = bounce.make_plan(scene, config)
+    plan = bounce.pool_plan(scene, config)
     dev, dtype = raw0.device, raw0.dtype
     reverse = static_iters is not None
     if dev.type == "cuda":

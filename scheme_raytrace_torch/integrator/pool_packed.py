@@ -13,7 +13,7 @@ framebuffer add runs every FLUSH_EVERY iterations, as in the strided pool
 (pool_strided.Framebuffer: ordered, race-free, bitwise reproducible).
 
 float32 only, as the reference, which packs the state as float32; the
-attribute-atlas plan flag is dropped as there (pool_strided.pool_plan).
+attribute-atlas plan flag is dropped as there (bounce.pool_plan).
 Returns (raw, segments, iters) like the other pools.
 """
 
@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import bounce
-from .pool_strided import FLUSH_EVERY, Framebuffer, pool_plan, pool_size
+from .pool_strided import FLUSH_EVERY, Framebuffer, pool_size
 
 
 def render_pool_packed(scene, cam, config, raw0, sample_base, pix0=0,
@@ -40,7 +40,7 @@ def render_pool_packed(scene, cam, config, raw0, sample_base, pix0=0,
     dev = raw0.device
     step = bounce.step_packed_cuda if dev.type == "cuda" else \
         bounce.step_packed
-    plan = pool_plan(scene, config)
+    plan = bounce.pool_plan(scene, config)
     pk = bounce.pack(scene, cam, plan, torch.float32)
     sb = torch.as_tensor(sample_base, device=dev).to(torch.int32).reshape(1)
 

@@ -33,7 +33,6 @@ plumbing) waits for the sharded paths (ROADMAP A.14).
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
@@ -41,13 +40,6 @@ import torch
 from . import bounce
 
 FLUSH_EVERY = 8
-
-
-def pool_plan(scene, config):
-    """The strided pools' plan: the pk-only sweep, with no attribute atlas
-    (the JAX pools drop it the same way, and take no texel atlas either)."""
-    return dataclasses.replace(bounce.make_plan(scene, config),
-                               attr_sweep=False)
 
 
 def pool_size(config, n_work):
@@ -105,7 +97,7 @@ def render_pool_strided(scene, cam, config, raw0, sample_base, pix0=0,
         step = bounce.step_cuda_vjp if reverse else bounce.step_cuda
     else:
         step = bounce.step
-    plan = pool_plan(scene, config)
+    plan = bounce.pool_plan(scene, config)
     pk = bounce.pack(scene, cam, plan, dtype)
 
     item = torch.arange(m, device=dev)

@@ -31,7 +31,9 @@ class RenderState:
 
 def init_state(config: cfg_mod.RenderConfig, dtype=None,
                device=None) -> RenderState:
+    """A zero state on `device` (None: the card, config.resolve_device)."""
     dtype = config.torch_dtype if dtype is None else dtype
+    device = cfg_mod.resolve_device(device)
     return RenderState(
         torch.zeros((config.ny, config.nx, 3), dtype=dtype, device=device),
         torch.zeros((), dtype=torch.int32, device=device))
@@ -101,6 +103,7 @@ def save_state(path: str, state: RenderState, seed: int) -> None:
 
 
 def load_state(path: str, device=None) -> RenderState:
+    device = cfg_mod.resolve_device(device)
     z = np.load(path)
     return RenderState(torch.as_tensor(z["raw_sum"], device=device),
                        torch.as_tensor(z["sample_count"], device=device))

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import objects as ob
+from ..config import resolve_device
 
 # Texture type tags
 TEX_CONSTANT = 0
@@ -157,7 +158,9 @@ def scene_from_arrays(arrays: dict, meta: dict, device=None,
     """Scene from numpy arrays of the same fields (e.g. a JAX package Scene's
     `{f: np.asarray(getattr(scene, f)) for f in _DATA_FIELDS}`) plus its
     `_META_FIELDS`.  Id tables become int32, masks bool, and every other
-    field `dtype`."""
+    field `dtype`.  `device=None` is the card (config.resolve_device)."""
+    device = resolve_device(device)
+
     def conv(f):
         t = (torch.bool if f in _BOOL_FIELDS
              else torch.int32 if f in _INT_FIELDS else dtype)
@@ -274,7 +277,8 @@ def compile_scene(objs: Sequence[ob.Hittable], sky: str = "black",
                   lights: Optional[Sequence[ob.Hittable]] = None,
                   bvh: Optional[str] = None, bvh_seed: int = 0,
                   device=None) -> Scene:
-    """Flatten a hittable list into the SoA Scene on `device`.
+    """Flatten a hittable list into the SoA Scene on `device` (None: the
+    card; "cpu" for the plain PyTorch path, config.resolve_device).
 
     `sky`: "gradient" (main.scm:91-95) or "black" (main.scm:97-98).
     `lights`: hittables to importance-sample (xz-rects/spheres); default:

@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from ..config import resolve_device
+
 SHAPE = (64, 128)
 
 # Launches of the probe_loops kernel in this process.
@@ -114,7 +116,8 @@ CASES = {n[5:]: f for n, f in list(globals().items())
 
 def inputs(seed=0, device=None):
     """A (64, 128) float32 input whose lanes take both sides of every mask
-    (uniform in [-3, 3))."""
+    (uniform in [-3, 3)), on `device` (None: the card)."""
+    device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     x = torch.rand(SHAPE, generator=g, dtype=torch.float32) * 6.0 - 3.0
     return x.to(device)
@@ -160,6 +163,6 @@ def loops(name, x):
     return loops_cuda(name, x) if x.device.type == "cuda" else CASES[name](x)
 
 
-def main(device="cuda"):
+def main(device=None):
     x = inputs(device=device)
     return {n: bool(torch.equal(loops(n, x), CASES[n](x))) for n in CASES}

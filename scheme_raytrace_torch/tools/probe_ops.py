@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ..config import resolve_device
 from ..core import rng
 
 NPX = 200 * 200
@@ -27,7 +28,9 @@ LAUNCHES = 0
 
 
 def inputs(device=None):
-    """The JAX probe's inputs: pack = arange(16), items = arange(1024)."""
+    """The JAX probe's inputs: pack = arange(16), items = arange(1024), on
+    `device` (None: the card, config.resolve_device)."""
+    device = resolve_device(device)
     pack = torch.arange(16, dtype=torch.float32, device=device).reshape(1, 16)
     item = torch.arange(8 * 128, dtype=torch.int32,
                         device=device).reshape(8, 128)
@@ -98,6 +101,6 @@ def probe(pack, item):
         pack, item)
 
 
-def main(device="cuda"):
+def main(device=None):
     out = probe(*inputs(device))
     return f"ok: {bool(torch.isfinite(out).all())} {out.flatten()[:4].tolist()}"

@@ -54,8 +54,10 @@ def test_cuda_source_constants_match():
     expect.update({n: getattr(t_ob, n) for n in consts if n.startswith("MAT_")})
     expect.update(TEX_CHECKER=t_build.TEX_CHECKER,
                   CAMERA_DEPTH=t_rng.CAMERA_DEPTH,
-                  PCG_MULT=t_rng._PCG_MULT, PCG_ADD=t_rng._PCG_ADD,
-                  kThreads=consts.get("kThreads"))
+                  PCG_MULT=t_rng._PCG_MULT, PCG_ADD=t_rng._PCG_ADD)
+    # k-prefixed names are a kernel's own (block size, list widths)
+    expect.update({n: v for n, v in consts.items() if n.startswith("k")})
+    assert "kThreads" in consts and tb.SPH_SIZE == consts["SPH_SIZE"]
     assert set(consts) == set(expect), set(consts) ^ set(expect)
     for n, v in consts.items():
         assert v == expect[n], n
@@ -70,8 +72,8 @@ def _both_scenes(spec_fn, dtype_name="f32"):
     t_spec = t_scenes.SCENES[[k for k, v in j_scenes.SCENES.items()
                               if v is spec_fn][0]]()
     t_scene = t_build.compile_scene(t_spec.objects, sky=t_spec.sky,
-                                    dtype=t_dt)
-    t_cam = t_spec.camera(dtype=t_dt, aspect=1.0)
+                                    dtype=t_dt, device="cpu")
+    t_cam = t_spec.camera(dtype=t_dt, aspect=1.0, device="cpu")
     return j_scene, j_cam, t_scene, t_cam
 
 
@@ -203,19 +205,58 @@ def test_step_matches_pallas_interpret():
     _assert_outputs_close(got, want, rtol=1e-4, atol=1e-3)
 
 
-def test_step_raises_outside_the_cornell_slice():
-    spec = t_scenes.test_scene()
-    scene = t_build.compile_scene(spec.objects, sky="gradient")
+def _plan_pk_ins(name, sky=None):
+    spec = t_scenes.SCENES[name]()
+    scene = t_build.compile_scene(spec.objects, sky=sky or spec.sky,
+                                  device="cpu")
     cfg = TConfig(nx=8, ny=8, spp=1, max_depth=4)
-    plan = tb.make_plan(scene, cfg)
-    pk = tb.pack(scene, spec.camera(aspect=1.0), plan, torch.float32)
+    plan = tb.pool_plan(scene, cfg)
+    pk = tb.pack(scene, spec.camera(aspect=1.0, device="cpu"), plan,
+                 torch.float32)
     ins = _torch_args(_lane_inputs(128, 8, 8, 4), torch.float32)
-    for fn in (tb.step, tb.step_cuda):
-        with pytest.raises(NotImplementedError, match="B1"):
-            fn(plan, pk, *ins)
+    return scene, spec, cfg, plan, pk, ins
+
+
+def test_step_raises_outside_the_cornell_slice():
+    # the ported slices are rects and spheres: a sphere plan runs, and
+    # what `supported` rejects still raises in the pool dispatch
+    scene, spec, cfg, plan, pk, ins = _plan_pk_ins("test", sky="gradient")
+    assert plan.n_spheres == 5 and not plan.has_atlas
+    out = tb.step(plan, pk, *ins)
+    assert out[5].any() and all(torch.isfinite(x).all() for x in out[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.step_cuda(plan, pk, *ins)
     with pytest.raises(NotImplementedError, match="A.11"):
-        t_pool.render_pool_auto(scene, spec.camera(), cfg.replace(
+        t_pool.render_pool_auto(scene, spec.camera(device="cpu"), cfg.replace(
             traversal="bvh"), torch.zeros(64, 3), 0)
+
+
+@pytest.mark.parametrize("name,group", [
+    ("cornell_smoke", "media"), ("klein", "klein"), ("bezier", "bezier"),
+    ("simple_light", "perlin"), ("textured", "image")])
+def test_step_raises_for_unported_groups(name, group):
+    scene, spec, cfg, plan, pk, ins = _plan_pk_ins(name)
+    if plan.has_atlas:
+        pk = pk[0]
+    for fn in (tb.step, tb.step_cuda):
+        with pytest.raises(NotImplementedError, match=group):
+            fn(plan, pk, *ins)
+    with pytest.raises(NotImplementedError, match="B1"):
+        t_pool.render_pool_auto(scene, spec.camera(device="cpu"), cfg,
+                                torch.zeros(64, 3), 0)
+
+
+def test_kernel_wrappers_take_no_atlas():
+    spec = t_scenes.random_scene(seed=0)
+    scene = t_build.compile_scene(spec.objects, sky=spec.sky, device="cpu")
+    plan = tb.make_plan(scene, TConfig(nx=8, ny=8, spp=1, max_depth=4))
+    pk, atlas = tb.pack(scene, spec.camera(aspect=1.0, device="cpu"), plan,
+                        torch.float32)
+    ins = _torch_args(_lane_inputs(128, 8, 8, 4), torch.float32)
+    out = tb.step(plan, (pk, atlas), *ins)        # the plain step ignores it
+    assert torch.isfinite(torch.stack(out[0])).all()
+    with pytest.raises(ValueError, match="pool_plan"):
+        tb.step_cuda(plan, pk, *ins)
 
 
 def test_step_cuda_takes_cuda_tensors_only():

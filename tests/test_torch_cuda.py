@@ -4,7 +4,9 @@ against `step_packed`, K4 bitwise against T launches of K3, the K5 and K6
 probes against theirs), a build or launch failure of each new kernel
 raising, the CUDA render against the config-4 golden, and the
 differentiable renders on the card (the FIFO and the strided pool's)
-against their forward renders.
+against their forward renders; then the same kernels on the sphere scenes
+(static, moving, the 227-sphere RTOW final scene with P = 4,794), the sphere
+goldens, and the card as the entry points' default device.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -48,10 +50,11 @@ def _cornell(dtype, device, spec_fn=scenes.cornell_box):
     return scene, spec.camera(dtype=dtype, aspect=1.0, device=device)
 
 
-def _lane_inputs(m, nx, ny, max_depth, dtype, device, seed=2):
+def _lane_inputs(m, nx, ny, max_depth, dtype, device, seed=2, box=None):
     """Numpy draws: random gitems (negatives included), fresh/alive masks,
     depths with some lanes at the cap, origins inside the box, unit
-    directions, nonzero radiance and throughput."""
+    directions, nonzero radiance and throughput.  `box` (lo, hi) scales
+    the origins to a sphere scene and draws the times in [0, 1)."""
     r = np.random.default_rng(seed)
     gitem = r.integers(-2 ** 31, 2 ** 31, m, dtype=np.int64).astype(np.int32)
     px = r.integers(0, nx, m)
@@ -65,12 +68,17 @@ def _lane_inputs(m, nx, ny, max_depth, dtype, device, seed=2):
     dvec /= np.linalg.norm(dvec, axis=0, keepdims=True)
     rad = r.random((3, m))
     tp = r.uniform(0.1, 1.0, (3, m))
+    times = np.zeros(m)
+    if box is not None:
+        lo, hi = (np.asarray(b, np.float64)[:, None] for b in box)
+        o = lo + o / 500.0 * (hi - lo)
+        times = r.random(m)
     f = lambda x: torch.tensor(x, dtype=dtype, device=device)
     return (torch.tensor(gitem, device=device), f(px), f(py),
             torch.tensor(fresh, device=device),
             torch.tensor(alive, device=device),
             torch.tensor(depth, device=device), tuple(f(x) for x in o),
-            tuple(f(x) for x in dvec), f(np.zeros(m)),
+            tuple(f(x) for x in dvec), f(times),
             tuple(f(x) for x in rad), tuple(f(x) for x in tp))
 
 
@@ -338,11 +346,12 @@ def test_step_cuda_bwd_at_a_tie_matches_step_vjp(cuda, dtype):
 M_POOL = 64 * 1024            # the forward pool's width at 512^2
 
 
-def packed_state(m, n_work, max_depth, device, seed=0):
+def packed_state(m, n_work, max_depth, device, seed=0, box=None):
     """A numpy-seeded packed pool state ([N_PACKED, m] float32): items in
     [0, 1.1 n_work) (some lanes drained), fresh lanes, depths with some at
     the cap, origins inside the box, unit directions, nonzero radiance and
-    throughput.  Shared with chip_smoke.py's kind of inputs."""
+    throughput.  Shared with chip_smoke.py's kind of inputs.  `box` scales
+    the origins to a sphere scene and draws the times in [0, 1)."""
     r = np.random.default_rng(seed)
     st = np.zeros((bounce.N_PACKED, m), np.float32)
     ints = st.view(np.int32)
@@ -355,6 +364,10 @@ def packed_state(m, n_work, max_depth, device, seed=0):
     st[6:9] = dvec / np.linalg.norm(dvec, axis=0, keepdims=True)
     st[10:13] = r.random((3, m))
     st[13:16] = r.uniform(0.1, 1.0, (3, m))
+    if box is not None:
+        lo, hi = (np.asarray(b, np.float32)[:, None] for b in box)
+        st[3:6] = lo + st[3:6] / 500.0 * (hi - lo)
+        st[9] = r.random(m)
     return torch.tensor(st, device=device)
 
 
@@ -493,3 +506,198 @@ def test_new_kernel_launch_failure_raises(cuda, which, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         call()
     assert getattr(mod, count) == before
+
+
+# --- the sphere scenes (K1-K4; chip_smoke.py's phases 13-14) -------------
+
+
+def _moving_spec():
+    """The moving-sphere scene of tests/test_bounce.py."""
+    from scheme_raytrace_torch.scene import objects as ob
+    objs = [ob.Sphere((0, -100.5, -1), 100, ob.Lambertian((0.6, 0.6, 0.2))),
+            ob.MovingSphere((0, 0, -1), (0, 0.4, -1), 0.0, 1.0, 0.5,
+                            ob.Lambertian((0.2, 0.3, 0.7)))]
+    return scenes.SceneSpec(objs, scenes.default_camera(), "gradient")
+
+
+# name -> (spec, the box the lane origins are drawn from)
+SPHERE_SCENES = {
+    "test": (scenes.test_scene, ((-2, -0.4, -3), (2, 1.5, 1))),
+    "moving": (_moving_spec, ((-2, -0.4, -3), (2, 1.5, 1))),
+    "rtow": (lambda: scenes.random_scene(seed=0),
+             ((-6, 0.0, -6), (10, 2.5, 10))),
+}
+SPHERE_CFG = RenderConfig(nx=512, ny=512, spp=8, max_depth=100)
+
+
+def _sphere_setup(name, dtype, device):
+    """(plan, pk, lane box, f32 atol): the atol is Cornell's 1e-3 at its
+    0..555 scale, scaled to the scene's largest centre coordinate or radius
+    (the ground sphere's)."""
+    spec_fn, box = SPHERE_SCENES[name]
+    spec = spec_fn()
+    scene = compile_scene(spec.objects, sky="gradient", dtype=dtype,
+                          device=device)
+    cam = spec.camera(dtype=dtype, aspect=1.0, device=device)
+    plan = bounce.pool_plan(scene, SPHERE_CFG)
+    scale = max(float(scene.sph_c0.abs().max()),
+                float(scene.sph_c1.abs().max()),
+                float(scene.sph_r.abs().max()))
+    return plan, bounce.pack(scene, cam, plan, dtype), box, 1e-3 * scale / 555
+
+
+def _stacked(out):
+    o, d, t, r, tp, sc = out
+    return torch.stack([*o, *d, t, *r, *tp]), sc
+
+
+@pytest.mark.parametrize("name", sorted(SPHERE_SCENES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_step_cuda_matches_plain_step_on_spheres(cuda, dtype, name):
+    # f64: every lane within 1e-9.  f32: rtol 1e-4 and the scaled atol on
+    # all but at most 0.1% of the 65,536 lanes; the sphere probe rounds as
+    # the plain step does, so the flips come from the camera rays and the
+    # shading
+    m = 64 * 1024
+    plan, pk, box, atol = _sphere_setup(name, dtype, cuda)
+    assert plan.n_spheres == {"test": 5, "moving": 2, "rtow": 227}[name]
+    assert plan.has_moving == (name != "test") and not plan.has_atlas
+    ins = _lane_inputs(m, 512, 512, 100, dtype, cuda, box=box)
+    w, w_sc = _stacked(bounce.step(plan, pk, *ins))
+    g, g_sc = _stacked(bounce.step_cuda(plan, pk, *ins))
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        rtol, atol, max_off = 1e-9, 1e-9, 0
+    else:
+        rtol, max_off = 1e-4, m // 1000
+    off = (g_sc != w_sc) | ((g - w).abs() > atol + rtol * w.abs()).any(0)
+    assert torch.isfinite(g).all()
+    assert w_sc.any() and int(off.sum()) <= max_off, int(off.sum())
+
+
+@pytest.mark.parametrize("name", sorted(SPHERE_SCENES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_step_cuda_bwd_matches_step_vjp_on_spheres(cuda, dtype, name):
+    # The bounds of test_step_cuda_bwd_matches_step_vjp, and two launches
+    # bitwise equal.  f64 on "rtow" is the P = 4,794 case: its partials go
+    # through per-warp winner lists, not a [warps, P] array in shared
+    # memory.  f32: the dpk sums are held on the lanes whose rays are
+    # given.  A fresh lane's ray comes from camera_ray, where the kernel
+    # fuses products and sums that the plain step rounds one by one; a
+    # ground sphere of radius 100 or 1000 amplifies that ulp into percent
+    # differences of the f32 camera and sphere slots, where the plain f32
+    # VJP is itself as far from the f64 VJP (chip_smoke.py's check_k2 logs
+    # the fresh lanes' share).  Their adjoint is held in f64 here, and in
+    # f32 on the Cornell scenes.
+    m = 24 * 1024
+    f64 = dtype == torch.float64
+    plan, pk, box, atol = _sphere_setup(name, dtype, cuda)
+    ins = _lane_inputs(m, 512, 512, 100, dtype, cuda, box=box)
+    keep = torch.ones(m, dtype=torch.bool, device=cuda)
+    if not f64:
+        (g, g_sc), (w, w_sc) = (_stacked(bounce.step_cuda(plan, pk, *ins)),
+                                _stacked(bounce.step(plan, pk, *ins)))
+        keep = (g_sc == w_sc) & ((g - w).abs()
+                                 <= atol + 1e-4 * w.abs()).all(0)
+    assert int((~keep).sum()) <= m // 1000
+    r = np.random.default_rng(7)
+    cts = [torch.where(keep, torch.tensor(x, dtype=dtype, device=cuda), 0.0)
+           for x in r.normal(size=(13, m))]
+    cts = bounce.split_lanes(cts)
+    want_pk, want = _vjp_lanes(bounce.step_vjp(plan, pk, *ins, *cts))
+    got_pk, got = _vjp_lanes(bounce.step_cuda_bwd(plan, pk, *ins, *cts))
+    again_pk, again = _vjp_lanes(bounce.step_cuda_bwd(plan, pk, *ins, *cts))
+    torch.cuda.synchronize()
+    assert torch.equal(got_pk, again_pk) and torch.equal(got, again)
+    assert torch.isfinite(got).all() and torch.isfinite(got_pk).all()
+    if plan.has_moving:
+        assert float(want[6].abs().max()) > 0          # the time cotangent
+    err, pk_err = (got - want).abs(), (got_pk - want_pk).abs()
+    if f64:
+        assert not (err > 1e-9 + 1e-9 * want.abs()).any()
+        assert pk_err.max() <= 1e-8 * want_pk.abs().max()
+        return
+    scale = torch.clamp(want[:, keep].abs().amax(1), min=1.0)
+    assert not ((err > 1e-5 * scale[:, None] + 1e-3 * want.abs())
+                & keep).any()
+    given = bounce.split_lanes([torch.where(ins[3], 0.0, c)
+                                for c in bounce.flat_lanes(*cts)])
+    want_pk = bounce.step_vjp(plan, pk, *ins, *given)[0]
+    got_pk = bounce.step_cuda_bwd(plan, pk, *ins, *given)[0]
+    assert float(want_pk[plan.sph_base:].abs().max()) > 0
+    assert not ((got_pk - want_pk).abs()
+                > 1e-5 * max(1.0, float(want_pk.abs().max()))
+                + 1e-3 * want_pk.abs()).any()
+
+
+def test_packed_kernels_on_the_rtow_scene(cuda):
+    # K3 against step_packed (K1's bounds), and one K4 chunk bitwise equal
+    # to 32 K3 launches, on the 227-sphere scene's packed states
+    plan, pk, box, atol = _sphere_setup("rtow", torch.float32, cuda)
+    n_pix = SPHERE_CFG.n_pixels
+    q = dict(m=M_POOL, n_work=n_pix * SPHERE_CFG.spp, n_pix=n_pix, pix0=0,
+             total_pix=n_pix)
+    sb = torch.tensor([5], dtype=torch.int32, device=cuda)
+    state = packed_state(M_POOL, q["n_work"], plan.max_depth, cuda, box=box)
+    want = bounce.step_packed(plan, pk, sb, state, **q)
+    got = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    g_i, w_i = got.view(torch.int32), want.view(torch.int32)
+    off = ((g_i[0] != w_i[0]) | (got[1] != want[1]) | (g_i[2] != w_i[2])
+           | ((got[3:] - want[3:]).abs()
+              > atol + 1e-4 * want[3:].abs()).any(0))
+    assert torch.isfinite(got[3:]).all()
+    assert int(off.sum()) <= M_POOL // 1000, int(off.sum())
+    T = persist.CHUNK_T
+    got_state, got_flush, got_segs = persist.chunk_cuda(plan, pk, sb, state,
+                                                        T=T, **q)
+    st = state
+    flush = torch.empty_like(got_flush)
+    segs = torch.empty_like(got_segs)
+    for t in range(T):
+        item = st.view(torch.int32)[0]
+        segs[t] = (item < q["n_work"]).sum()
+        st = bounce.step_packed_cuda(plan, pk, sb, st, **q)
+        done = st[1] != 0.0
+        flush.view(torch.int32)[t, 0] = torch.where(done, item % n_pix, -1)
+        flush[t, 1:] = torch.where(done, st[10:13], 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got_state.view(torch.int32), st.view(torch.int32))
+    assert torch.equal(got_flush.view(torch.int32), flush.view(torch.int32))
+    assert torch.equal(got_segs, segs) and int(segs.sum()) > 0
+
+
+@pytest.mark.parametrize("golden,scene_fn,spp", [
+    ("config1_three_spheres", scenes.three_spheres, 10),
+    ("config2_rtow_final", lambda: scenes.random_scene(seed=0), 4)])
+def test_cuda_render_matches_sphere_goldens(cuda, golden, scene_fn, spp):
+    # no `device` anywhere: the entry points land on the card
+    spec = scene_fn()
+    scene = compile_scene(spec.objects, sky=spec.sky)
+    cam = spec.camera(aspect=1.0)
+    cfg = RenderConfig(nx=64, ny=64, spp=spp, max_depth=100, seed=0)
+    before = bounce.LAUNCHES
+    mean, state = render.render_image(scene, cam, cfg)
+    assert mean.device.type == "cuda" and bounce.LAUNCHES > before
+    ref = np.load(os.path.join(os.path.dirname(GOLDEN),
+                               golden + ".npz"))["image"]
+    img = mean.cpu().numpy().astype(np.float64)
+    assert np.isfinite(img).all()
+    diff = np.abs(img - ref)
+    assert diff.mean() < 5e-3, diff.mean()
+    assert (diff.max(axis=-1) > 0.05).mean() < 0.01
+
+
+def test_entry_points_land_on_the_card(cuda):
+    from scheme_raytrace_torch import camera
+    spec = scenes.three_spheres()
+    scene = compile_scene(spec.objects, sky=spec.sky)
+    cfg = RenderConfig(nx=8, ny=8, spp=1)
+    on_card = [scene.sph_r, scene.mat_type, spec.camera().lookfrom,
+               camera.make_camera((0.0, 0.0, 1.0), (0.0, 0.0, 0.0)).vfov,
+               render.init_state(cfg).raw_sum,
+               probe_ops.inputs()[1], probe_loops.inputs()]
+    assert all(x.device.type == "cuda" for x in on_card)
+    cpu = compile_scene(spec.objects, sky=spec.sky, device="cpu")
+    assert cpu.sph_r.device.type == "cpu"

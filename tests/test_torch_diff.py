@@ -161,14 +161,16 @@ def jax_reference():
 def _cornell64():
     spec = t_scenes.cornell_box()
     scene = t_build.compile_scene(spec.objects, sky=spec.sky,
-                                  dtype=torch.float64)
-    return scene, spec.camera(dtype=torch.float64, aspect=1.0)
+                                  dtype=torch.float64, device="cpu")
+    return scene, spec.camera(dtype=torch.float64, aspect=1.0,
+                              device="cpu")
 
 
 def _port_scene(ref):
     scene = t_build.scene_from_arrays(ref["arrays"], ref["meta"],
-                                      dtype=torch.float64)
-    return scene, camera_from_arrays(ref["cam"], dtype=torch.float64)
+                                      dtype=torch.float64, device="cpu")
+    return scene, camera_from_arrays(ref["cam"], dtype=torch.float64,
+                                     device="cpu")
 
 
 def test_diff_render_matches_jax_and_forward(jax_reference):
@@ -186,7 +188,7 @@ def test_diff_render_matches_jax_and_forward(jax_reference):
     np.testing.assert_allclose(raw.numpy(), ref["raw"], rtol=1e-12,
                                atol=1e-12)
     st, f_segs, _ = t_render.render_with_stats(scene, cam, cfg,
-                                               t_render.init_state(cfg))
+                                               t_render.init_state(cfg, device="cpu"))
     assert int(f_segs) == int(segs)
     assert torch.equal(raw, st.raw_sum.reshape(-1, 3))
 

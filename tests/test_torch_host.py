@@ -74,14 +74,16 @@ def test_compile_scene_equals_jax(name):
     assert t_spec.sky == j_spec.sky
     assert t_spec.camera_kwargs == j_spec.camera_kwargs
     j_scene = j_build.compile_scene(j_spec.objects, sky=j_spec.sky)
-    t_scene = t_build.compile_scene(t_spec.objects, sky=t_spec.sky)
+    t_scene = t_build.compile_scene(t_spec.objects, sky=t_spec.sky,
+                                    device="cpu")
     _assert_scene_equal(j_scene, t_scene)
 
 
 def test_compile_scene_bvh_not_ported():
     spec = t_scenes.test_scene()
     with pytest.raises(NotImplementedError, match="A.11"):
-        t_build.compile_scene(spec.objects, sky=spec.sky, bvh="sah")
+        t_build.compile_scene(spec.objects, sky=spec.sky, bvh="sah",
+                              device="cpu")
 
 
 def test_scene_from_arrays_round_trips():
@@ -89,11 +91,11 @@ def test_scene_from_arrays_round_trips():
     j_scene = j_build.compile_scene(spec.objects, sky=spec.sky)
     arrays = {f: np.asarray(getattr(j_scene, f)) for f in j_build._DATA_FIELDS}
     meta = {f: getattr(j_scene, f) for f in j_build._META_FIELDS}
-    t_scene = t_build.scene_from_arrays(arrays, meta)
+    t_scene = t_build.scene_from_arrays(arrays, meta, device="cpu")
     _assert_scene_equal(j_scene, t_scene)
     again = t_build.scene_from_arrays(
         {f: getattr(t_scene, f).numpy() for f in t_build._DATA_FIELDS},
-        {f: getattr(t_scene, f) for f in t_build._META_FIELDS})
+        {f: getattr(t_scene, f) for f in t_build._META_FIELDS}, device="cpu")
     _assert_scene_equal(j_scene, again)
     params, rest = t_build.partition(t_scene)
     assert set(params) == {f for f in t_build._DATA_FIELDS
@@ -109,9 +111,10 @@ def test_scene_from_arrays_round_trips():
 def test_camera_basis_and_rays_match_jax(name):
     spec = j_scenes.SCENES[name]()
     j_cam = spec.camera(aspect=1.5)
-    t_cam = t_scenes.SCENES[name]().camera(aspect=1.5)
+    t_cam = t_scenes.SCENES[name]().camera(aspect=1.5, device="cpu")
     from_arrays = t_camera.camera_from_arrays(
-        {k: np.asarray(getattr(j_cam, k)) for k in t_camera.CAMERA_FIELDS})
+        {k: np.asarray(getattr(j_cam, k)) for k in t_camera.CAMERA_FIELDS},
+        device="cpu")
     for a, b, c in zip(j_camera._basis(j_cam), t_camera._basis(t_cam),
                        t_camera._basis(from_arrays)):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
@@ -131,7 +134,8 @@ def test_camera_basis_f64_matches_jax():
     try:
         spec = j_scenes.cornell_box()
         j_cam = spec.camera(dtype=jnp.float64, aspect=1.0)
-        t_cam = t_scenes.cornell_box().camera(dtype=torch.float64, aspect=1.0)
+        t_cam = t_scenes.cornell_box().camera(dtype=torch.float64, aspect=1.0,
+                                              device="cpu")
         for a, b in zip(j_camera._basis(j_cam), t_camera._basis(t_cam)):
             np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-12,
                                        atol=1e-12)
@@ -156,3 +160,53 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _entry_points(tmp_path):
+    """name -> a call of each entry point that builds tensors, taking the
+    `device` keyword."""
+    from scheme_raytrace_torch import render as t_render
+    spec = t_scenes.three_spheres()
+    scene = t_build.compile_scene(spec.objects, sky=spec.sky, device="cpu")
+    arrays = {f: getattr(scene, f).numpy() for f in t_build._DATA_FIELDS}
+    meta = {f: getattr(scene, f) for f in t_build._META_FIELDS}
+    cam = spec.camera(device="cpu")
+    cam_arrays = {k: getattr(cam, k).numpy() for k in t_camera.CAMERA_FIELDS}
+    cfg = t_config.RenderConfig(nx=4, ny=4, spp=1)
+    path = str(tmp_path / "state.npz")
+    t_render.save_state(path, t_render.init_state(cfg, device="cpu"), seed=0)
+    return {
+        "compile_scene": lambda **kw: t_build.compile_scene(
+            spec.objects, sky=spec.sky, **kw).sph_r,
+        "scene_from_arrays": lambda **kw: t_build.scene_from_arrays(
+            arrays, meta, **kw).sph_r,
+        "spec_camera": lambda **kw: spec.camera(**kw).lookfrom,
+        "make_camera": lambda **kw: t_camera.make_camera(
+            (0.0, 0.0, 1.0), (0.0, 0.0, 0.0), **kw).lookfrom,
+        "camera_from_arrays": lambda **kw: t_camera.camera_from_arrays(
+            cam_arrays, **kw).lookfrom,
+        "init_state": lambda **kw: t_render.init_state(cfg, **kw).raw_sum,
+        "load_state": lambda **kw: t_render.load_state(path, **kw).raw_sum,
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "compile_scene", "scene_from_arrays", "spec_camera", "make_camera",
+    "camera_from_arrays", "init_state", "load_state"])
+def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
+    # no `device`: the card, and where there is none an error that names
+    # the request for the CPU; never the CPU by itself
+    call = _entry_points(tmp_path)[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    assert call(device="cpu").device.type == "cpu"
+    assert call(device=torch.device("cpu")).device.type == "cpu"
+
+
+def test_resolve_device():
+    assert t_config.resolve_device("cpu") == torch.device("cpu")
+    assert t_config.resolve_device("cuda:1") == torch.device("cuda", 1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            t_config.resolve_device(None)

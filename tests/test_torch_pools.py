@@ -76,8 +76,9 @@ def _port_scene(j_scene, j_cam, dtype):
     arrays = {f: np.asarray(getattr(j_scene, f)) for f in j_build._DATA_FIELDS}
     meta = {f: getattr(j_scene, f) for f in j_build._META_FIELDS}
     cam = {k: np.asarray(getattr(j_cam, k)) for k in CAMERA_FIELDS}
-    return (t_build.scene_from_arrays(arrays, meta, dtype=dtype),
-            camera_from_arrays(cam, dtype=dtype))
+    return (t_build.scene_from_arrays(arrays, meta, dtype=dtype,
+                                      device="cpu"),
+            camera_from_arrays(cam, dtype=dtype, device="cpu"))
 
 
 class _X64:
@@ -295,8 +296,8 @@ def test_strided_pools_agree_bitwise():
     from scheme_raytrace_torch import scenes as t_scenes
     from scheme_raytrace_torch.integrator import pool_fused as t_fused
     spec = t_scenes.cornell_box()
-    scene = t_build.compile_scene(spec.objects, sky=spec.sky)
-    cam = spec.camera(aspect=1.0)
+    scene = t_build.compile_scene(spec.objects, sky=spec.sky, device="cpu")
+    cam = spec.camera(aspect=1.0, device="cpu")
     cfg = TConfig(**_cfg("16x16", "f32"))
     raw0 = torch.rand(cfg.n_pixels, 3, generator=torch.Generator().manual_seed(0))
     want, w_segs, w_iters = t_strided.render_pool_strided(scene, cam, cfg,

@@ -57,7 +57,7 @@ def _pallas_probe(pack, item):
 
 @pytest.mark.parametrize("items", ["tool", "random"])
 def test_probe_ops_matches_pallas_interpret(items):
-    pack, item = probe_ops.inputs()
+    pack, item = probe_ops.inputs("cpu")
     if items == "random":
         r = np.random.default_rng(0)
         item = torch.as_tensor(r.integers(-2 ** 31, 2 ** 31, (8, 128),
@@ -75,7 +75,7 @@ def test_probe_ops_matches_pallas_interpret(items):
 @pytest.mark.parametrize("name", list(probe_loops.CASES))
 def test_probe_loops_match_jax_cases(repro, name):
     assert list(probe_loops.CASES) == list(repro.CASES)
-    x = probe_loops.inputs(seed=1)
+    x = probe_loops.inputs(seed=1, device="cpu")
     with jax.disable_jit():
         want = np.asarray(repro.CASES[name](jnp.asarray(x.numpy())))
     got = probe_loops.loops(name, x)
@@ -86,9 +86,9 @@ def test_probe_loops_match_jax_cases(repro, name):
 def test_probe_wrappers_take_cuda_tensors_only():
     before = probe_ops.LAUNCHES, probe_loops.LAUNCHES
     with pytest.raises(ValueError, match="CUDA"):
-        probe_ops.probe_cuda(*probe_ops.inputs())
+        probe_ops.probe_cuda(*probe_ops.inputs("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
-        probe_loops.loops_cuda("fori", probe_loops.inputs())
+        probe_loops.loops_cuda("fori", probe_loops.inputs(device="cpu"))
     with pytest.raises(KeyError, match="no loop case"):
-        probe_loops.loops_cuda("nope", probe_loops.inputs())
+        probe_loops.loops_cuda("nope", probe_loops.inputs(device="cpu"))
     assert (probe_ops.LAUNCHES, probe_loops.LAUNCHES) == before

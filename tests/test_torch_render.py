@@ -31,7 +31,7 @@ CONFIG4 = dict(nx=64, ny=64, spp=8, max_depth=100, seed=0,
                light_sampling=True)
 
 
-def _cornell(dtype=torch.float32, device=None):
+def _cornell(dtype=torch.float32, device="cpu"):
     spec = t_scenes.cornell_box()
     scene = t_build.compile_scene(spec.objects, sky=spec.sky, dtype=dtype,
                                   device=device)
@@ -67,11 +67,12 @@ def test_render_f64_matches_jax_pool():
         cam_arrays = {k: np.asarray(getattr(j_cam, k)) for k in CAMERA_FIELDS}
     finally:
         jax.config.update("jax_enable_x64", False)
-    scene = t_build.scene_from_arrays(arrays, meta, dtype=torch.float64)
-    cam = camera_from_arrays(cam_arrays, dtype=torch.float64)
+    scene = t_build.scene_from_arrays(arrays, meta, dtype=torch.float64,
+                                      device="cpu")
+    cam = camera_from_arrays(cam_arrays, dtype=torch.float64, device="cpu")
     cfg = TConfig(**kw)
     st, segs, iters = t_render.render_with_stats(scene, cam, cfg,
-                                                 t_render.init_state(cfg))
+                                                 t_render.init_state(cfg, device="cpu"))
     assert int(segs) == j_segs
     # both pools run one pixel per work unit at this size, so the
     # iteration counts agree too
@@ -107,10 +108,10 @@ def test_resumed_render_continues_the_stream():
     cfg = TConfig(nx=16, ny=16, spp=2, max_depth=20, light_sampling=True,
                   dtype="f64")
     st2, segs2, _ = t_render.render_with_stats(scene, cam, cfg,
-                                               t_render.init_state(cfg))
+                                               t_render.init_state(cfg, device="cpu"))
     one = cfg.replace(spp=1)
     st, segs_a, _ = t_render.render_with_stats(scene, cam, one,
-                                               t_render.init_state(one))
+                                               t_render.init_state(one, device="cpu"))
     st, segs_b, _ = t_render.render_with_stats(scene, cam, one, st)
     assert int(st.sample_count) == 2
     assert int(segs_a) + int(segs_b) == int(segs2)
@@ -122,7 +123,7 @@ def test_differentiable_config_not_ported():
     scene, cam = _cornell()
     cfg = TConfig(nx=8, ny=8, spp=1, differentiable=True)
     with pytest.raises(NotImplementedError, match="A.12"):
-        t_render.render(scene, cam, cfg, t_render.init_state(cfg))
+        t_render.render(scene, cam, cfg, t_render.init_state(cfg, device="cpu"))
 
 
 def test_display_ppm_and_state_round_trip(tmp_path):
@@ -136,7 +137,7 @@ def test_display_ppm_and_state_round_trip(tmp_path):
     state = t_render.RenderState(torch.from_numpy(mean),
                                  torch.tensor(3, dtype=torch.int32))
     t_render.save_state(str(tmp_path / "s.npz"), state, seed=5)
-    back = t_render.load_state(str(tmp_path / "s.npz"))
+    back = t_render.load_state(str(tmp_path / "s.npz"), device="cpu")
     assert torch.equal(back.raw_sum, state.raw_sum)
     assert int(back.sample_count) == 3
     assert int(np.load(tmp_path / "s.npz")["seed"]) == 5

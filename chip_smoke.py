@@ -5,9 +5,10 @@
 Drives scheme_raytrace_torch's paths on the card: the forward render and
 the fwd+bwd training step of the Cornell box with mixture-PDF light
 sampling (BASELINE config 4), the forward render through the three strided
-work pools, the op and loop probes, and the sphere scenes up to the RTOW
-final scene (227 spheres) forward and fwd+bwd, in phases; any failure
-raises and the exit code is non-zero:
+work pools, the op and loop probes, the sphere scenes up to the RTOW
+final scene (227 spheres) forward and fwd+bwd, and the textured and smoke
+scenes (hash-Perlin noise and marble, image texels, constant media) forward
+and fwd+bwd, in phases; any failure raises and the exit code is non-zero:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit and the CUDA version PyTorch was built with;
@@ -59,12 +60,26 @@ raises and the exit code is non-zero:
  15. the sphere slice at full width: the RTOW final scene at 512x512 spp8
      depth 100, forward through render_with_stats (FIFO pool, K1) and the
      persistent pool (K4) with equal segments, and the fwd+bwd step through
-     render_diff_fused (K1 and K2), timed and profiled as phases 7-8 and 11.
+     render_diff_fused (K1 and K2), timed and profiled as phases 7-8 and 11;
+ 16. the kernels on the textured and smoke scenes: K1 against the plain step
+     and K2 against the plain VJP (the image texels' cotangent included) on
+     textured_scene (BASELINE config 3), test_scene2 ("simple light": marble)
+     and cornell_smoke (two constant media), float32 and float64; K3 against
+     step_packed and one K4 chunk bitwise equal to 32 K3 launches on
+     textured_scene and cornell_smoke;
+ 17. their renders against their references: parity config 3 against its
+     golden; the differentiable renders of textured_scene and cornell_smoke
+     against their forward renders (bitwise) and, in float64, against finite
+     differences on the marble's scale, an image texel and a medium's
+     density;
+ 18. the textured and smoke scenes at full width: textured_scene and
+     cornell_smoke (light sampled) at 512x512 spp8 depth 100, forward
+     through the FIFO pool and the persistent pool and fwd+bwd, as phase 15.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
-last two lines are the kernel table and the device line, as JSON.  Imports
-nothing of JAX.
+last two lines are the kernel table and the device line, as JSON; every
+phase logs what it took (`[time]`).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -119,6 +134,13 @@ BWD_F32 = dict(rtol=1e-3, atol=1e-5)
 CONFIG1 = RenderConfig(nx=64, ny=64, spp=10, max_depth=100, seed=0)
 CONFIG2 = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
 RTOW = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0)
+# The textured and smoke scenes: parity config 3 at its golden's size, and
+# textured_scene and cornell_smoke at tools/bench_scenes.py's size
+# (textured_scene has no emitter, so no light sampling).
+CONFIG3 = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
+TEXTURED = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0)
+SMOKE = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0,
+                     light_sampling=True)
 # AD against finite differences needs few paths: every path is a chance
 # that +-eps moves a hit across a silhouette, which FD sees and AD's
 # interior derivative leaves out (at 64^2 spp10 depth 100 FD of a centre is
@@ -140,6 +162,14 @@ PEAK_F32_FLOPS = 67e12
 # more; the floor keeps the bound a bound.
 RECT_FLOPS, SPHERE_FLOPS, MOVING_FLOPS = 12, 18, 12
 CAMERA_FLOPS, SHADE_FLOPS = 60, 100
+# One Perlin noise value: 8 corners, each the 27 integer operations of the
+# truncated PCG4D round and 25 float ones (three top-24-bit conversions, the
+# normalisation, the corner's dot and weight), and the fade (14); marble is
+# 7 of them.  The integer operations are counted at the float rate (their
+# own peak is lower, so the floor stays a floor).  A live lane probes each
+# medium: three slab intervals (two dots, two quotient products and the
+# compares each), its share of a PCG4D group and a log.
+NOISE_OPS, MARBLE_OCTAVES, MEDIUM_OPS = 8 * (27 + 25) + 14, 7, 60
 KERNELS = ("bounce_step", "bounce_step_bwd", "bounce_packed",
            "bounce_persist", "probe_ops", "probe_loops")
 CHUNK_TS = (8, 16, 32, 64)    # K4 chunk lengths timed (CHUNK_T stays 32)
@@ -150,6 +180,19 @@ PROBE_RTOL = 2e-6
 
 def log(*a):
     print(*a, flush=True)
+
+
+START = time.perf_counter()
+
+
+def timed(phase, *args):
+    """Run one phase and log what it took."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    t1 = time.perf_counter()
+    log(f"[time] {phase.__name__}: {t1 - t0:.1f} s ({t1 - START:.1f} s since "
+        f"the start)")
+    return out
 
 
 def phase_device():
@@ -247,16 +290,22 @@ def median_ms(fn, n=20):
     return statistics.median(times)
 
 
-def device_kernels(fn, n=1):
+def device_kernels(fn, n=1, host_ops=True):
     """Run fn() n times under torch.profiler; return the wall ms per run and
     {kernel name: (device us per run, launches per run)} from the device
-    events alone (op rows on the host side are not counted)."""
+    events alone (op rows on the host side are not counted).  Without
+    `host_ops` the profiler traces the card only: the same device events,
+    and half the time to read them (0.11 against 0.22 ms an event on a plain
+    step's 9,637 launches), which counts for the plain versions' hundreds of
+    thousands of launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -332,12 +381,35 @@ def bound(n_bytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound(plan, m, ins, scattering):
+def texture_ops(plan, pk, gitem, px, py, fresh, alive, depth, o, d, time,
+                *_):
+    """The operations these lanes' media and Perlin textures need: every
+    live lane probes each medium, and a live lane whose winner (the plain
+    step's record) carries a noise or a marble texture evaluates it."""
+    ops = int(alive.sum()) * plan.n_media * MEDIUM_OPS
+    if plan.has_perlin:
+        rec = bounce.hit_record(plan, bounce.split_pk(plan, pk)[0], gitem, px,
+                                py, fresh, depth, o, d, time)[3]
+        live = alive & rec["hit"]
+        ops += NOISE_OPS * (
+            int((live & (rec["texk"] == build.TEX_NOISE)).sum())
+            + MARBLE_OCTAVES
+            * int((live & (rec["texk"] == build.TEX_MARBLE)).sum()))
+    return ops
+
+
+def scene_bytes(plan):
+    """pk and the image texels, each read once, in f32."""
+    return (plan.size + plan.img_rows * 128) * 4
+
+
+def k1_bound(plan, pk, m, ins, scattering):
     """K1 in f32: 6 queue columns (18 B), 13 floats in, 13 out and one
-    bool a lane, and pk once; every lane sweeps."""
+    bool a lane, and pk and the texels once; every lane sweeps."""
     flops = (m * sweep_flops(plan) + int(ins[3].sum()) * CAMERA_FLOPS
-             + int(scattering.sum()) * SHADE_FLOPS)
-    return bound(m * (18 + 13 * 4 + 13 * 4 + 1) + plan.size * 4, flops)
+             + int(scattering.sum()) * SHADE_FLOPS
+             + texture_ops(plan, pk, *ins))
+    return bound(m * (18 + 13 * 4 + 13 * 4 + 1) + scene_bytes(plan), flops)
 
 
 def check_k1(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None):
@@ -365,8 +437,7 @@ def check_k1(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None):
         wide = lambda x: (tuple(t.double() for t in x)
                           if isinstance(x, tuple) else
                           x.double() if x.is_floating_point() else x)
-        ref = flat(bounce.step(plan, pk.double(),
-                               *[wide(x) for x in ins]))[0]
+        ref = flat(bounce.step(plan, wide(pk), *[wide(x) for x in ins]))[0]
         lanes = disagreeing(got, want, tol)
         k_err = (got[0].double() - ref).abs()[:, lanes].amax(0)
         p_err = (want[0].double() - ref).abs()[:, lanes].amax(0)
@@ -375,20 +446,15 @@ def check_k1(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None):
             f"{int((k_err < p_err).sum())}, the plain f32 step on "
             f"{int((p_err < k_err).sum())}")
     k_wall = median_ms(lambda: bounce.step_cuda(plan, pk, *ins))
-    p_wall = median_ms(lambda: bounce.step(plan, pk, *ins), n=5)
-    _, k_tab = device_kernels(
-        lambda: bounce.step_cuda(plan, pk, *ins), n=20)
-    _, p_tab = device_kernels(lambda: bounce.step(plan, pk, *ins), n=3)
-    # per recorded launch: the profiler can drop device events of a short
-    # window (see device_ms), which a division by the calls made reads low
-    k_launches = sum(k for _, k in k_tab.values())
-    k_ms = sum(us for us, _ in k_tab.values()) / max(k_launches, 1e-9) / 1e3
-    p_ms = sum(us for us, _ in p_tab.values()) / 1e3
-    p_launches = sum(k for _, k in p_tab.values())
-    b_ms, b_by = k1_bound(plan, M, ins, want[1])
+    p_wall = median_ms(lambda: bounce.step(plan, pk, *ins), n=3)
+    # the wrapper launches the kernel and nothing else, so the back-to-back
+    # calls' time is the kernel's (the profiler drops device events of short
+    # windows, see device_ms: it recorded 12, 1 and 0 of 20 K1 launches)
+    k_ms = kernel_ms(lambda: bounce.step_cuda(plan, pk, *ins))
+    p_ms, p_launches = device_ms(lambda: bounce.step(plan, pk, *ins), 2)
+    b_ms, b_by = k1_bound(plan, pk, M, ins, want[1])
     log(f"[{tag}] {name}: device time per step: kernel {k_ms:.4f} ms "
-        f"({k_launches:.2f} launches recorded a call), plain {p_ms:.4f} ms "
-        f"({p_launches:.0f} "
+        f"(CUDA events, back to back), plain {p_ms:.4f} ms ({p_launches:.0f} "
         f"launches); elapsed per call (median, host included): "
         f"kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms; f32 bound "
         f"{b_ms * 1e3:.2f} us ({b_by})")
@@ -429,18 +495,29 @@ def phase_kernel_spheres(dev):
     return results
 
 
+def dpk_of(grads):
+    """A VJP's pk cotangent as one vector: dpk, then, for a plan with image
+    textures, the texels' cotangent."""
+    dpk = grads[0]
+    if isinstance(dpk, tuple):
+        dpk = torch.cat([dpk[0], dpk[1].reshape(-1)])
+    return dpk
+
+
 def lanes_of(grads):
     """(dpk, do, dd, dtime, drad, dtp) -> (dpk, [13, m] lane cotangents)."""
-    return grads[0], torch.stack(bounce.flat_lanes(*grads[1:]))
+    return dpk_of(grads), torch.stack(bounce.flat_lanes(*grads[1:]))
 
 
-def k2_bound(plan, m, ins, scattering):
+def k2_bound(plan, pk, m, ins, scattering):
     """K2 in f32: the step's 19 inputs (70 B a lane), 13 cotangents in and
-    13 out, pk once and one row of partials per 256-lane block; the replay
-    of the forward and the adjoint of the scattering lanes."""
+    13 out, pk and the texels once and one row of partials per 256-lane
+    block; the replay of the forward and the adjoint of the scattering
+    lanes (a Perlin texture is evaluated in both)."""
     flops = (m * sweep_flops(plan) + int(ins[3].sum()) * CAMERA_FLOPS
-             + 2 * int(scattering.sum()) * SHADE_FLOPS)
-    n_bytes = m * (70 + 26 * 4) + plan.size * 4 * (1 + -(-m // 256))
+             + 2 * int(scattering.sum()) * SHADE_FLOPS
+             + 2 * texture_ops(plan, pk, *ins))
+    n_bytes = m * (70 + 26 * 4) + scene_bytes(plan) * (1 + -(-m // 256))
     return bound(n_bytes, flops)
 
 
@@ -507,8 +584,8 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
         if given_rays_dpk:
             given = bounce.split_lanes([torch.where(ins[3], 0.0, c)
                                         for c in bounce.flat_lanes(*cts)])
-            w_pk = bounce.step_vjp(plan, pk, *ins, *given)[0]
-            g_pk = bounce.step_cuda_bwd(plan, pk, *ins, *given)[0]
+            w_pk = dpk_of(bounce.step_vjp(plan, pk, *ins, *given))
+            g_pk = dpk_of(bounce.step_cuda_bwd(plan, pk, *ins, *given))
             lim = (BWD_F32["atol"] * max(1.0, float(w_pk.abs().max()))
                    + BWD_F32["rtol"] * w_pk.abs())
             log(f"[{tag}] {name}: dpk over all lanes: {int(pk_off.sum())} "
@@ -526,25 +603,32 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
                    / want_pk.abs().max())
     args = (plan, pk, *ins, *cts)
     k_wall = median_ms(lambda: bounce.step_cuda_bwd(*args))
-    p_wall = median_ms(lambda: bounce.step_vjp(*args), n=3)
-    _, k_tab = device_kernels(lambda: bounce.step_cuda_bwd(*args),
-                              n=20)
-    _, p_tab = device_kernels(lambda: bounce.step_vjp(*args), n=2)
-    # per recorded launch of each kernel (see check_k1)
-    per_launch = {n_: us / k / 1e3 for n_, (us, k) in k_tab.items()}
-    k_ms = sum(t for n_, t in per_launch.items()
-               if "bounce_step_bwd_kernel" in n_)
-    k_all = sum(per_launch.values())
-    p_ms = sum(us for us, _ in p_tab.values()) / 1e3
-    p_launches = sum(k for _, k in p_tab.values())
-    b_ms, b_by = k2_bound(plan, M_BWD, ins, fwd[1])
+    p_wall = median_ms(lambda: bounce.step_vjp(*args), n=2)
+    # CUDA events around back-to-back calls, as for K1.  The wrapper
+    # launches the kernel and the sum of its partials over the blocks: the
+    # kernel's own time is the wrapper's less that of the same sum alone.
+    k_all = kernel_ms(lambda: bounce.step_cuda_bwd(*args))
+    partials = torch.empty(-(-M_BWD // 256), got_pk.numel(), dtype=dtype,
+                           device=dev)
+    k_ms = k_all - kernel_ms(lambda: partials.sum(dim=0))
+    p_ms, p_launches = device_ms(lambda: bounce.step_vjp(*args), 1)
+    b_ms, b_by = k2_bound(plan, pk, M_BWD, ins, fwd[1])
+    if plan.has_image:
+        d_atlas = got_pk[plan.size:]
+        log(f"[{tag}] {name}: the texels' cotangent: {int((d_atlas != 0).sum())}"
+            f" of {d_atlas.numel()} entries nonzero, max "
+            f"{float(d_atlas.abs().max()):.3e} (plain "
+            f"{float(want_pk[plan.size:].abs().max()):.3e})")
+        if not bool((d_atlas != 0).any()):
+            raise AssertionError(f"[{tag}] {name}: no texel took cotangent")
     log(f"[{tag}] {name}: m={M_BWD} P={plan.size}; lanes left "
         f"out (forward flips) {n_out}; lanes outside the bounds "
         f"{n_bad}, max abs err {max_err:.3e}; dpk slots outside "
         f"{pk_bad}, max err / max|dpk| {pk_err:.3e}; time cotangent max "
         f"{float(want[6].abs().max()):.3e}; two launches bitwise equal")
     log(f"[{tag}] {name}: device time per call: kernel "
-        f"{k_ms:.4f} ms (with the partials' sum {k_all:.4f} ms), plain "
+        f"{k_ms:.4f} ms (CUDA events; with the partials' sum {k_all:.4f} "
+        f"ms), plain "
         f"VJP {p_ms:.4f} ms ({p_launches:.0f} launches); elapsed per "
         f"call (median): kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms; "
         f"f32 bound {b_ms * 1e3:.2f} us ({b_by})")
@@ -909,7 +993,8 @@ def run_full_bwd(tag, what, scene, cam, cfg):
         scene, cam, cfg, n_iters, params, rest, loss_fn))
     log_profile(tag, wall_ms, table, ours=("bounce_step",))
     return dict(segments=segs, median_s=med, launches=launches,
-                bwd_launches=bwd_launches, peak=peak, iters=blocks)
+                bwd_launches=bwd_launches, peak=peak, iters=blocks,
+                touched=set(touched))
 
 
 def phase_full_bwd(dev):
@@ -976,7 +1061,7 @@ def device_ms(fn, n):
     the profiler can miss device events of a short window (on an H100 it
     has recorded 7 of 10 K4 launches, 15 or none of 20 K3 launches), so
     the kernels' own times come from kernel_ms."""
-    _, tab = device_kernels(fn, n=n)
+    _, tab = device_kernels(fn, n=n, host_ops=False)
     return (sum(us for us, _ in tab.values()) / 1e3,
             sum(k for _, k in tab.values()))
 
@@ -1007,18 +1092,34 @@ def kernel_ms(fn, n=20):
     raise AssertionError("kernel_ms: the host queued slower than the sleep")
 
 
-def packed_bound(plan, q, state, T=1, segs=None):
-    """K3 (T = 1) and K4 in f32: the 16 state words in and out, pk once,
-    and per iteration K4's 4 flush words; only live lanes are traced (the
-    count of each iteration for K4, `segs`)."""
+def packed_texture_ops(plan, pk, sb, state, q):
+    """`texture_ops` of one strided-pool iteration from a packed state."""
+    if not (plan.n_media or plan.has_perlin):
+        return 0
+    st_i = state.view(torch.int32)
+    alive = st_i[0] < q["n_work"]
+    gitem, px, py, _ = bounce.strided_item(
+        st_i[0].to(torch.int64), sb.to(torch.int64)[0], q["n_pix"], q["pix0"],
+        q["total_pix"], plan.nx, torch.float32)
+    return texture_ops(plan, pk, gitem, px, py, (state[1] != 0.0) & alive,
+                       alive, st_i[2], tuple(state[3:6]), tuple(state[6:9]),
+                       state[9])
+
+
+def packed_bound(plan, q, state, T=1, segs=None, tex_ops=0):
+    """K3 (T = 1) and K4 in f32: the 16 state words in and out, pk and the
+    texels once, and per iteration K4's 4 flush words; only live lanes are
+    traced (the count of each iteration for K4, `segs`); `tex_ops` are the
+    media's and Perlin textures' operations (packed_texture_ops, summed over
+    the chunk's iterations for K4)."""
     m = q["m"]
     live = int((state.view(torch.int32)[0] < q["n_work"]).sum())
     traced = live if segs is None else int(segs.sum())
     fresh = int(((state[1] != 0.0)
                  & (state.view(torch.int32)[0] < q["n_work"])).sum())
     flops = (traced * (sweep_flops(plan) + SHADE_FLOPS)
-             + fresh * CAMERA_FLOPS)
-    n_bytes = m * 2 * bounce.N_PACKED * 4 + plan.size * 4 + 4
+             + fresh * CAMERA_FLOPS + tex_ops)
+    n_bytes = m * 2 * bounce.N_PACKED * 4 + scene_bytes(plan) + 4
     if segs is not None:
         n_bytes += T * (4 * m * 4 + 4)
     return bound(n_bytes, flops)
@@ -1044,7 +1145,8 @@ def check_k3(tag, setup, state, atol=F32_TOL["atol"]):
     p_wall = median_ms(lambda: bounce.step_packed(plan, pk, sb, state, **q),
                        n=3)
     live = int((state.view(torch.int32)[0] < q["n_work"]).sum())
-    b_ms, b_by = packed_bound(plan, q, state)
+    b_ms, b_by = packed_bound(plan, q, state, tex_ops=packed_texture_ops(
+        plan, pk, sb, state, q))
     log(f"[{tag}] K3 f32 m={M} P={plan.size} ({live} live lanes): kernel vs "
         f"plain step_packed: lanes disagreeing {n_bad} (an int row, fresh, "
         f"or a float row outside rtol {F32_TOL['rtol']:g} atol "
@@ -1069,25 +1171,28 @@ def phase_packed_kernel(dev):
 
 def k3_chunk(plan, pk, sb, state, q, T):
     """T K3 launches from `state`, with the flush rows and segment counts
-    the persistent kernel writes, derived on the card."""
+    the persistent kernel writes, derived on the card; and the chunk's
+    packed_texture_ops, summed over its iterations."""
     flush = torch.empty(T, 4, q["m"], dtype=torch.float32, device=state.device)
     segs = torch.empty(T, dtype=torch.int32, device=state.device)
+    tex_ops = 0
     for t in range(T):
         item = state.view(torch.int32)[0]
         segs[t] = (item < q["n_work"]).sum()
+        tex_ops += packed_texture_ops(plan, pk, sb, state, q)
         state = bounce.step_packed_cuda(plan, pk, sb, state, **q)
         done = state[1] != 0.0
         flush.view(torch.int32)[t, 0] = torch.where(done, item % q["n_pix"],
                                                     -1)
         flush[t, 1:] = torch.where(done, state[10:13], 0.0)
-    return state, flush, segs
+    return (state, flush, segs), tex_ops
 
 
 def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
     plan, pk, q, sb = setup
     T = persist.CHUNK_T
     got = persist.chunk_cuda(plan, pk, sb, state, T=T, **q)
-    want = k3_chunk(plan, pk, sb, state, q, T)
+    want, tex_ops = k3_chunk(plan, pk, sb, state, q, T)
     torch.cuda.synchronize()
     same = [torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
                         w.view(torch.int32) if w.is_floating_point() else w)
@@ -1151,7 +1256,7 @@ def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
                     for t, ms in per_t.items())
         + f"; one K3 launch {k3_ms * 1e3:.2f} us; plain chunk_plain T={T} "
         f"{p_ms:.3f} ms ({p_launches:.0f} launches)")
-    b_ms, b_by = packed_bound(plan, q, state, T, got[2])
+    b_ms, b_by = packed_bound(plan, q, state, T, got[2], tex_ops)
     log(f"[{tag}] K4 bound for this chunk of T={T}: {b_ms * 1e3:.2f} us "
         f"({b_by})")
     return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, per_t=per_t,
@@ -1301,6 +1406,134 @@ def phase_full_spheres(dev):
     return full, pools["persistent"], full_bwd
 
 
+# name -> (spec, light sampling, the box the lane origins are drawn from;
+# None: Cornell's cube): textured_scene (checker, marble, image and noise
+# spheres on a radius-100 ground), test_scene2 (marble ground of radius 1000
+# and sphere, two emitters) and cornell_smoke (two constant media)
+TEXTURE_SCENES = {
+    "textured": (scenes.textured_scene, False, ((-2, -0.4, -3), (2, 1.5, 2))),
+    "simple_light": (scenes.test_scene2, True, ((-6, 0.0, -6), (6, 9, 6))),
+    "smoke": (scenes.cornell_smoke, True, None),
+}
+
+
+def texture_scene(name, dtype, dev):
+    """(scene, camera, config, lane box, f32 atol) of a TEXTURE_SCENES entry
+    at the full-size configuration; the atol as sphere_scene scales it."""
+    spec_fn, ls, box = TEXTURE_SCENES[name]
+    scene, cam = spec_scene(spec_fn(), dtype, dev)
+    scale = 555.0
+    if scene.has_spheres:
+        scale = max(float(scene.sph_c0.abs().max()),
+                    float(scene.sph_r.abs().max()))
+    return (scene, cam, TEXTURED.replace(light_sampling=ls), box,
+            1e-3 * scale / 555.0)
+
+
+def phase_kernel_textures(dev):
+    """K1 and K2 on the textured and smoke scenes, float32 and float64."""
+    k1, k2 = [], []
+    for dtype in (torch.float32, torch.float64):
+        for name in TEXTURE_SCENES:
+            scene, cam, cfg, box, atol = texture_scene(name, dtype, dev)
+            tag = f"{dtype_name(dtype)}-{name}"
+            k1.append(check_k1("kernel-textures", tag, scene, cam, cfg, dtype,
+                               dev, box=box, atol=atol))
+            k2.append(check_k2("kernel-bwd-textures", tag, scene, cam, cfg,
+                               dtype, dev, box=box, atol=atol,
+                               given_rays_dpk=scene.has_spheres))
+    return k1, k2
+
+
+def phase_packed_textures(dev):
+    """K3 against step_packed, and one K4 chunk bitwise equal to 32 K3
+    launches, on textured_scene's and cornell_smoke's packed states."""
+    out = {}
+    for name in ("textured", "smoke"):
+        scene, cam, cfg, box, atol = texture_scene(name, torch.float32, dev)
+        setup = packed_setup(dev, scene, cam, cfg)
+        plan, _, q, _ = setup
+        k3 = check_k3(f"packed-{name}", setup, packed_state(
+            M, q["n_work"], plan.max_depth, dev, box=box), atol)
+        k4 = check_k4(f"persist-{name}", setup, packed_state(
+            M, q["n_work"], plan.max_depth, dev, seed=1, box=box), atol,
+            chunk_ts=())
+        out[name] = (k3, k4)
+    return out
+
+
+def phase_golden_textures(dev):
+    """Parity config 3 (textured_scene) against its golden."""
+    scene, cam = spec_scene(scenes.textured_scene(), torch.float32)
+    check_golden("golden-textures config3_textured", scene, cam, CONFIG3,
+                 os.path.join(ROOT, "tests", "goldens", "config3_textured.npz"))
+
+
+def phase_diff_textures(dev):
+    """The differentiable renders of textured_scene (config 3's size) and
+    cornell_smoke (64x64 spp4), and in float64 AD against finite
+    differences: the marble's scale and the image texel with the largest
+    gradient (neither moves a path, so the whole image at config 3's size),
+    and the first medium's -1 / density on FD_CFG (a density moves scatter
+    points, and a path that changes its decision is a jump FD sees and AD
+    leaves out, so few paths)."""
+    smoke_cfg = CONFIG3.replace(light_sampling=True)
+    scene, cam = spec_scene(scenes.textured_scene(), torch.float32, dev)
+    check_diff("diff-textures textured", scene, cam, CONFIG3)
+    scene, cam = spec_scene(scenes.cornell_smoke(), torch.float32, dev)
+    check_diff("diff-textures smoke", scene, cam, smoke_cfg)
+
+    scene, cam = spec_scene(scenes.textured_scene(), torch.float64, dev)
+    marble = int((scene.tex_type == build.TEX_MARBLE).nonzero()[0])
+    cfg = CONFIG3.replace(dtype="f64")
+    n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
+    params, rest = build.partition(scene)
+    grads = fwd_bwd(scene, cam, cfg, n_iters, params, rest,
+                    lambda raw: raw.mean())[4]
+    texel = np.unravel_index(int(grads["images"].abs().argmax()),
+                             grads["images"].shape)
+    out = check_fd("diff-textures textured", scene, cam, cfg,
+                   (("tex_scale", (marble,)),
+                    ("images", tuple(int(i) for i in texel))), 1e-4)
+    scene, cam = spec_scene(scenes.cornell_smoke(), torch.float64, dev)
+    out.update(check_fd("diff-textures smoke", scene, cam,
+                        FD_CFG.replace(light_sampling=True),
+                        (("med_neg_inv_d", (0,)),), 1e-4))
+    for leaf, (ad, fd) in out.items():
+        if not (ad != 0.0 and abs(ad - fd) < 0.01 * abs(fd)):
+            raise AssertionError(f"[diff-textures] f64 {leaf} AD not within "
+                                 f"1% of FD")
+
+
+def phase_full_textures(dev):
+    """The textured and smoke scenes at full width: textured_scene and
+    cornell_smoke (light sampled) at 512^2 spp8 depth 100, forward through
+    render_with_stats (the FIFO pool, K1) and the persistent pool (K4) with
+    equal segments, and the fwd+bwd step through render_diff_fused (K1 and
+    K2)."""
+    out = {}
+    for name, spec_fn, cfg in (("textured", scenes.textured_scene, TEXTURED),
+                               ("smoke", scenes.cornell_smoke, SMOKE)):
+        scene, cam = spec_scene(spec_fn(), torch.float32, dev)
+        tag = f"full-{name}"
+        full = run_full(tag, name, scene, cam, cfg)
+        profile_render(tag, scene, cam, cfg)
+        pools = run_pools(tag, POOLS[2:], scene, cam, cfg, full, dev)
+        same = torch.equal(pools["persistent"]["image"],
+                           full["first"]["image"])
+        log(f"[{tag}] the persistent pool's image equals the FIFO pool's "
+            f"bitwise: {same}")
+        full_bwd = run_full_bwd(f"{tag}-bwd", name, scene, cam, cfg)
+        if not full_bwd["touched"] >= {
+                "textured": {"images", "tex_scale", "sph_c0"},
+                "smoke": {"med_neg_inv_d", "med_pmin", "med_pmax"}}[name]:
+            raise AssertionError(f"[{tag}-bwd] a texture or medium leaf "
+                                 f"took no gradient: "
+                                 f"{sorted(full_bwd['touched'])}")
+        out[name] = (full, pools["persistent"], full_bwd)
+    return out
+
+
 def phase_probes(dev):
     """K5 and K6: the probes' own entry points with the counts reset just
     before (the path), then each kernel against its plain version."""
@@ -1322,17 +1555,23 @@ def phase_probes(dev):
                         device=dev)
     ops_err = 0.0
     for it in (item, rand):
-        want = probe_ops.probe_plain(pack, it)
-        got = probe_ops.probe_cuda(pack, it)
+        want, w_ext = probe_ops.probe_plain(pack, it)
+        got, g_ext = probe_ops.probe_cuda(pack, it)
         ints = want == torch.round(want)
         rel = float(((got - want).abs() / want.abs())[~ints].max())
         exact = torch.equal(got[ints], want[ints])
-        ops_err = max(ops_err, float((got - want).abs().max()))
+        # the extension: the floor and hash rows exact, then log, atan2, rsqrt
+        ext_exact = torch.equal(g_ext[:2], w_ext[:2])
+        ext_rel = float(((g_ext[2:] - w_ext[2:]).abs()
+                         / w_ext[2:].abs().clamp(min=1e-3)).max())
+        ops_err = max(ops_err, float((got - want).abs().max()),
+                      float((g_ext - w_ext).abs().max()))
         log(f"[probes] K5 on {'the tool' if it is item else 'random'} items: "
             f"int-path outputs ({int(ints.sum())}) exact: {exact}; "
             f"transcendental outputs max rel err {rel:.3e} (bound "
-            f"{PROBE_RTOL:g})")
-        if not exact or rel > PROBE_RTOL:
+            f"{PROBE_RTOL:g}); extension: floor and negative-int hash exact: "
+            f"{ext_exact}, log / atan2 / rsqrt max rel err {ext_rel:.3e}")
+        if not (exact and ext_exact) or max(rel, ext_rel) > PROBE_RTOL:
             raise AssertionError("[probes] K5 against its plain version")
     x = probe_loops.inputs(device=dev)
     for name in probe_loops.CASES:
@@ -1353,9 +1592,10 @@ def phase_probes(dev):
         f"{k5_plain * 1e3:.2f} us ({k5_pl:.0f} launches); K6 "
         f"{k6_ms:.4f} ms for the nine cases (one launch each), plain "
         f"{k6_plain:.2f} ms ({k6_pl:.0f} launches)")
-    # K5: 16 floats and 1,024 ints in, 1,024 floats out; per item two PCG
-    # rounds' share, a div/mod and four transcendentals, about 80 operations.
-    k5_b = bound(pack.numel() * 4 + 2 * item.numel() * 4, 80 * item.numel())
+    # K5: 16 floats and 1,024 ints in, 6 x 1,024 floats out; per item three
+    # PCG rounds' share, a div/mod, a floor and seven transcendentals, about
+    # 120 operations.
+    k5_b = bound(pack.numel() * 4 + 7 * item.numel() * 4, 120 * item.numel())
     # K6: one (64, 128) float32 array in and out per case; the loops' float
     # operations per element, counted from the cases (a product, a sum and a
     # compare each count one): 200, 2,000, 8,000, 40, 4,000, 40, 4,000, 40,
@@ -1384,27 +1624,34 @@ def phase_probes(dev):
 
 def main():
     dev, smi = phase_device()
-    phase_build()
-    kern = phase_kernel(dev)
-    kern_bwd = phase_kernel_bwd(dev)
-    phase_golden(dev)
-    phase_diff(dev)
-    full = phase_full(dev)
-    phase_profile(dev)
-    full_bwd = phase_full_bwd(dev)
-    packed = phase_packed_kernel(dev)
-    chunk = phase_persist_kernel(dev)
-    pools = phase_pools_full(dev, full)
-    probes = phase_probes(dev)
-    kern_sph = phase_kernel_spheres(dev)
-    kern_bwd_sph = phase_kernel_bwd_spheres(dev)
-    packed_sph, chunk_sph = phase_packed_spheres(dev)
-    phase_golden_spheres(dev)
-    phase_diff_spheres(dev)
-    sph_full, sph_persist, sph_bwd = phase_full_spheres(dev)
+    timed(phase_build)
+    kern = timed(phase_kernel, dev)
+    kern_bwd = timed(phase_kernel_bwd, dev)
+    timed(phase_golden, dev)
+    timed(phase_diff, dev)
+    full = timed(phase_full, dev)
+    timed(phase_profile, dev)
+    full_bwd = timed(phase_full_bwd, dev)
+    packed = timed(phase_packed_kernel, dev)
+    chunk = timed(phase_persist_kernel, dev)
+    pools = timed(phase_pools_full, dev, full)
+    probes = timed(phase_probes, dev)
+    kern_sph = timed(phase_kernel_spheres, dev)
+    kern_bwd_sph = timed(phase_kernel_bwd_spheres, dev)
+    packed_sph, chunk_sph = timed(phase_packed_spheres, dev)
+    timed(phase_golden_spheres, dev)
+    timed(phase_diff_spheres, dev)
+    sph_full, sph_persist, sph_bwd = timed(phase_full_spheres, dev)
+    kern_tex, kern_bwd_tex = timed(phase_kernel_textures, dev)
+    packed_tex = timed(phase_packed_textures, dev)
+    timed(phase_golden_textures, dev)
+    timed(phase_diff_textures, dev)
+    tex_full = timed(phase_full_textures, dev)
     k1_launches = (full["launches"] + full_bwd["launches"]
                    + pools["strided"]["launches"] + sph_full["launches"]
-                   + sph_bwd["launches"])
+                   + sph_bwd["launches"]
+                   + sum(f["launches"] + b["launches"]
+                         for f, _, b in tex_full.values()))
     log(f"[paths] bounce_step launches: Cornell forward render "
         f"{full['launches']}, fwd+bwd step {full_bwd['launches']}, strided "
         f"pool {pools['strided']['launches']}, RTOW forward render "
@@ -1415,8 +1662,14 @@ def main():
         f"{pools['packed']['launches']}; bounce_persist launches: Cornell "
         f"persistent pool {pools['persistent']['launches']}, RTOW persistent "
         f"pool {sph_persist['launches']}; probes {probes['launches']}")
-    f32 = [k for k in kern + kern_sph if k["name"].startswith("f32")]
-    f32_bwd = [k for k in kern_bwd + kern_bwd_sph
+    for name, (f, pers, b) in tex_full.items():
+        log(f"[paths] {name}: bounce_step launches: forward render "
+            f"{f['launches']}, fwd+bwd step {b['launches']}; bounce_step_bwd "
+            f"launches: {b['bwd_launches']}; bounce_persist launches: "
+            f"{pers['launches']}")
+    f32 = [k for k in kern + kern_sph + kern_tex
+           if k["name"].startswith("f32")]
+    f32_bwd = [k for k in kern_bwd + kern_bwd_sph + kern_bwd_tex
                if k["name"].startswith("f32")]
     pick = lambda rows, name: next(k for k in rows if k["name"] == name)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1435,16 +1688,23 @@ def main():
         "max_abs_err": max(k["max_abs_err"] for k in f32),
         "library_ms": None,
         "rtow_227_spheres": on_rtow(pick(kern_sph, "f32-rtow")),
+        "textured": on_rtow(pick(kern_tex, "f32-textured")),
+        "simple_light": on_rtow(pick(kern_tex, "f32-simple_light")),
+        "cornell_smoke": on_rtow(pick(kern_tex, "f32-smoke")),
     }, {
         "name": "bounce_step_bwd",
         "route": "cuda",
         "source": src + "bounce_step_bwd.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1687",
-        "launches": full_bwd["bwd_launches"] + sph_bwd["bwd_launches"],
+        "launches": (full_bwd["bwd_launches"] + sph_bwd["bwd_launches"]
+                     + sum(b["bwd_launches"] for _, _, b in tex_full.values())),
         **on_rtow(pick(kern_bwd, "f32-cornell-light")),
         "max_abs_err": max(k["max_abs_err"] for k in f32_bwd),
         "library_ms": None,
         "rtow_227_spheres": on_rtow(pick(kern_bwd_sph, "f32-rtow")),
+        "textured": on_rtow(pick(kern_bwd_tex, "f32-textured")),
+        "simple_light": on_rtow(pick(kern_bwd_tex, "f32-simple_light")),
+        "cornell_smoke": on_rtow(pick(kern_bwd_tex, "f32-smoke")),
     }, {
         "name": "bounce_packed",
         "route": "cuda",
@@ -1454,16 +1714,21 @@ def main():
         **on_rtow(packed),
         "library_ms": None,
         "rtow_227_spheres": on_rtow(packed_sph),
+        "textured": on_rtow(packed_tex["textured"][0]),
+        "cornell_smoke": on_rtow(packed_tex["smoke"][0]),
     }, {
         "name": "bounce_persist",
         "route": "cuda",
         "source": src + "bounce_persist.cu",
         "replaces": "scheme_raytrace_tpu/integrator/persist.py:114",
         "launches": (pools["persistent"]["launches"]
-                     + sph_persist["launches"]),
+                     + sph_persist["launches"]
+                     + sum(pers["launches"] for _, pers, _ in tex_full.values())),
         **on_rtow(chunk),
         "library_ms": None,
         "rtow_227_spheres": on_rtow(chunk_sph),
+        "textured": on_rtow(packed_tex["textured"][1]),
+        "cornell_smoke": on_rtow(packed_tex["smoke"][1]),
     }, {
         "name": "probe_ops",
         "route": "cuda",

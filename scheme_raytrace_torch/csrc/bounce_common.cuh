@@ -9,9 +9,13 @@
 // step, op for op, with two forms of K1's own: cbrt for the fuzz radius and
 // a multiplied-out x^5 in Schlick (the JAX step keeps pow for Mosaic).
 // nvcc contracts mul+add into FMA (no --use_fast_math), except where a
-// comparison reads a value that cancels: the hit point (ray_at) and the
-// whole sphere probe (sphere_probe) round every product on its own, as the
-// plain step does.
+// comparison reads a value that cancels: the hit point (ray_at), the whole
+// sphere probe (sphere_probe) and the media's boundary intervals
+// (medium_probe) round every product on its own, as the plain step does.
+//
+// Coverage: rects, spheres (static and moving), constant media in box and
+// sphere boundaries; constant, checker, hash-Perlin noise and marble, and
+// image textures (texels from the atlas, an indexed load a channel).
 
 #pragma once
 
@@ -50,6 +54,7 @@ constexpr int R_ALB1 = 19;
 constexpr int R_TEXK = 22;
 constexpr int R_FUZZ = 23;
 constexpr int R_REF = 24;
+constexpr int R_TEXS = 25;
 constexpr int RECT_SIZE = 26;
 
 constexpr int S_C0 = 0;
@@ -64,20 +69,50 @@ constexpr int S_ALB1 = 14;
 constexpr int S_TEXK = 17;
 constexpr int S_FUZZ = 18;
 constexpr int S_REF = 19;
+constexpr int S_TEXS = 20;
 constexpr int SPH_SIZE = 21;
 
-// A rect block and a sphere block end in the same material record (mtype,
-// alb0, alb1, texk, fuzz, ref, texs): the shading reads the winner's through
-// its mtype slot `mat` and these offsets from it, whatever its group.
+// per-medium fields: an oriented 3-slab box (3 x (axis vec3, lo, hi) from
+// M_AX) or a sphere boundary; M_NID = -1 / density
+constexpr int M_KIND = 0;
+constexpr int M_AX = 1;
+constexpr int M_C = 16;
+constexpr int M_RAD = 19;
+constexpr int M_NID = 20;
+constexpr int M_VALID = 21;
+constexpr int M_MTYPE = 22;
+constexpr int M_ALB0 = 23;
+constexpr int M_ALB1 = 26;
+constexpr int M_TEXK = 29;
+constexpr int M_FUZZ = 30;
+constexpr int M_REF = 31;
+constexpr int M_TEXS = 32;
+constexpr int MED_SIZE = 33;
+
+// A rect, a sphere and a medium block end in the same material record
+// (mtype, alb0, alb1, texk, fuzz, ref, texs): the shading reads the winner's
+// through its mtype slot `mat` and these offsets from it, whatever its group.
 constexpr int kAlb0 = R_ALB0 - R_MTYPE;
 constexpr int kAlb1 = R_ALB1 - R_MTYPE;
 constexpr int kTexk = R_TEXK - R_MTYPE;
 constexpr int kFuzz = R_FUZZ - R_MTYPE;
 constexpr int kRef = R_REF - R_MTYPE;
+constexpr int kTexs = R_TEXS - R_MTYPE;
 static_assert(S_ALB0 - S_MTYPE == kAlb0 && S_ALB1 - S_MTYPE == kAlb1 &&
                   S_TEXK - S_MTYPE == kTexk && S_FUZZ - S_MTYPE == kFuzz &&
-                  S_REF - S_MTYPE == kRef,
-              "rect and sphere blocks share one material record");
+                  S_REF - S_MTYPE == kRef && S_TEXS - S_MTYPE == kTexs &&
+                  M_ALB0 - M_MTYPE == kAlb0 && M_ALB1 - M_MTYPE == kAlb1 &&
+                  M_TEXK - M_MTYPE == kTexk && M_FUZZ - M_MTYPE == kFuzz &&
+                  M_REF - M_MTYPE == kRef && M_TEXS - M_MTYPE == kTexs,
+              "rect, sphere and medium blocks share one material record");
+
+// The kind of a closest-hit winner, and its mtype slot's offset in its block.
+constexpr int kRect = 0;
+constexpr int kSphere = 1;
+constexpr int kMedium = 2;
+__device__ __forceinline__ int mat_offset(int kind) {
+  return kind == kSphere ? S_MTYPE : (kind == kRect ? R_MTYPE : M_MTYPE);
+}
 
 constexpr int L_KIND = 0;
 constexpr int L_X0 = 1;
@@ -89,15 +124,19 @@ constexpr int L_C = 6;
 constexpr int L_RAD = 9;
 constexpr int LGT_SIZE = 11;
 
-// scene/objects.py MAT_* and scene/build.py TEX_CHECKER
+// scene/objects.py MAT_* and scene/build.py TEX_*
 constexpr int MAT_LAMBERTIAN = 0;
 constexpr int MAT_METAL = 1;
 constexpr int MAT_DIELECTRIC = 2;
 constexpr int MAT_DIFFUSE_LIGHT = 3;
 constexpr int TEX_CHECKER = 1;
+constexpr int TEX_NOISE = 2;
+constexpr int TEX_MARBLE = 3;
+constexpr int TEX_IMAGE = 4;
 
 // core/rng.py
 constexpr uint32_t CAMERA_DEPTH = 0xFFFFu;
+constexpr uint32_t GROUP_MEDIUM = 8u;
 constexpr uint32_t PCG_MULT = 1664525u;
 constexpr uint32_t PCG_ADD = 1013904223u;
 
@@ -115,6 +154,12 @@ template <> struct Math<float> {
   static __device__ __forceinline__ float sin(float x) { return sinf(x); }
   static __device__ __forceinline__ float cos(float x) { return cosf(x); }
   static __device__ __forceinline__ float abs(float x) { return fabsf(x); }
+  static __device__ __forceinline__ float floor(float x) { return floorf(x); }
+  static __device__ __forceinline__ float log(float x) { return logf(x); }
+  static __device__ __forceinline__ float atan2(float y, float x) {
+    return atan2f(y, x);
+  }
+  static __device__ __forceinline__ float tiny() { return 1.17549435e-38f; }
   static __device__ __forceinline__ float mul_rn(float a, float b) {
     return __fmul_rn(a, b);
   }
@@ -129,6 +174,14 @@ template <> struct Math<double> {
   static __device__ __forceinline__ double sin(double x) { return ::sin(x); }
   static __device__ __forceinline__ double cos(double x) { return ::cos(x); }
   static __device__ __forceinline__ double abs(double x) { return ::fabs(x); }
+  static __device__ __forceinline__ double floor(double x) { return ::floor(x); }
+  static __device__ __forceinline__ double log(double x) { return ::log(x); }
+  static __device__ __forceinline__ double atan2(double y, double x) {
+    return ::atan2(y, x);
+  }
+  static __device__ __forceinline__ double tiny() {
+    return 2.2250738585072014e-308;
+  }
   static __device__ __forceinline__ double mul_rn(double a, double b) {
     return __dmul_rn(a, b);
   }
@@ -234,12 +287,30 @@ __device__ __forceinline__ T cosine_value(V3<T> n, V3<T> d) {
   return (c < T(0) ? T(0) : c) * T(1.0 / kPi);
 }
 
+// The plan's statics (bounce.py scene_args, after the lane count m).
+// img_rows: the atlas's 128-texel rows, 0 for a plan without image textures.
 struct Statics {
   int m, n_rects, rect_base, n_spheres, sph_base, has_moving;
   int n_lights, lgt_base, light_sampling;
   int nx, ny, max_depth;
-  uint32_t seed;
+  int n_media, med_base, has_perlin, img_rows;
+  uint32_t seed, perlin_seed;
 };
+
+// The scene arguments every bounce kernel's C entry point ends in, in
+// bounce.py scene_args' order, and the Statics they make for m lanes.
+#define SRT_SCENE_PARAMS                                                     \
+  int n_rects, int rect_base, int n_spheres, int sph_base, int has_moving,  \
+      int n_lights, int lgt_base, int light_sampling, int nx, int ny,       \
+      int max_depth, int n_media, int med_base, int has_perlin,             \
+      int img_rows, uint32_t seed, uint32_t perlin_seed, double t_min,      \
+      double t_max
+#define SRT_STATICS(m)                                                       \
+  Statics {                                                                  \
+    m, n_rects, rect_base, n_spheres, sph_base, has_moving, n_lights,        \
+        lgt_base, light_sampling, nx, ny, max_depth, n_media, med_base,      \
+        has_perlin, img_rows, seed, perlin_seed                              \
+  }
 
 // The light that u_pick picks (pdfs.lights_sample_u's selection).
 template <typename T>
@@ -466,17 +537,133 @@ __device__ __forceinline__ int closest_sphere(const T* __restrict__ pk,
   return best_b;
 }
 
-// The closest hit over both groups: the winner's pk offset (-1 on a miss),
-// its t in best_t, and whether it is a sphere.
+// --- constant media (geometry.scm:545-578; bounce.py _media_scatter) -------
+// A medium scatters at t = t1 + nid log(xi) inside its boundary interval
+// [t1, t2], clipped to the closest solid hit.  en < ex, t1 < t2, hit_dist <
+// t2 - t1 and the closest-hit `<` read these values, so the products that
+// feed them are rounded on their own, in the plain step's order; division,
+// sqrt and log are the card's full-accuracy ones, as PyTorch's are there.
+
+// What a medium probe leaves for the backward: t = t1 + nid * lx.
+template <typename T>
+struct MediumHit {
+  T lx;              // log(max(xi, tiny))
+};
+
+// The entry of the ray into medium block b's boundary, with the exit in
+// `exit_`; false when the ray misses the boundary.  A box is three slabs
+// with a guard for rays parallel to a slab; a sphere is its quadratic.
+template <typename T>
+__device__ __forceinline__ bool medium_interval(const T* __restrict__ pk,
+                                                int b, V3<T> o, V3<T> d,
+                                                T big, T& entry, T& exit_) {
+  if (ld(pk, b + M_KIND) < T(0.5)) {
+    entry = -big;
+    exit_ = big;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int ab = b + M_AX + a * 5;
+      const V3<T> ax = ld3(pk, ab);
+      const T lo = ld(pk, ab + 3), hi = ld(pk, ab + 4);
+      const T pa = dot_rn(o, ax), da = dot_rn(d, ax);
+      T lo_t, hi_t;
+      if (Math<T>::abs(da) > T(1e-12)) {
+        const T inv = T(1) / da;
+        const T ta = Math<T>::mul_rn(lo - pa, inv);
+        const T tb = Math<T>::mul_rn(hi - pa, inv);
+        lo_t = ta < tb ? ta : tb;
+        hi_t = ta < tb ? tb : ta;
+      } else {
+        const bool inside = pa >= lo && pa <= hi;
+        lo_t = inside ? -big : big;
+        hi_t = inside ? big : -big;
+      }
+      entry = entry < lo_t ? lo_t : entry;
+      exit_ = exit_ < hi_t ? exit_ : hi_t;
+    }
+    return entry < exit_;
+  }
+  const V3<T> oc = sub(o, ld3(pk, b + M_C));
+  const T rr = ld(pk, b + M_RAD);
+  const T bq = dot_rn(oc, d);
+  const T cq = Math<T>::add_rn(dot_rn(oc, oc), -Math<T>::mul_rn(rr, rr));
+  const T disc = Math<T>::add_rn(Math<T>::mul_rn(bq, bq), -cq);
+  if (!(disc > T(0))) return false;
+  const T sq = Math<T>::sqrt(disc);
+  entry = -bq - sq;
+  exit_ = -bq + sq;
+  return true;
+}
+
+// t1 = max(max(entry, eps), 0) of the plain step.
+template <typename T>
+__device__ __forceinline__ T medium_t1(T entry, T eps) {
+  const T a = entry < eps ? eps : entry;
+  return a < T(0) ? T(0) : a;
+}
+
+// The media, after the solid sweep, in pack order with the strict `<`.
+// best_t comes in as the solid winner's t (t_max on a miss), which also
+// clips every medium's interval; medium mi draws column mi of the
+// GROUP_MEDIUM stream of (seed, item, depth).  Returns the winning medium's
+// pk offset, or -1 when no medium scatters before best_t.
+template <typename T>
+__device__ __forceinline__ int closest_medium(const T* __restrict__ pk,
+                                              const Statics& s, uint32_t item,
+                                              int depth, V3<T> o, V3<T> d,
+                                              T t_min, T t_max, T& best_t,
+                                              MediumHit<T>& h) {
+  const T t_clip = best_t;
+  int best_b = -1;
+  T u[4];
+  for (int mi = 0; mi < s.n_media; ++mi) {
+    if ((mi & 3) == 0)
+      uniforms4<T>(s.seed, item, uint32_t(depth),
+                   GROUP_MEDIUM + uint32_t(mi >> 2), u);
+    const int b = s.med_base + mi * MED_SIZE;
+    T entry, exit_;
+    if (!medium_interval<T>(pk, b, o, d, t_max, entry, exit_)) continue;
+    if (!(ld(pk, b + M_VALID) > T(0.5))) continue;
+    const T t1 = medium_t1(entry, t_min);
+    const T t2 = exit_ < t_clip ? exit_ : t_clip;      // geometry.scm:556-557
+    if (!(t1 < t2)) continue;
+    const T xi = u[mi & 3] < Math<T>::tiny() ? Math<T>::tiny() : u[mi & 3];
+    const T lx = Math<T>::log(xi);
+    const T hit_dist = Math<T>::mul_rn(ld(pk, b + M_NID), lx);
+    if (!(hit_dist < t2 - t1)) continue;               // geometry.scm:562-564
+    const T t_med = Math<T>::add_rn(t1, hit_dist);
+    if (t_med < best_t) {
+      best_t = t_med;
+      best_b = b;
+      h.lx = lx;
+    }
+  }
+  return best_b;
+}
+
+// The closest hit over the groups: the winner's pk offset (-1 on a miss),
+// its t in best_t and its kind (kRect, kSphere, kMedium).  The media are
+// probed for live lanes only: a dead lane's hit is never read.
 template <typename T>
 __device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
-                                           const Statics& s, V3<T> o, V3<T> d,
-                                           T time, T t_min, T t_max,
-                                           T& best_t, bool& sph) {
+                                           const Statics& s, uint32_t item,
+                                           int depth, bool alive, V3<T> o,
+                                           V3<T> d, T time, T t_min, T t_max,
+                                           T& best_t, int& kind,
+                                           MediumHit<T>& mh) {
   const int rect_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t);
   const int sph_b = closest_sphere<T>(pk, s, o, d, time, t_min, t_max, best_t);
-  sph = sph_b >= 0;
-  return sph ? sph_b : rect_b;
+  kind = sph_b >= 0 ? kSphere : kRect;
+  int best_b = sph_b >= 0 ? sph_b : rect_b;
+  if (s.n_media > 0 && alive) {
+    const int med_b = closest_medium<T>(pk, s, item, depth, o, d, t_min,
+                                        t_max, best_t, mh);
+    if (med_b >= 0) {
+      kind = kMedium;
+      best_b = med_b;
+    }
+  }
+  return best_b;
 }
 
 // A sphere's normal at hit point p: (p - c) / r, whose sign carries the
@@ -497,8 +684,10 @@ __device__ __forceinline__ V3<T> ray_at(V3<T> o, T t, V3<T> d) {
           Math<T>::add_rn(o.z, Math<T>::mul_rn(t, d.z))};
 }
 
-// The winner's albedo: constant, or checker (texture.scm:12-23).  `mat` is
-// the winner's mtype slot.
+// --- textures (texture.scm:12-50; bounce.py step's texture section) -------
+
+// Checker (texture.scm:12-23): true when the winner's texture is a checker
+// and the hit point lies in an odd cell.  `mat` is the winner's mtype slot.
 template <typename T>
 __device__ __forceinline__ bool checker_odd(const T* __restrict__ pk, int mat,
                                             V3<T> p) {
@@ -506,6 +695,201 @@ __device__ __forceinline__ bool checker_odd(const T* __restrict__ pk, int mat,
   T sines = Math<T>::sin(T(10) * p.x) * Math<T>::sin(T(10) * p.y) *
             Math<T>::sin(T(10) * p.z);
   return sines < T(0);
+}
+
+// scene/perlin.py _hash_grad: one PCG4D round over (ix, iy, iz, seed) that
+// returns after the second mix of a, b and c (no last xorshift, no d).
+__device__ __forceinline__ void hash_grad(uint32_t& a, uint32_t& b,
+                                          uint32_t& c, uint32_t d) {
+  a = a * PCG_MULT + PCG_ADD;
+  b = b * PCG_MULT + PCG_ADD;
+  c = c * PCG_MULT + PCG_ADD;
+  d = d * PCG_MULT + PCG_ADD;
+  a += b * d; b += c * a; c += a * b; d += b * c;
+  a ^= a >> 16; b ^= b >> 16; c ^= c >> 16;
+  a += b * d; b += c * a; c += a * b;
+}
+
+// scene/perlin.py _to_sym: the top 24 bits to (-1, 1), exact in f32 and f64.
+template <typename T>
+__device__ __forceinline__ T to_sym(uint32_t bits) {
+  return T(int32_t(bits >> 8)) * T(2.0 / 16777216.0) - T(1);
+}
+
+// scene/perlin.py noise_xyz: Hermite-smoothed lattice gradient noise, with
+// the hashed gradient of each of the 8 corners normalised by
+// rsqrt(max(g.g, 1e-12)).  With kGrad, g is d noise / d (x, y, z): floor and
+// the hash carry none, the fade and the corner dots do.  Lattice coordinates
+// are int32 read as uint32, so negative ones wrap as in the plain version.
+// Not inlined: 8 hashes a call, and the callers (the lane body, the
+// backward) keep their registers.
+template <typename T, bool kGrad>
+__device__ __noinline__ T perlin_noise(uint32_t seed, T x, T y, T z,
+                                       V3<T>& g) {
+  const T fx = Math<T>::floor(x), fy = Math<T>::floor(y),
+          fz = Math<T>::floor(z);
+  const uint32_t ix = uint32_t(int32_t(fx)), iy = uint32_t(int32_t(fy)),
+                 iz = uint32_t(int32_t(fz));
+  const T ux = x - fx, uy = y - fy, uz = z - fz;
+  const T sx = ux * ux * (T(3) - T(2) * ux);          // perlin.scm:52-54
+  const T sy = uy * uy * (T(3) - T(2) * uy);
+  const T sz = uz * uz * (T(3) - T(2) * uz);
+  const T dsx = T(6) * ux * (T(1) - ux);              // d fade / d u
+  const T dsy = T(6) * uy * (T(1) - uy);
+  const T dsz = T(6) * uz * (T(1) - uz);
+  T acc = T(0);
+  g = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        uint32_t a = ix + uint32_t(di), b = iy + uint32_t(dj),
+                 c = iz + uint32_t(dk);
+        hash_grad(a, b, c, seed);
+        const T gx = to_sym<T>(a), gy = to_sym<T>(b), gz = to_sym<T>(c);
+        const T q = gx * gx + gy * gy + gz * gz;
+        const T inv = Math<T>::rsqrt(q < T(1e-12) ? T(1e-12) : q);
+        const T dot = ((ux - T(di)) * gx + (uy - T(dj)) * gy +
+                       (uz - T(dk)) * gz) * inv;
+        const T wx = di ? sx : T(1) - sx;
+        const T wy = dj ? sy : T(1) - sy;
+        const T wz = dk ? sz : T(1) - sz;
+        const T w = wx * wy * wz;
+        acc = acc + w * dot;
+        if (kGrad) {
+          g.x += (di ? dsx : -dsx) * wy * wz * dot + w * gx * inv;
+          g.y += (dj ? dsy : -dsy) * wx * wz * dot + w * gy * inv;
+          g.z += (dk ? dsz : -dsz) * wx * wy * dot + w * gz * inv;
+        }
+      }
+    }
+  }
+  return acc;
+}
+
+// scene/perlin.py turb_xyz: |sum over 7 octaves of 2^-k noise(2^k p)|
+// (perlin.scm:92-103).  With kGrad, g is its gradient in p: each octave's
+// weight and scale cancel exactly, and abs passes the sum's sign (0 at 0).
+template <typename T, bool kGrad>
+__device__ __forceinline__ T perlin_turb(uint32_t seed, V3<T> p, V3<T>& g) {
+  T acc = T(0), weight = T(1);
+  g = {T(0), T(0), T(0)};
+  for (int k = 0; k < 7; ++k) {
+    V3<T> gk;
+    acc = acc + weight * perlin_noise<T, kGrad>(seed, p.x, p.y, p.z, gk);
+    if (kGrad) g = add(g, gk);
+    p = scale(p, T(2));
+    weight = weight * T(0.5);
+  }
+  if (kGrad) {
+    const T sgn = acc > T(0) ? T(1) : (acc < T(0) ? T(-1) : T(0));
+    g = scale(g, sgn);
+  }
+  return Math<T>::abs(acc);
+}
+
+// texture.scm:25-28: gray noise(p * texs).
+template <typename T>
+__device__ __forceinline__ T noise_gray(const Statics& s, V3<T> p, T ts) {
+  V3<T> g;
+  return perlin_noise<T, false>(s.perlin_seed, p.x * ts, p.y * ts, p.z * ts,
+                                g);
+}
+
+// texture.scm:30-34: the argument of marble's 0.5 (1 + sin(arg)),
+// arg = texs p.z + 10 turb(p).
+template <typename T>
+__device__ __forceinline__ T marble_arg(const Statics& s, V3<T> p, T ts) {
+  V3<T> g;
+  return ts * p.z + T(10) * perlin_turb<T, false>(s.perlin_seed, p, g);
+}
+
+// The winner's surface coordinates, computed once, for the winner only: a
+// rect's from its in-plane edge ranges (ops/rect.py), a sphere's from the
+// outward unit normal wn sign(r) (ops/sphere.py sphere_uv, with the card's
+// atan2), and (0, 0) for a medium.
+template <typename T>
+__device__ __forceinline__ void surface_uv(const T* __restrict__ pk, int kind,
+                                           int b, V3<T> o, V3<T> d, T t,
+                                           V3<T> wn, T rr, T& u, T& v) {
+  u = v = T(0);
+  if (kind == kRect) {
+    const V3<T> av = ld3(pk, b + R_A), bv = ld3(pk, b + R_B);
+    const T pa = dot(o, av) + t * dot(d, av);
+    const T pb = dot(o, bv) + t * dot(d, bv);
+    const T a0 = ld(pk, b + R_KA0), b0 = ld(pk, b + R_KB0);
+    u = (pa - a0) / (ld(pk, b + R_KA1) - a0);
+    v = (pb - b0) / (ld(pk, b + R_KB1) - b0);
+  } else if (kind == kSphere) {
+    const T sgn = rr > T(0) ? T(1) : (rr < T(0) ? T(-1) : T(0));
+    const T nux = wn.x * sgn, nuy = wn.y * sgn, nuz = wn.z * sgn;
+    const T phi = Math<T>::atan2(nuz, nux);
+    const T q = T(1) - nuy * nuy;
+    const T theta =
+        Math<T>::atan2(nuy, Math<T>::sqrt(q < T(1e-12) ? T(1e-12) : q));
+    u = T(1) - (phi + T(kPi)) / T(kTwoPi);
+    v = (theta + T(kPi / 2.0)) / T(kPi);
+  }
+}
+
+// texture.scm:36-50: the clamped nearest texel of (u, v), v flipped.  An
+// image-textured winner carries (iw, ih, first atlas row) in its ALB0 slots;
+// channel ch of the texel lies at atlas[idx[ch]].  Every index is clamped
+// into the atlas, so no metadata forms an address outside it.
+template <typename T>
+__device__ __forceinline__ void texel_index(const T* __restrict__ pk,
+                                            const Statics& s, int mat, T u,
+                                            T v, int idx[3]) {
+  const T iw = ld(pk, mat + kAlb0), ih = ld(pk, mat + kAlb0 + 1);
+  const T iw1 = iw - T(1) < T(0) ? T(0) : iw - T(1);
+  const T ih1 = ih - T(1) < T(0) ? T(0) : ih - T(1);
+  T fi = u * iw;
+  fi = fi < T(0) ? T(0) : fi;
+  fi = fi > iw1 ? iw1 : fi;
+  T fj = (T(1) - v) * ih - T(0.001);
+  fj = fj < T(0) ? T(0) : fj;
+  fj = fj > ih1 ? ih1 : fj;
+  const int flat = int(fj) * int(iw) + int(fi);
+  const int nck = (int(iw * ih) + 127) / 128;
+  const int cb = int(ld(pk, mat + kAlb0 + 2));
+  const int last = s.img_rows * 128 - 1;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const int i = (cb + ch * nck) * 128 + flat;
+    idx[ch] = i < 0 ? 0 : (i > last ? last : i);
+  }
+}
+
+// The winner's albedo by its texture kind: constant, checker, noise,
+// marble or image (the step's texture section).  The procedural kinds run
+// only for the winner whose texk asks for them: marble is 56 hashes a hit.
+template <typename T>
+__device__ __forceinline__ V3<T> albedo(const T* __restrict__ pk,
+                                        const T* __restrict__ atlas,
+                                        const Statics& s, int mat, int kind,
+                                        int b, V3<T> o, V3<T> d, T t, V3<T> p,
+                                        V3<T> wn, T rr) {
+  const T texk = ld(pk, mat + kTexk);
+  if (s.has_perlin && texk == T(TEX_NOISE)) {
+    const T g = noise_gray<T>(s, p, ld(pk, mat + kTexs));
+    return {g, g, g};
+  }
+  if (s.has_perlin && texk == T(TEX_MARBLE)) {
+    const T g = T(0.5) * (T(1) + Math<T>::sin(
+                                     marble_arg<T>(s, p, ld(pk, mat + kTexs))));
+    return {g, g, g};
+  }
+  if (s.img_rows > 0 && texk == T(TEX_IMAGE)) {
+    T u, v;
+    int idx[3];
+    surface_uv<T>(pk, kind, b, o, d, t, wn, rr, u, v);
+    texel_index<T>(pk, s, mat, u, v, idx);
+    return {__ldg(atlas + idx[0]), __ldg(atlas + idx[1]),
+            __ldg(atlas + idx[2])};
+  }
+  return ld3(pk, mat + (checker_odd<T>(pk, mat, p) ? kAlb1 : kAlb0));
 }
 
 // Metal's unit-ball draw (util.scm:9-15, analytic; cbrt for the radius).
@@ -533,15 +917,17 @@ __device__ __forceinline__ T schlick_prob(T ref_idx, T cosine, bool refr_ok) {
 }
 
 // One bounce of one lane (bounce.py:step): regenerate a fresh lane's camera
-// ray, sweep the rects and the spheres for the closest hit, add the sky on
-// a miss and the emission on a hit, and scatter by the winner's material
-// (a sphere's normal comes from its hit point).  o, d, time,
-// rad and tp are updated in place; returns `scattering`.  Lanes that cannot
-// scatter (dead, missed, at the bounce cap) skip the shading, and only the
-// winning material's rule runs, with only the PCG4D column groups that
-// rule draws from.
+// ray, sweep the rects and the spheres for the closest hit, let a medium
+// scatter before it, add the sky on a miss and the emission on a hit, and
+// scatter by the winner's material (a sphere's normal comes from its hit
+// point, a medium's is (1, 0, 0)).  `atlas` holds the image texels (null
+// for a plan without image textures).  o, d, time, rad and tp are updated in
+// place; returns `scattering`.  Lanes that cannot scatter (dead, missed, at
+// the bounce cap) skip the shading, and only the winning material's rule
+// runs, with only the PCG4D column groups that rule draws from.
 template <typename T>
 __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
+                                            const T* __restrict__ atlas,
                                             const Statics& s, T t_min,
                                             T t_max, uint32_t item, T px,
                                             T py, bool fresh, bool alive,
@@ -554,11 +940,13 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
     tp = {T(1), T(1), T(1)};
   }
 
-  // --- closest hit: rects, then spheres, in pack order (geometry.scm:33-50)
+  // --- closest hit: rects, spheres, then media, in pack order
+  // (geometry.scm:33-50, 545-578)
   T best_t;
-  bool sph;
-  const int best_b = closest_hit<T>(pk, s, o, d, time, t_min, t_max, best_t,
-                                    sph);
+  int kind;
+  MediumHit<T> mh;
+  const int best_b = closest_hit<T>(pk, s, item, depth, alive, o, d, time,
+                                    t_min, t_max, best_t, kind, mh);
   const bool hit = best_b >= 0;
   const T t_eff = hit ? best_t : T(0);          // miss: p = o
   const V3<T> p = ray_at(o, t_eff, d);
@@ -575,19 +963,21 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
 
   bool scattering = false;
   if (alive && hit) {
-    V3<T> wn;
-    if (sph) {
+    V3<T> wn = {T(1), T(0), T(0)};                // a medium's
+    T rr = T(1);
+    if (kind == kSphere) {
       SphereHit<T> h;
       sphere_centre<T>(pk, s, best_b, time, h);
-      wn = sphere_normal(p, h.c, ld(pk, best_b + S_R));
-    } else {
+      rr = ld(pk, best_b + S_R);
+      wn = sphere_normal(p, h.c, rr);
+    } else if (kind == kRect) {
       wn = ld3(pk, best_b + R_WN);
     }
-    const int mat = best_b + (sph ? S_MTYPE : R_MTYPE);
+    const int mat = best_b + mat_offset(kind);
     const T mtype = ld(pk, mat);
-    // --- albedo: constant or checker (texture.scm:12-23) ---------------
-    const V3<T> alb =
-        ld3(pk, mat + (checker_odd<T>(pk, mat, p) ? kAlb1 : kAlb0));
+    // --- albedo by texture kind (texture.scm:12-50) ---------------------
+    const V3<T> alb = albedo<T>(pk, atlas, s, mat, kind, best_b, o, d, best_t,
+                                p, wn, rr);
     // --- emission (material.scm:103-111) --------------------------------
     if (mtype == T(MAT_DIFFUSE_LIGHT) && dot(wn, d) < T(0))
       rad = add(rad, mul(tp, alb));
@@ -677,6 +1067,7 @@ struct Queue {
 // reference, where the step runs on them with alive = false.  Returns
 // alive; `terminated` and `pix` (item % n_pix) describe the finished path.
 __device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
+                                            const float* __restrict__ atlas,
                                             const Statics& s, float t_min,
                                             float t_max, const Queue& q,
                                             int32_t sample_base,
@@ -698,7 +1089,7 @@ __device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
     float time = v[9];
     V3<float> rad = {v[10], v[11], v[12]};
     V3<float> tp = {v[13], v[14], v[15]};
-    scattering = bounce_lane<float>(pk, s, t_min, t_max, gitem,
+    scattering = bounce_lane<float>(pk, atlas, s, t_min, t_max, gitem,
                                     float(gpix % s.nx), float(gpix / s.nx),
                                     fresh, true, depth, o, d, time, rad, tp);
     v[3] = o.x;  v[4] = o.y;  v[5] = o.z;

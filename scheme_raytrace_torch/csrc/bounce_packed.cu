@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_packed
-// with the coverage of bounce_step.cu (rects, spheres, moving spheres): one
+// with the coverage of bounce_step.cu (rects, spheres, media, every texture
+// kind): one
 // bounce of every lane plus the strided work re-issue (a lane whose path
 // terminates takes the item m further on), on the whole pool state held in
 // one [N_PACKED, m] float32 array with the int fields stored as their bits.
@@ -36,6 +37,7 @@ struct PackedParams {
   const int32_t* sample_base;   // [1], on the device
   const float* st_in;           // [N_PACKED, m]
   float* st_out;                // [N_PACKED, m]
+  const float* atlas;           // image texels; null without images
   Statics s;
   Queue q;
   float t_min, t_max;
@@ -51,7 +53,7 @@ bounce_packed_kernel(const PackedParams prm) {
   for (int k = 0; k < N_PACKED; ++k) v[k] = prm.st_in[size_t(k) * m + i];
   bool terminated;
   int pix;
-  packed_step(prm.pk, prm.s, prm.t_min, prm.t_max, prm.q,
+  packed_step(prm.pk, prm.atlas, prm.s, prm.t_min, prm.t_max, prm.q,
               __ldg(prm.sample_base), v, terminated, pix);
 #pragma unroll
   for (int k = 0; k < N_PACKED; ++k) prm.st_out[size_t(k) * m + i] = v[k];
@@ -60,24 +62,21 @@ bounce_packed_kernel(const PackedParams prm) {
 }  // namespace
 
 // C interface, loaded with ctypes by integrator/bounce.py:step_packed_cuda.
-// ptrs: 4 device pointers — pk, sample_base ([1] int32), the state in and
-// the state out ([N_PACKED, m] float32 each).  Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched).
+// ptrs: 5 device pointers — pk, sample_base ([1] int32), the state in and
+// the state out ([N_PACKED, m] float32 each), the image texel atlas (null
+// when img_rows is 0).  Launches on `stream` without synchronising and
+// returns cudaGetLastError() (0 = launched).
 extern "C" int srt_bounce_packed(void* const* ptrs, int m, int n_work,
                                  int n_pix, int pix0, int total_pix,
-                                 int n_rects, int rect_base, int n_spheres,
-                                 int sph_base, int has_moving, int n_lights,
-                                 int lgt_base, int light_sampling, int nx,
-                                 int ny, int max_depth, uint32_t seed,
-                                 double t_min, double t_max, void* stream) {
+                                 SRT_SCENE_PARAMS, void* stream) {
   if (m <= 0) return 0;
   PackedParams prm;
   prm.pk = static_cast<const float*>(ptrs[0]);
   prm.sample_base = static_cast<const int32_t*>(ptrs[1]);
   prm.st_in = static_cast<const float*>(ptrs[2]);
   prm.st_out = static_cast<float*>(ptrs[3]);
-  prm.s = Statics{m, n_rects, rect_base, n_spheres, sph_base, has_moving,
-                  n_lights, lgt_base, light_sampling, nx, ny, max_depth, seed};
+  prm.atlas = static_cast<const float*>(ptrs[4]);
+  prm.s = SRT_STATICS(m);
   prm.q = Queue{m, n_work, n_pix, pix0, total_pix};
   prm.t_min = float(t_min);
   prm.t_max = float(t_max);

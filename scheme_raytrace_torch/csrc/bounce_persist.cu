@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/persist.py:_make_call (body _kernel)
-// with the coverage of bounce_step.cu (rects, spheres, moving spheres).  It
+// with the coverage of bounce_step.cu (rects, spheres, media, every texture
+// kind).  It
 // takes the packed pool state (bounce_packed.cu's [N_PACKED, m] float32
 // layout) and returns the state after T iterations, the T flush rows
 // ([T, 4, m] float32: the finished path's pixel as int32 bits, -1 where the
@@ -48,6 +49,7 @@ struct PersistParams {
   float* st_out;                // [N_PACKED, m]
   float* flush;                 // [T, 4, m]
   int32_t* seg;                 // [T], zeroed by the caller
+  const float* atlas;           // image texels; null without images
   int T;
   Statics s;
   Queue q;
@@ -76,7 +78,7 @@ bounce_persist_kernel(const PersistParams prm) {
       for (int k = 0; k < N_PACKED; ++k) opaque(v[k]);
       bool terminated;
       int pix;
-      alive = packed_step(prm.pk, prm.s, prm.t_min, prm.t_max, prm.q,
+      alive = packed_step(prm.pk, prm.atlas, prm.s, prm.t_min, prm.t_max, prm.q,
                           sample_base, v, terminated, pix);
       float* f = prm.flush + size_t(t) * 4 * m + i;
       f[0] = __int_as_float(terminated ? pix : -1);
@@ -96,19 +98,15 @@ bounce_persist_kernel(const PersistParams prm) {
 }  // namespace
 
 // C interface, loaded with ctypes by integrator/persist.py:chunk_cuda.
-// ptrs: 6 device pointers — pk, sample_base ([1] int32), the state in and
+// ptrs: 7 device pointers — pk, sample_base ([1] int32), the state in and
 // the state out ([N_PACKED, m] float32 each), the flush rows ([T, 4, m]
-// float32) and the segment counts ([T] int32, zeroed by the caller).
-// Launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 = launched).
+// float32), the segment counts ([T] int32, zeroed by the caller) and the
+// image texel atlas (null when img_rows is 0).  Launches on `stream`
+// without synchronising and returns cudaGetLastError() (0 = launched).
 extern "C" int srt_bounce_persist(void* const* ptrs, int T, int m,
                                   int n_work, int n_pix, int pix0,
-                                  int total_pix, int n_rects, int rect_base,
-                                  int n_spheres, int sph_base,
-                                  int has_moving, int n_lights, int lgt_base,
-                                  int light_sampling, int nx, int ny,
-                                  int max_depth, uint32_t seed, double t_min,
-                                  double t_max, void* stream) {
+                                  int total_pix, SRT_SCENE_PARAMS,
+                                  void* stream) {
   if (m <= 0 || T <= 0) return 0;
   PersistParams prm;
   prm.pk = static_cast<const float*>(ptrs[0]);
@@ -117,9 +115,9 @@ extern "C" int srt_bounce_persist(void* const* ptrs, int T, int m,
   prm.st_out = static_cast<float*>(ptrs[3]);
   prm.flush = static_cast<float*>(ptrs[4]);
   prm.seg = static_cast<int32_t*>(ptrs[5]);
+  prm.atlas = static_cast<const float*>(ptrs[6]);
   prm.T = T;
-  prm.s = Statics{m, n_rects, rect_base, n_spheres, sph_base, has_moving,
-                  n_lights, lgt_base, light_sampling, nx, ny, max_depth, seed};
+  prm.s = SRT_STATICS(m);
   prm.q = Queue{m, n_work, n_pix, pix0, total_pix};
   prm.t_min = float(t_min);
   prm.t_max = float(t_max);

@@ -2,12 +2,14 @@
 //
 // Replaces the Pallas TPU megakernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas  (its body: step)
-// for ROADMAP B1.1-B1.3: regeneration of fresh lanes' camera rays from
+// for ROADMAP B1.1-B1.5: regeneration of fresh lanes' camera rays from
 // PCG4D draws, the oriented-plane rect sweep and the sphere sweep (static
-// and moving spheres, any count) with the closest-hit material pick, the
-// sky on a miss, constant and checker albedo, emission,
-// mixture-PDF light sampling over xz-rect and sphere lights (or the plain
-// cosine lobe), and the lambertian / metal / dielectric scatter rules.
+// and moving spheres, any count) with the closest-hit material pick,
+// constant media that scatter before the closest solid hit, the sky on a
+// miss, constant, checker, hash-Perlin noise and marble and image-texel
+// albedo, emission, mixture-PDF light sampling over xz-rect and sphere
+// lights (or the plain cosine lobe), and the lambertian / metal /
+// dielectric scatter rules.
 // Its plain PyTorch twin is scheme_raytrace_torch/integrator/bounce.py:step,
 // which follows the JAX step op for op.  The lane body (bounce_lane) and
 // the device functions live in bounce_common.cuh, which the backward kernel
@@ -28,7 +30,12 @@
 // the running merge.  That is the TPU kernel's slim sweep by construction:
 // the winner's attributes are an indexed load of its pk row, so there is one
 // sphere loop for any count (no unroll threshold, no chunking) and the
-// attribute atlas is never read.
+// attribute atlas is never read.  An image texel is one indexed load a
+// channel from the texel atlas, for the winner only, in place of the TPU
+// kernel's static loop over atlas rows with a lane gather each; the surface
+// coordinates use the card's atan2 in place of its polynomial.  The Perlin
+// textures hash their lattice gradients in registers, as on the TPU, and run
+// only on the lanes whose winner carries one.
 // Lanes that cannot scatter (dead, missed, at the bounce cap) skip the
 // shading, and only the winning material's rule runs, with only the PCG4D
 // column groups that rule draws from.
@@ -50,7 +57,9 @@
 // 30 flops (40 with the moving centre), so the 227 spheres of the RTOW final
 // scene add about 9 kflop a lane, 0.6 Gflop a launch, about 9 us of the
 // card's 67 Tflop/s: there the sweep's operations bound it, and every lane
-// of a warp reads the same sphere row, which the cache broadcasts.
+// of a warp reads the same sphere row, which the cache broadcasts.  A marble
+// hit adds 56 lattice hashes (about 3 k integer and float operations), a
+// medium three slab intervals, a log and one PCG4D group per four media.
 // PERF.md holds what was measured.
 
 #include "bounce_common.cuh"
@@ -69,6 +78,7 @@ struct Params {
   const T* in[13];     // ox oy oz dx dy dz time rx ry rz tx ty tz
   T* out[13];          // the same columns after the bounce
   bool* scattering;
+  const T* atlas;      // [img_rows, 128] image texels; null without images
   Statics s;
   T t_min, t_max;
 };
@@ -87,7 +97,7 @@ bounce_step_kernel(const Params<T> prm) {
   V3<T> rad = {prm.in[7][i], prm.in[8][i], prm.in[9][i]};
   V3<T> tp = {prm.in[10][i], prm.in[11][i], prm.in[12][i]};
   const bool scattering = bounce_lane<T>(
-      pk, s, prm.t_min, prm.t_max, uint32_t(prm.gitem[i]), prm.px[i],
+      pk, prm.atlas, s, prm.t_min, prm.t_max, uint32_t(prm.gitem[i]), prm.px[i],
       prm.py[i], prm.fresh[i], prm.alive[i], prm.depth[i], o, d, time, rad,
       tp);
 
@@ -113,6 +123,7 @@ int launch(void* const* ptrs, const Statics& s, double t_min, double t_max,
   for (int k = 0; k < 13; ++k) prm.in[k] = static_cast<const T*>(ptrs[7 + k]);
   for (int k = 0; k < 13; ++k) prm.out[k] = static_cast<T*>(ptrs[20 + k]);
   prm.scattering = static_cast<bool*>(ptrs[33]);
+  prm.atlas = static_cast<const T*>(ptrs[34]);
   prm.s = s;
   prm.t_min = T(t_min);
   prm.t_max = T(t_max);
@@ -124,19 +135,15 @@ int launch(void* const* ptrs, const Statics& s, double t_min, double t_max,
 }  // namespace
 
 // C interface, loaded with ctypes by integrator/bounce.py:step_cuda.
-// ptrs: 34 device pointers — pk; gitem px py fresh alive depth and the 13
+// ptrs: 35 device pointers — pk; gitem px py fresh alive depth and the 13
 // float lane columns (inputs); the 13 float columns and scattering
-// (outputs).  Launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 = launched).
+// (outputs); the image texel atlas (null when img_rows is 0).  Launches on
+// `stream` without synchronising and returns cudaGetLastError()
+// (0 = launched).
 extern "C" int srt_bounce_step(int is_f64, void* const* ptrs, int m,
-                               int n_rects, int rect_base, int n_spheres,
-                               int sph_base, int has_moving, int n_lights,
-                               int lgt_base, int light_sampling, int nx,
-                               int ny, int max_depth, uint32_t seed,
-                               double t_min, double t_max, void* stream) {
+                               SRT_SCENE_PARAMS, void* stream) {
   if (m <= 0) return 0;
-  Statics s{m, n_rects, rect_base, n_spheres, sph_base, has_moving,
-            n_lights, lgt_base, light_sampling, nx, ny, max_depth, seed};
+  const Statics s = SRT_STATICS(m);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch<double>(ptrs, s, t_min, t_max, st)
                 : launch<float>(ptrs, s, t_min, t_max, st);

@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_bwd
-// with the coverage of bounce_step.cu (ROADMAP B1.1-B1.3: rects, spheres,
-// moving spheres, any sphere count).  Given the step's INPUTS and the cotangents of its five float outputs
-// (o', d', time', rad', tp'), it returns the cotangents of (pk, o, d, time,
-// rad, tp): the exact vector-Jacobian product of
+// with the coverage of bounce_step.cu (ROADMAP B2.1-B2.4: rects, spheres,
+// moving spheres, any sphere count, constant media, Perlin and image
+// textures).  Given the step's INPUTS and the cotangents of its five float
+// outputs (o', d', time', rad', tp'), it returns the cotangents of (pk, the
+// image texels, o, d, time, rad, tp): the exact vector-Jacobian product of
 // scheme_raytrace_torch/integrator/bounce.py:step, whose plain VJP
 // (bounce.step_vjp, torch autograd) is its oracle.
 //
@@ -23,7 +24,23 @@
 // function of the hit point, so its cotangent flows back into o, d and t;
 // t's flows through the quadratic into o, d, the centres c0 and c1, the
 // radius and, for a moving sphere, time, t0 and t1 (the time cotangent is
-// an output, and reaches the camera header on fresh lanes).
+// an output, and reaches the camera header on fresh lanes).  A noise or
+// marble albedo is a function of the hit point and of the winner's texture
+// scale: its cotangent goes into p (and so into o, d and t) and into the
+// TEXS slot; floor and the lattice hash carry none.  A winning medium's
+// t = t1 + nid log(xi) sends cotangent to its M_NID and, through
+// t1 = max(max(entry, eps), 0), to the entering slab's axis and bound and to
+// o and d (a box) or to the centre and radius (a sphere boundary); its exit
+// and the solid hit enter comparisons only.
+//
+// Image texels.  The TPU kernel refuses image plans in reverse mode (its
+// texel gather has no transpose there).  Here the albedo cotangent of a
+// lane whose winner carries an image goes to the atlas: the texel index
+// ends in an integer cast and carries no gradient, so the lane keeps its
+// three flat atlas indices and its three cotangents, and the block reduces
+// them as it reduces the winners' slots, into the A = img_rows * 128 entries
+// that follow the P pk slots in its row of the partials.  No float atomics
+// here either.
 //
 // The pk cotangent: each lane keeps its contributions in registers.  P
 // grows with the scene (4,794 floats for the 227-sphere RTOW scene, where a
@@ -37,10 +54,13 @@
 // into its row of the (blocks, P) partials in global memory (a list's
 // winners are distinct, so one warp's entries go in parallel), and the
 // wrapper sums the rows over blocks.  Shared memory does not depend on P
-// (38 KB in f64), no float atomics: two identical launches give
-// bitwise-equal partials, and a scene without spheres gets the sums it got
-// from the [warps, P] form.  Light slots are recomputed per light in the
-// reduction (the light count is a runtime value) instead of being kept.
+// (41 KB in f64: 18 slots a winner), no float atomics: two identical
+// launches give bitwise-equal partials, and a scene without spheres gets the
+// sums it got from the [warps, P] form.  Light slots are recomputed per
+// light in the reduction (the light count is a runtime value) instead of
+// being kept, and so are a medium's 20 geometry slots, per medium: a lane
+// keeps its ray and its t cotangent, not the slots, and a medium winner's
+// list entry carries its material slots only.
 //
 // Conventions.  Every clamp of the plain step is a maximum (or a clip), and
 // its adjoint goes through max_adj: at a tie the cotangent splits 0.5/0.5,
@@ -260,6 +280,92 @@ __device__ void light_value_adj(const T* __restrict__ pk, int b, V3<T> p,
   g_p = sub(g_p, g_oc);
 }
 
+// The geometry slots of a medium block that take cotangent, M_AX .. M_NID,
+// as one array indexed from M_AX.
+constexpr int kMedSlots = M_NID - M_AX + 1;
+
+// Reverse of a winning medium's t = t1 + nid lx in o, d and the slots of
+// medium block b, for t's cotangent g_t: adds to g_o, g_d and gm (indexed
+// from M_AX).  Replays medium_interval; every max and min of the plain step
+// splits its cotangent at a tie (max_adj).
+template <typename T>
+__device__ void medium_adj(const T* __restrict__ pk, int b, V3<T> o, V3<T> d,
+                           T eps, T big, T lx, T g_t, V3<T>& g_o, V3<T>& g_d,
+                           T gm[kMedSlots]) {
+  gm[M_NID - M_AX] += g_t * lx;
+  const bool box = ld(pk, b + M_KIND) < T(0.5);
+  // t1 = max(max(entry, eps), 0): the cotangent of entry
+  T entry, exit_;
+  medium_interval<T>(pk, b, o, d, big, entry, exit_);
+  const T m1 = entry < eps ? eps : entry;
+  T g = max_adj(entry, eps, max_adj(m1, T(0), g_t));
+  if (!box) {
+    // entry = -bq - sq, sq = sqrt(disc), disc = bq bq - cq,
+    // cq = oc.oc - r r, bq = oc.d, oc = o - c
+    const V3<T> oc = sub(o, ld3(pk, b + M_C));
+    const T rr = ld(pk, b + M_RAD);
+    const T bq = dot(oc, d);
+    const T disc = bq * bq - (dot(oc, oc) - rr * rr);
+    const T sq = Math<T>::sqrt(disc);
+    const T g_disc = T(-0.5) * g / sq;
+    const T g_bq = T(2) * bq * g_disc - g;
+    const V3<T> g_oc = add(scale(oc, T(-2) * g_disc), scale(d, g_bq));
+    g_d = add(g_d, scale(oc, g_bq));
+    g_o = add(g_o, g_oc);
+    gm[M_C - M_AX] -= g_oc.x;
+    gm[M_C - M_AX + 1] -= g_oc.y;
+    gm[M_C - M_AX + 2] -= g_oc.z;
+    gm[M_RAD - M_AX] += T(2) * rr * g_disc;
+    return;
+  }
+  // entry = max(max(max(-big, lo_0), lo_1), lo_2): replay, then reverse
+  T lo_t[3], pre[3];
+  T en = -big;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int ab = b + M_AX + a * 5;
+    const V3<T> ax = ld3(pk, ab);
+    const T lo = ld(pk, ab + 3), hi = ld(pk, ab + 4);
+    const T pa = dot_rn(o, ax), da = dot_rn(d, ax);
+    if (Math<T>::abs(da) > T(1e-12)) {
+      const T inv = T(1) / da;
+      const T ta = Math<T>::mul_rn(lo - pa, inv);
+      const T tb = Math<T>::mul_rn(hi - pa, inv);
+      lo_t[a] = ta < tb ? ta : tb;
+    } else {
+      lo_t[a] = (pa >= lo && pa <= hi) ? -big : big;
+    }
+    pre[a] = en;
+    en = en < lo_t[a] ? lo_t[a] : en;
+  }
+#pragma unroll
+  for (int a = 2; a >= 0; --a) {
+    const T g_lo = max_adj(lo_t[a], pre[a], g);
+    g = max_adj(pre[a], lo_t[a], g);
+    if (g_lo == T(0)) continue;
+    const int ab = b + M_AX + a * 5;
+    const V3<T> ax = ld3(pk, ab);
+    const T lo = ld(pk, ab + 3), hi = ld(pk, ab + 4);
+    const T pa = dot_rn(o, ax), da = dot_rn(d, ax);
+    if (!(Math<T>::abs(da) > T(1e-12))) continue;   // a constant there
+    // lo_t = min(ta, tb), ta = (lo - pa) inv, tb = (hi - pa) inv, inv = 1/da
+    const T inv = T(1) / da;
+    const T ta = Math<T>::mul_rn(lo - pa, inv);
+    const T tb = Math<T>::mul_rn(hi - pa, inv);
+    const T g_ta = min_adj(ta, tb, g_lo), g_tb = min_adj(tb, ta, g_lo);
+    const T g_pa = -(g_ta + g_tb) * inv;
+    const T g_inv = g_ta * (lo - pa) + g_tb * (hi - pa);
+    const T g_da = -g_inv * inv * inv;
+    gm[a * 5 + 3] += g_ta * inv;
+    gm[a * 5 + 4] += g_tb * inv;
+    gm[a * 5] += o.x * g_pa + d.x * g_da;
+    gm[a * 5 + 1] += o.y * g_pa + d.y * g_da;
+    gm[a * 5 + 2] += o.z * g_pa + d.z * g_da;
+    g_o = add(g_o, scale(ax, g_pa));
+    g_d = add(g_d, scale(ax, g_da));
+  }
+}
+
 // Sum over the warp in a fixed butterfly order; every lane gets the sum.
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -280,16 +386,17 @@ struct BwdParams {
   const int32_t* depth;
   const T* in[13];     // ox oy oz dx dy dz time rx ry rz tx ty tz
   const T* ct[13];     // cotangents of the same columns after the bounce
-  T* dpk_part;         // [blocks, P]
+  T* dpk_part;         // [blocks, P + img_rows * 128]: pk, then the atlas
   T* out[13];          // cotangents of the input columns
+  const T* atlas;      // [img_rows, 128] image texels; null without images
   Statics s;
   int P;
   T t_min, t_max;
 };
 
 // A lane's pk cotangent, kept for the block reduction: the header slots,
-// its winner's slots, and what the light slots' recomputation needs.  The
-// winner is a sphere when win >= s.sph_base (pack order: rects first).
+// its winner's slots, and what the light and medium slots' recomputation
+// needs.  The winner's kind follows from its offset (win_kind).
 template <typename T>
 struct LaneGrads {
   T hdr[HDR_SIZE];
@@ -301,18 +408,23 @@ struct LaneGrads {
   V3<T> c1;          // -> a moving scene's sphere: S_C1
   T st0, st1;        // -> and S_T0, S_T1
   V3<T> alb;         // -> the material's ALB0, or ALB1 when odd
-  T fuzz, ref;       // -> its FUZZ and REF
+  T fuzz, ref, texs; // -> its FUZZ, REF and TEXS
+  bool med;          // the winner is a medium whose t takes cotangent
+  V3<T> mo, md;      // its ray
+  T m_lx, m_gt;      // its log(xi) and t's cotangent
   bool lam_ls;       // a light-sampled lambertian scatter
   V3<T> lp, ldir;    // its hit point and direction
   T g_lv;            // the cotangent of each light's lights_value term
   int l_pick;        // the sampled light (-1: the cosine lobe)
   T lu[4];           // the light sample's uniforms
   V3<T> g_ls;        // the cotangent of the sampled direction
+  int tex[3];        // the texel's atlas index a channel (tex[0] -1: none)
+  V3<T> g_tex;       // the texel's cotangent
 };
 
 // The adjoint of lane i: replays the forward, writes the lane's 13 input
-// cotangents and leaves its pk cotangent in c (zeroed, win = l_pick = -1,
-// by the caller).
+// cotangents and leaves its pk cotangent in c (zeroed, win = l_pick =
+// tex[0] = -1, by the caller).
 template <typename T>
 __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
                                              LaneGrads<T>& c) {
@@ -339,24 +451,34 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
     tp = {T(1), T(1), T(1)};
   }
   T best_t;
-  bool sph;
-  const int b = closest_hit<T>(pk, s, o, d, time, prm.t_min, prm.t_max,
-                               best_t, sph);
+  int kind;
+  MediumHit<T> mh;
+  const int b = closest_hit<T>(pk, s, item, depth, alive, o, d, time,
+                               prm.t_min, prm.t_max, best_t, kind, mh);
   const bool hit = b >= 0;
+  const bool sph = hit && kind == kSphere;
   const T t_eff = hit ? best_t : T(0);
   const V3<T> p = ray_at(o, t_eff, d);
   // the winner's normal; a sphere's probe is replayed for the adjoint
   SphereHit<T> sh;
   T rr = T(1);
   V3<T> wn = {T(0), T(1), T(0)};
-  if (hit && sph) {
+  if (sph) {
     sphere_probe<T>(pk, s, b, o, d, time, prm.t_min, prm.t_max, sh);
     rr = ld(pk, b + S_R);
     wn = sphere_normal(p, sh.c, rr);
-  } else if (hit) {
+  } else if (hit && kind == kRect) {
     wn = ld3(pk, b + R_WN);
+  } else if (hit) {
+    wn = {T(1), T(0), T(0)};                    // a medium's
   }
-  const int mat = b + (sph ? S_MTYPE : R_MTYPE);
+  const int mat = b + mat_offset(kind);
+  // the winner's texture kind: noise, marble and image albedos are not pk
+  // slots, and their cotangent goes elsewhere (below)
+  const T texk = hit ? ld(pk, mat + kTexk) : T(0);
+  const bool noise = s.has_perlin && texk == T(TEX_NOISE);
+  const bool marble = s.has_perlin && texk == T(TEX_MARBLE);
+  const bool image = s.img_rows > 0 && texk == T(TEX_IMAGE);
 
   // --- the scatter and its adjoint (material.scm), then the selects ----
   // rad' = rad + sky + emission, so rad's cotangent passes through.
@@ -368,7 +490,8 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
     c.win = b;
     const T mtype = ld(pk, mat);
     c.odd = checker_odd<T>(pk, mat, p);
-    const V3<T> alb = ld3(pk, mat + (c.odd ? kAlb1 : kAlb0));
+    const V3<T> alb = albedo<T>(pk, prm.atlas, s, mat, kind, b, o, d, best_t,
+                                p, wn, rr);
     // emission (material.scm:103-111)
     if (mtype == T(MAT_DIFFUSE_LIGHT) && dot(wn, d) < T(0)) {
       g_tp = add(g_tp, mul(g_rad, alb));
@@ -494,6 +617,34 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
     g_tp = add(g_tp, gtp);
   }
 
+  // --- the albedo of a noise, marble or image texture -------------------
+  // (c.alb is the albedo's cotangent here; for these kinds it leaves ALB0)
+  if (alive && hit && (noise || marble)) {
+    const T g_gray = c.alb.x + c.alb.y + c.alb.z;
+    c.alb = {T(0), T(0), T(0)};
+    const T ts = ld(pk, mat + kTexs);
+    V3<T> g;
+    if (noise) {                              // gray = noise(p ts)
+      perlin_noise<T, true>(s.perlin_seed, p.x * ts, p.y * ts, p.z * ts, g);
+      g_p = add(g_p, scale(g, ts * g_gray));
+      c.texs = dot(g, p) * g_gray;
+    } else {                // gray = 0.5 (1 + sin(ts p.z + 10 turb(p)))
+      const T arg =
+          ts * p.z + T(10) * perlin_turb<T, true>(s.perlin_seed, p, g);
+      const T g_arg = T(0.5) * Math<T>::cos(arg) * g_gray;
+      g_p = add(g_p, scale(g, T(10) * g_arg));
+      g_p.z += ts * g_arg;
+      c.texs = p.z * g_arg;
+    }
+  }
+  if (alive && hit && image) {
+    T u, v;
+    surface_uv<T>(pk, kind, b, o, d, best_t, wn, rr, u, v);
+    texel_index<T>(pk, s, mat, u, v, c.tex);
+    c.g_tex = c.alb;
+    c.alb = {T(0), T(0), T(0)};
+  }
+
   // --- sky on a miss (main.scm:91-98) ---------------------------------
   if (alive && !hit) {
     c.sky = true;
@@ -517,7 +668,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
   // (a dead lane's g_p and g_wn are zero: it scatters nothing)
   V3<T> g_c = {T(0), T(0), T(0)};
   T g_r = T(0);
-  if (alive && hit && sph) {
+  if (alive && sph) {
     const T inv_r = T(1) / rr;
     const V3<T> g_pc = scale(g_wn, inv_r);
     g_p = add(g_p, g_pc);
@@ -559,6 +710,18 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
       } else {
         c.wn = g_c;
       }
+    } else if (kind == kMedium) {
+      // t = t1 + nid log(xi); its slots are redone in the block reduction
+      c.med = true;
+      c.mo = o;
+      c.md = d;
+      c.m_lx = mh.lx;
+      c.m_gt = g_t;
+      T gm[kMedSlots];
+#pragma unroll
+      for (int k = 0; k < kMedSlots; ++k) gm[k] = T(0);
+      medium_adj<T>(pk, b, o, d, prm.t_min, prm.t_max, mh.lx, g_t, g_o, g_d,
+                    gm);
     } else {
       // t = (K - o.wn) / (d.wn); the normal is a pk leaf
       const T dn = dot(d, wn);
@@ -623,25 +786,33 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
 
 // The pk slots a winner's cotangent touches, in the order of its list entry:
 // the geometry vector (R_WN, a sphere's S_C0), the geometry scalar (R_K,
-// S_R), ALB0, ALB1, FUZZ, REF, and for a sphere of a moving scene S_C1,
-// S_T0 and S_T1.  A rect, or a sphere of a static scene, uses the first
-// kRectSlots.
-constexpr int kSlots = 17;
-constexpr int kRectSlots = 12;
+// S_R), ALB0, ALB1, FUZZ, REF, TEXS, and for a sphere of a moving scene
+// S_C1, S_T0 and S_T1.  A rect, or a sphere of a static scene, uses the
+// first kRectSlots; a medium the material slots among them, from kGeomSlots
+// on (its geometry slots are redone per medium, see medium_adj).
+constexpr int kSlots = 18;
+constexpr int kRectSlots = 13;
+constexpr int kGeomSlots = 4;
 
-// Entry slot j of a rect (sph false) or sphere winner -> its offset in the
-// winner's pk block.
-__device__ __forceinline__ int win_slot(bool sph, int j) {
+// The kind of the winner at pk offset b (pack order: rects, spheres,
+// lights, media).
+__device__ __forceinline__ int win_kind(const Statics& s, int b) {
+  return b >= s.med_base ? kMedium : (b >= s.sph_base ? kSphere : kRect);
+}
+
+// Entry slot j of a winner of `kind` -> its offset in the winner's pk block.
+__device__ __forceinline__ int win_slot(int kind, int j) {
+  const bool sph = kind == kSphere;
   if (j < 3) return (sph ? S_C0 : R_WN) + j;
   if (j == 3) return sph ? S_R : R_K;
   if (j < kRectSlots) {
-    const int mat = sph ? S_MTYPE : R_MTYPE;
+    const int mat = mat_offset(kind);
     if (j < 7) return mat + kAlb0 + (j - 4);
     if (j < 10) return mat + kAlb1 + (j - 7);
-    return mat + (j == 10 ? kFuzz : kRef);
+    return mat + (j == 10 ? kFuzz : (j == 11 ? kRef : kTexs));
   }
-  if (j < 15) return S_C1 + (j - 12);
-  return j == 15 ? S_T0 : S_T1;
+  if (j < 16) return S_C1 + (j - 13);
+  return j == 16 ? S_T0 : S_T1;
 }
 
 template <typename T>
@@ -649,18 +820,21 @@ __global__ void __launch_bounds__(kThreads)
 bounce_step_bwd_kernel(const BwdParams<T> prm) {
   __shared__ T s_hdr[kWarps][HDR_SIZE];        // warp sums of the header
   __shared__ T s_lgt[kWarps][LGT_SIZE];        // and of one light's slots
-  __shared__ T s_val[kWarps][32][kSlots];      // each warp's winner list
-  __shared__ int s_win[kWarps][32];
+  __shared__ T s_med[kWarps][kMedSlots];       // and of one medium's
+  __shared__ T s_val[kWarps][32][kSlots];      // each warp's winner list,
+  __shared__ int s_win[kWarps][32];            // and then its texel list
+  __shared__ int s_tix[kWarps][32][2];         // a texel's channels 1 and 2
   __shared__ int s_n[kWarps];
   const Statics& s = prm.s;
   const T* __restrict__ pk = prm.pk;
   const int P = prm.P;
-  T* part = prm.dpk_part + size_t(blockIdx.x) * P;   // this block's row
-  for (int k = threadIdx.x; k < P; k += kThreads) part[k] = T(0);
+  const int A = s.img_rows * 128;              // the atlas's texels
+  T* part = prm.dpk_part + size_t(blockIdx.x) * (P + A);   // this block's row
+  for (int k = threadIdx.x; k < P + A; k += kThreads) part[k] = T(0);
 
   const int i = blockIdx.x * kThreads + threadIdx.x;
   LaneGrads<T> c = {};
-  c.win = c.l_pick = -1;
+  c.win = c.l_pick = c.tex[0] = -1;
   if (i < s.m) lane_adjoint(prm, i, c);
 
   // --- warp sums: the header, then one list entry per distinct winner ----
@@ -680,14 +854,14 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
     const int b = __shfl_sync(kFullMask, c.win, __ffs(todo) - 1);
     const bool mine = c.win == b;
     todo &= ~__ballot_sync(kFullMask, mine);
-    const bool moving = b >= s.sph_base && s.has_moving;
+    const bool moving = win_kind(s, b) == kSphere && s.has_moving;
     const T z = T(0);
     const V3<T> a0 = mine && !c.odd ? c.alb : V3<T>{z, z, z};
     const V3<T> a1 = mine && c.odd ? c.alb : V3<T>{z, z, z};
     const T vals[kSlots] = {
         mine ? c.wn.x : z, mine ? c.wn.y : z, mine ? c.wn.z : z,
         mine ? c.k : z, a0.x, a0.y, a0.z, a1.x, a1.y, a1.z,
-        mine ? c.fuzz : z, mine ? c.ref : z,
+        mine ? c.fuzz : z, mine ? c.ref : z, mine ? c.texs : z,
         mine ? c.c1.x : z, mine ? c.c1.y : z, mine ? c.c1.z : z,
         mine ? c.st0 : z, mine ? c.st1 : z};
 #pragma unroll
@@ -712,11 +886,80 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
   for (int w = 0; w < kWarps; ++w) {   // one list's winners are distinct
     for (int e = threadIdx.x; e < s_n[w] * kSlots; e += kThreads) {
       const int b = s_win[w][e / kSlots], j = e % kSlots;
-      const bool sph = b >= s.sph_base;
-      if (j < kRectSlots || (sph && s.has_moving))
-        part[b + win_slot(sph, j)] += s_val[w][e / kSlots][j];
+      const int kind = win_kind(s, b);
+      if (kind == kMedium ? (j >= kGeomSlots && j < kRectSlots)
+                          : (j < kRectSlots ||
+                             (kind == kSphere && s.has_moving)))
+        part[b + win_slot(kind, j)] += s_val[w][e / kSlots][j];
     }
     __syncthreads();
+  }
+
+  // --- the atlas's texels: a list of distinct texels per warp, as above ---
+  if (A > 0 && __syncthreads_or(c.tex[0] >= 0)) {
+    n = 0;
+    todo = __ballot_sync(kFullMask, c.tex[0] >= 0);
+    while (todo) {                     // texels in order of their first lane
+      const int first = __ffs(todo) - 1;
+      const int key = __shfl_sync(kFullMask, c.tex[0], first);
+      const bool mine = c.tex[0] == key;
+      todo &= ~__ballot_sync(kFullMask, mine);
+      const T z = T(0);
+      const T vals[3] = {mine ? c.g_tex.x : z, mine ? c.g_tex.y : z,
+                         mine ? c.g_tex.z : z};
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const T v = warp_sum(vals[ch]);
+        if (lane == 0) s_val[warp][n][ch] = v;
+      }
+      if (lane == first) {
+        s_win[warp][n] = key;
+        s_tix[warp][n][0] = c.tex[1];
+        s_tix[warp][n][1] = c.tex[2];
+      }
+      ++n;
+    }
+    if (lane == 0) s_n[warp] = n;
+    __syncthreads();
+    for (int w = 0; w < kWarps; ++w) { // one list's texels are distinct
+      for (int e = threadIdx.x; e < s_n[w] * 3; e += kThreads) {
+        const int q = e / 3, ch = e % 3;
+        part[P + (ch == 0 ? s_win[w][q] : s_tix[w][q][ch - 1])] +=
+            s_val[w][q][ch];
+      }
+      __syncthreads();
+    }
+  }
+
+  // --- the media's geometry slots, one medium at a time -------------------
+  if (s.n_media > 0 && __syncthreads_or(c.med)) {
+    for (int mi = 0; mi < s.n_media; ++mi) {
+      const int b = s.med_base + mi * MED_SIZE;
+      const bool mine = c.med && c.win == b;
+      if (__any_sync(kFullMask, mine)) {
+        T gm[kMedSlots];
+#pragma unroll
+        for (int k = 0; k < kMedSlots; ++k) gm[k] = T(0);
+        V3<T> scratch_o = {T(0), T(0), T(0)}, scratch_d = scratch_o;
+        if (mine)
+          medium_adj<T>(pk, b, c.mo, c.md, prm.t_min, prm.t_max, c.m_lx,
+                        c.m_gt, scratch_o, scratch_d, gm);
+#pragma unroll
+        for (int k = 0; k < kMedSlots; ++k) {
+          const T v = warp_sum(gm[k]);
+          if (lane == 0) s_med[warp][k] = v;
+        }
+      } else if (lane < kMedSlots) {
+        s_med[warp][lane] = T(0);
+      }
+      __syncthreads();
+      if (threadIdx.x < kMedSlots) {
+        T acc = s_med[0][threadIdx.x];
+        for (int w = 1; w < kWarps; ++w) acc += s_med[w][threadIdx.x];
+        part[b + M_AX + threadIdx.x] = acc;
+      }
+      __syncthreads();
+    }
   }
 
   // --- the light slots, one light at a time ------------------------------
@@ -767,6 +1010,7 @@ int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
   for (int k = 0; k < 13; ++k) prm.ct[k] = static_cast<const T*>(ptrs[20 + k]);
   prm.dpk_part = static_cast<T*>(ptrs[33]);
   for (int k = 0; k < 13; ++k) prm.out[k] = static_cast<T*>(ptrs[34 + k]);
+  prm.atlas = static_cast<const T*>(ptrs[47]);
   prm.s = s;
   prm.P = P;
   prm.t_min = T(t_min);
@@ -779,21 +1023,16 @@ int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
 }  // namespace
 
 // C interface, loaded with ctypes by integrator/bounce.py:step_cuda_bwd.
-// ptrs: 47 device pointers — pk; gitem px py fresh alive depth and the 13
+// ptrs: 48 device pointers — pk; gitem px py fresh alive depth and the 13
 // float lane columns (the step's inputs); the 13 cotangents of its float
-// outputs; the (ceil(m / 256), P) pk partials; the 13 lane cotangents
-// (outputs).  Launches on `stream` without synchronising and returns the
-// CUDA error (0 = launched).
+// outputs; the (ceil(m / 256), P + img_rows * 128) partials of the pk and
+// atlas cotangents; the 13 lane cotangents (outputs); the image texel atlas
+// (null when img_rows is 0).  Launches on `stream` without synchronising and
+// returns the CUDA error (0 = launched).
 extern "C" int srt_bounce_step_bwd(int is_f64, void* const* ptrs, int m,
-                                   int P, int n_rects, int rect_base,
-                                   int n_spheres, int sph_base,
-                                   int has_moving, int n_lights, int lgt_base,
-                                   int light_sampling, int nx, int ny,
-                                   int max_depth, uint32_t seed, double t_min,
-                                   double t_max, void* stream) {
+                                   int P, SRT_SCENE_PARAMS, void* stream) {
   if (m <= 0) return 0;
-  Statics s{m, n_rects, rect_base, n_spheres, sph_base, has_moving,
-            n_lights, lgt_base, light_sampling, nx, ny, max_depth, seed};
+  const Statics s = SRT_STATICS(m);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_bwd<double>(ptrs, s, P, t_min, t_max, st)
                 : launch_bwd<float>(ptrs, s, P, t_min, t_max, st);

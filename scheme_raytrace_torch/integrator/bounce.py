@@ -12,14 +12,15 @@ Two implementations of one step, picked by the device of the tensors:
     oracle of the kernel;
   * `step_cuda` — the hand-written CUDA kernel csrc/bounce_step.cu (the
     port of the Pallas megakernel `as_pallas`), used for CUDA tensors.  It
-    takes `pk` alone, from a `pool_plan` plan: no attribute atlas.
+    takes what `pack` gives for a `pool_plan` plan: `pk`, or `(pk, atlas)`
+    with the image texel planes; never the sphere attribute atlas.
 
-Coverage (both implementations, ROADMAP B1.1-B1.3): rects, spheres
-(static and moving, any count), xz-rect and sphere lights with mixture-PDF
-light sampling, constant and checker albedo, emission, gradient/black sky,
-lambertian/metal/dielectric.  Media, klein, bezier, perlin and image
-textures raise NotImplementedError (`check_covered`); `pack` covers every
-group.
+Coverage (both implementations, ROADMAP B1.1-B1.5): rects, spheres
+(static and moving, any count), constant media in box and sphere
+boundaries, xz-rect and sphere lights with mixture-PDF light sampling,
+constant, checker, hash-Perlin noise and marble and image albedo, emission,
+gradient/black sky, lambertian/metal/dielectric.  Klein and bezier raise
+NotImplementedError (`check_covered`); `pack` covers every group.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..camera import _basis
 from ..core import rng
 from ..scene import build as sb
 from ..scene import objects as ob
+from ..scene import perlin as perlin_mod
 
 _PI = math.pi
 _TWO_PI = 2.0 * _PI
@@ -256,8 +258,8 @@ IMG_ROWS_MAX = 48
 
 def pallas_ok(plan: BouncePlan) -> bool:
     """Fused-kernel eligibility of the JAX package: bounded counts of the
-    exotic groups (the bound the later B1 slices route by; the current
-    slice takes none of these groups, see `check_covered`)."""
+    exotic groups (the JAX routing bound; the port's media loop takes any
+    count, and klein and bezier are not ported, see `check_covered`)."""
     return (plan.n_media <= 16 and plan.n_kleins <= 2
             and plan.n_beziers <= 8)
 
@@ -298,34 +300,38 @@ def make_plan(scene, config) -> BouncePlan:
 
 def pool_plan(scene, config) -> BouncePlan:
     """The plan every pool of the port runs: `make_plan` without the
-    attribute atlas.  The JAX pools drop `attr_sweep` in reverse mode and in
-    the strided pools, where their kernels cannot take the atlas; here no
+    sphere attribute atlas.  The JAX pools drop `attr_sweep` in reverse mode
+    and in the strided pools, where their kernels cannot take it; here no
     path needs it (the plain step gathers the winner's `pk` row, the kernels
-    load it), so it is never built or passed."""
+    load it), so it is never built or passed.  The image texel planes stay:
+    for a scene with image textures `pack` returns `(pk, atlas)` with the
+    [plan.img_rows, 128] texels, and every step takes that pair."""
     return dataclasses.replace(make_plan(scene, config), attr_sweep=False)
 
 
 def check_covered(plan: BouncePlan) -> None:
     """Raise NotImplementedError for plans outside the ported slices."""
     missing = [name for name, present in (
-        ("media", plan.n_media),
-        ("klein", plan.n_kleins), ("bezier", plan.n_beziers),
-        ("perlin textures", plan.has_perlin),
-        ("image textures", plan.has_image)) if present]
+        ("klein", plan.n_kleins), ("bezier", plan.n_beziers)) if present]
     if missing:
         raise NotImplementedError(
-            f"the fused bounce step covers ROADMAP B1.1-B1.3 (rects, spheres, "
-            f"lights, constant/checker albedo); this plan needs "
+            f"the fused bounce step covers ROADMAP B1.1-B1.5 (rects, spheres, "
+            f"media, lights, every texture kind); this plan needs "
             f"{', '.join(missing)}, which later B1 slices port")
 
 
 def check_kernel_plan(plan: BouncePlan) -> None:
-    """`check_covered` for the CUDA wrappers, which take `pk` alone: the
-    kernels load the winner's `pk` row and read no atlas (`pool_plan`)."""
+    """`check_covered` for the CUDA wrappers: the kernels load the winner's
+    `pk` row and read no sphere attribute atlas (`pool_plan`)."""
     check_covered(plan)
-    if plan.has_atlas:
-        raise ValueError("the bounce kernels take pk without an atlas: build "
-                         "the plan with bounce.pool_plan")
+    if plan.attr_sweep:
+        raise ValueError("the bounce kernels take no sphere attribute atlas: "
+                         "build the plan with bounce.pool_plan")
+
+
+def split_pk(plan: BouncePlan, pk):
+    """`pack`'s result -> (pk, atlas), atlas None for a plan without one."""
+    return pk if plan.has_atlas else (pk, None)
 
 
 def _sum3(x):
@@ -511,7 +517,8 @@ def pack(scene, cam, plan: BouncePlan, dtype):
 
 
 # ---------------------------------------------------------------------------
-# The plain step (rects, spheres, lights), op for op the JAX `step`
+# The plain step (rects, spheres, lights, media, textures), op for op the
+# JAX `step`
 # ---------------------------------------------------------------------------
 
 
@@ -538,13 +545,24 @@ def _camera_ray(plan, pk, u, px, py):
     return o, unit3(d), time
 
 
+# The kind of a closest-hit winner, carried in the record of a plan with
+# image textures: it says which surface-coordinate convention the winner has.
+KIND_NONE, KIND_RECT, KIND_SPHERE = 0, 1, 2
+
+
 def _merge_rec(pk, best, ok, t, wn, base, a0_off, a1_off, m_off, tk_off,
-               fz_off, rf_off, ts_off):
+               fz_off, rf_off, ts_off, extra=None):
     """Fold one primitive's candidate hit into the running best record.
 
-    The strict `<` keeps the first of equal-t primitives (pack order)."""
+    The strict `<` keeps the first of equal-t primitives (pack order).
+    `extra` maps further keys of `best` to the candidate's values (the
+    winner's kind and what its surface coordinates need, carried by plans
+    with image textures only); keys it leaves out keep the record's."""
     closer = ok & (t < best["t"])
+    more = {k: torch.where(closer, v, best[k])
+            for k, v in (extra or {}).items()}
     return {
+        **best, **more,
         "hit": best["hit"] | closer,
         "t": torch.where(closer, t, best["t"]),
         "wn": where3(closer, wn, best["wn"]),
@@ -612,7 +630,13 @@ def _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max):
     inv_r = 1.0 / torch.where(closer, win[S_R], 1.0)
     wn = tuple((o[i] + t * d[i] - c[i]) * inv_r for i in range(3))
     v3 = lambda k: (win[k], win[k + 1], win[k + 2])
+    more = {}
+    if plan.has_image:
+        more = {"kind": torch.where(closer, KIND_SPHERE, best["kind"]),
+                "sgn": torch.where(closer, torch.sign(win[S_R].detach()),
+                                   best["sgn"])}
     return {
+        **best, **more,
         "hit": best["hit"] | closer,
         "t": torch.where(closer, t, best["t"]),
         "wn": where3(closer, wn, best["wn"]),
@@ -638,6 +662,12 @@ def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
         "wn": (z, z, z), "mtype": z, "alb0": (z, z, z), "alb1": (z, z, z),
         "texk": z, "texs": z, "fuzz": z, "ref": z,
     }
+    if plan.has_image:
+        # the winner's kind, its rect index and its radius's sign: what
+        # `_surface_uv` reads, once, after the sweep
+        best["kind"] = torch.zeros_like(o[0], dtype=torch.int64)
+        best["ridx"] = torch.zeros_like(o[0], dtype=torch.int64)
+        best["sgn"] = z
     for r in range(plan.n_rects):
         b = plan.rect_base + r * RECT_SIZE
         wn_s = _v(pk, b + R_WN)
@@ -654,7 +684,9 @@ def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
               & (pb >= pk[b + R_KB0]) & (pb <= pk[b + R_KB1]))
         wn = tuple(w.expand_as(z) for w in wn_s)
         best = _merge_rec(pk, best, ok, t, wn, b, R_ALB0, R_ALB1, R_MTYPE,
-                          R_TEXK, R_FUZZ, R_REF, R_TEXS)
+                          R_TEXK, R_FUZZ, R_REF, R_TEXS,
+                          {"kind": KIND_RECT, "ridx": r} if plan.has_image
+                          else None)
     if plan.n_spheres:
         best = _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max)
     return best
@@ -756,6 +788,148 @@ def _lights_value(plan, pk, p, d):
     return total * (1.0 / plan.n_lights)
 
 
+def _media_scatter(plan, pk, gitem, depth, o, d, rec):
+    """Constant-medium scatter events (geometry.scm:545-578), op for op the
+    JAX `_media_scatter`.
+
+    Probes each medium's boundary interval (oriented 3-slab box or sphere),
+    clips it to the closest solid hit, and scatters at the exponential
+    distance nid * log(xi) drawn from the GROUP_MEDIUM columns of the
+    (seed, item, depth) stream.  A scatter overrides the solid record, in
+    pack order with the strict `<`: normal (1, 0, 0), the phase material
+    merged in."""
+    dt = o[0].dtype
+    big = o[0].new_tensor(cfg_mod.BIG)
+    tiny = torch.finfo(dt).tiny
+    t_clip = torch.where(rec["hit"], rec["t"], big)
+    u_med = rng.hash_uniforms_tuple(plan.seed, gitem, depth, plan.n_media,
+                                    dt, group_base=rng.GROUP_MEDIUM)
+    one = torch.ones_like(o[0])
+    zero = torch.zeros_like(o[0])
+    for mi in range(plan.n_media):
+        b = plan.med_base + mi * MED_SIZE
+        is_box = pk[b + M_KIND] < 0.5
+        en = torch.full_like(o[0], -cfg_mod.BIG)
+        ex = torch.full_like(o[0], cfg_mod.BIG)
+        for a in range(3):
+            ab = b + M_AX + a * 5
+            u_ax = _v(pk, ab)
+            pa = dot3(o, u_ax)
+            da = dot3(d, u_ax)
+            # parallel-ray guard: keeps the backward free of NaNs
+            da_ok = torch.abs(da) > 1e-12
+            inv = 1.0 / torch.where(da_ok, da, 1.0)
+            ta = (pk[ab + 3] - pa) * inv
+            tb = (pk[ab + 4] - pa) * inv
+            inside = (pa >= pk[ab + 3]) & (pa <= pk[ab + 4])
+            lo_t = torch.where(da_ok, torch.minimum(ta, tb),
+                               torch.where(inside, -big, big))
+            hi_t = torch.where(da_ok, torch.maximum(ta, tb),
+                               torch.where(inside, big, -big))
+            en = torch.maximum(en, lo_t)
+            ex = torch.minimum(ex, hi_t)
+        box_ok = en < ex
+        oc = sub3(o, _v(pk, b + M_C))
+        bq = dot3(oc, d)
+        rr = pk[b + M_RAD]
+        cq = dot3(oc, oc) - rr * rr
+        disc = bq * bq - cq
+        sph_ok = disc > 0.0
+        sq = torch.sqrt(torch.where(sph_ok, disc, 1.0))
+        entry = torch.where(is_box, en, -bq - sq)
+        exit_ = torch.where(is_box, ex, -bq + sq)
+        mok = (((is_box & box_ok) | (~is_box & sph_ok))
+               & (pk[b + M_VALID] > 0.5))
+        t1 = _max(_max(entry, cfg_mod.SHADOW_EPS), 0.0)
+        t2 = torch.minimum(exit_, t_clip)             # geometry.scm:556-557
+        mok = mok & (t1 < t2)
+        xi = _max(u_med[mi], tiny)                    # log(0) guard
+        hit_dist = pk[b + M_NID] * torch.log(xi)      # geometry.scm:562-564
+        mok = mok & (hit_dist < (t2 - t1))
+        rec = _merge_rec(pk, rec, mok, t1 + hit_dist, (one, zero, zero), b,
+                         M_ALB0, M_ALB1, M_MTYPE, M_TEXK, M_FUZZ, M_REF,
+                         M_TEXS,
+                         {"kind": KIND_NONE} if plan.has_image else None)
+    return rec
+
+
+def _surface_uv(plan, pk_t, rec, o, d):
+    """The winner's surface coordinates (u, v), computed once after the
+    sweep: a rect's from its in-plane edge ranges (ops/rect.py), a sphere's
+    from the outward unit normal wn * sign(r) (ops/sphere.py sphere_uv), and
+    (0, 0) for a medium or a miss.  The JAX step carries them through every
+    merge, with a polynomial arctangent where this takes torch.atan2 (up to
+    4e-8 rad apart).  They end in the texel lookup's integer cast, so they
+    carry no gradient."""
+    with torch.no_grad():
+        u = v = torch.zeros_like(o[0])
+        t = rec["t"]
+        if plan.n_rects:
+            block = pk_t[plan.rect_base:plan.rect_base
+                         + plan.n_rects * RECT_SIZE].reshape(-1, RECT_SIZE)
+            win = block[rec["ridx"]].unbind(1)
+            av = (win[R_A], win[R_A + 1], win[R_A + 2])
+            bv = (win[R_B], win[R_B + 1], win[R_B + 2])
+            pa = dot3(o, av) + t * dot3(d, av)
+            pb = dot3(o, bv) + t * dot3(d, bv)
+            is_rect = rec["kind"] == KIND_RECT
+            u = torch.where(is_rect, (pa - win[R_KA0])
+                            / (win[R_KA1] - win[R_KA0]), u)
+            v = torch.where(is_rect, (pb - win[R_KB0])
+                            / (win[R_KB1] - win[R_KB0]), v)
+        if plan.n_spheres:
+            nux, nuy, nuz = (w * rec["sgn"] for w in rec["wn"])
+            phi = torch.atan2(nuz, nux)
+            theta = torch.atan2(nuy, torch.sqrt(_max(1.0 - nuy * nuy, 1e-12)))
+            is_sph = rec["kind"] == KIND_SPHERE
+            u = torch.where(is_sph, 1.0 - (phi + _PI) / _TWO_PI, u)
+            v = torch.where(is_sph, (theta + _PI / 2.0) / _PI, v)
+    return u, v
+
+
+def _texel(plan, atlas, rec, uv):
+    """texture.scm:36-50: the clamped nearest texel of (u, v), v flipped,
+    as (r, g, b) lane tensors.  An image-textured winner carries (iw, ih,
+    first atlas row) in its alb0 slots (`_mat_fields`); its texel lies at
+    flat index j * iw + i of channel plane ch, i.e. at
+    atlas.reshape(-1)[(base + ch * nck) * 128 + j * iw + i]: one indexed load
+    a channel.  Other lanes read texel 0 (their alb0 holds a colour)."""
+    is_img = rec["texk"] == float(sb.TEX_IMAGE)
+    iw_f, ih_f, cb_f = (x.detach() for x in rec["alb0"])
+    i64 = torch.int64
+    ii = torch.minimum(_max(uv[0] * iw_f, 0.0), _max(iw_f - 1.0, 0.0)).to(i64)
+    jj = torch.minimum(_max((1.0 - uv[1]) * ih_f - 0.001, 0.0),
+                       _max(ih_f - 1.0, 0.0)).to(i64)
+    flat = torch.where(is_img, jj * iw_f.to(i64) + ii, 0)
+    nck = torch.where(is_img, ((iw_f * ih_f).to(i64) + 127) // 128, 0)
+    cb = torch.where(is_img, cb_f, 0.0).to(i64)
+    texels = atlas.reshape(-1)
+    return tuple(texels[((cb + ch * nck) * 128 + flat).clamp(
+        0, texels.shape[0] - 1)] for ch in range(3))
+
+
+def hit_record(plan: BouncePlan, pk, gitem, px, py, fresh, depth, o, d,
+               time):
+    """The first half of `step`: regenerate the fresh lanes' camera rays
+    (main.scm:452-469), sweep for the closest hit (geometry.scm:33-50) and
+    let the media scatter before it.  pk is the scene vector alone.  Returns
+    (o, d, time, rec), rec the winner's record: hit, t, wn, mtype, alb0,
+    alb1, texk, texs, fuzz, ref."""
+    pk_t = pk
+    pk = pk.unbind(0)                  # 0-d tensors keep pk's own dtype
+    u_cam = rng.hash_uniforms_tuple(plan.seed, gitem, rng.CAMERA_DEPTH, 5,
+                                    px.dtype)
+    o_f, d_f, time_f = _camera_ray(plan, pk, u_cam, px, py)
+    o = where3(fresh, o_f, o)
+    d = where3(fresh, d_f, d)
+    time = torch.where(fresh, time_f, time)
+    rec = _intersect(plan, pk, pk_t, o, d, time, cfg_mod.SHADOW_EPS,
+                     cfg_mod.BIG)
+    if plan.n_media:
+        rec = _media_scatter(plan, pk, gitem, depth, o, d, rec)
+    return o, d, time, rec
+
+
 def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
          o, d, time, rad, tp):
     """One fused pool iteration in plain PyTorch: regen fresh lanes, trace,
@@ -765,29 +939,21 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     gitem and depth are int32, fresh and alive bool.  Returns (o', d',
     time', rad', tp', scattering); the pool handles termination, the work
     queue and the framebuffer.  With `plan.has_atlas`, pk is `pack`'s
-    (pk, atlas) pair; the atlas is not read (see `_sweep_spheres`).
+    (pk, atlas) pair: the image texel planes come first in the atlas, and
+    its sphere attribute rows are not read (see `_sweep_spheres`).
     """
     check_covered(plan)
-    if plan.has_atlas:
-        pk, _ = pk
+    pk, atlas = split_pk(plan, pk)
     dt = px.dtype
+    # --- regenerate fresh lanes, closest hit, media -------------------------
+    o, d, time, rec = hit_record(plan, pk, gitem, px, py, fresh, depth, o, d,
+                                 time)
     pk_t = pk
-    pk = pk.unbind(0)                  # 0-d tensors keep pk's own dtype
-    # --- regenerate fresh lanes (camera rays; main.scm:452-469) -----------
-    u_cam = rng.hash_uniforms_tuple(plan.seed, gitem, rng.CAMERA_DEPTH, 5,
-                                    dt)
-    o_f, d_f, time_f = _camera_ray(plan, pk, u_cam, px, py)
-    o = where3(fresh, o_f, o)
-    d = where3(fresh, d_f, d)
-    time = torch.where(fresh, time_f, time)
+    pk = pk.unbind(0)
     zero = torch.zeros_like(px)
     rad = where3(fresh, (zero, zero, zero), rad)
     one = torch.ones_like(px)
     tp = where3(fresh, (one, one, one), tp)
-
-    # --- closest hit (geometry.scm:33-50) ----------------------------------
-    rec = _intersect(plan, pk, pk_t, o, d, time, cfg_mod.SHADOW_EPS,
-                     cfg_mod.BIG)
     hit = rec["hit"]
     t_eff = torch.where(hit, rec["t"], 0.0)       # miss: p = o (sanitized)
     p = tuple(o[i] + t_eff * d[i] for i in range(3))
@@ -801,12 +967,23 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     rad = tuple(rad[i] + torch.where(missed, tp[i] * sky[i], 0.0)
                 for i in range(3))
 
-    # --- texture: constant and checker (texture.scm:12-23) ----------------
+    # --- texture (texture.scm:12-50) ----------------------------------------
     texk = rec["texk"]
     sines = (torch.sin(10.0 * p[0]) * torch.sin(10.0 * p[1])
              * torch.sin(10.0 * p[2]))
     use1 = (texk == float(sb.TEX_CHECKER)) & (sines < 0.0)
     alb = where3(use1, rec["alb1"], rec["alb0"])
+    if plan.has_perlin:
+        ts = rec["texs"]
+        gray_n = perlin_mod.noise_xyz(plan.perlin_seed, p[0] * ts, p[1] * ts,
+                                      p[2] * ts)
+        gray_m = 0.5 * (1.0 + torch.sin(
+            ts * p[2] + 10.0 * perlin_mod.turb_xyz(plan.perlin_seed, *p)))
+        alb = where3(texk == float(sb.TEX_NOISE), (gray_n,) * 3, alb)
+        alb = where3(texk == float(sb.TEX_MARBLE), (gray_m,) * 3, alb)
+    if plan.has_image:
+        texel = _texel(plan, atlas, rec, _surface_uv(plan, pk_t, rec, o, d))
+        alb = where3(texk == float(sb.TEX_IMAGE), texel, alb)
 
     # --- emission (material.scm:103-111) ------------------------------------
     mtype = rec["mtype"]
@@ -903,22 +1080,28 @@ def _kernel():
     lib = cuda_build.load("bounce_step")
     fn = lib.srt_bounce_step
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 12
-                       + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
-                          ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                        ctypes.c_int] + SCENE_ARGTYPES + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def scene_args(plan: BouncePlan):
     """The plan's statics as the four bounce kernels take them, in their C
-    order: the groups' counts and pk offsets, the image size, the bounce
-    cap, the seed, and the hit interval."""
+    order (csrc/bounce_common.cuh SRT_SCENE_PARAMS): the groups' counts and
+    pk offsets, the image size, the bounce cap, the media, the Perlin flag,
+    the texel atlas's rows, the two seeds, and the hit interval."""
     return (plan.n_rects, plan.rect_base, plan.n_spheres, plan.sph_base,
             int(plan.has_moving), plan.n_lights, plan.lgt_base,
             int(plan.light_sampling), plan.nx, plan.ny, plan.max_depth,
-            plan.seed & 0xFFFFFFFF, cfg_mod.SHADOW_EPS, cfg_mod.BIG)
+            plan.n_media, plan.med_base, int(plan.has_perlin), plan.img_rows,
+            plan.seed & 0xFFFFFFFF, plan.perlin_seed & 0xFFFFFFFF,
+            cfg_mod.SHADOW_EPS, cfg_mod.BIG)
+
+
+# The ctypes of `scene_args`.
+SCENE_ARGTYPES = ([ctypes.c_int] * 15 + [ctypes.c_uint32] * 2
+                  + [ctypes.c_double] * 2)
 
 
 def _check_lane(name, x, dtype, m, device, fn="step_cuda"):
@@ -929,6 +1112,30 @@ def _check_lane(name, x, dtype, m, device, fn="step_cuda"):
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
+def _check_pk(plan, pk, dtype, device, fn):
+    """Split `pack`'s result for a kernel wrapper and check it: pk
+    [plan.size] and, for a plan with image textures, the [plan.img_rows,
+    128] texel atlas, contiguous in `dtype` on `device`.  Returns (pk,
+    atlas), atlas None without images (the kernel then gets a null
+    pointer)."""
+    pk, atlas = split_pk(plan, pk)
+    _check_lane("pk", pk, dtype, plan.size, device, fn)
+    if atlas is not None:
+        shape = (plan.img_rows, 128)
+        if (atlas.dtype != dtype or atlas.shape != shape
+                or atlas.device != device or not atlas.is_contiguous()):
+            raise ValueError(
+                f"{fn}: the atlas must be a contiguous {list(shape)} {dtype} "
+                f"tensor on {device}, got {tuple(atlas.shape)} {atlas.dtype} "
+                f"on {atlas.device}")
+    return pk, atlas
+
+
+def tensor_ptr(x):
+    """A tensor's device pointer, None (a null pointer) for no tensor."""
+    return None if x is None else x.data_ptr()
+
+
 def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
               o, d, time, rad, tp):
     """`step` through the CUDA kernel: same signature, same results to
@@ -937,8 +1144,9 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     radius where `step` keeps the JAX pow form).
 
     Every tensor must lie on one CUDA device, contiguous: pk [plan.size]
-    and the float lanes in float32 or float64, gitem and depth int32, fresh
-    and alive bool, all lanes [M].  Outputs are new tensors (torch.empty);
+    (or `pack`'s (pk, atlas) pair for a plan with image textures) and the
+    float lanes in float32 or float64, gitem and depth int32, fresh and
+    alive bool, all lanes [M].  Outputs are new tensors (torch.empty);
     the inputs are left unchanged.  Launches on the current stream without
     synchronising and raises if the launch is refused.
     """
@@ -960,14 +1168,15 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
         _check_lane(name, x, torch.int32, m, dev)
     for name, x in (("fresh", fresh), ("alive", alive)):
         _check_lane(name, x, torch.bool, m, dev)
-    _check_lane("pk", pk, dt, plan.size, dev)
+    pk, atlas = _check_pk(plan, pk, dt, dev, "step_cuda")
 
     outs = [torch.empty_like(px) for _ in range(13)]
     scattering = torch.empty(m, dtype=torch.bool, device=dev)
-    # the order of srt_bounce_step's pointer array: pk, 19 lanes in, 14 out
+    # the order of srt_bounce_step's pointer array: pk, 19 lanes in, 14 out,
+    # the atlas
     tensors = (pk, gitem, px, py, fresh, alive, depth, *o, *d, time, *rad,
-               *tp, *outs, scattering)
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+               *tp, *outs, scattering, atlas)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[tensor_ptr(t) for t in tensors])
     fn = _kernel()
     with torch.cuda.device(dev):
         err = fn(int(dt == torch.float64), ptrs, m, *scene_args(plan),
@@ -1005,19 +1214,24 @@ def step_vjp(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     """The plain VJP of `step`: torch.autograd.grad of its five float
     outputs against the cotangents (ct_o, ct_d, ct_time, ct_rad, ct_tp).
 
-    Returns (dpk, do, dd, dtime, drad, dtp).  It is the oracle of the
-    bounce_step_bwd kernel; nothing on the CUDA path calls it."""
+    Returns (dpk, do, dd, dtime, drad, dtp); dpk has `pk`'s form, so for a
+    plan with an atlas it is the pair (dpk, datlas).  It is the oracle of
+    the bounce_step_bwd kernel; nothing on the CUDA path calls it."""
+    n_pk = 2 if plan.has_atlas else 1
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_()
-                  for x in (pk, *flat_lanes(o, d, time, rad, tp))]
-        out = step(plan, leaves[0], gitem, px, py, fresh, alive, depth,
-                   *split_lanes(leaves[1:]))
+                  for x in (*(pk if plan.has_atlas else (pk,)),
+                            *flat_lanes(o, d, time, rad, tp))]
+        out = step(plan, tuple(leaves[:2]) if plan.has_atlas else leaves[0],
+                   gitem, px, py, fresh, alive, depth,
+                   *split_lanes(leaves[n_pk:]))
         grads = torch.autograd.grad(
             flat_lanes(*out[:5]), leaves,
             flat_lanes(ct_o, ct_d, ct_time, ct_rad, ct_tp), allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
-    return (grads[0], *split_lanes(grads[1:]))
+    return (tuple(grads[:2]) if plan.has_atlas else grads[0],
+            *split_lanes(grads[n_pk:]))
 
 
 def _kernel_bwd():
@@ -1026,10 +1240,9 @@ def _kernel_bwd():
     lib = cuda_build.load("bounce_step_bwd")
     fn = lib.srt_bounce_step_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 13
-                       + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
-                          ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                        ctypes.c_int, ctypes.c_int] + SCENE_ARGTYPES
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -1046,7 +1259,10 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     blocks of the kernel's (ceil(m / 256), P) partials, taken in a fixed
     order, so two identical calls give bitwise-equal results.  A winning
     sphere takes cotangent in its centres, radius and, in a moving scene,
-    its times; dtime is then nonzero."""
+    its times; dtime is then nonzero.  For a plan with image textures pk is
+    `pack`'s (pk, atlas) pair and dpk the pair (dpk, datlas): a partials row
+    is then P slots followed by the atlas's img_rows * 128 texels, which take
+    the albedo cotangent of the lanes that read them, summed the same way."""
     global BWD_LAUNCHES
     check_kernel_plan(plan)
     dev = px.device
@@ -1068,16 +1284,17 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
         _check_lane(name, x, torch.int32, m, dev, fn)
     for name, x in (("fresh", fresh), ("alive", alive)):
         _check_lane(name, x, torch.bool, m, dev, fn)
-    _check_lane("pk", pk, dt, plan.size, dev, fn)
+    pk, atlas = _check_pk(plan, pk, dt, dev, fn)
 
-    # one row of dpk partials per 256-lane block of the kernel
-    partials = torch.empty(-(-m // 256), plan.size, dtype=dt, device=dev)
+    # one row of partials per 256-lane block of the kernel: dpk, then datlas
+    partials = torch.empty(-(-m // 256), plan.size + plan.img_rows * 128,
+                           dtype=dt, device=dev)
     outs = [torch.empty_like(px) for _ in range(13)]
     # the order of srt_bounce_step_bwd's pointer array: pk, 19 lanes in,
-    # 13 cotangents, the partials, 13 lane cotangents out
+    # 13 cotangents, the partials, 13 lane cotangents out, the atlas
     tensors = (pk, gitem, px, py, fresh, alive, depth, *lanes, *cts,
-               partials, *outs)
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+               partials, *outs, atlas)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[tensor_ptr(t) for t in tensors])
     kernel = _kernel_bwd()
     with torch.cuda.device(dev):
         err = kernel(int(dt == torch.float64), ptrs, m, plan.size,
@@ -1087,38 +1304,47 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
         raise RuntimeError(
             f"bounce_step_bwd kernel launch failed: CUDA error {err}")
     BWD_LAUNCHES += 1
-    return (partials.sum(dim=0), *split_lanes(outs))
+    dpk = partials.sum(dim=0)
+    if atlas is not None:
+        dpk = (dpk[:plan.size], dpk[plan.size:].reshape(atlas.shape))
+    return (dpk, *split_lanes(outs))
 
 
 class BounceStep(torch.autograd.Function):
     """`step` with a hand-written backward: the `as_pallas_vjp` contract.
 
     The residuals are the step's inputs, nothing else; the backward replays
-    the step.  Cotangents reach pk, o, d, time, rad and tp; px, py, gitem,
-    fresh, alive and depth get None, and `scattering` is not
-    differentiable.  `pair` is the (forward, backward) implementation:
-    (step_cuda, step_cuda_bwd) on the card (`step_cuda_vjp`); the CPU tests
-    drive the same plumbing with (step, step_vjp)."""
+    the step.  Cotangents reach pk, the atlas (the image texels; None for a
+    plan without one), o, d, time, rad and tp; px, py, gitem, fresh, alive
+    and depth get None, and `scattering` is not differentiable.  `pair` is
+    the (forward, backward) implementation: (step_cuda, step_cuda_bwd) on
+    the card (`step_cuda_vjp`); the CPU tests drive the same plumbing with
+    (step, step_vjp)."""
 
     @staticmethod
-    def forward(ctx, pair, plan, pk, gitem, px, py, fresh, alive, depth,
-                *lanes):
-        out = pair[0](plan, pk, gitem, px, py, fresh, alive, depth,
-                      *split_lanes(lanes))
+    def forward(ctx, pair, plan, pk, atlas, gitem, px, py, fresh, alive,
+                depth, *lanes):
+        out = pair[0](plan, (pk, atlas) if plan.has_atlas else pk, gitem, px,
+                      py, fresh, alive, depth, *split_lanes(lanes))
         ctx.pair, ctx.plan = pair, plan
-        ctx.save_for_backward(pk, gitem, px, py, fresh, alive, depth, *lanes)
+        ctx.save_for_backward(pk, atlas, gitem, px, py, fresh, alive, depth,
+                              *lanes)
         ctx.mark_non_differentiable(out[5])
         return (*flat_lanes(*out[:5]), out[5])
 
     @staticmethod
     def backward(ctx, *cts):
-        pk, gitem, px, py, fresh, alive, depth, *lanes = ctx.saved_tensors
+        (pk, atlas, gitem, px, py, fresh, alive, depth,
+         *lanes) = ctx.saved_tensors
+        plan = ctx.plan
         # autograd hands some cotangents over as strided views (the pool's
         # torch.stack of the radiance lanes): the kernel takes dense lanes
         cts = [c.contiguous() for c in cts[:13]]
-        dpk, *grads = ctx.pair[1](ctx.plan, pk, gitem, px, py, fresh, alive,
-                                  depth, *split_lanes(lanes), *split_lanes(cts))
-        return (None, None, dpk, None, None, None, None, None, None,
+        dpk, *grads = ctx.pair[1](
+            plan, (pk, atlas) if plan.has_atlas else pk, gitem, px, py,
+            fresh, alive, depth, *split_lanes(lanes), *split_lanes(cts))
+        dpk, datlas = split_pk(plan, dpk)
+        return (None, None, dpk, datlas, None, None, None, None, None, None,
                 *flat_lanes(*grads))
 
 
@@ -1126,8 +1352,9 @@ def step_with_vjp(pair, plan: BouncePlan, pk, gitem, px, py, fresh, alive,
                   depth, o, d, time, rad, tp):
     """`step`'s signature and results, differentiated by `pair`'s
     backward (BounceStep)."""
-    out = BounceStep.apply(pair, plan, pk, gitem, px, py, fresh, alive,
-                           depth, *flat_lanes(o, d, time, rad, tp))
+    out = BounceStep.apply(pair, plan, *split_pk(plan, pk), gitem, px, py,
+                           fresh, alive, depth,
+                           *flat_lanes(o, d, time, rad, tp))
     return (*split_lanes(out[:13]), out[13])
 
 
@@ -1220,17 +1447,16 @@ def _kernel_packed():
     lib = cuda_build.load("bounce_packed")
     fn = lib.srt_bounce_packed
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 16
-                       + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
-                          ctypes.c_void_p])
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5
+                       + SCENE_ARGTYPES + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def check_packed(fn, plan: BouncePlan, pk, sample_base, state, m):
-    """The checks of the packed kernels' wrappers; returns sample_base as a
-    [1] int32 tensor on the state's device."""
+    """The checks of the packed kernels' wrappers; returns pk, the atlas
+    (None without images) and sample_base as a [1] int32 tensor on the
+    state's device."""
     check_kernel_plan(plan)
     dev = state.device
     if dev.type != "cuda":
@@ -1240,11 +1466,11 @@ def check_packed(fn, plan: BouncePlan, pk, sample_base, state, m):
         raise ValueError(f"{fn}: state must be a contiguous [{N_PACKED}, {m}]"
                          f" float32 tensor, got {tuple(state.shape)} "
                          f"{state.dtype}")
-    _check_lane("pk", pk, torch.float32, plan.size, dev, fn)
-    sb = torch.as_tensor(sample_base, device=dev)
-    if sb.is_floating_point() or sb.numel() != 1:
+    pk, atlas = _check_pk(plan, pk, torch.float32, dev, fn)
+    base = torch.as_tensor(sample_base, device=dev)
+    if base.is_floating_point() or base.numel() != 1:
         raise ValueError(f"{fn}: sample_base must be one integer")
-    return sb.to(torch.int32).reshape(1)
+    return pk, atlas, base.to(torch.int32).reshape(1)
 
 
 def queue_args(plan: BouncePlan, m, n_work, n_pix, pix0, total_pix):
@@ -1260,16 +1486,18 @@ def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,
     kernel's rounding (it contracts mul+add into FMAs, as K1 does).
 
     state: a contiguous [N_PACKED, m] float32 tensor on a CUDA device; pk
-    [plan.size] float32 on it; sample_base an int or an integer tensor (a
-    CUDA tensor is read by the kernel, with no host sync).  Returns the new
+    [plan.size] float32 on it (or `pack`'s (pk, atlas) pair); sample_base an
+    int or an integer tensor (a CUDA tensor is read by the kernel, with no
+    host sync).  Returns the new
     state as a new tensor; launches on the current stream without
     synchronising and raises if the launch is refused."""
     global PACKED_LAUNCHES
     fn = "step_packed_cuda"
-    sb = check_packed(fn, plan, pk, sample_base, state, m)
+    pk, atlas, base = check_packed(fn, plan, pk, sample_base, state, m)
     out = torch.empty_like(state)
-    ptrs = (ctypes.c_void_p * 4)(pk.data_ptr(), sb.data_ptr(),
-                                 state.data_ptr(), out.data_ptr())
+    ptrs = (ctypes.c_void_p * 5)(pk.data_ptr(), base.data_ptr(),
+                                 state.data_ptr(), out.data_ptr(),
+                                 tensor_ptr(atlas))
     kernel = _kernel_packed()
     dev = state.device
     with torch.cuda.device(dev):

@@ -60,10 +60,8 @@ def _kernel():
     lib = cuda_build.load("bounce_persist")
     fn = lib.srt_bounce_persist
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
-                       + [ctypes.c_int] * 17
-                       + [ctypes.c_uint32, ctypes.c_double, ctypes.c_double,
-                          ctypes.c_void_p])
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
+                       + bounce.SCENE_ARGTYPES + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -80,16 +78,17 @@ def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
     refused."""
     global PERSIST_LAUNCHES
     fn = "chunk_cuda"
-    sb = bounce.check_packed(fn, plan, pk, sample_base, state, m)
+    pk, atlas, sb = bounce.check_packed(fn, plan, pk, sample_base, state, m)
     if T < 1:
         raise ValueError(f"{fn}: T must be at least 1, got {T}")
     dev = state.device
     out = torch.empty_like(state)
     flush = torch.empty(T, 4, m, dtype=torch.float32, device=dev)
     segs = torch.zeros(T, dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * 6)(pk.data_ptr(), sb.data_ptr(),
+    ptrs = (ctypes.c_void_p * 7)(pk.data_ptr(), sb.data_ptr(),
                                  state.data_ptr(), out.data_ptr(),
-                                 flush.data_ptr(), segs.data_ptr())
+                                 flush.data_ptr(), segs.data_ptr(),
+                                 bounce.tensor_ptr(atlas))
     kernel = _kernel()
     with torch.cuda.device(dev):
         err = kernel(ptrs, T, *bounce.queue_args(plan, m, n_work, n_pix, pix0,

@@ -4,8 +4,14 @@ The body of the JAX probe (`kernel`, probe_pallas_ops.py:23-47) on a
 (1, 16) float32 pack and an (8, 128) int32 item array, giving (8, 128)
 float32: int32 div/mod by constants, a uint32 PCG round, the top 24 bits as
 a float32 uniform, a scalar read of the pack, sin/cos/sqrt/pow, and a
-select.  `probe_plain` is the plain PyTorch version (CPU tensors, and the
-oracle on the card); `probe_cuda` launches csrc/probe_ops.cu.  On the card:
+select.  Beside it, in the same launch, the operations the textures and the
+media added to the bounce kernels, which the JAX probe does not have
+(`EXT_ROWS`): floor of a negative float and its int32 conversion, that int32
+read as uint32 and hashed (a negative Perlin lattice coordinate), log,
+atan2 and rsqrt.  `probe_plain` is the plain PyTorch version (CPU tensors,
+and the oracle on the card); `probe_cuda` launches csrc/probe_ops.cu.  Both
+return (out, ext): the JAX probe's (8, 128) output, case for case, and the
+(5, 8, 128) extension.  On the card:
 
     python -c "from scheme_raytrace_torch.tools import probe_ops; \\
                print(probe_ops.main())"
@@ -22,6 +28,10 @@ from ..core import rng
 
 NPX = 200 * 200
 NX = 200
+
+# The extension's rows.  The first two come from the int path and are exact;
+# the others are the card's logf, atan2f and rsqrtf against PyTorch's.
+EXT_ROWS = ("floor", "hash_of_negative", "log", "atan2", "rsqrt")
 
 # Launches of the probe_ops kernel in this process.
 LAUNCHES = 0
@@ -54,7 +64,19 @@ def probe_plain(pack, item):
     k = pack[0, 3]
     s = torch.sin(u * 6.28) + torch.cos(u) + torch.sqrt(u + 1.0)
     c = torch.pow(u + 0.5, 1.0 / 3.0)
-    return torch.where(u < 0.5, s * k + c, xs.to(torch.float32))
+    out = torch.where(u < 0.5, s * k + c, xs.to(torch.float32))
+    # the extension: x in [-18.75, 18.75)
+    x = (u - 0.5) * 37.5
+    fl = torch.floor(x)
+    h = fl.to(torch.int32).to(torch.int64) & m32      # int32 bits as uint32
+    h = (h * rng._PCG_MULT + rng._PCG_ADD) & m32
+    h = h ^ (h >> 16)
+    v = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    tiny = torch.finfo(torch.float32).tiny
+    ext = torch.stack([
+        fl, v, torch.log(torch.maximum(u, u.new_tensor(tiny))),
+        torch.atan2(x, u - 0.25), torch.rsqrt(u + 0.25)])
+    return out, ext
 
 
 def _kernel():
@@ -70,8 +92,8 @@ def _kernel():
 def probe_cuda(pack, item):
     """`probe_plain` through csrc/probe_ops.cu: pack a contiguous (1, 16)
     float32 and item a contiguous int32 tensor, on one CUDA device.
-    Returns a new float32 tensor of item's shape; raises if the launch is
-    refused."""
+    Returns (out, ext), new float32 tensors of item's shape and of
+    (len(EXT_ROWS), *item's shape); raises if the launch is refused."""
     global LAUNCHES
     dev = item.device
     if dev.type != "cuda" or pack.device != dev:
@@ -82,8 +104,10 @@ def probe_cuda(pack, item):
         raise ValueError("probe_cuda: a contiguous (1, 16) float32 pack and "
                          "a contiguous int32 item array")
     out = torch.empty(item.shape, dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * 3)(pack.data_ptr(), item.data_ptr(),
-                                 out.data_ptr())
+    ext = torch.empty((len(EXT_ROWS), *item.shape), dtype=torch.float32,
+                      device=dev)
+    ptrs = (ctypes.c_void_p * 4)(pack.data_ptr(), item.data_ptr(),
+                                 out.data_ptr(), ext.data_ptr())
     fn = _kernel()
     with torch.cuda.device(dev):
         err = fn(ptrs, item.numel(),
@@ -91,7 +115,7 @@ def probe_cuda(pack, item):
     if err:
         raise RuntimeError(f"probe_ops kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return out
+    return out, ext
 
 
 def probe(pack, item):
@@ -102,5 +126,6 @@ def probe(pack, item):
 
 
 def main(device=None):
-    out = probe(*inputs(device))
-    return f"ok: {bool(torch.isfinite(out).all())} {out.flatten()[:4].tolist()}"
+    out, ext = probe(*inputs(device))
+    ok = bool(torch.isfinite(out).all() and torch.isfinite(ext).all())
+    return f"ok: {ok} {out.flatten()[:4].tolist()}"

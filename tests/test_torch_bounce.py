@@ -52,8 +52,11 @@ def test_cuda_source_constants_match():
     consts = {k: int(v.rstrip("u"), 0) for k, v in consts.items()}
     expect = {n: getattr(tb, n) for n in consts if hasattr(tb, n)}
     expect.update({n: getattr(t_ob, n) for n in consts if n.startswith("MAT_")})
-    expect.update(TEX_CHECKER=t_build.TEX_CHECKER,
-                  CAMERA_DEPTH=t_rng.CAMERA_DEPTH,
+    expect.update({n: getattr(t_build, n) for n in consts
+                   if n.startswith("TEX_")})
+    assert {"TEX_CHECKER", "TEX_NOISE", "TEX_MARBLE", "TEX_IMAGE"} <= set(expect)
+    expect.update(CAMERA_DEPTH=t_rng.CAMERA_DEPTH,
+                  GROUP_MEDIUM=t_rng.GROUP_MEDIUM,
                   PCG_MULT=t_rng._PCG_MULT, PCG_ADD=t_rng._PCG_ADD)
     # k-prefixed names are a kernel's own (block size, list widths)
     expect.update({n: v for n, v in consts.items() if n.startswith("k")})
@@ -232,12 +235,10 @@ def test_step_raises_outside_the_cornell_slice():
 
 
 @pytest.mark.parametrize("name,group", [
-    ("cornell_smoke", "media"), ("klein", "klein"), ("bezier", "bezier"),
-    ("simple_light", "perlin"), ("textured", "image")])
+    ("klein", "klein"), ("cornell_klein", "klein"), ("bezier", "bezier"),
+    ("cornell_bezier", "bezier")])
 def test_step_raises_for_unported_groups(name, group):
     scene, spec, cfg, plan, pk, ins = _plan_pk_ins(name)
-    if plan.has_atlas:
-        pk = pk[0]
     for fn in (tb.step, tb.step_cuda):
         with pytest.raises(NotImplementedError, match=group):
             fn(plan, pk, *ins)
@@ -257,6 +258,25 @@ def test_kernel_wrappers_take_no_atlas():
     assert torch.isfinite(torch.stack(out[0])).all()
     with pytest.raises(ValueError, match="pool_plan"):
         tb.step_cuda(plan, pk, *ins)
+
+
+@pytest.mark.parametrize("name", ["cornell_smoke", "simple_light", "textured"])
+def test_step_covers_media_perlin_and_image_plans(name):
+    # the groups ported after the spheres run through the plain step, and
+    # the kernel wrapper gets as far as its device check
+    scene, spec, cfg, plan, pk, ins = _plan_pk_ins(name)
+    assert (plan.n_media, plan.has_perlin, plan.has_image) == {
+        "cornell_smoke": (2, False, False), "simple_light": (0, True, False),
+        "textured": (0, True, True)}[name]
+    assert isinstance(pk, tuple) == plan.has_image
+    out = tb.step(plan, pk, *ins)
+    assert out[5].any() and all(torch.isfinite(x).all() for x in out[3])
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.step_cuda(plan, pk, *ins)
+    raw, segs, _ = t_pool.render_pool_auto(
+        scene, spec.camera(aspect=1.0, device="cpu"), cfg,
+        torch.zeros(64, 3), 0)
+    assert int(segs) >= 64 and torch.isfinite(raw).all()
 
 
 def test_step_cuda_takes_cuda_tensors_only():

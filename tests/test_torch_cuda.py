@@ -6,7 +6,9 @@ raising, the CUDA render against the config-4 golden, and the
 differentiable renders on the card (the FIFO and the strided pool's)
 against their forward renders; then the same kernels on the sphere scenes
 (static, moving, the 227-sphere RTOW final scene with P = 4,794), the sphere
-goldens, and the card as the entry points' default device.
+goldens, and the card as the entry points' default device; then on the
+textured and smoke scenes (hash-Perlin noise and marble, image texels with
+the texels' cotangent, constant media) and the config-3 golden.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -438,11 +440,17 @@ def test_probe_ops_cuda_matches_plain(cuda):
                                            dtype=np.int64).astype(np.int32),
                                 device=cuda))
     for it in items:
-        want = probe_ops.probe_plain(pack, it)
-        got = probe_ops.probe_cuda(pack, it)
+        want, w_ext = probe_ops.probe_plain(pack, it)
+        got, g_ext = probe_ops.probe_cuda(pack, it)
         ints = want == torch.round(want)
         assert torch.equal(got[ints], want[ints])
         rel = (got - want).abs()[~ints] / want.abs()[~ints]
+        assert float(rel.max()) <= 2e-6
+        # the extension: floor and the hash of a negative int32 exactly,
+        # log, atan2 and rsqrt to a few ulp
+        assert torch.equal(g_ext[:2], w_ext[:2])
+        assert float(w_ext[0].min()) < 0
+        rel = (g_ext[2:] - w_ext[2:]).abs() / w_ext[2:].abs().clamp(min=1e-3)
         assert float(rel.max()) <= 2e-6
 
 
@@ -701,3 +709,183 @@ def test_entry_points_land_on_the_card(cuda):
     assert all(x.device.type == "cuda" for x in on_card)
     cpu = compile_scene(spec.objects, sky=spec.sky, device="cpu")
     assert cpu.sph_r.device.type == "cpu"
+
+
+# --- textures and smoke (K1-K4; chip_smoke.py's phases 16-17) ------------
+
+# name -> (spec, light sampling, the box the lane origins are drawn from;
+# None: Cornell's cube)
+TEXTURE_SCENES = {
+    "textured": (scenes.textured_scene, False, ((-2, -0.4, -3), (2, 1.5, 2))),
+    "simple_light": (scenes.test_scene2, True, ((-6, 0.0, -6), (6, 9, 6))),
+    "smoke": (scenes.cornell_smoke, True, None),
+}
+
+
+def _texture_setup(name, dtype, device):
+    """(plan, pk or (pk, atlas), lane box, f32 atol) of a TEXTURE_SCENES
+    entry at 512^2 spp8; the atol scaled as _sphere_setup scales it."""
+    spec_fn, ls, box = TEXTURE_SCENES[name]
+    spec = spec_fn()
+    scene = compile_scene(spec.objects, sky=spec.sky, dtype=dtype,
+                          lights=spec.lights, device=device)
+    cam = spec.camera(dtype=dtype, aspect=1.0, device=device)
+    plan = bounce.pool_plan(scene, SPHERE_CFG.replace(light_sampling=ls))
+    scale = 555.0
+    if scene.has_spheres:
+        scale = max(float(scene.sph_c0.abs().max()),
+                    float(scene.sph_r.abs().max()))
+    return plan, bounce.pack(scene, cam, plan, dtype), box, 1e-3 * scale / 555
+
+
+def _dpk_vec(grads):
+    """dpk and, for an image plan, the texels' cotangent, as one vector."""
+    dpk = grads[0]
+    return (torch.cat([dpk[0], dpk[1].reshape(-1)])
+            if isinstance(dpk, tuple) else dpk)
+
+
+@pytest.mark.parametrize("name", sorted(TEXTURE_SCENES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_step_cuda_matches_plain_step_on_textures(cuda, dtype, name):
+    # the bounds of test_step_cuda_matches_plain_step_on_spheres
+    m = 64 * 1024
+    plan, pk, box, atol = _texture_setup(name, dtype, cuda)
+    assert (plan.n_media, plan.has_perlin, plan.has_image) == {
+        "smoke": (2, False, False), "simple_light": (0, True, False),
+        "textured": (0, True, True)}[name]
+    ins = _lane_inputs(m, 512, 512, 100, dtype, cuda, box=box)
+    w, w_sc = _stacked(bounce.step(plan, pk, *ins))
+    g, g_sc = _stacked(bounce.step_cuda(plan, pk, *ins))
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        rtol, atol, max_off = 1e-9, 1e-9, 0
+    else:
+        rtol, max_off = 1e-4, m // 1000
+    off = (g_sc != w_sc) | ((g - w).abs() > atol + rtol * w.abs()).any(0)
+    assert torch.isfinite(g).all()
+    assert w_sc.any() and int(off.sum()) <= max_off, int(off.sum())
+
+
+@pytest.mark.parametrize("name", sorted(TEXTURE_SCENES))
+def test_step_cuda_bwd_matches_step_vjp_on_textures(cuda, name):
+    # f64: every lane cotangent within 1e-9 and every pk slot and texel
+    # within 1e-8 of the largest; two launches bitwise equal, the texels'
+    # cotangent included (no float atomics anywhere in the reduction)
+    m = 24 * 1024
+    dtype = torch.float64
+    plan, pk, box, _ = _texture_setup(name, dtype, cuda)
+    ins = _lane_inputs(m, 512, 512, 100, dtype, cuda, box=box)
+    r = np.random.default_rng(7)
+    cts = bounce.split_lanes([torch.tensor(x, dtype=dtype, device=cuda)
+                              for x in r.normal(size=(13, m))])
+    want = bounce.step_vjp(plan, pk, *ins, *cts)
+    got = bounce.step_cuda_bwd(plan, pk, *ins, *cts)
+    again = bounce.step_cuda_bwd(plan, pk, *ins, *cts)
+    torch.cuda.synchronize()
+    want_pk, got_pk, again_pk = _dpk_vec(want), _dpk_vec(got), _dpk_vec(again)
+    want, got, again = (_vjp_lanes(x)[1] for x in (want, got, again))
+    assert torch.equal(got_pk, again_pk) and torch.equal(got, again)
+    assert torch.isfinite(got).all() and torch.isfinite(got_pk).all()
+    assert not ((got - want).abs() > 1e-9 + 1e-9 * want.abs()).any()
+    assert (got_pk - want_pk).abs().max() <= 1e-8 * want_pk.abs().max()
+    if plan.has_image:
+        assert got_pk.numel() == plan.size + plan.img_rows * 128
+        assert float(got_pk[plan.size:].abs().max()) > 0
+    if plan.n_media:
+        med = got_pk[plan.med_base:plan.med_base + bounce.MED_SIZE]
+        assert float(med[bounce.M_NID].abs()) > 0
+        assert float(med[bounce.M_AX:bounce.M_AX + 15].abs().max()) > 0
+
+
+@pytest.mark.parametrize("name", ["textured", "smoke"])
+def test_packed_kernels_on_the_texture_scenes(cuda, name):
+    # K3 against step_packed (K1's bounds), and one K4 chunk bitwise equal
+    # to 32 K3 launches
+    plan, pk, box, atol = _texture_setup(name, torch.float32, cuda)
+    n_pix = SPHERE_CFG.n_pixels
+    q = dict(m=M_POOL, n_work=n_pix * SPHERE_CFG.spp, n_pix=n_pix, pix0=0,
+             total_pix=n_pix)
+    sb = torch.tensor([5], dtype=torch.int32, device=cuda)
+    state = packed_state(M_POOL, q["n_work"], plan.max_depth, cuda, box=box)
+    want = bounce.step_packed(plan, pk, sb, state, **q)
+    got = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    g_i, w_i = got.view(torch.int32), want.view(torch.int32)
+    off = ((g_i[0] != w_i[0]) | (got[1] != want[1]) | (g_i[2] != w_i[2])
+           | ((got[3:] - want[3:]).abs()
+              > atol + 1e-4 * want[3:].abs()).any(0))
+    assert torch.isfinite(got[3:]).all()
+    assert int(off.sum()) <= M_POOL // 1000, int(off.sum())
+    T = persist.CHUNK_T
+    got_state, got_flush, got_segs = persist.chunk_cuda(plan, pk, sb, state,
+                                                        T=T, **q)
+    st = state
+    flush = torch.empty_like(got_flush)
+    segs = torch.empty_like(got_segs)
+    for t in range(T):
+        item = st.view(torch.int32)[0]
+        segs[t] = (item < q["n_work"]).sum()
+        st = bounce.step_packed_cuda(plan, pk, sb, st, **q)
+        done = st[1] != 0.0
+        flush.view(torch.int32)[t, 0] = torch.where(done, item % n_pix, -1)
+        flush[t, 1:] = torch.where(done, st[10:13], 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got_state.view(torch.int32), st.view(torch.int32))
+    assert torch.equal(got_flush.view(torch.int32), flush.view(torch.int32))
+    assert torch.equal(got_segs, segs) and int(segs.sum()) > 0
+
+
+def test_cuda_render_matches_config3_golden(cuda):
+    spec = scenes.textured_scene()
+    scene = compile_scene(spec.objects, sky=spec.sky)
+    cam = spec.camera(aspect=1.0)
+    cfg = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
+    before = bounce.LAUNCHES
+    mean, state = render.render_image(scene, cam, cfg)
+    assert mean.device.type == "cuda" and bounce.LAUNCHES > before
+    ref = np.load(os.path.join(os.path.dirname(GOLDEN),
+                               "config3_textured.npz"))["image"]
+    img = mean.cpu().numpy().astype(np.float64)
+    assert np.isfinite(img).all()
+    diff = np.abs(img - ref)
+    assert diff.mean() < 5e-3, diff.mean()
+    assert (diff.max(axis=-1) > 0.05).mean() < 0.01
+
+
+@pytest.mark.parametrize("name", ["textured", "smoke"])
+def test_cuda_diff_render_on_the_texture_scenes(cuda, name):
+    # drained, the forward render's image bitwise, K2 launched once per K1
+    # launch, and two steps' gradients bitwise equal (the image texels' and
+    # the media's among them)
+    spec_fn, ls, _ = TEXTURE_SCENES[name]
+    spec = spec_fn()
+    scene = compile_scene(spec.objects, sky=spec.sky, lights=spec.lights)
+    cam = spec.camera(aspect=1.0)
+    cfg = RenderConfig(nx=32, ny=32, spp=2, max_depth=12, light_sampling=ls)
+    n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
+    params, rest = build.partition(scene)
+
+    def step():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        raw, _, leftover = diff_fused.render_diff_fused(
+            build.combine(leaves, rest), cam, cfg, n_iters)
+        grads = torch.autograd.grad(raw.mean(), list(leaves.values()),
+                                    allow_unused=True)
+        return raw.detach(), int(leftover), dict(zip(leaves, grads))
+
+    fwd, bwd = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    raw, leftover, grads = step()
+    assert leftover == 0
+    assert bounce.LAUNCHES - fwd == bounce.BWD_LAUNCHES - bwd > 0
+    st, _, _ = render.render_with_stats(scene, cam, cfg,
+                                        render.init_state(cfg))
+    assert torch.equal(raw, st.raw_sum.reshape(-1, 3))
+    _, _, grads2 = step()
+    moved = (("images", "tex_scale") if name == "textured"
+             else ("med_neg_inv_d", "med_pmin", "med_pmax"))
+    for k in moved:
+        assert float(grads[k].abs().max()) > 0, k
+    for k, g in grads.items():
+        if g is not None:
+            assert torch.isfinite(g).all() and torch.equal(g, grads2[k]), k

@@ -5,7 +5,10 @@
     interpret mode, on the tool's own inputs and on random int32 items
     (negative ones included): outputs that come from the int path exactly,
     the transcendental ones within 2e-6 relative (sin, cos and pow are
-    rounded differently by XLA and PyTorch);
+    rounded differently by XLA and PyTorch); the probe's extension (the
+    operations of the textures and the media, which the JAX tool does not
+    have) against numpy: the floor and hash rows exactly, log, atan2 and
+    rsqrt within 2e-6 relative;
   * K6, the loop probes: each `tools/probe_loops.CASES` function against the
     jnp case of tools/repro_mosaic_crash.py, bitwise.  The JAX cases run op
     by op (`jax.disable_jit`): compiled, XLA's CPU compiler contracts
@@ -63,13 +66,47 @@ def test_probe_ops_matches_pallas_interpret(items):
         item = torch.as_tensor(r.integers(-2 ** 31, 2 ** 31, (8, 128),
                                           dtype=np.int64).astype(np.int32))
     want = _pallas_probe(pack.numpy(), item.numpy())
-    got = probe_ops.probe(pack, item).numpy()
-    assert np.isfinite(got).all()
+    got, ext = (x.numpy() for x in probe_ops.probe(pack, item))
+    assert np.isfinite(got).all() and np.isfinite(ext).all()
     # the select's int branch: pix's x coordinate, exact
     u_small = want != np.round(want)
     assert u_small.any() and (~u_small).any()
     np.testing.assert_array_equal(got[~u_small], want[~u_small])
     np.testing.assert_allclose(got[u_small], want[u_small], rtol=2e-6)
+
+
+def test_probe_ops_extension_matches_numpy():
+    r = np.random.default_rng(1)
+    item = r.integers(-2 ** 31, 2 ** 31, (8, 128), dtype=np.int64).astype(
+        np.int32)
+    pack, _ = probe_ops.inputs("cpu")
+    ext = probe_ops.probe(pack, torch.as_tensor(item))[1].numpy()
+    assert ext.shape == (len(probe_ops.EXT_ROWS), 8, 128)
+    # the probe's uniform, in numpy uint64 arithmetic
+    pix = item.astype(np.int64) % 40000
+    m32 = np.uint64(0xFFFFFFFF)
+    lcg = lambda v: (v * np.uint64(1664525) + np.uint64(1013904223)) & m32
+    a = lcg(item.astype(np.int64).astype(np.uint64) & m32)
+    b = lcg((pix // 200 + 1).astype(np.uint64))
+    a = (a + ((b * a) & m32)) & m32
+    a = a ^ (a >> np.uint64(16))
+    u = (a >> np.uint64(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    x = (u - np.float32(0.5)) * np.float32(37.5)
+    fl = np.floor(x)
+    assert (fl < 0).any() and (fl > 0).any()
+    h = lcg(fl.astype(np.int64).astype(np.uint64) & m32)
+    h = h ^ (h >> np.uint64(16))
+    v = (h >> np.uint64(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    np.testing.assert_array_equal(ext[0], fl)
+    np.testing.assert_array_equal(ext[1], v)
+    tiny = np.finfo(np.float32).tiny
+    for row, want in ((2, np.log(np.maximum(u, tiny).astype(np.float64))),
+                      (3, np.arctan2(x.astype(np.float64),
+                                     (u - np.float32(0.25)).astype(np.float64))),
+                      (4, 1.0 / np.sqrt((u + np.float32(0.25)).astype(
+                          np.float64)))):
+        np.testing.assert_allclose(ext[row], want, rtol=2e-6, atol=1e-7,
+                                   err_msg=probe_ops.EXT_ROWS[row])
 
 
 @pytest.mark.parametrize("name", list(probe_loops.CASES))

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases NAME[,NAME...]]
 
 Drives scheme_raytrace_torch's paths on the card: the forward render and
 the fwd+bwd training step of the Cornell box with mixture-PDF light
@@ -8,12 +8,19 @@ sampling (BASELINE config 4), the forward render through the three strided
 work pools, the op and loop probes, the sphere scenes up to the RTOW
 final scene (227 spheres) forward and fwd+bwd, and the textured and smoke
 scenes (hash-Perlin noise and marble, image texels, constant media) forward
-and fwd+bwd, in phases; any failure raises and the exit code is non-zero:
+and fwd+bwd, and the bezier scenes forward and fwd+bwd, in phases; any
+failure raises and the exit code is non-zero.  `--phases` takes a
+comma-separated selection of the phase names in PHASES (the default is every
+phase); the device and build phases always run, a phase that needs another's
+result brings it along, and a run with a selection says so and prints no
+kernel table:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit and the CUDA version PyTorch was built with;
-  2. build: compiles the six kernels of csrc/ with nvcc (sm_90a), all at
-     once (one nvcc each), and loads them;
+  2. build: compiles, with nvcc (sm_90a), the variant of each kernel of
+     csrc/ for each feature set the selected phases' plans need (one nvcc a
+     variant, as many at once as the host has cores), loads them, and logs
+     each variant's build seconds, registers and spills;
   3. forward kernel against plain: the CUDA bounce kernel against the plain
      PyTorch step on the same inputs, at the forward pool's width (65,536
      lanes), light sampling on and off, in float32 and float64, with times;
@@ -74,7 +81,24 @@ and fwd+bwd, in phases; any failure raises and the exit code is non-zero:
      density;
  18. the textured and smoke scenes at full width: textured_scene and
      cornell_smoke (light sampled) at 512x512 spp8 depth 100, forward
-     through the FIFO pool and the persistent pool and fwd+bwd, as phase 15.
+     through the FIFO pool and the persistent pool and fwd+bwd, as phase 15;
+ 19. the kernels on the bezier scenes: K1 against the plain step and K2
+     against the plain VJP on test_bezier (BASELINE config 5), cornell_bezier
+     (config 6) and points_chain_scene's helix, float32 and float64, on
+     lanes aimed into the curves' bounding box (the share that hits a ribbon
+     is logged), K2 with the control points' slots of dpk named;
+ 20. K3 against step_packed and one K4 chunk bitwise equal to 32 K3 launches
+     on test_bezier and cornell_bezier;
+ 21. parity configs 5 and 6 against their goldens;
+ 22. the differentiable render of test_bezier against its forward render
+     (bitwise), and in float64 AD against finite differences on one
+     control-point coordinate of the noise-textured curve of the parity
+     harness's gradient scene;
+ 23. the bezier scenes at full width: test_bezier and cornell_bezier (light
+     sampled) at 512x512 spp8 depth 100, forward through the FIFO pool and
+     the persistent pool and fwd+bwd, as phase 15 but with five timed runs
+     (minimum, median, maximum) and the kernels' device time in one run by
+     CUDA events around every launch.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -84,6 +108,7 @@ phase logs what it took (`[time]`).  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import json
 import os
@@ -101,6 +126,7 @@ from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
                                               pool_fused, pool_packed,
                                               pool_strided)
 from scheme_raytrace_torch.scene import build, compile_scene
+from scheme_raytrace_torch.scene import objects as ob
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
 from scheme_raytrace_torch.utils import cuda_build
 
@@ -170,8 +196,27 @@ CAMERA_FLOPS, SHADE_FLOPS = 60, 100
 # medium: three slab intervals (two dots, two quotient products and the
 # compares each), its share of a PCG4D group and a log.
 NOISE_OPS, MARBLE_OCTAVES, MEDIUM_OPS = 8 * (27 + 25) + 14, 7, 60
-KERNELS = ("bounce_step", "bounce_step_bwd", "bounce_packed",
-           "bounce_persist", "probe_ops", "probe_loops")
+# The bezier scenes: parity configs 5 and 6 at their goldens' sizes, and
+# test_bezier and cornell_bezier (light sampled) at the size of the other
+# full-size configurations.
+CONFIG5 = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
+CONFIG6 = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
+BEZIER = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0)
+CORNELL_BEZIER = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0,
+                              light_sampling=True)
+# The bezier probe's operations, counted from csrc/bounce_common.cuh: one
+# evaluation of g and its derivatives (bezier_g) is two Horner forms (12),
+# the two first and two second derivatives (12) and g, g', 2|c'|^2 and g''
+# (16); a Newton step adds its quotient, difference, clip and guard (5); a
+# seed ends in one more evaluation, zc's Horner form and the accept test
+# (11).  A curve costs a live lane its four control points' projections and
+# the power basis (100) and bez_seeds seeds; the frame is once a lane (30).
+BEZ_G_OPS, BEZ_STEP_OPS, BEZ_END_OPS = 40, 5, 11
+BEZ_CURVE_OPS, BEZ_FRAME_OPS = 100, 30
+N_TIMED_BEZIER = 5  # timed runs of the bezier cells: minimum, median, maximum
+K1, K2, K3, K4 = ("bounce_step", "bounce_step_bwd", "bounce_packed",
+                  "bounce_persist")
+PROBES = ("probe_ops", "probe_loops")
 CHUNK_TS = (8, 16, 32, 64)    # K4 chunk lengths timed (CHUNK_T stays 32)
 # K5: outputs of the int path exact, the transcendental ones within 2e-6
 # relative (nvcc's sinf/cosf/powf against PyTorch's, a few ulp apart)
@@ -185,14 +230,21 @@ def log(*a):
 START = time.perf_counter()
 
 
-def timed(phase, *args):
+def timed(name, phase, *args):
     """Run one phase and log what it took."""
     t0 = time.perf_counter()
     out = phase(*args)
     t1 = time.perf_counter()
-    log(f"[time] {phase.__name__}: {t1 - t0:.1f} s ({t1 - START:.1f} s since "
-        f"the start)")
+    log(f"[time] {name}: {t1 - t0:.1f} s ({t1 - START:.1f} s since the "
+        f"start)")
     return out
+
+
+def spread(times):
+    """Minimum, median and maximum of a list of seconds, in ms."""
+    return (f"min {min(times) * 1e3:.2f} / median "
+            f"{statistics.median(times) * 1e3:.2f} / max "
+            f"{max(times) * 1e3:.2f} ms")
 
 
 def phase_device():
@@ -210,20 +262,147 @@ def phase_device():
     return torch.device("cuda", 0), smi
 
 
-def phase_build():
-    """The kernels compile at once (one nvcc each)."""
+def grad_bezier_spec():
+    """test_bezier with its curves replaced by one noise-textured curve of
+    width 0.7 (the gradient scene of the parity harness's config 5): a
+    constant-albedo ribbon with normal -d has no continuous dependence on
+    its control points; an albedo that depends on the hit point has."""
+    spec = scenes.test_bezier()
+    objs = [o for o in spec.objects if not isinstance(o, ob.Bezier)]
+    cp = np.array([[-1, 0, -1], [-0.8, 1, 1], [0.8, -1, 1], [1, 0, -1]], float)
+    objs.append(ob.Bezier(cp, 0.7, ob.Lambertian(ob.NoiseTexture(2.0))))
+    return scenes.SceneSpec(objs, spec.camera_kwargs, spec.sky)
+
+
+def moving_spec():
+    """The moving-sphere scene of tests/test_bounce.py."""
+    objs = [ob.Sphere((0, -100.5, -1), 100, ob.Lambertian((0.6, 0.6, 0.2))),
+            ob.MovingSphere((0, 0, -1), (0, 0.4, -1), 0.0, 1.0, 0.5,
+                            ob.Lambertian((0.2, 0.3, 0.7)))]
+    return scenes.SceneSpec(objs, scenes.default_camera(), "gradient")
+
+
+def rtow_spec():
+    return scenes.random_scene(seed=0)
+
+
+# phase -> the (kernels, scene) pairs whose variants it launches: what the
+# build phase compiles ahead of the timed windows.  A variant is named by its
+# plan's feature set, which the scene alone decides.
+VARIANTS = {
+    "kernel": [((K1,), scenes.cornell_box)],
+    "kernel-bwd": [((K1, K2), scenes.cornell_box),
+                   ((K1, K2), scenes.cornell_materials)],
+    "golden": [((K1,), scenes.cornell_box)],
+    "diff": [((K1, K2), scenes.cornell_box)],
+    "full": [((K1,), scenes.cornell_box)],
+    "profile": [((K1,), scenes.cornell_box)],
+    "full-bwd": [((K1, K2), scenes.cornell_box)],
+    "packed-kernel": [((K3,), scenes.cornell_box)],
+    "persist-kernel": [((K3, K4), scenes.cornell_box)],
+    "pools-full": [((K1, K3, K4), scenes.cornell_box)],
+    "probes": [(PROBES, None)],
+    "kernel-spheres": [((K1,), scenes.test_scene), ((K1,), moving_spec),
+                       ((K1,), rtow_spec)],
+    "kernel-bwd-spheres": [((K1, K2), scenes.test_scene),
+                           ((K1, K2), moving_spec), ((K1, K2), rtow_spec)],
+    "packed-spheres": [((K3, K4), rtow_spec)],
+    "golden-spheres": [((K1,), scenes.three_spheres), ((K1,), rtow_spec)],
+    "diff-spheres": [((K1, K2), scenes.three_spheres)],
+    "full-spheres": [((K1, K2, K4), rtow_spec)],
+    "kernel-textures": [((K1, K2), scenes.textured_scene),
+                        ((K1, K2), scenes.test_scene2),
+                        ((K1, K2), scenes.cornell_smoke)],
+    "packed-textures": [((K3, K4), scenes.textured_scene),
+                        ((K3, K4), scenes.cornell_smoke)],
+    "golden-textures": [((K1,), scenes.textured_scene)],
+    "diff-textures": [((K1, K2), scenes.textured_scene),
+                      ((K1, K2), scenes.cornell_smoke)],
+    "full-textures": [((K1, K2, K4), scenes.textured_scene),
+                      ((K1, K2, K4), scenes.cornell_smoke)],
+    "kernel-bezier": [((K1, K2), scenes.test_bezier),
+                      ((K1, K2), scenes.cornell_bezier),
+                      ((K1, K2), scenes.points_chain_scene)],
+    "packed-bezier": [((K3, K4), scenes.test_bezier),
+                      ((K3, K4), scenes.cornell_bezier)],
+    "golden-bezier": [((K1,), scenes.test_bezier),
+                      ((K1,), scenes.cornell_bezier)],
+    "diff-bezier": [((K1, K2), scenes.test_bezier),
+                    ((K1, K2), grad_bezier_spec)],
+    "full-bezier": [((K1, K2, K4), scenes.test_bezier),
+                    ((K1, K2, K4), scenes.cornell_bezier)],
+}
+
+
+def features_of(spec_fn):
+    """The kernel feature set of a scene's plans (compiled on the CPU: the
+    device does not enter a plan)."""
+    spec = spec_fn()
+    scene = compile_scene(spec.objects, sky=spec.sky, lights=spec.lights,
+                          device="cpu")
+    return bounce.kernel_features(
+        bounce.pool_plan(scene, RenderConfig(nx=8, ny=8, spp=1)))
+
+
+def needed_variants(selected):
+    """The (kernel, feature set) pairs the selected phases launch."""
+    out = set()
+    for phase in selected:
+        for kernels, spec_fn in VARIANTS[phase]:
+            feats = () if spec_fn is None else features_of(spec_fn)
+            out |= {(k, feats) for k in kernels}
+    return sorted(out)
+
+
+# Device functions that stay calls in a variant that has their group: a
+# variant without the group must have none of them (its log lists every
+# function ptxas compiled).
+GROUP_FUNCTIONS = {"perlin": "perlin_noise", "media": "medium_adj",
+                   "bezier": "bezier_adj"}
+
+
+def phase_build(selected):
+    """Every variant the selected phases need, compiled ahead of the timed
+    windows: one nvcc a variant, as many at once as the host has cores, the
+    backward kernels (the longest builds) first.  Logs each variant's build
+    seconds and each compiled entry's registers, spills, stack and shared
+    memory; returns them by variant name."""
+    variants = needed_variants(selected)
+    order = sorted(variants, key=lambda v: (v[0] != K2, v))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
-        list(ex.map(cuda_build.load, KERNELS))
-    log(f"[build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
-        info = cuda_build.LOADED[name]
-        log(f"[build] {name}: {'built' if info['built'] else 'cached'} -> "
-            f"{info['path']}")
-        for line in info["log"].splitlines():
-            if ("registers" in line or "spill" in line
-                    or "error" in line.lower()):
-                log(f"[build]   {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 8) as ex:
+        list(ex.map(lambda v: cuda_build.load(*v), order))
+    sets = sorted({f for _, f in variants})
+    log(f"[build] {len(variants)} variants of "
+        f"{len({k for k, _ in variants})} kernels over {len(sets)} feature "
+        f"sets in {time.perf_counter() - t0:.1f} s on {os.cpu_count()} cores: "
+        + ", ".join("+".join(f) or "base" for f in sets))
+    out = {}
+    for name, feats in variants:
+        key = cuda_build.variant_name(name, feats)
+        info = cuda_build.LOADED[key]
+        res = cuda_build.resources(info["log"])
+        out[key] = res
+        how = (f"built in {info['seconds']:.1f} s" if info["built"]
+               else "cached")
+        log(f"[build] {key}: {how} -> "
+            f"{os.path.relpath(info['path'], ROOT)}")
+        for r in res:
+            kind = "f64" if "IdE" in r["entry"] else "f32"
+            log(f"[build]   {kind}: {r['registers']} "
+                f"registers, spills {r['spill_stores']} B stored "
+                f"{r['spill_loads']} B loaded, stack {r['stack']} B, shared "
+                f"{r['smem']} B")
+        if "error" in info["log"].lower():
+            log(f"[build]   log: {info['log'][-2000:]}")
+        calls = [fn for fn in GROUP_FUNCTIONS.values() if fn in info["log"]]
+        if calls:
+            log(f"[build]   device functions kept as calls: {calls}")
+        for group, fn in GROUP_FUNCTIONS.items():
+            if group not in feats and fn in info["log"]:
+                raise AssertionError(f"[build] {key} holds {fn}, the code of "
+                                     f"a group its feature set lacks")
+    return out
 
 
 def cornell(dtype, device, spec_fn=scenes.cornell_box):
@@ -233,13 +412,15 @@ def cornell(dtype, device, spec_fn=scenes.cornell_box):
     return scene, spec.camera(dtype=dtype, aspect=1.0, device=device)
 
 
-def lane_inputs(m, config, dtype, device, seed=0, box=None):
+def lane_inputs(m, config, dtype, device, seed=0, box=None, aim=None):
     """Numpy-seeded lanes of the kinds tests/test_bounce.py draws: random
     gitems (negatives included), pixels, fresh/alive masks, depths (some
     at the cap), origins inside the box, unit directions, and nonzero
     radiance/throughput.  `box` (lo, hi) scales the origins to a sphere
     scene and draws the lanes' times in [0, 1); without it the origins lie
-    in Cornell's 0..500 cube and the times are 0."""
+    in Cornell's 0..500 cube and the times are 0.  `aim` (lo, hi) points
+    every direction from its origin at a random point of that box, so that a
+    real share of the lanes meets what lies in it."""
     r = np.random.default_rng(seed)
     gitem = r.integers(-2 ** 31, 2 ** 31, m, dtype=np.int64).astype(np.int32)
     px = r.integers(0, config.nx, m)
@@ -258,6 +439,10 @@ def lane_inputs(m, config, dtype, device, seed=0, box=None):
         lo, hi = (np.asarray(b, np.float64)[:, None] for b in box)
         o = lo + o / 500.0 * (hi - lo)
         times = r.random(m)
+    if aim is not None:
+        lo, hi = (np.asarray(b, np.float64)[:, None] for b in aim)
+        dvec = lo + r.random((3, m)) * (hi - lo) - o
+        dvec /= np.linalg.norm(dvec, axis=0, keepdims=True)
     f = lambda x: torch.tensor(x, dtype=dtype, device=device)
     return (torch.tensor(gitem, device=device), f(px), f(py),
             torch.tensor(fresh, device=device),
@@ -335,22 +520,13 @@ def errors(got, want, tol):
             float((got[0] - want[0]).abs()[:, ~bad].max()))
 
 
-def moving_spec():
-    """The moving-sphere scene of tests/test_bounce.py."""
-    from scheme_raytrace_torch.scene import objects as ob
-    objs = [ob.Sphere((0, -100.5, -1), 100, ob.Lambertian((0.6, 0.6, 0.2))),
-            ob.MovingSphere((0, 0, -1), (0, 0.4, -1), 0.0, 1.0, 0.5,
-                            ob.Lambertian((0.2, 0.3, 0.7)))]
-    return scenes.SceneSpec(objs, scenes.default_camera(), "gradient")
-
-
 # name -> (spec, sky, the box the lane origins are drawn from): test_scene
 # under the gradient sky (its own sky is black with no emitter), the
 # moving-sphere scene, and the RTOW final scene (227 spheres, P = 4,794)
 SPHERE_SCENES = {
     "test": (scenes.test_scene, "gradient", ((-2, -0.4, -3), (2, 1.5, 1))),
     "moving": (moving_spec, "gradient", ((-2, -0.4, -3), (2, 1.5, 1))),
-    "rtow": (lambda: scenes.random_scene(seed=0), "gradient",
+    "rtow": (rtow_spec, "gradient",
              ((-6, 0.0, -6), (10, 2.5, 10))),
 }
 
@@ -398,6 +574,28 @@ def texture_ops(plan, pk, gitem, px, py, fresh, alive, depth, o, d, time,
     return ops
 
 
+def bezier_ops(plan, alive):
+    """The operations of these lanes' bezier probes (see BEZ_G_OPS): every
+    live lane runs every seed of every curve to the end; dead lanes run
+    none."""
+    if not plan.n_beziers:
+        return 0
+    seed = (plan.bez_newton * (BEZ_G_OPS + BEZ_STEP_OPS) + BEZ_G_OPS
+            + BEZ_END_OPS)
+    return int(alive.sum()) * (BEZ_FRAME_OPS + plan.n_beziers
+                               * (BEZ_CURVE_OPS + plan.bez_seeds * seed))
+
+
+def ribbon_winners(plan, pk, gitem, px, py, fresh, alive, depth, o, d, time,
+                   *_):
+    """The live lanes whose closest hit (the plain step's record) is a
+    ribbon: its normal is -d, bit for bit."""
+    o, d, _, rec = bounce.hit_record(plan, bounce.split_pk(plan, pk)[0],
+                                     gitem, px, py, fresh, depth, o, d, time)
+    return (alive & rec["hit"] & (rec["wn"][0] == -d[0])
+            & (rec["wn"][1] == -d[1]) & (rec["wn"][2] == -d[2]))
+
+
 def scene_bytes(plan):
     """pk and the image texels, each read once, in f32."""
     return (plan.size + plan.img_rows * 128) * 4
@@ -408,17 +606,24 @@ def k1_bound(plan, pk, m, ins, scattering):
     bool a lane, and pk and the texels once; every lane sweeps."""
     flops = (m * sweep_flops(plan) + int(ins[3].sum()) * CAMERA_FLOPS
              + int(scattering.sum()) * SHADE_FLOPS
-             + texture_ops(plan, pk, *ins))
+             + texture_ops(plan, pk, *ins) + bezier_ops(plan, ins[4]))
     return bound(m * (18 + 13 * 4 + 13 * 4 + 1) + scene_bytes(plan), flops)
 
 
-def check_k1(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None):
+def check_k1(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
+             aim=None):
     """K1 against the plain step on one (scene, config, dtype) at the
     forward pool's width: agreement, flips, times, bound."""
     plan = bounce.pool_plan(scene, cfg)
     pk = bounce.pack(scene, cam, plan, dtype)
-    ins = lane_inputs(M, cfg, dtype, dev, box=box)
+    ins = lane_inputs(M, cfg, dtype, dev, box=box, aim=aim)
     want = flat(bounce.step(plan, pk, *ins))
+    if plan.n_beziers:
+        n_rib = int(ribbon_winners(plan, pk, *ins).sum())
+        log(f"[{tag}] {name}: {n_rib} of {int(ins[4].sum())} live lanes "
+            f"({n_rib / M:.1%} of all) end on a ribbon")
+        if not n_rib:
+            raise AssertionError(f"[{tag}] {name}: no lane hits a ribbon")
     got = flat(bounce.step_cuda(plan, pk, *ins))
     torch.cuda.synchronize()
     tol = dict(F64_TOL if dtype == torch.float64 else F32_TOL)
@@ -513,16 +718,18 @@ def k2_bound(plan, pk, m, ins, scattering):
     """K2 in f32: the step's 19 inputs (70 B a lane), 13 cotangents in and
     13 out, pk and the texels once and one row of partials per 256-lane
     block; the replay of the forward and the adjoint of the scattering
-    lanes (a Perlin texture is evaluated in both)."""
+    lanes (a Perlin texture is evaluated in both; the bezier march is run
+    once, in the replay, and a winner's adjoint is a few hundred operations
+    more, which the floor leaves out)."""
     flops = (m * sweep_flops(plan) + int(ins[3].sum()) * CAMERA_FLOPS
              + 2 * int(scattering.sum()) * SHADE_FLOPS
-             + 2 * texture_ops(plan, pk, *ins))
+             + 2 * texture_ops(plan, pk, *ins) + bezier_ops(plan, ins[4]))
     n_bytes = m * (70 + 26 * 4) + scene_bytes(plan) * (1 + -(-m // 256))
     return bound(n_bytes, flops)
 
 
 def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
-             given_rays_dpk=False):
+             given_rays_dpk=False, aim=None):
     """K2 against the plain VJP on one (scene, config, dtype) at the
     reverse pool's width: bounds, two launches bitwise equal, times.
 
@@ -542,7 +749,7 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
     f64 = dtype == torch.float64
     plan = bounce.pool_plan(scene, cfg)
     pk = bounce.pack(scene, cam, plan, dtype)
-    ins = lane_inputs(M_BWD, cfg, dtype, dev, seed=3, box=box)
+    ins = lane_inputs(M_BWD, cfg, dtype, dev, seed=3, box=box, aim=aim)
     r = np.random.default_rng(103)
     cts = [torch.tensor(x, dtype=dtype, device=dev)
            for x in r.normal(size=(13, M_BWD))]
@@ -621,6 +828,25 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
             f"{float(want_pk[plan.size:].abs().max()):.3e})")
         if not bool((d_atlas != 0).any()):
             raise AssertionError(f"[{tag}] {name}: no texel took cotangent")
+    if plan.n_beziers:
+        # the ribbons' slots of dpk: the control points (B_CP .. B_CP + 11)
+        # take cotangent, the width (B_W) enters a comparison only
+        blocks = lambda x: x[plan.bez_base:plan.bez_base + plan.n_beziers
+                             * bounce.BEZ_SIZE].reshape(-1, bounce.BEZ_SIZE)
+        g_cp, w_cp = (blocks(x)[:, bounce.B_CP:bounce.B_CP + 12]
+                      for x in (got_pk, want_pk))
+        g_w = blocks(got_pk)[:, bounce.B_W]
+        n_rib = int((ribbon_winners(plan, pk, *ins) & keep).sum())
+        log(f"[{tag}] {name}: {n_rib} lanes end on a ribbon; dpk's B_CP "
+            f"slots: {int((g_cp != 0).sum())} of {g_cp.numel()} nonzero, max "
+            f"{float(g_cp.abs().max()):.3e} (plain "
+            f"{float(w_cp.abs().max()):.3e}), max err "
+            f"{float((g_cp - w_cp).abs().max()):.3e}; B_W slots max "
+            f"{float(g_w.abs().max()):.1e} (plain "
+            f"{float(blocks(want_pk)[:, bounce.B_W].abs().max()):.1e})")
+        if not (n_rib and bool((g_cp != 0).any()) and not bool(g_w.any())):
+            raise AssertionError(f"[{tag}] {name}: the control points took "
+                                 f"no cotangent, or the width took some")
     log(f"[{tag}] {name}: m={M_BWD} P={plan.size}; lanes left "
         f"out (forward flips) {n_out}; lanes outside the bounds "
         f"{n_bad}, max abs err {max_err:.3e}; dpk slots outside "
@@ -848,9 +1074,9 @@ def phase_diff_spheres(dev):
 N_TIMED = 3         # chained timed renders or steps after the warm-up
 
 
-def run_full(tag, what, scene, cam, cfg):
+def run_full(tag, what, scene, cam, cfg, n_timed=N_TIMED):
     """The forward main path through render_with_stats (the FIFO pool, K1):
-    one warm-up render from zeros, then N_TIMED chained renders.  Sets
+    one warm-up render from zeros, then n_timed chained renders.  Sets
     bounce.LAUNCHES to 0 just before and reads it just after."""
     bounce.LAUNCHES = 0                       # the main path's count starts
     total_iters = 0
@@ -865,7 +1091,7 @@ def run_full(tag, what, scene, cam, cfg):
     first = dict(image=st.raw_sum.reshape(-1, 3).clone(), segments=int(segs),
                  iters=iters)
     times = []
-    for _ in range(N_TIMED):
+    for _ in range(n_timed):
         t0 = time.perf_counter()
         st, segs, iters = render.render_with_stats(scene, cam, cfg, st)
         float(st.raw_sum[0, 0, 0])
@@ -879,9 +1105,9 @@ def run_full(tag, what, scene, cam, cfg):
         f"{what}: m={cfg.resolve_pool_rays()} warm-up segments "
         f"{first['segments']} in {first['iters']} iterations; last render "
         f"segments {segs} iters {iters}; warm-up {warm * 1e3:.1f} ms; "
-        f"times_ms {[round(t * 1e3, 2) for t in times]}; median "
-        f"{med * 1e3:.2f} ms -> {segs / med:.4e} rays/s; launches "
-        f"{launches} over {N_TIMED + 1} renders")
+        f"times_ms {[round(t * 1e3, 2) for t in times]}; {spread(times)} "
+        f"-> {segs / med:.4e} rays/s; launches "
+        f"{launches} over {n_timed + 1} renders")
     if launches != total_iters or launches == 0:
         raise AssertionError(f"[{tag}] launches {launches} != pool iterations "
                              f"{total_iters}")
@@ -937,9 +1163,9 @@ def phase_profile(dev):
     profile_render("profile", scene, cam, FULL)
 
 
-def run_full_bwd(tag, what, scene, cam, cfg):
+def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED):
     """fwd+bwd steps as bench.py:_measure_fwd_bwd times them: calibration,
-    a warm-up, then N_TIMED steps chained by params -= 1e-6 grad; the counts
+    a warm-up, then n_timed steps chained by params -= 1e-6 grad; the counts
     are set to 0 just before and read just after.  Then one step under
     torch.profiler."""
     t0 = time.perf_counter()
@@ -957,7 +1183,7 @@ def run_full_bwd(tag, what, scene, cam, cfg):
         raise AssertionError(f"[{tag}] warm-up did not drain")
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(N_TIMED):
+    for _ in range(n_timed):
         params = {k: v - 1e-6 * grads[k] for k, v in params.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -973,13 +1199,13 @@ def run_full_bwd(tag, what, scene, cam, cfg):
     segs = int(segs)
     med = statistics.median(times)
     blocks = -(-n_iters // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
-    steps = N_TIMED + 1
+    steps = n_timed + 1
     log(f"[{tag}] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} "
         f"{what} f32: m={cfg.resolve_pool_rays(reverse=True)} "
         f"n_iters {n_iters} (calibration {calib * 1e3:.1f} ms) -> {blocks} "
         f"pool iterations; segments {segs}; warm-up {warm * 1e3:.1f} ms; "
-        f"times_ms {[round(t * 1e3, 2) for t in times]}; median "
-        f"{med * 1e3:.2f} ms -> {segs / med:.4e} fwd+bwd rays/s; peak memory "
+        f"times_ms {[round(t * 1e3, 2) for t in times]}; {spread(times)} "
+        f"-> {segs / med:.4e} fwd+bwd rays/s; peak memory "
         f"{peak / 2 ** 30:.3f} GiB; launches forward {launches} backward "
         f"{bwd_launches} over {steps} steps")
     if not (launches == bwd_launches == steps * blocks):
@@ -994,7 +1220,9 @@ def run_full_bwd(tag, what, scene, cam, cfg):
     log_profile(tag, wall_ms, table, ours=("bounce_step",))
     return dict(segments=segs, median_s=med, launches=launches,
                 bwd_launches=bwd_launches, peak=peak, iters=blocks,
-                touched=set(touched))
+                touched=set(touched),
+                step=lambda: fwd_bwd(scene, cam, cfg, n_iters, params, rest,
+                                     loss_fn))
 
 
 def phase_full_bwd(dev):
@@ -1006,12 +1234,13 @@ def phase_full_bwd(dev):
 # --- the strided work pools (K3, K4) and the probes (K5, K6) ------------
 
 
-def packed_state(m, n_work, max_depth, device, seed=0, box=None):
+def packed_state(m, n_work, max_depth, device, seed=0, box=None, aim=None):
     """A numpy-seeded packed pool state ([N_PACKED, m] float32): items in
     [0, 1.1 n_work) (some lanes drained), fresh lanes, depths with some at
     the cap, origins inside the box, unit directions, nonzero radiance and
     throughput (tests/test_torch_cuda.py's kind).  `box` (lo, hi) scales the
-    origins to a sphere scene and draws the times in [0, 1)."""
+    origins to a sphere scene and draws the times in [0, 1); `aim` (lo, hi)
+    points every direction at a random point of that box (lane_inputs)."""
     r = np.random.default_rng(seed)
     st = np.zeros((bounce.N_PACKED, m), np.float32)
     ints = st.view(np.int32)
@@ -1028,6 +1257,10 @@ def packed_state(m, n_work, max_depth, device, seed=0, box=None):
         lo, hi = (np.asarray(b, np.float32)[:, None] for b in box)
         st[3:6] = lo + st[3:6] / 500.0 * (hi - lo)
         st[9] = r.random(m)
+    if aim is not None:
+        lo, hi = (np.asarray(b, np.float32)[:, None] for b in aim)
+        dvec = lo + r.random((3, m)) * (hi - lo) - st[3:6]
+        st[6:9] = dvec / np.linalg.norm(dvec, axis=0, keepdims=True)
     return torch.tensor(st, device=device)
 
 
@@ -1092,18 +1325,74 @@ def kernel_ms(fn, n=20):
     raise AssertionError("kernel_ms: the host queued slower than the sleep")
 
 
+class KernelEvents:
+    """Inside the block, a CUDA event pair around every launch of the four
+    bounce kernels (the ctypes call itself, so K2's time is without the sum
+    of its partials): `totals()` gives {kernel: (device ms, launches)}.  The
+    wrappers' library getters are replaced for the block and put back."""
+
+    GETTERS = ((bounce, "_kernel", K1), (bounce, "_kernel_bwd", K2),
+               (bounce, "_kernel_packed", K3), (persist, "_kernel", K4))
+
+    def __enter__(self):
+        self.pairs = {}
+        self.saved = [getattr(mod, attr) for mod, attr, _ in self.GETTERS]
+        for (mod, attr, name), getter in zip(self.GETTERS, self.saved):
+            setattr(mod, attr, self._timing(getter, name))
+        return self
+
+    def _timing(self, getter, name):
+        def get(plan):
+            fn = getter(plan)
+
+            def call(*args):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                err = fn(*args)
+                e1.record()
+                self.pairs.setdefault(name, []).append((e0, e1))
+                return err
+            return call
+        return get
+
+    def __exit__(self, *exc):
+        for (mod, attr, _), getter in zip(self.GETTERS, self.saved):
+            setattr(mod, attr, getter)
+
+    def totals(self):
+        torch.cuda.synchronize()
+        return {name: (sum(a.elapsed_time(b) for a, b in pairs), len(pairs))
+                for name, pairs in self.pairs.items()}
+
+
+def log_kernel_events(tag, what, fn):
+    """One run of fn() with every bounce kernel launch timed by CUDA events:
+    logs and returns {kernel: (device ms, launches)}."""
+    with KernelEvents() as ev:
+        fn()
+        totals = ev.totals()
+    log(f"[{tag}] {what}: our kernels' device time in one run, by CUDA events "
+        f"around every launch: "
+        + "; ".join(f"{name} {ms:.3f} ms in {k} launches "
+                    f"({ms / k * 1e3:.2f} us each)"
+                    for name, (ms, k) in totals.items()))
+    return totals
+
+
 def packed_texture_ops(plan, pk, sb, state, q):
-    """`texture_ops` of one strided-pool iteration from a packed state."""
-    if not (plan.n_media or plan.has_perlin):
-        return 0
+    """`texture_ops` and `bezier_ops` of one strided-pool iteration from a
+    packed state."""
     st_i = state.view(torch.int32)
     alive = st_i[0] < q["n_work"]
+    if not (plan.n_media or plan.has_perlin):
+        return bezier_ops(plan, alive)
     gitem, px, py, _ = bounce.strided_item(
         st_i[0].to(torch.int64), sb.to(torch.int64)[0], q["n_pix"], q["pix0"],
         q["total_pix"], plan.nx, torch.float32)
-    return texture_ops(plan, pk, gitem, px, py, (state[1] != 0.0) & alive,
-                       alive, st_i[2], tuple(state[3:6]), tuple(state[6:9]),
-                       state[9])
+    return bezier_ops(plan, alive) + texture_ops(
+        plan, pk, gitem, px, py, (state[1] != 0.0) & alive, alive, st_i[2],
+        tuple(state[3:6]), tuple(state[6:9]), state[9])
 
 
 def packed_bound(plan, q, state, T=1, segs=None, tex_ops=0):
@@ -1300,9 +1589,9 @@ def reset_counts():
     persist.PERSIST_LAUNCHES = 0
 
 
-def run_pools(tag, pools, scene, cam, cfg, full, dev):
+def run_pools(tag, pools, scene, cam, cfg, full, dev, n_timed=N_TIMED):
     """Strided pools at full size, each through its entry point with the
-    counts reset just before: one warm-up render from zeros, then N_TIMED
+    counts reset just before: one warm-up render from zeros, then n_timed
     chained renders, timed as run_full times the FIFO pool (`full`, whose
     segments and warm-up image each must give)."""
     ref, ref_segs = full["first"]["image"], full["first"]["segments"]
@@ -1316,7 +1605,7 @@ def run_pools(tag, pools, scene, cam, cfg, full, dev):
         warm = time.perf_counter() - t0
         first_raw, first_segs, first_iters = raw, int(segs), iters
         total_iters, times, base = iters, [], 0
-        for _ in range(N_TIMED):
+        for _ in range(n_timed):
             base += cfg.spp
             t0 = time.perf_counter()
             raw, segs, iters = fn(scene, cam, cfg, raw, base)
@@ -1331,8 +1620,8 @@ def run_pools(tag, pools, scene, cam, cfg, full, dev):
             f"{ref_segs}) in {first_iters} iterations (FIFO "
             f"{full['first']['iters']}); last render {segs} segments in {iters} "
             f"iterations; warm-up {warm * 1e3:.1f} ms; times_ms "
-            f"{[round(t * 1e3, 2) for t in times]}; median {med * 1e3:.2f} "
-            f"ms -> {segs / med:.4e} rays/s; launches over {N_TIMED + 1} renders "
+            f"{[round(t * 1e3, 2) for t in times]}; {spread(times)} "
+            f"-> {segs / med:.4e} rays/s; launches over {n_timed + 1} renders "
             f"{launches}")
         expect = total_iters // (persist.CHUNK_T if name == "persistent"
                                  else 1)
@@ -1534,19 +1823,166 @@ def phase_full_textures(dev):
     return out
 
 
+# name -> (spec, light sampling, the box the lane origins are drawn from;
+# None: Cornell's cube): test_bezier (ground, six marker spheres, three
+# curves), cornell_bezier (the Cornell walls and one fat curve of width 10)
+# and points_chain_scene's helix (11 curves)
+BEZIER_SCENES = {
+    "bezier": (scenes.test_bezier, False, ((-3, -0.4, -4), (3, 2, 4))),
+    "cornell_bezier": (scenes.cornell_bezier, True, None),
+    "points_chain": (scenes.points_chain_scene, False,
+                     ((-2.5, -0.4, -2.5), (2.5, 2.5, 2.5))),
+}
+
+
+def bezier_scene(name, dtype, dev):
+    """(scene, camera, config, lane box, aim box, f32 atol) of a
+    BEZIER_SCENES entry at the full-size configuration.  The aim box is the
+    control points' bounding box: lanes aimed into it meet a ribbon often
+    enough to hold the probe on thousands of lanes.  The atol as
+    sphere_scene scales it."""
+    spec_fn, ls, box = BEZIER_SCENES[name]
+    scene, cam = spec_scene(spec_fn(), dtype, dev)
+    cp = scene.bez_cp.reshape(-1, 3)
+    aim = (cp.amin(0).tolist(), cp.amax(0).tolist())
+    scale = 555.0
+    if scene.has_spheres:
+        scale = max(float(scene.sph_c0.abs().max()),
+                    float(scene.sph_r.abs().max()))
+    return (scene, cam, BEZIER.replace(light_sampling=ls), box, aim,
+            1e-3 * scale / 555.0)
+
+
+def phase_kernel_bezier(dev):
+    """K1 and K2 on the bezier scenes, float32 and float64, on lanes aimed
+    into the curves' bounding box."""
+    k1, k2 = [], []
+    for dtype in (torch.float32, torch.float64):
+        for name in BEZIER_SCENES:
+            scene, cam, cfg, box, aim, atol = bezier_scene(name, dtype, dev)
+            tag = f"{dtype_name(dtype)}-{name}"
+            k1.append(check_k1("kernel-bezier", tag, scene, cam, cfg, dtype,
+                               dev, box=box, atol=atol, aim=aim))
+            k2.append(check_k2("kernel-bwd-bezier", tag, scene, cam, cfg,
+                               dtype, dev, box=box, atol=atol, aim=aim,
+                               given_rays_dpk=scene.has_spheres))
+    return k1, k2
+
+
+def phase_packed_bezier(dev):
+    """K3 against step_packed, and one K4 chunk bitwise equal to 32 K3
+    launches, on test_bezier's and cornell_bezier's packed states."""
+    out = {}
+    for name in ("bezier", "cornell_bezier"):
+        scene, cam, cfg, box, aim, atol = bezier_scene(name, torch.float32,
+                                                       dev)
+        setup = packed_setup(dev, scene, cam, cfg)
+        plan, _, q, _ = setup
+        k3 = check_k3(f"packed-{name}", setup, packed_state(
+            M, q["n_work"], plan.max_depth, dev, box=box, aim=aim), atol)
+        k4 = check_k4(f"persist-{name}", setup, packed_state(
+            M, q["n_work"], plan.max_depth, dev, seed=1, box=box, aim=aim),
+            atol, chunk_ts=())
+        out[name] = (k3, k4)
+    return out
+
+
+def phase_golden_bezier(dev):
+    """Parity configs 5 (test_bezier) and 6 (cornell_bezier) against their
+    goldens."""
+    for name, spec, cfg in (
+            ("config5_bezier", scenes.test_bezier(), CONFIG5),
+            ("config6_cornell_bezier", scenes.cornell_bezier(), CONFIG6)):
+        scene, cam = spec_scene(spec, torch.float32)
+        check_golden(f"golden-bezier {name}", scene, cam, cfg,
+                     os.path.join(ROOT, "tests", "goldens", name + ".npz"))
+
+
+# The control-point probe of parity config 5 (bez_cp[0, 1, 1] of the
+# gradient scene's one curve) on the harness's small gradient workload: 8^2,
+# one sample, depth 3, the loss over the window of pixels whose centres hit
+# the ribbon.  That is where the harness holds AD against finite differences:
+# on more paths some hit grazes the ribbon, where the curvature floor bounds
+# the estimator on purpose and AD leaves the derivative (16^2 spp4 gives 17%,
+# in the JAX package as here).
+BEZ_FD_CFG = RenderConfig(nx=8, ny=8, spp=1, max_depth=3, seed=0, dtype="f64")
+BEZ_FD_WINDOW = (3, 5, 2, 6)
+
+
+def phase_diff_bezier(dev):
+    """The differentiable render of test_bezier at config 5's size, and in
+    float64 AD against central finite differences on one control-point
+    coordinate of the gradient scene's noise-textured curve."""
+    scene, cam = spec_scene(scenes.test_bezier(), torch.float32, dev)
+    check_diff("diff-bezier", scene, cam, CONFIG5)
+    scene, cam = spec_scene(grad_bezier_spec(), torch.float64, dev)
+    out = check_fd("diff-bezier", scene, cam, BEZ_FD_CFG,
+                   (("bez_cp", (0, 1, 1)),), 1e-3, BEZ_FD_WINDOW)
+    ad, fd = out["bez_cp"]
+    if not (ad != 0.0 and abs(ad - fd) < 0.01 * abs(fd)):
+        raise AssertionError("[diff-bezier] f64 bez_cp AD not within 1% of FD")
+
+
+def phase_full_bezier(dev):
+    """The bezier scenes at full width: test_bezier and cornell_bezier (light
+    sampled) at 512^2 spp8 depth 100, forward through render_with_stats (the
+    FIFO pool, K1) and the persistent pool (K4) with equal segments and a
+    bitwise-equal image, and the fwd+bwd step through render_diff_fused (K1
+    and K2); five timed runs each, and one run of each with the kernels'
+    launches timed by CUDA events."""
+    out = {}
+    n = N_TIMED_BEZIER
+    for name, spec_fn, cfg in (
+            ("bezier", scenes.test_bezier, BEZIER),
+            ("cornell_bezier", scenes.cornell_bezier, CORNELL_BEZIER)):
+        scene, cam = spec_scene(spec_fn(), torch.float32, dev)
+        tag = f"full-{name}"
+        full = run_full(tag, name, scene, cam, cfg, n_timed=n)
+        st0 = render.init_state(cfg)
+        ev_fifo = log_kernel_events(
+            tag, "FIFO render",
+            lambda: render.render_with_stats(scene, cam, cfg, st0))
+        profile_render(tag, scene, cam, cfg)
+        pools = run_pools(tag, POOLS[2:], scene, cam, cfg, full, dev,
+                          n_timed=n)
+        raw0 = torch.zeros(cfg.n_pixels, 3, device=dev)
+        ev_pers = log_kernel_events(
+            tag, "persistent render",
+            lambda: persist.render_pool_persistent(scene, cam, cfg, raw0, 0))
+        same = torch.equal(pools["persistent"]["image"],
+                           full["first"]["image"])
+        log(f"[{tag}] the persistent pool's image equals the FIFO pool's "
+            f"bitwise: {same}")
+        if not same:
+            raise AssertionError(f"[{tag}] the persistent pool's image "
+                                 f"differs from the FIFO pool's")
+        full_bwd = run_full_bwd(f"{tag}-bwd", name, scene, cam, cfg,
+                                n_timed=n)
+        ev_bwd = log_kernel_events(f"{tag}-bwd", "fwd+bwd step",
+                                   full_bwd["step"])
+        if "bez_cp" not in full_bwd["touched"]:
+            raise AssertionError(f"[{tag}-bwd] the control points took no "
+                                 f"gradient: {sorted(full_bwd['touched'])}")
+        out[name] = (full, pools["persistent"], full_bwd,
+                     dict(fifo=ev_fifo, persistent=ev_pers, bwd=ev_bwd))
+    return out
+
+
 def phase_probes(dev):
     """K5 and K6: the probes' own entry points with the counts reset just
     before (the path), then each kernel against its plain version."""
     probe_ops.LAUNCHES = probe_loops.LAUNCHES = 0
     ops_line = probe_ops.main()
-    loops_ok = probe_loops.main()
+    loops_ok, ext_ok = probe_loops.main()
     launches = dict(probe_ops=probe_ops.LAUNCHES,
                     probe_loops=probe_loops.LAUNCHES)
     log(f"[probes] probe_ops.main(): {ops_line}; probe_loops.main(): "
-        f"{loops_ok}; launches {launches}")
-    if not all(loops_ok.values()) or not ops_line.startswith("ok: True"):
+        f"{loops_ok}, extension {ext_ok}; launches {launches}")
+    if (not all(loops_ok.values()) or not all(ext_ok.values())
+            or not ops_line.startswith("ok: True")):
         raise AssertionError("[probes] a probe's main failed")
-    if launches != dict(probe_ops=1, probe_loops=len(probe_loops.CASES)):
+    n_cases = len(probe_loops.ALL_CASES)
+    if launches != dict(probe_ops=1, probe_loops=n_cases):
         raise AssertionError(f"[probes] kernel launches {launches}")
     pack, item = probe_ops.inputs(dev)
     r = np.random.default_rng(0)
@@ -1574,23 +2010,23 @@ def phase_probes(dev):
         if not (exact and ext_exact) or max(rel, ext_rel) > PROBE_RTOL:
             raise AssertionError("[probes] K5 against its plain version")
     x = probe_loops.inputs(device=dev)
-    for name in probe_loops.CASES:
-        same = torch.equal(probe_loops.loops_cuda(name, x),
-                           probe_loops.CASES[name](x))
-        if not same:
+    for name, plain in probe_loops.ALL_CASES.items():
+        if not torch.equal(probe_loops.loops_cuda(name, x), plain(x)):
             raise AssertionError(f"[probes] K6 case {name} differs from its "
                                  f"plain version")
-    log(f"[probes] K6: all {len(probe_loops.CASES)} cases bitwise equal to "
-        f"their plain versions")
+    hit = float((probe_loops.ext_bezier_seeds(x) < 100.0).float().mean())
+    log(f"[probes] K6: all {len(probe_loops.CASES)} cases and the extension "
+        f"{list(probe_loops.EXT_CASES)} bitwise equal to their plain "
+        f"versions; the bezier loop form hits on {hit:.1%} of the elements")
     k5_ms = kernel_ms(lambda: probe_ops.probe_cuda(pack, item))
     k5_plain, k5_pl = device_ms(lambda: probe_ops.probe_plain(pack, item), 5)
     k6_ms = kernel_ms(lambda: [probe_loops.loops_cuda(n, x)
-                               for n in probe_loops.CASES], 5)
-    k6_plain, k6_pl = device_ms(lambda: [probe_loops.CASES[n](x)
-                                         for n in probe_loops.CASES], 1)
+                               for n in probe_loops.ALL_CASES], 5)
+    k6_plain, k6_pl = device_ms(lambda: [f(x) for f in
+                                         probe_loops.ALL_CASES.values()], 1)
     log(f"[probes] device time: K5 {k5_ms * 1e3:.2f} us per launch, plain "
         f"{k5_plain * 1e3:.2f} us ({k5_pl:.0f} launches); K6 "
-        f"{k6_ms:.4f} ms for the nine cases (one launch each), plain "
+        f"{k6_ms:.4f} ms for the {n_cases} cases (one launch each), plain "
         f"{k6_plain:.2f} ms ({k6_pl:.0f} launches)")
     # K5: 16 floats and 1,024 ints in, 6 x 1,024 floats out; per item three
     # PCG rounds' share, a div/mod, a floor and seven transcendentals, about
@@ -1601,7 +2037,9 @@ def phase_probes(dev):
     # compare each count one): 200, 2,000, 8,000, 40, 4,000, 40, 4,000, 40,
     # and 3 per iteration of the early-exit loop, which runs while any lane
     # is below its threshold (all 100 when a lane starts under the fixed
-    # point -1/3 of a -> 1.3 a + 0.1, as with these inputs).
+    # point -1/3 of a -> 1.3 a + 0.1, as with these inputs); and the bezier
+    # loop form's BEZ_SEEDS seeds of BEZ_NEWTON steps (19 each) and an end
+    # (10).
     wa, trips = x.clone(), 0
     done = torch.zeros_like(x, dtype=torch.bool)
     while trips < 100 and not bool(done.all()):
@@ -1609,9 +2047,9 @@ def phase_probes(dev):
         done |= wa2 > 100.0
         wa = torch.where(done, wa, wa2)
         trips += 1
-    per_elt = 200 + 2000 + 8000 + 40 + 4000 + 40 + 4000 + 40 + 3 * trips
-    k6_b = bound(len(probe_loops.CASES) * 2 * x.numel() * 4,
-                 per_elt * x.numel())
+    per_elt = (200 + 2000 + 8000 + 40 + 4000 + 40 + 4000 + 40 + 3 * trips
+               + probe_loops.BEZ_SEEDS * (probe_loops.BEZ_NEWTON * 19 + 10))
+    k6_b = bound(n_cases * 2 * x.numel() * 4, per_elt * x.numel())
     log(f"[probes] bounds: K5 {k5_b[0] * 1e6:.2f} ns ({k5_b[1]}), K6 "
         f"{k6_b[0] * 1e3:.2f} us ({k6_b[1]}; the early-exit loop ran {trips} "
         f"iterations)")
@@ -1622,36 +2060,80 @@ def phase_probes(dev):
                         bound_ms=k6_b[0], bound_by=k6_b[1]))
 
 
-def main():
-    dev, smi = phase_device()
-    timed(phase_build)
-    kern = timed(phase_kernel, dev)
-    kern_bwd = timed(phase_kernel_bwd, dev)
-    timed(phase_golden, dev)
-    timed(phase_diff, dev)
-    full = timed(phase_full, dev)
-    timed(phase_profile, dev)
-    full_bwd = timed(phase_full_bwd, dev)
-    packed = timed(phase_packed_kernel, dev)
-    chunk = timed(phase_persist_kernel, dev)
-    pools = timed(phase_pools_full, dev, full)
-    probes = timed(phase_probes, dev)
-    kern_sph = timed(phase_kernel_spheres, dev)
-    kern_bwd_sph = timed(phase_kernel_bwd_spheres, dev)
-    packed_sph, chunk_sph = timed(phase_packed_spheres, dev)
-    timed(phase_golden_spheres, dev)
-    timed(phase_diff_spheres, dev)
-    sph_full, sph_persist, sph_bwd = timed(phase_full_spheres, dev)
-    kern_tex, kern_bwd_tex = timed(phase_kernel_textures, dev)
-    packed_tex = timed(phase_packed_textures, dev)
-    timed(phase_golden_textures, dev)
-    timed(phase_diff_textures, dev)
-    tex_full = timed(phase_full_textures, dev)
+# The phases after the device and build phases, in the order they run:
+# name -> phase(dev, results), `results` holding the earlier phases' returns
+# by name.
+PHASES = {
+    "kernel": lambda dev, r: phase_kernel(dev),
+    "kernel-bwd": lambda dev, r: phase_kernel_bwd(dev),
+    "golden": lambda dev, r: phase_golden(dev),
+    "diff": lambda dev, r: phase_diff(dev),
+    "full": lambda dev, r: phase_full(dev),
+    "profile": lambda dev, r: phase_profile(dev),
+    "full-bwd": lambda dev, r: phase_full_bwd(dev),
+    "packed-kernel": lambda dev, r: phase_packed_kernel(dev),
+    "persist-kernel": lambda dev, r: phase_persist_kernel(dev),
+    "pools-full": lambda dev, r: phase_pools_full(dev, r["full"]),
+    "probes": lambda dev, r: phase_probes(dev),
+    "kernel-spheres": lambda dev, r: phase_kernel_spheres(dev),
+    "kernel-bwd-spheres": lambda dev, r: phase_kernel_bwd_spheres(dev),
+    "packed-spheres": lambda dev, r: phase_packed_spheres(dev),
+    "golden-spheres": lambda dev, r: phase_golden_spheres(dev),
+    "diff-spheres": lambda dev, r: phase_diff_spheres(dev),
+    "full-spheres": lambda dev, r: phase_full_spheres(dev),
+    "kernel-textures": lambda dev, r: phase_kernel_textures(dev),
+    "packed-textures": lambda dev, r: phase_packed_textures(dev),
+    "golden-textures": lambda dev, r: phase_golden_textures(dev),
+    "diff-textures": lambda dev, r: phase_diff_textures(dev),
+    "full-textures": lambda dev, r: phase_full_textures(dev),
+    "kernel-bezier": lambda dev, r: phase_kernel_bezier(dev),
+    "packed-bezier": lambda dev, r: phase_packed_bezier(dev),
+    "golden-bezier": lambda dev, r: phase_golden_bezier(dev),
+    "diff-bezier": lambda dev, r: phase_diff_bezier(dev),
+    "full-bezier": lambda dev, r: phase_full_bezier(dev),
+}
+# A phase that reads another's result brings it along.
+NEEDS = {"pools-full": ("full",)}
+
+
+def select_phases(text):
+    """--phases' value -> the phases to run, in PHASES' order: every phase
+    for None, else the named phases with what they need."""
+    if text is None:
+        return list(PHASES)
+    chosen = set(filter(None, (n.strip() for n in text.split(","))))
+    unknown = chosen - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: no phase {sorted(unknown)}; phases: "
+                         f"{', '.join(PHASES)}")
+    for name in list(chosen):
+        chosen |= set(NEEDS.get(name, ()))
+    if not chosen:
+        raise SystemExit("chip_smoke: --phases names no phase")
+    return [p for p in PHASES if p in chosen]
+
+
+def kernel_table(r):
+    """The kernel table of a full run, from its phases' results."""
+    kern, kern_bwd = r["kernel"], r["kernel-bwd"]
+    full, full_bwd, pools = r["full"], r["full-bwd"], r["pools-full"]
+    packed, chunk, probes = (r["packed-kernel"], r["persist-kernel"],
+                             r["probes"])
+    kern_sph, kern_bwd_sph = r["kernel-spheres"], r["kernel-bwd-spheres"]
+    packed_sph, chunk_sph = r["packed-spheres"]
+    sph_full, sph_persist, sph_bwd = r["full-spheres"]
+    kern_tex, kern_bwd_tex = r["kernel-textures"]
+    packed_tex, tex_full = r["packed-textures"], r["full-textures"]
+    kern_bez, kern_bwd_bez = r["kernel-bezier"]
+    packed_bez, bez_full = r["packed-bezier"], r["full-bezier"]
+    # the full-size paths of the later slices: (forward, persistent, fwd+bwd)
+    later = {**{k: v[:3] for k, v in tex_full.items()},
+             **{k: v[:3] for k, v in bez_full.items()}}
     k1_launches = (full["launches"] + full_bwd["launches"]
                    + pools["strided"]["launches"] + sph_full["launches"]
                    + sph_bwd["launches"]
                    + sum(f["launches"] + b["launches"]
-                         for f, _, b in tex_full.values()))
+                         for f, _, b in later.values()))
     log(f"[paths] bounce_step launches: Cornell forward render "
         f"{full['launches']}, fwd+bwd step {full_bwd['launches']}, strided "
         f"pool {pools['strided']['launches']}, RTOW forward render "
@@ -1662,60 +2144,67 @@ def main():
         f"{pools['packed']['launches']}; bounce_persist launches: Cornell "
         f"persistent pool {pools['persistent']['launches']}, RTOW persistent "
         f"pool {sph_persist['launches']}; probes {probes['launches']}")
-    for name, (f, pers, b) in tex_full.items():
+    for name, (f, pers, b) in later.items():
         log(f"[paths] {name}: bounce_step launches: forward render "
             f"{f['launches']}, fwd+bwd step {b['launches']}; bounce_step_bwd "
             f"launches: {b['bwd_launches']}; bounce_persist launches: "
             f"{pers['launches']}")
-    f32 = [k for k in kern + kern_sph + kern_tex
+    f32 = [k for k in kern + kern_sph + kern_tex + kern_bez
            if k["name"].startswith("f32")]
     f32_bwd = [k for k in kern_bwd + kern_bwd_sph + kern_bwd_tex
-               if k["name"].startswith("f32")]
+               + kern_bwd_bez if k["name"].startswith("f32")]
     pick = lambda rows, name: next(k for k in rows if k["name"] == name)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    on_rtow = lambda k: {key: k[key] for key in keys}
+    on = lambda k: {key: k[key] for key in keys}
     src = "scheme_raytrace_torch/csrc/"
     # no single PyTorch call computes a bounce step, a chunk of steps or a
     # probe's loops: library_ms is null for every kernel
-    log(smi)
-    print(json.dumps({"kernels": [{
+    return {"kernels": [{
         "name": "bounce_step",
         "route": "cuda",
         "source": src + "bounce_step.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1576",
         "launches": k1_launches,
-        **on_rtow(pick(kern, "f32-light")),
+        **on(pick(kern, "f32-light")),
         "max_abs_err": max(k["max_abs_err"] for k in f32),
         "library_ms": None,
-        "rtow_227_spheres": on_rtow(pick(kern_sph, "f32-rtow")),
-        "textured": on_rtow(pick(kern_tex, "f32-textured")),
-        "simple_light": on_rtow(pick(kern_tex, "f32-simple_light")),
-        "cornell_smoke": on_rtow(pick(kern_tex, "f32-smoke")),
+        "rtow_227_spheres": on(pick(kern_sph, "f32-rtow")),
+        "textured": on(pick(kern_tex, "f32-textured")),
+        "simple_light": on(pick(kern_tex, "f32-simple_light")),
+        "cornell_smoke": on(pick(kern_tex, "f32-smoke")),
+        "bezier": on(pick(kern_bez, "f32-bezier")),
+        "cornell_bezier": on(pick(kern_bez, "f32-cornell_bezier")),
+        "points_chain": on(pick(kern_bez, "f32-points_chain")),
     }, {
         "name": "bounce_step_bwd",
         "route": "cuda",
         "source": src + "bounce_step_bwd.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1687",
         "launches": (full_bwd["bwd_launches"] + sph_bwd["bwd_launches"]
-                     + sum(b["bwd_launches"] for _, _, b in tex_full.values())),
-        **on_rtow(pick(kern_bwd, "f32-cornell-light")),
+                     + sum(b["bwd_launches"] for _, _, b in later.values())),
+        **on(pick(kern_bwd, "f32-cornell-light")),
         "max_abs_err": max(k["max_abs_err"] for k in f32_bwd),
         "library_ms": None,
-        "rtow_227_spheres": on_rtow(pick(kern_bwd_sph, "f32-rtow")),
-        "textured": on_rtow(pick(kern_bwd_tex, "f32-textured")),
-        "simple_light": on_rtow(pick(kern_bwd_tex, "f32-simple_light")),
-        "cornell_smoke": on_rtow(pick(kern_bwd_tex, "f32-smoke")),
+        "rtow_227_spheres": on(pick(kern_bwd_sph, "f32-rtow")),
+        "textured": on(pick(kern_bwd_tex, "f32-textured")),
+        "simple_light": on(pick(kern_bwd_tex, "f32-simple_light")),
+        "cornell_smoke": on(pick(kern_bwd_tex, "f32-smoke")),
+        "bezier": on(pick(kern_bwd_bez, "f32-bezier")),
+        "cornell_bezier": on(pick(kern_bwd_bez, "f32-cornell_bezier")),
+        "points_chain": on(pick(kern_bwd_bez, "f32-points_chain")),
     }, {
         "name": "bounce_packed",
         "route": "cuda",
         "source": src + "bounce_packed.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1900",
         "launches": pools["packed"]["launches"],
-        **on_rtow(packed),
+        **on(packed),
         "library_ms": None,
-        "rtow_227_spheres": on_rtow(packed_sph),
-        "textured": on_rtow(packed_tex["textured"][0]),
-        "cornell_smoke": on_rtow(packed_tex["smoke"][0]),
+        "rtow_227_spheres": on(packed_sph),
+        "textured": on(packed_tex["textured"][0]),
+        "cornell_smoke": on(packed_tex["smoke"][0]),
+        "bezier": on(packed_bez["bezier"][0]),
+        "cornell_bezier": on(packed_bez["cornell_bezier"][0]),
     }, {
         "name": "bounce_persist",
         "route": "cuda",
@@ -1723,12 +2212,14 @@ def main():
         "replaces": "scheme_raytrace_tpu/integrator/persist.py:114",
         "launches": (pools["persistent"]["launches"]
                      + sph_persist["launches"]
-                     + sum(pers["launches"] for _, pers, _ in tex_full.values())),
-        **on_rtow(chunk),
+                     + sum(pers["launches"] for _, pers, _ in later.values())),
+        **on(chunk),
         "library_ms": None,
-        "rtow_227_spheres": on_rtow(chunk_sph),
-        "textured": on_rtow(packed_tex["textured"][1]),
-        "cornell_smoke": on_rtow(packed_tex["smoke"][1]),
+        "rtow_227_spheres": on(chunk_sph),
+        "textured": on(packed_tex["textured"][1]),
+        "cornell_smoke": on(packed_tex["smoke"][1]),
+        "bezier": on(packed_bez["bezier"][1]),
+        "cornell_bezier": on(packed_bez["cornell_bezier"][1]),
     }, {
         "name": "probe_ops",
         "route": "cuda",
@@ -1745,7 +2236,35 @@ def main():
         "launches": probes["launches"]["probe_loops"],
         **probes["k6"],
         "library_ms": None,
-    }]}), flush=True)
+    }]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one NVIDIA card.")
+    ap.add_argument("--phases", default=None, metavar="NAME[,NAME...]",
+                    help="run only these phases (default: all); "
+                         "the device and build phases always run")
+    args = ap.parse_args(argv)
+    selected = select_phases(args.phases)
+    dev, smi = phase_device()
+    whole = args.phases is None
+    if not whole:
+        log(f"[phases] a selection of {len(selected)} of {len(PHASES)} "
+            f"phases: {', '.join(selected)}")
+    results = {"build": timed("build", phase_build, selected)}
+    for name in selected:
+        results[name] = timed(name, PHASES[name], dev, results)
+    log(f"[time] chip_smoke: {time.perf_counter() - START:.1f} s in all")
+    if whole:
+        table = kernel_table(results)
+        log(smi)
+        print(json.dumps(table), flush=True)
+    else:
+        # every selected phase passed (a failure raised before this line)
+        log(f"[phases] the {len(selected)} selected phases passed; a "
+            f"selection prints no kernel table")
+        log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,19 +10,57 @@
 // a multiplied-out x^5 in Schlick (the JAX step keeps pow for Mosaic).
 // nvcc contracts mul+add into FMA (no --use_fast_math), except where a
 // comparison reads a value that cancels: the hit point (ray_at), the whole
-// sphere probe (sphere_probe) and the media's boundary intervals
-// (medium_probe) round every product on its own, as the plain step does.
+// sphere probe (sphere_probe), the media's boundary intervals
+// (medium_probe) and the whole bezier probe (bezier_probe) round every
+// product on its own, as the plain step does.
 //
-// Coverage: rects, spheres (static and moving), constant media in box and
-// sphere boundaries; constant, checker, hash-Perlin noise and marble, and
-// image textures (texels from the atlas, an indexed load a channel).
+// Coverage: rects, spheres (static and moving), cubic Bezier ribbons,
+// constant media in box and sphere boundaries; constant, checker,
+// hash-Perlin noise and marble, and image textures (texels from the atlas,
+// an indexed load a channel).
+//
+// Feature sets.  The groups a plan may lack are compile-time flags, the
+// SRT_* macros below, set by -D on nvcc's command line
+// (utils/cuda_build.py builds one library a kernel and feature set, at first
+// use, and integrator/bounce.py:kernel_features derives the set from the
+// plan).  A flag that is off removes its group's code, registers and shared
+// memory from the variant; counts (n_rects, n_spheres, n_beziers, ...) stay
+// runtime fields, so one variant serves any count.  A kernel's C entry point
+// refuses a plan its variant does not cover (features_cover).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef SRT_SPHERES
+#define SRT_SPHERES 0
+#endif
+#ifndef SRT_MOVING
+#define SRT_MOVING 0
+#endif
+#ifndef SRT_PERLIN
+#define SRT_PERLIN 0
+#endif
+#ifndef SRT_IMAGE
+#define SRT_IMAGE 0
+#endif
+#ifndef SRT_MEDIA
+#define SRT_MEDIA 0
+#endif
+#ifndef SRT_BEZIER
+#define SRT_BEZIER 0
+#endif
+
 namespace {
+
+// The variant's feature set (see the header comment).
+constexpr bool kSpheres = SRT_SPHERES != 0;
+constexpr bool kMoving = kSpheres && SRT_MOVING != 0;
+constexpr bool kPerlin = SRT_PERLIN != 0;
+constexpr bool kImage = SRT_IMAGE != 0;
+constexpr bool kMedia = SRT_MEDIA != 0;
+constexpr bool kBeziers = SRT_BEZIER != 0;
 
 // Packed-scene layout: the offsets of scheme_raytrace_torch/integrator/
 // bounce.py (tests/test_torch_bounce.py holds each constant equal).
@@ -89,9 +127,23 @@ constexpr int M_REF = 31;
 constexpr int M_TEXS = 32;
 constexpr int MED_SIZE = 33;
 
-// A rect, a sphere and a medium block end in the same material record
-// (mtype, alb0, alb1, texk, fuzz, ref, texs): the shading reads the winner's
-// through its mtype slot `mat` and these offsets from it, whatever its group.
+// per-bezier fields: 4 control points and the ribbon's width
+constexpr int B_CP = 0;
+constexpr int B_W = 12;
+constexpr int B_VALID = 13;
+constexpr int B_MTYPE = 14;
+constexpr int B_ALB0 = 15;
+constexpr int B_ALB1 = 18;
+constexpr int B_TEXK = 21;
+constexpr int B_FUZZ = 22;
+constexpr int B_REF = 23;
+constexpr int B_TEXS = 24;
+constexpr int BEZ_SIZE = 25;
+
+// A rect, a sphere, a medium and a bezier block end in the same material
+// record (mtype, alb0, alb1, texk, fuzz, ref, texs): the shading reads the
+// winner's through its mtype slot `mat` and these offsets from it, whatever
+// its group.
 constexpr int kAlb0 = R_ALB0 - R_MTYPE;
 constexpr int kAlb1 = R_ALB1 - R_MTYPE;
 constexpr int kTexk = R_TEXK - R_MTYPE;
@@ -103,15 +155,23 @@ static_assert(S_ALB0 - S_MTYPE == kAlb0 && S_ALB1 - S_MTYPE == kAlb1 &&
                   S_REF - S_MTYPE == kRef && S_TEXS - S_MTYPE == kTexs &&
                   M_ALB0 - M_MTYPE == kAlb0 && M_ALB1 - M_MTYPE == kAlb1 &&
                   M_TEXK - M_MTYPE == kTexk && M_FUZZ - M_MTYPE == kFuzz &&
-                  M_REF - M_MTYPE == kRef && M_TEXS - M_MTYPE == kTexs,
-              "rect, sphere and medium blocks share one material record");
+                  M_REF - M_MTYPE == kRef && M_TEXS - M_MTYPE == kTexs &&
+                  B_ALB0 - B_MTYPE == kAlb0 && B_ALB1 - B_MTYPE == kAlb1 &&
+                  B_TEXK - B_MTYPE == kTexk && B_FUZZ - B_MTYPE == kFuzz &&
+                  B_REF - B_MTYPE == kRef && B_TEXS - B_MTYPE == kTexs,
+              "rect, sphere, medium and bezier blocks share one material "
+              "record");
 
 // The kind of a closest-hit winner, and its mtype slot's offset in its block.
 constexpr int kRect = 0;
 constexpr int kSphere = 1;
 constexpr int kMedium = 2;
+constexpr int kBezier = 3;
 __device__ __forceinline__ int mat_offset(int kind) {
-  return kind == kSphere ? S_MTYPE : (kind == kRect ? R_MTYPE : M_MTYPE);
+  return kind == kSphere ? S_MTYPE
+                         : (kind == kRect ? R_MTYPE
+                                          : (kind == kMedium ? M_MTYPE
+                                                             : B_MTYPE));
 }
 
 constexpr int L_KIND = 0;
@@ -288,14 +348,26 @@ __device__ __forceinline__ T cosine_value(V3<T> n, V3<T> d) {
 }
 
 // The plan's statics (bounce.py scene_args, after the lane count m).
-// img_rows: the atlas's 128-texel rows, 0 for a plan without image textures.
+// img_rows: the atlas's 128-texel rows, 0 for a plan without image textures;
+// bez_seeds and bez_newton: the bezier probe's seeds a curve and Newton
+// steps a seed.
 struct Statics {
   int m, n_rects, rect_base, n_spheres, sph_base, has_moving;
   int n_lights, lgt_base, light_sampling;
   int nx, ny, max_depth;
   int n_media, med_base, has_perlin, img_rows;
+  int n_beziers, bez_base, bez_seeds, bez_newton;
   uint32_t seed, perlin_seed;
 };
+
+// True when this variant's feature set covers the plan: what the C entry
+// points check before they launch.
+inline bool features_cover(const Statics& s) {
+  return (kSpheres || s.n_spheres == 0) &&
+         (kMoving || !s.has_moving || s.n_spheres == 0) &&
+         (kPerlin || !s.has_perlin) && (kImage || s.img_rows == 0) &&
+         (kMedia || s.n_media == 0) && (kBeziers || s.n_beziers == 0);
+}
 
 // The scene arguments every bounce kernel's C entry point ends in, in
 // bounce.py scene_args' order, and the Statics they make for m lanes.
@@ -303,13 +375,15 @@ struct Statics {
   int n_rects, int rect_base, int n_spheres, int sph_base, int has_moving,  \
       int n_lights, int lgt_base, int light_sampling, int nx, int ny,       \
       int max_depth, int n_media, int med_base, int has_perlin,             \
-      int img_rows, uint32_t seed, uint32_t perlin_seed, double t_min,      \
+      int img_rows, int n_beziers, int bez_base, int bez_seeds,             \
+      int bez_newton, uint32_t seed, uint32_t perlin_seed, double t_min,    \
       double t_max
 #define SRT_STATICS(m)                                                       \
   Statics {                                                                  \
     m, n_rects, rect_base, n_spheres, sph_base, has_moving, n_lights,        \
         lgt_base, light_sampling, nx, ny, max_depth, n_media, med_base,      \
-        has_perlin, img_rows, seed, perlin_seed                              \
+        has_perlin, img_rows, n_beziers, bez_base, bez_seeds, bez_newton,    \
+        seed, perlin_seed                                                    \
   }
 
 // The light that u_pick picks (pdfs.lights_sample_u's selection).
@@ -473,7 +547,7 @@ __device__ __forceinline__ void sphere_centre(const T* __restrict__ pk,
                                               const Statics& s, int b, T time,
                                               SphereHit<T>& h) {
   const V3<T> c0 = ld3(pk, b + S_C0);
-  if (!s.has_moving) {
+  if (!(kMoving && s.has_moving)) {
     h.c = c0;
     h.frac = T(0);
     h.sp = T(1);
@@ -641,26 +715,259 @@ __device__ __forceinline__ int closest_medium(const T* __restrict__ pk,
   return best_b;
 }
 
+// --- cubic Bezier ribbons (bezier.scm:161-166 as redesigned in
+// ops/bezier.py; bounce.py _bezier_hit) ---------------------------------------
+// A ribbon is hit where the curve, projected into the plane across the ray,
+// passes within half its width of the ray: Newton on g'(s) = 0, g = |c(s)|^2,
+// from bez_seeds fixed seeds, bez_newton steps each, and the closest accepted
+// root.  g < hw2, zc > t_min and the minimum over seeds read values that a
+// fused form would move by an ulp, and a ribbon's edge flips on an ulp.  So
+// every product and sum of the probe, the frame and the march included, is
+// rounded on its own, in the plain step's order: t is the plain step's bit
+// for bit wherever rsqrt and the division agree (they are the card's own in
+// both).  One thread runs its lane's seeds and steps in registers.
+
+template <typename T>
+__device__ __forceinline__ T mul_(T a, T b) { return Math<T>::mul_rn(a, b); }
+template <typename T>
+__device__ __forceinline__ T add_(T a, T b) { return Math<T>::add_rn(a, b); }
+template <typename T>
+__device__ __forceinline__ T sub_(T a, T b) { return Math<T>::add_rn(a, -b); }
+template <typename T>
+__device__ __forceinline__ V3<T> cross_rn(V3<T> a, V3<T> b) {
+  return {sub_(mul_(a.y, b.z), mul_(a.z, b.y)),
+          sub_(mul_(a.z, b.x), mul_(a.x, b.z)),
+          sub_(mul_(a.x, b.y), mul_(a.y, b.x))};
+}
+
+// The ray-space frame of the probe: v = unit(d x a), u = v x d, with a the
+// x axis, or the y axis for a ray along x (`pick`); cr = d x a before it is
+// normalised (the adjoint reads it).
+template <typename T>
+struct BezierFrame {
+  V3<T> u, v, cr;
+  bool pick;
+};
+
+template <typename T>
+__device__ __forceinline__ BezierFrame<T> bezier_frame(V3<T> d) {
+  BezierFrame<T> f;
+  f.pick = Math<T>::abs(d.x) > T(0.9);
+  const V3<T> a = {f.pick ? T(0) : T(1), f.pick ? T(1) : T(0), T(0)};
+  f.cr = cross_rn(d, a);
+  const T q = dot_rn(f.cr, f.cr);
+  const T inv = Math<T>::rsqrt(q < T(1e-12) ? T(1e-12) : q);
+  f.v = {mul_(f.cr.x, inv), mul_(f.cr.y, inv), mul_(f.cr.z, inv)};
+  f.u = cross_rn(f.v, d);
+  return f;
+}
+
+// Bernstein control values -> power-basis coefficients (bounce.py
+// _bezier_power).
+template <typename T>
+__device__ __forceinline__ void bezier_power(T p0, T p1, T p2, T p3, T a[4]) {
+  a[0] = p0;
+  a[1] = mul_(T(3), sub_(p1, p0));
+  a[2] = mul_(T(3), add_(sub_(p0, mul_(T(2), p1)), p2));
+  a[3] = add_(sub_(add_(-p0, mul_(T(3), p1)), mul_(T(3), p2)), p3);
+}
+
+// The curve of bezier block b in the frame of ray (o, d): the power-basis
+// coefficients of its projections on u, v (across the ray) and d (along it).
+template <typename T>
+struct BezierCurve {
+  T ax[4], ay[4], az[4];
+};
+
+template <typename T>
+__device__ __forceinline__ void bezier_curve(const T* __restrict__ pk, int b,
+                                             V3<T> o, V3<T> d,
+                                             const BezierFrame<T>& f,
+                                             BezierCurve<T>& c) {
+  T cx[4], cy[4], cz[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const V3<T> rel = sub(ld3(pk, b + B_CP + 3 * k), o);
+    cx[k] = dot_rn(rel, f.u);
+    cy[k] = dot_rn(rel, f.v);
+    cz[k] = dot_rn(rel, d);
+  }
+  bezier_power(cx[0], cx[1], cx[2], cx[3], c.ax);
+  bezier_power(cy[0], cy[1], cy[2], cy[3], c.ay);
+  bezier_power(cz[0], cz[1], cz[2], cz[3], c.az);
+}
+
+// a0 + s (a1 + s (a2 + s a3)), each step rounded.
+template <typename T>
+__device__ __forceinline__ T horner_rn(const T a[4], T s) {
+  return add_(a[0], mul_(s, add_(a[1], mul_(s, add_(a[2], mul_(s, a[3]))))));
+}
+
+// g(s) = |c(s)|^2 of the projection c = (cx, cy), its first two derivatives
+// and 2 |c'|^2 (bounce.py _bezier_g_derivs, term for term).
+template <typename T>
+struct BezierG {
+  T cx, cy, cx1, cy1, cx2, cy2;
+  T g, dg, d2g, speed2;
+};
+
+template <typename T>
+__device__ __forceinline__ BezierG<T> bezier_g(const BezierCurve<T>& c, T s) {
+  BezierG<T> r;
+  r.cx = horner_rn(c.ax, s);
+  r.cy = horner_rn(c.ay, s);
+  r.cx1 = add_(c.ax[1], mul_(s, add_(mul_(T(2), c.ax[2]),
+                                     mul_(s, mul_(T(3), c.ax[3])))));
+  r.cy1 = add_(c.ay[1], mul_(s, add_(mul_(T(2), c.ay[2]),
+                                     mul_(s, mul_(T(3), c.ay[3])))));
+  r.cx2 = add_(mul_(T(2), c.ax[2]), mul_(s, mul_(T(6), c.ax[3])));
+  r.cy2 = add_(mul_(T(2), c.ay[2]), mul_(s, mul_(T(6), c.ay[3])));
+  r.g = add_(mul_(r.cx, r.cx), mul_(r.cy, r.cy));
+  r.dg = mul_(T(2), add_(mul_(r.cx, r.cx1), mul_(r.cy, r.cy1)));
+  r.speed2 = mul_(T(2), add_(mul_(r.cx1, r.cx1), mul_(r.cy1, r.cy1)));
+  r.d2g = add_(r.speed2, mul_(T(2), add_(mul_(r.cx, r.cx2),
+                                          mul_(r.cy, r.cy2))));
+  return r;
+}
+
+// Seed k of n: the converged, clipped root s of the march from (k + 0.5) / n,
+// the curve's distance zc along the ray there, and whether the ribbon is hit
+// at it within (t_min, big].  The implicit-function correction of the plain
+// step, s - (corr - corr.detach()), leaves s as it is, so g at the corrected
+// s is g at the root.
+template <typename T>
+__device__ __forceinline__ bool bezier_seed(const BezierCurve<T>& c, int k,
+                                            int n_seeds, int n_newton, T hw2,
+                                            T t_min, T big, T& s, T& zc) {
+  s = mul_(T(k) + T(0.5), T(1.0 / double(n_seeds)));
+  for (int it = 0; it < n_newton; ++it) {
+    const BezierG<T> r = bezier_g(c, s);
+    const T stepn = r.d2g > T(1e-12) ? r.dg / r.d2g : T(0);
+    s = sub_(s, stepn);
+    s = s < T(0) ? T(0) : s;
+    s = s > T(1) ? T(1) : s;
+  }
+  const BezierG<T> r = bezier_g(c, s);
+  zc = horner_rn(c.az, s);
+  return r.g < hw2 && zc > T(1e-4) && zc > t_min && zc <= big;
+}
+
+// What a bezier probe leaves for the backward: the root of the first seed
+// that reached the closest distance t, how many seeds reached that very t
+// (`ties`; the plain step's minimum folds them in seed order and splits the
+// cotangent at each equal pair), and whether all of them did so at that
+// very s.
+template <typename T>
+struct BezierHit {
+  T t, s;
+  int ties;
+  bool same_s;
+};
+
+// The JAX bezier_probe's candidate: true when the ribbon at block b is hit.
+template <typename T>
+__device__ __forceinline__ bool bezier_probe(const T* __restrict__ pk,
+                                             const Statics& st, int b,
+                                             V3<T> o, V3<T> d,
+                                             const BezierFrame<T>& f, T t_min,
+                                             T big, BezierHit<T>& h) {
+  if (!(ld(pk, b + B_VALID) > T(0.5))) return false;
+  BezierCurve<T> c;
+  bezier_curve<T>(pk, b, o, d, f, c);
+  const T half_w = ld(pk, b + B_W) * T(0.5);
+  const T hw2 = mul_(half_w, half_w);
+  h.t = big;
+  h.s = T(0);
+  h.ties = 0;
+  h.same_s = true;
+  for (int k = 0; k < st.bez_seeds; ++k) {
+    T s, zc;
+    if (!bezier_seed<T>(c, k, st.bez_seeds, st.bez_newton, hw2, t_min, big, s,
+                        zc))
+      continue;
+    if (zc < h.t) {
+      h.t = zc;
+      h.s = s;
+      h.ties = 1;
+      h.same_s = true;
+    } else if (zc == h.t) {
+      ++h.ties;
+      h.same_s = h.same_s && s == h.s;
+    }
+  }
+  return h.t < big;
+}
+
+// The bezier sweep, after the spheres, in pack order with the strict `<`.
+// Returns the winning ribbon's pk offset, or -1 when none beats best_t; `win`
+// is then its probe's record.
+template <typename T>
+__device__ __forceinline__ int closest_bezier(const T* __restrict__ pk,
+                                              const Statics& s, V3<T> o,
+                                              V3<T> d, T t_min, T t_max,
+                                              T& best_t, BezierHit<T>& win) {
+  int best_b = -1;
+  const BezierFrame<T> f = bezier_frame(d);
+  for (int j = 0; j < s.n_beziers; ++j) {
+    const int b = s.bez_base + j * BEZ_SIZE;
+    BezierHit<T> h;
+    if (bezier_probe<T>(pk, s, b, o, d, f, t_min, t_max, h) &&
+        h.t < best_t) {
+      best_t = h.t;
+      best_b = b;
+      win = h;
+    }
+  }
+  return best_b;
+}
+
+// What the closest hit leaves for the backward, beside the winner: the
+// winning medium's or ribbon's probe record.
+template <typename T>
+struct HitExtra {
+  MediumHit<T> med;
+  BezierHit<T> bez;
+};
+
 // The closest hit over the groups: the winner's pk offset (-1 on a miss),
-// its t in best_t and its kind (kRect, kSphere, kMedium).  The media are
-// probed for live lanes only: a dead lane's hit is never read.
+// its t in best_t and its kind (kRect, kSphere, kBezier, kMedium).  The
+// ribbons and the media are probed for live lanes only: a dead lane's hit is
+// never read.
 template <typename T>
 __device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
                                            const Statics& s, uint32_t item,
                                            int depth, bool alive, V3<T> o,
                                            V3<T> d, T time, T t_min, T t_max,
                                            T& best_t, int& kind,
-                                           MediumHit<T>& mh) {
-  const int rect_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t);
-  const int sph_b = closest_sphere<T>(pk, s, o, d, time, t_min, t_max, best_t);
-  kind = sph_b >= 0 ? kSphere : kRect;
-  int best_b = sph_b >= 0 ? sph_b : rect_b;
-  if (s.n_media > 0 && alive) {
-    const int med_b = closest_medium<T>(pk, s, item, depth, o, d, t_min,
-                                        t_max, best_t, mh);
-    if (med_b >= 0) {
-      kind = kMedium;
-      best_b = med_b;
+                                           HitExtra<T>& ex) {
+  int best_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t);
+  kind = kRect;
+  if constexpr (kSpheres) {
+    const int sph_b =
+        closest_sphere<T>(pk, s, o, d, time, t_min, t_max, best_t);
+    if (sph_b >= 0) {
+      kind = kSphere;
+      best_b = sph_b;
+    }
+  }
+  if constexpr (kBeziers) {
+    if (alive) {
+      const int bez_b =
+          closest_bezier<T>(pk, s, o, d, t_min, t_max, best_t, ex.bez);
+      if (bez_b >= 0) {
+        kind = kBezier;
+        best_b = bez_b;
+      }
+    }
+  }
+  if constexpr (kMedia) {
+    if (alive) {
+      const int med_b = closest_medium<T>(pk, s, item, depth, o, d, t_min,
+                                          t_max, best_t, ex.med);
+      if (med_b >= 0) {
+        kind = kMedium;
+        best_b = med_b;
+      }
     }
   }
   return best_b;
@@ -809,7 +1116,7 @@ __device__ __forceinline__ T marble_arg(const Statics& s, V3<T> p, T ts) {
 // The winner's surface coordinates, computed once, for the winner only: a
 // rect's from its in-plane edge ranges (ops/rect.py), a sphere's from the
 // outward unit normal wn sign(r) (ops/sphere.py sphere_uv, with the card's
-// atan2), and (0, 0) for a medium.
+// atan2), and (0, 0) for a ribbon or a medium.
 template <typename T>
 __device__ __forceinline__ void surface_uv(const T* __restrict__ pk, int kind,
                                            int b, V3<T> o, V3<T> d, T t,
@@ -822,7 +1129,7 @@ __device__ __forceinline__ void surface_uv(const T* __restrict__ pk, int kind,
     const T a0 = ld(pk, b + R_KA0), b0 = ld(pk, b + R_KB0);
     u = (pa - a0) / (ld(pk, b + R_KA1) - a0);
     v = (pb - b0) / (ld(pk, b + R_KB1) - b0);
-  } else if (kind == kSphere) {
+  } else if (kSpheres && kind == kSphere) {
     const T sgn = rr > T(0) ? T(1) : (rr < T(0) ? T(-1) : T(0));
     const T nux = wn.x * sgn, nuy = wn.y * sgn, nuz = wn.z * sgn;
     const T phi = Math<T>::atan2(nuz, nux);
@@ -872,16 +1179,16 @@ __device__ __forceinline__ V3<T> albedo(const T* __restrict__ pk,
                                         int b, V3<T> o, V3<T> d, T t, V3<T> p,
                                         V3<T> wn, T rr) {
   const T texk = ld(pk, mat + kTexk);
-  if (s.has_perlin && texk == T(TEX_NOISE)) {
+  if (kPerlin && texk == T(TEX_NOISE)) {
     const T g = noise_gray<T>(s, p, ld(pk, mat + kTexs));
     return {g, g, g};
   }
-  if (s.has_perlin && texk == T(TEX_MARBLE)) {
+  if (kPerlin && texk == T(TEX_MARBLE)) {
     const T g = T(0.5) * (T(1) + Math<T>::sin(
                                      marble_arg<T>(s, p, ld(pk, mat + kTexs))));
     return {g, g, g};
   }
-  if (s.img_rows > 0 && texk == T(TEX_IMAGE)) {
+  if (kImage && texk == T(TEX_IMAGE)) {
     T u, v;
     int idx[3];
     surface_uv<T>(pk, kind, b, o, d, t, wn, rr, u, v);
@@ -917,10 +1224,10 @@ __device__ __forceinline__ T schlick_prob(T ref_idx, T cosine, bool refr_ok) {
 }
 
 // One bounce of one lane (bounce.py:step): regenerate a fresh lane's camera
-// ray, sweep the rects and the spheres for the closest hit, let a medium
+// ray, sweep the rects, spheres and ribbons for the closest hit, let a medium
 // scatter before it, add the sky on a miss and the emission on a hit, and
 // scatter by the winner's material (a sphere's normal comes from its hit
-// point, a medium's is (1, 0, 0)).  `atlas` holds the image texels (null
+// point, a ribbon's is -d, a medium's is (1, 0, 0)).  `atlas` holds the image texels (null
 // for a plan without image textures).  o, d, time, rad and tp are updated in
 // place; returns `scattering`.  Lanes that cannot scatter (dead, missed, at
 // the bounce cap) skip the shading, and only the winning material's rule
@@ -940,13 +1247,13 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
     tp = {T(1), T(1), T(1)};
   }
 
-  // --- closest hit: rects, spheres, then media, in pack order
+  // --- closest hit: rects, spheres, ribbons, then media, in pack order
   // (geometry.scm:33-50, 545-578)
   T best_t;
   int kind;
-  MediumHit<T> mh;
+  HitExtra<T> ex;
   const int best_b = closest_hit<T>(pk, s, item, depth, alive, o, d, time,
-                                    t_min, t_max, best_t, kind, mh);
+                                    t_min, t_max, best_t, kind, ex);
   const bool hit = best_b >= 0;
   const T t_eff = hit ? best_t : T(0);          // miss: p = o
   const V3<T> p = ray_at(o, t_eff, d);
@@ -965,13 +1272,15 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
   if (alive && hit) {
     V3<T> wn = {T(1), T(0), T(0)};                // a medium's
     T rr = T(1);
-    if (kind == kSphere) {
+    if (kSpheres && kind == kSphere) {
       SphereHit<T> h;
       sphere_centre<T>(pk, s, best_b, time, h);
       rr = ld(pk, best_b + S_R);
       wn = sphere_normal(p, h.c, rr);
     } else if (kind == kRect) {
       wn = ld3(pk, best_b + R_WN);
+    } else if (kBeziers && kind == kBezier) {
+      wn = {-d.x, -d.y, -d.z};                    // B11: normal = -ray dir
     }
     const int mat = best_b + mat_offset(kind);
     const T mtype = ld(pk, mat);

@@ -3,11 +3,11 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_packed
-// with the coverage of bounce_step.cu (rects, spheres, media, every texture
-// kind): one
-// bounce of every lane plus the strided work re-issue (a lane whose path
-// terminates takes the item m further on), on the whole pool state held in
-// one [N_PACKED, m] float32 array with the int fields stored as their bits.
+// with the coverage of bounce_step.cu (rects, spheres, bezier ribbons, media,
+// every texture kind), built per feature set as it is: one bounce of every
+// lane plus the strided work re-issue (a lane whose path terminates takes the
+// item m further on), on the whole pool state held in one [N_PACKED, m]
+// float32 array with the int fields stored as their bits.
 // Its plain PyTorch twin is scheme_raytrace_torch/integrator/
 // bounce.py:step_packed, built on the plain step.
 //
@@ -77,6 +77,7 @@ extern "C" int srt_bounce_packed(void* const* ptrs, int m, int n_work,
   prm.st_out = static_cast<float*>(ptrs[3]);
   prm.atlas = static_cast<const float*>(ptrs[4]);
   prm.s = SRT_STATICS(m);
+  if (!features_cover(prm.s)) return int(cudaErrorInvalidValue);
   prm.q = Queue{m, n_work, n_pix, pix0, total_pix};
   prm.t_min = float(t_min);
   prm.t_max = float(t_max);

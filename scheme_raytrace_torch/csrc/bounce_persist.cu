@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/persist.py:_make_call (body _kernel)
-// with the coverage of bounce_step.cu (rects, spheres, media, every texture
-// kind).  It
+// with the coverage of bounce_step.cu (rects, spheres, bezier ribbons, media,
+// every texture kind), built per feature set as it is.  It
 // takes the packed pool state (bounce_packed.cu's [N_PACKED, m] float32
 // layout) and returns the state after T iterations, the T flush rows
 // ([T, 4, m] float32: the finished path's pixel as int32 bits, -1 where the
@@ -118,6 +118,7 @@ extern "C" int srt_bounce_persist(void* const* ptrs, int T, int m,
   prm.atlas = static_cast<const float*>(ptrs[6]);
   prm.T = T;
   prm.s = SRT_STATICS(m);
+  if (!features_cover(prm.s)) return int(cudaErrorInvalidValue);
   prm.q = Queue{m, n_work, n_pix, pix0, total_pix};
   prm.t_min = float(t_min);
   prm.t_max = float(t_max);

@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU megakernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas  (its body: step)
-// for ROADMAP B1.1-B1.5: regeneration of fresh lanes' camera rays from
-// PCG4D draws, the oriented-plane rect sweep and the sphere sweep (static
-// and moving spheres, any count) with the closest-hit material pick,
-// constant media that scatter before the closest solid hit, the sky on a
+// for ROADMAP B1.1-B1.6: regeneration of fresh lanes' camera rays from
+// PCG4D draws, the oriented-plane rect sweep, the sphere sweep (static and
+// moving spheres, any count) and the bezier ribbons' Newton-on-seeds probe
+// with the closest-hit material pick, constant media that scatter before
+// the closest solid hit, the sky on a
 // miss, constant, checker, hash-Perlin noise and marble and image-texel
 // albedo, emission, mixture-PDF light sampling over xz-rect and sphere
 // lights (or the plain cosine lobe), and the lambertian / metal /
@@ -60,7 +61,12 @@
 // of a warp reads the same sphere row, which the cache broadcasts.  A marble
 // hit adds 56 lattice hashes (about 3 k integer and float operations), a
 // medium three slab intervals, a log and one PCG4D group per four media.
-// PERF.md holds what was measured.
+// A bezier ribbon costs a live lane bez_seeds x (bez_newton + 1)
+// evaluations of g and its derivatives, about 60 unfused operations and a
+// division each: 17 k operations a ribbon at 32 seeds of 8 steps, which
+// bounds every bezier scene by operations.  The kernel is built per feature
+// set (bounce_common.cuh): a variant holds the code of the groups its plan
+// has.  PERF.md holds what was measured.
 
 #include "bounce_common.cuh"
 
@@ -139,11 +145,13 @@ int launch(void* const* ptrs, const Statics& s, double t_min, double t_max,
 // float lane columns (inputs); the 13 float columns and scattering
 // (outputs); the image texel atlas (null when img_rows is 0).  Launches on
 // `stream` without synchronising and returns cudaGetLastError()
-// (0 = launched).
+// (0 = launched), or cudaErrorInvalidValue for a plan that this variant's
+// feature set does not cover.
 extern "C" int srt_bounce_step(int is_f64, void* const* ptrs, int m,
                                SRT_SCENE_PARAMS, void* stream) {
   if (m <= 0) return 0;
   const Statics s = SRT_STATICS(m);
+  if (!features_cover(s)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch<double>(ptrs, s, t_min, t_max, st)
                 : launch<float>(ptrs, s, t_min, t_max, st);

@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_bwd
-// with the coverage of bounce_step.cu (ROADMAP B2.1-B2.4: rects, spheres,
-// moving spheres, any sphere count, constant media, Perlin and image
-// textures).  Given the step's INPUTS and the cotangents of its five float
+// with the coverage of bounce_step.cu (ROADMAP B2.1-B2.5: rects, spheres,
+// moving spheres, any sphere count, bezier ribbons, constant media, Perlin
+// and image textures), built per feature set as it is (bounce_common.cuh).  Given the step's INPUTS and the cotangents of its five float
 // outputs (o', d', time', rad', tp'), it returns the cotangents of (pk, the
 // image texels, o, d, time, rad, tp): the exact vector-Jacobian product of
 // scheme_raytrace_torch/integrator/bounce.py:step, whose plain VJP
@@ -33,6 +33,23 @@
 // o and d (a box) or to the centre and radius (a sphere boundary); its exit
 // and the solid hit enter comparisons only.
 //
+// Bezier ribbons.  The march of the seeds carries no gradient.  A winning
+// ribbon's t is the curve's distance zc(s) along the ray at the root s of
+// g'(s) = 0, and the plain step attaches the root's implicit derivative,
+// ds = -d(g' / max(g'', 0.05 |c'|^2 + 1e-12)) at fixed s.  So t's cotangent
+// goes through zc's coefficients and through that quotient (the floor's
+// maximum splits at a tie, max_adj) into the curve's power-basis
+// coefficients, from them into the four control points, o and d, and through
+// the projections into the ray-space frame u = v x d, v = unit(d x a), which
+// is a function of d.  The normal -d sends its cotangent to d.  The width
+// enters g < hw2 only and takes none.  Several seeds usually reach one root:
+// the plain step folds the minimum over seeds in seed order, and each equal
+// pair splits the cotangent, so n seeds at one t weigh 2^-(n-1), 2^-(n-1),
+// 2^-(n-2), ..., 1/2 in seed order.  Where all of them sit at one s, bit for
+// bit, their parts are equal and the kernel takes the first seed with weight
+// one, which is exact; otherwise it marches the seeds again and weighs each
+// seed at the winning t as the fold does (bezier_adj).
+//
 // Image texels.  The TPU kernel refuses image plans in reverse mode (its
 // texel gather has no transpose there).  Here the albedo cotangent of a
 // lane whose winner carries an image goes to the atlas: the texel index
@@ -54,13 +71,16 @@
 // into its row of the (blocks, P) partials in global memory (a list's
 // winners are distinct, so one warp's entries go in parallel), and the
 // wrapper sums the rows over blocks.  Shared memory does not depend on P
-// (41 KB in f64: 18 slots a winner), no float atomics: two identical
-// launches give bitwise-equal partials, and a scene without spheres gets the
-// sums it got from the [warps, P] form.  Light slots are recomputed per
+// (at most 40 KB in f64, with 18 slots a winner), no float atomics: two
+// identical launches give bitwise-equal partials, and a scene without
+// spheres gets the sums it got from the [warps, P] form.  Light slots are recomputed per
 // light in the reduction (the light count is a runtime value) instead of
-// being kept, and so are a medium's 20 geometry slots, per medium: a lane
-// keeps its ray and its t cotangent, not the slots, and a medium winner's
-// list entry carries its material slots only.
+// being kept, and so are a medium's 20 geometry slots, per medium, and a
+// ribbon's 12 control-point slots, per ribbon: a lane keeps its ray and its t
+// cotangent, not the slots, and a medium's or a ribbon's list entry carries
+// its material slots only.  A variant without moving spheres keeps 13 slots
+// a winner, not 18, and one without media, ribbons or image textures leaves
+// out their arrays.
 //
 // Conventions.  Every clamp of the plain step is a maximum (or a clip), and
 // its adjoint goes through max_adj: at a tie the cotangent splits 0.5/0.5,
@@ -366,6 +386,116 @@ __device__ void medium_adj(const T* __restrict__ pk, int b, V3<T> o, V3<T> d,
   }
 }
 
+// The cotangents of a ribbon's power-basis coefficients from one seed: the
+// cotangent g of zc(s) at the seed's root s, through zc's own coefficients
+// and, for an interior root, through the implicit derivative of the root,
+// s - (corr - stop(corr)) with corr = g' / max(g'', 0.05 |c'|^2 + 1e-12).
+template <typename T>
+__device__ __forceinline__ void bezier_seed_adj(const BezierCurve<T>& c, T s,
+                                                T g, T gax[4], T gay[4],
+                                                T gaz[4]) {
+  const T s2 = s * s, s3 = s2 * s;
+  gaz[0] += g;
+  gaz[1] += g * s;
+  gaz[2] += g * s2;
+  gaz[3] += g * s3;
+  if (!(s > T(0) && s < T(1))) return;          // corr is the constant 0
+  const T g_corr =
+      -g * (c.az[1] + s * (T(2) * c.az[2] + T(3) * s * c.az[3]));
+  const BezierG<T> r = bezier_g(c, s);          // at the root, s fixed
+  const T floor_ = add_(mul_(T(0.05), r.speed2), T(1e-12));
+  const T safe = r.d2g < floor_ ? floor_ : r.d2g;
+  const T g_dg = g_corr / safe;
+  const T g_safe = -g_corr * r.dg / (safe * safe);
+  const T g_d2g = max_adj(r.d2g, floor_, g_safe);
+  const T g_sp = T(0.05) * max_adj(floor_, r.d2g, g_safe) + g_d2g;
+  // g' = 2 c.c', |c'|^2 term 2 c'.c', g'' = that + 2 c.c''; per axis
+  const T cv[2][3] = {{r.cx, r.cx1, r.cx2}, {r.cy, r.cy1, r.cy2}};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    T* ga = a == 0 ? gax : gay;
+    const T g_c = T(2) * (g_d2g * cv[a][2] + g_dg * cv[a][1]);
+    const T g_c1 = T(4) * g_sp * cv[a][1] + T(2) * g_dg * cv[a][0];
+    const T g_c2 = T(2) * g_d2g * cv[a][0];
+    ga[0] += g_c;
+    ga[1] += g_c * s + g_c1;
+    ga[2] += g_c * s2 + T(2) * s * g_c1 + T(2) * g_c2;
+    ga[3] += g_c * s3 + T(3) * s2 * g_c1 + T(6) * s * g_c2;
+  }
+}
+
+// The control-point slots of a bezier block, B_CP .. B_CP + 11.
+constexpr int kBezSlots = 12;
+
+// Reverse of a winning ribbon's t in o, d and the control points of bezier
+// block b, for t's cotangent g_t: adds to g_o, g_d and gb (indexed from
+// B_CP).  h is the probe's record of the winner (t, the first seed's root,
+// the seeds tied at t).  Replays the frame and the curve, and the march as
+// well where tied seeds sit at different roots.
+template <typename T>
+__device__ __noinline__ void bezier_adj(const T* __restrict__ pk,
+                                        const Statics& st, int b, V3<T> o,
+                                        V3<T> d, T t_min, T big,
+                                        BezierHit<T> h, T g_t, V3<T>& g_o,
+                                        V3<T>& g_d, T gb[kBezSlots]) {
+  const BezierFrame<T> f = bezier_frame(d);
+  BezierCurve<T> c;
+  bezier_curve<T>(pk, b, o, d, f, c);
+  T ga[3][4];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ga[a][k] = T(0);
+  if (h.ties <= 1 || h.same_s) {
+    bezier_seed_adj(c, h.s, g_t, ga[0], ga[1], ga[2]);
+  } else {
+    // the fold's weights, in seed order: 2^-(n-1), 2^-(n-1), ..., 1/4, 1/2
+    const T half_w = ld(pk, b + B_W) * T(0.5);
+    const T hw2 = mul_(half_w, half_w);
+    int seen = 0;
+    for (int k = 0; k < st.bez_seeds; ++k) {
+      T s, zc;
+      if (!bezier_seed<T>(c, k, st.bez_seeds, st.bez_newton, hw2, t_min, big,
+                          s, zc) || zc != h.t)
+        continue;
+      ++seen;
+      T w = T(1);
+      for (int e = h.ties - (seen < 2 ? 2 : seen) + 1; e > 0; --e)
+        w *= T(0.5);
+      bezier_seed_adj(c, s, g_t * w, ga[0], ga[1], ga[2]);
+    }
+  }
+  // power basis -> Bernstein control values (bezier_power), per axis; then
+  // the projections rel_k . u, rel_k . v, rel_k . d with rel_k = cp_k - o
+  V3<T> g_u = {T(0), T(0), T(0)}, g_v = g_u;
+  T gp[3][4];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    gp[a][0] = ga[a][0] - T(3) * ga[a][1] + T(3) * ga[a][2] - ga[a][3];
+    gp[a][1] = T(3) * ga[a][1] - T(6) * ga[a][2] + T(3) * ga[a][3];
+    gp[a][2] = T(3) * ga[a][2] - T(3) * ga[a][3];
+    gp[a][3] = ga[a][3];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const V3<T> rel = sub(ld3(pk, b + B_CP + 3 * k), o);
+    const V3<T> g_rel = add(add(scale(f.u, gp[0][k]), scale(f.v, gp[1][k])),
+                            scale(d, gp[2][k]));
+    gb[3 * k] += g_rel.x;
+    gb[3 * k + 1] += g_rel.y;
+    gb[3 * k + 2] += g_rel.z;
+    g_o = sub(g_o, g_rel);
+    g_u = add(g_u, scale(rel, gp[0][k]));
+    g_v = add(g_v, scale(rel, gp[1][k]));
+    g_d = add(g_d, scale(rel, gp[2][k]));
+  }
+  // the frame: u = v x d, v = unit(cr), cr = d x a
+  g_v = add(g_v, cross(d, g_u));
+  g_d = add(g_d, cross(g_u, f.v));
+  const V3<T> a = {f.pick ? T(0) : T(1), f.pick ? T(1) : T(0), T(0)};
+  g_d = add(g_d, cross(a, unit_adj(f.cr, g_v)));
+}
+
 // Sum over the warp in a fixed butterfly order; every lane gets the sum.
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -410,8 +540,10 @@ struct LaneGrads {
   V3<T> alb;         // -> the material's ALB0, or ALB1 when odd
   T fuzz, ref, texs; // -> its FUZZ, REF and TEXS
   bool med;          // the winner is a medium whose t takes cotangent
-  V3<T> mo, md;      // its ray
-  T m_lx, m_gt;      // its log(xi) and t's cotangent
+  V3<T> mo, md;      // its ray (a winning ribbon's too)
+  T m_lx, m_gt;      // its log(xi) and t's cotangent (a ribbon's t's too)
+  bool bez;          // the winner is a ribbon
+  BezierHit<T> bh;   // its probe's record
   bool lam_ls;       // a light-sampled lambertian scatter
   V3<T> lp, ldir;    // its hit point and direction
   T g_lv;            // the cotangent of each light's lights_value term
@@ -452,11 +584,12 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
   }
   T best_t;
   int kind;
-  MediumHit<T> mh;
+  HitExtra<T> ex;
   const int b = closest_hit<T>(pk, s, item, depth, alive, o, d, time,
-                               prm.t_min, prm.t_max, best_t, kind, mh);
+                               prm.t_min, prm.t_max, best_t, kind, ex);
   const bool hit = b >= 0;
-  const bool sph = hit && kind == kSphere;
+  const bool sph = kSpheres && hit && kind == kSphere;
+  const bool bez = kBeziers && hit && kind == kBezier;
   const T t_eff = hit ? best_t : T(0);
   const V3<T> p = ray_at(o, t_eff, d);
   // the winner's normal; a sphere's probe is replayed for the adjoint
@@ -469,6 +602,8 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
     wn = sphere_normal(p, sh.c, rr);
   } else if (hit && kind == kRect) {
     wn = ld3(pk, b + R_WN);
+  } else if (bez) {
+    wn = {-d.x, -d.y, -d.z};                    // a ribbon's: -ray dir
   } else if (hit) {
     wn = {T(1), T(0), T(0)};                    // a medium's
   }
@@ -476,9 +611,9 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
   // the winner's texture kind: noise, marble and image albedos are not pk
   // slots, and their cotangent goes elsewhere (below)
   const T texk = hit ? ld(pk, mat + kTexk) : T(0);
-  const bool noise = s.has_perlin && texk == T(TEX_NOISE);
-  const bool marble = s.has_perlin && texk == T(TEX_MARBLE);
-  const bool image = s.img_rows > 0 && texk == T(TEX_IMAGE);
+  const bool noise = kPerlin && texk == T(TEX_NOISE);
+  const bool marble = kPerlin && texk == T(TEX_MARBLE);
+  const bool image = kImage && texk == T(TEX_IMAGE);
 
   // --- the scatter and its adjoint (material.scm), then the selects ----
   // rad' = rad + sky + emission, so rad's cotangent passes through.
@@ -694,7 +829,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
       g_o = add(g_o, g_oc);
       g_c = sub(g_c, g_oc);
       c.k = g_r;
-      if (s.has_moving) {
+      if (kMoving && s.has_moving) {
         // c = c0 + frac (c1 - c0), frac = (time - t0) / sp, sp = span or 1
         const V3<T> dc = sub(ld3(pk, b + S_C1), ld3(pk, b + S_C0));
         c.wn = scale(g_c, T(1) - sh.frac);
@@ -710,18 +845,32 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
       } else {
         c.wn = g_c;
       }
-    } else if (kind == kMedium) {
+    } else if (kMedia && kind == kMedium) {
       // t = t1 + nid log(xi); its slots are redone in the block reduction
       c.med = true;
       c.mo = o;
       c.md = d;
-      c.m_lx = mh.lx;
+      c.m_lx = ex.med.lx;
       c.m_gt = g_t;
       T gm[kMedSlots];
 #pragma unroll
       for (int k = 0; k < kMedSlots; ++k) gm[k] = T(0);
-      medium_adj<T>(pk, b, o, d, prm.t_min, prm.t_max, mh.lx, g_t, g_o, g_d,
-                    gm);
+      medium_adj<T>(pk, b, o, d, prm.t_min, prm.t_max, ex.med.lx, g_t, g_o,
+                    g_d, gm);
+    } else if (bez) {
+      // the normal -d; t = zc(s) at the root of g'.  The control points'
+      // slots are redone in the block reduction
+      g_d = sub(g_d, g_wn);
+      c.bez = true;
+      c.mo = o;
+      c.md = d;
+      c.m_gt = g_t;
+      c.bh = ex.bez;
+      T gb[kBezSlots];
+#pragma unroll
+      for (int k = 0; k < kBezSlots; ++k) gb[k] = T(0);
+      bezier_adj<T>(pk, s, b, o, d, prm.t_min, prm.t_max, ex.bez, g_t, g_o,
+                    g_d, gb);
     } else {
       // t = (K - o.wn) / (d.wn); the normal is a pk leaf
       const T dn = dot(d, wn);
@@ -788,16 +937,30 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
 // the geometry vector (R_WN, a sphere's S_C0), the geometry scalar (R_K,
 // S_R), ALB0, ALB1, FUZZ, REF, TEXS, and for a sphere of a moving scene
 // S_C1, S_T0 and S_T1.  A rect, or a sphere of a static scene, uses the
-// first kRectSlots; a medium the material slots among them, from kGeomSlots
-// on (its geometry slots are redone per medium, see medium_adj).
-constexpr int kSlots = 18;
+// first kRectSlots; a medium or a ribbon the material slots among them, from
+// kGeomSlots on (their geometry slots are redone per medium and per ribbon,
+// see medium_adj and bezier_adj).  A variant without moving spheres keeps
+// the first kRectSlots only.
+constexpr int kAllSlots = 18;
 constexpr int kRectSlots = 13;
 constexpr int kGeomSlots = 4;
+constexpr int kSlots = kMoving ? kAllSlots : kRectSlots;
+
+// The per-warp sums of one medium's or one ribbon's geometry slots share an
+// array.
+static_assert(kBezSlots <= kMedSlots, "a ribbon's slots fit a medium's array");
 
 // The kind of the winner at pk offset b (pack order: rects, spheres,
-// lights, media).
+// lights, media, ribbons).
 __device__ __forceinline__ int win_kind(const Statics& s, int b) {
-  return b >= s.med_base ? kMedium : (b >= s.sph_base ? kSphere : kRect);
+  if (kBeziers && b >= s.bez_base) return kBezier;
+  if (kMedia && b >= s.med_base) return kMedium;
+  return kSpheres && b >= s.sph_base ? kSphere : kRect;
+}
+
+// True for the winners whose list entry carries material slots only.
+__device__ __forceinline__ bool material_only(int kind) {
+  return kind == kMedium || kind == kBezier;
 }
 
 // Entry slot j of a winner of `kind` -> its offset in the winner's pk block.
@@ -820,15 +983,17 @@ __global__ void __launch_bounds__(kThreads)
 bounce_step_bwd_kernel(const BwdParams<T> prm) {
   __shared__ T s_hdr[kWarps][HDR_SIZE];        // warp sums of the header
   __shared__ T s_lgt[kWarps][LGT_SIZE];        // and of one light's slots
-  __shared__ T s_med[kWarps][kMedSlots];       // and of one medium's
+  // and of one medium's or one ribbon's geometry slots
+  __shared__ T s_med[kMedia || kBeziers ? kWarps : 1][kMedSlots];
   __shared__ T s_val[kWarps][32][kSlots];      // each warp's winner list,
   __shared__ int s_win[kWarps][32];            // and then its texel list
-  __shared__ int s_tix[kWarps][32][2];         // a texel's channels 1 and 2
+  // a texel's channels 1 and 2
+  __shared__ int s_tix[kImage ? kWarps : 1][32][2];
   __shared__ int s_n[kWarps];
   const Statics& s = prm.s;
   const T* __restrict__ pk = prm.pk;
   const int P = prm.P;
-  const int A = s.img_rows * 128;              // the atlas's texels
+  const int A = kImage ? s.img_rows * 128 : 0;   // the atlas's texels
   T* part = prm.dpk_part + size_t(blockIdx.x) * (P + A);   // this block's row
   for (int k = threadIdx.x; k < P + A; k += kThreads) part[k] = T(0);
 
@@ -854,11 +1019,11 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
     const int b = __shfl_sync(kFullMask, c.win, __ffs(todo) - 1);
     const bool mine = c.win == b;
     todo &= ~__ballot_sync(kFullMask, mine);
-    const bool moving = win_kind(s, b) == kSphere && s.has_moving;
+    const bool moving = kMoving && win_kind(s, b) == kSphere && s.has_moving;
     const T z = T(0);
     const V3<T> a0 = mine && !c.odd ? c.alb : V3<T>{z, z, z};
     const V3<T> a1 = mine && c.odd ? c.alb : V3<T>{z, z, z};
-    const T vals[kSlots] = {
+    const T vals[kAllSlots] = {
         mine ? c.wn.x : z, mine ? c.wn.y : z, mine ? c.wn.z : z,
         mine ? c.k : z, a0.x, a0.y, a0.z, a1.x, a1.y, a1.z,
         mine ? c.fuzz : z, mine ? c.ref : z, mine ? c.texs : z,
@@ -887,16 +1052,16 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
     for (int e = threadIdx.x; e < s_n[w] * kSlots; e += kThreads) {
       const int b = s_win[w][e / kSlots], j = e % kSlots;
       const int kind = win_kind(s, b);
-      if (kind == kMedium ? (j >= kGeomSlots && j < kRectSlots)
-                          : (j < kRectSlots ||
-                             (kind == kSphere && s.has_moving)))
+      if (material_only(kind) ? (j >= kGeomSlots && j < kRectSlots)
+                              : (j < kRectSlots ||
+                                 (kind == kSphere && s.has_moving)))
         part[b + win_slot(kind, j)] += s_val[w][e / kSlots][j];
     }
     __syncthreads();
   }
 
   // --- the atlas's texels: a list of distinct texels per warp, as above ---
-  if (A > 0 && __syncthreads_or(c.tex[0] >= 0)) {
+  if (kImage && A > 0 && __syncthreads_or(c.tex[0] >= 0)) {
     n = 0;
     todo = __ballot_sync(kFullMask, c.tex[0] >= 0);
     while (todo) {                     // texels in order of their first lane
@@ -932,7 +1097,7 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
   }
 
   // --- the media's geometry slots, one medium at a time -------------------
-  if (s.n_media > 0 && __syncthreads_or(c.med)) {
+  if (kMedia && s.n_media > 0 && __syncthreads_or(c.med)) {
     for (int mi = 0; mi < s.n_media; ++mi) {
       const int b = s.med_base + mi * MED_SIZE;
       const bool mine = c.med && c.win == b;
@@ -957,6 +1122,37 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
         T acc = s_med[0][threadIdx.x];
         for (int w = 1; w < kWarps; ++w) acc += s_med[w][threadIdx.x];
         part[b + M_AX + threadIdx.x] = acc;
+      }
+      __syncthreads();
+    }
+  }
+
+  // --- the ribbons' control points, one ribbon at a time ------------------
+  if (kBeziers && s.n_beziers > 0 && __syncthreads_or(c.bez)) {
+    for (int j = 0; j < s.n_beziers; ++j) {
+      const int b = s.bez_base + j * BEZ_SIZE;
+      const bool mine = c.bez && c.win == b;
+      if (__any_sync(kFullMask, mine)) {
+        T gb[kBezSlots];
+#pragma unroll
+        for (int k = 0; k < kBezSlots; ++k) gb[k] = T(0);
+        V3<T> scratch_o = {T(0), T(0), T(0)}, scratch_d = scratch_o;
+        if (mine)
+          bezier_adj<T>(pk, s, b, c.mo, c.md, prm.t_min, prm.t_max, c.bh,
+                        c.m_gt, scratch_o, scratch_d, gb);
+#pragma unroll
+        for (int k = 0; k < kBezSlots; ++k) {
+          const T v = warp_sum(gb[k]);
+          if (lane == 0) s_med[warp][k] = v;
+        }
+      } else if (lane < kBezSlots) {
+        s_med[warp][lane] = T(0);
+      }
+      __syncthreads();
+      if (threadIdx.x < kBezSlots) {
+        T acc = s_med[0][threadIdx.x];
+        for (int w = 1; w < kWarps; ++w) acc += s_med[w][threadIdx.x];
+        part[b + B_CP + threadIdx.x] = acc;
       }
       __syncthreads();
     }
@@ -1028,11 +1224,13 @@ int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
 // outputs; the (ceil(m / 256), P + img_rows * 128) partials of the pk and
 // atlas cotangents; the 13 lane cotangents (outputs); the image texel atlas
 // (null when img_rows is 0).  Launches on `stream` without synchronising and
-// returns the CUDA error (0 = launched).
+// returns the CUDA error (0 = launched; cudaErrorInvalidValue for a plan that
+// this variant's feature set does not cover).
 extern "C" int srt_bounce_step_bwd(int is_f64, void* const* ptrs, int m,
                                    int P, SRT_SCENE_PARAMS, void* stream) {
   if (m <= 0) return 0;
   const Statics s = SRT_STATICS(m);
+  if (!features_cover(s)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_bwd<double>(ptrs, s, P, t_min, t_max, st)
                 : launch_bwd<float>(ptrs, s, P, t_min, t_max, st);

@@ -9,8 +9,12 @@
 // and bool carries in nested loops, a bool carried as an int, and an
 // early-exit while loop whose condition is a cross-lane any() (here over
 // the block, with __syncthreads_or).  These are the loop shapes of the rect
-// sweep and the light loop, and later of the klein and bezier marches.  The
-// plain PyTorch twins are scheme_raytrace_torch/tools/probe_loops.py:CASES.
+// sweep and the light loop.  One extension case follows the nine, which the
+// JAX tool does not have: the loop form of the bezier probe (bounce_common.cuh
+// bezier_probe), a loop over seeds, each a fixed count of guarded, clipped
+// Newton steps on g'(s) = 0, then an accept test and a running minimum.  The
+// plain PyTorch twins are scheme_raytrace_torch/tools/probe_loops.py:CASES
+// and EXT_CASES.
 //
 // Design.  One thread per element of the (64, 128) float32 input, 256
 // threads per block.  Every product and sum is rounded on its own
@@ -33,8 +37,14 @@ __device__ __forceinline__ float fa(float a, float b) { return __fadd_rn(a, b); 
 enum Case {
   FORI, NESTED_FORI, FORI_CARRY5, JVP_FORI, NESTED_FLOAT_CARRY,
   SINGLE_BOOL_CARRY, NESTED_BOOL_CARRY, BOOL_CARRY_AS_I32, WHILE_ANY,
+  BEZIER_SEEDS,      // the extension: tools/probe_loops.py:EXT_CASES
   N_CASES
 };
+
+// The extension's seeds and Newton steps a seed (probe_loops.py BEZ_SEEDS,
+// BEZ_NEWTON).
+constexpr int kBezSeeds = 8;
+constexpr int kBezNewton = 4;
 
 // a * 1.1 + 0.1 where a * a < 4 (the masked update of the bool carries)
 __device__ __forceinline__ void masked_step(float& a, bool& e) {
@@ -113,6 +123,34 @@ __device__ float run_case(int which, float x) {
       }
       return fa(a, float(e));
     }
+    case BEZIER_SEEDS: {
+      // the curve c(s) = (s s - a, (s - 0.5) / 2) across a ray, a = x / 4:
+      // Newton on g' = 0 for g = |c|^2 from kBezSeeds seeds, the ribbon hit
+      // where g < 0.04 at distance 1 + s, the closest over the seeds
+      const float a = fm(x, 0.25f);
+      float best = 100.0f;
+      for (int k = 0; k < kBezSeeds; ++k) {
+        float s = fm(float(k) + 0.5f, 1.0f / float(kBezSeeds));
+        float cx, cy;
+        for (int it = 0; it <= kBezNewton; ++it) {
+          cx = fa(fm(s, s), -a);
+          cy = fm(fa(s, -0.5f), 0.5f);
+          if (it == kBezNewton) break;          // g at the converged s
+          const float cx1 = fm(s, 2.0f);
+          const float dg = fm(fa(fm(cx, cx1), fm(cy, 0.5f)), 2.0f);
+          const float d2g =
+              fa(fm(fa(fm(cx1, cx1), 0.25f), 2.0f), fm(cx, 4.0f));
+          const float stepn = d2g > 1e-12f ? dg / d2g : 0.0f;
+          s = fa(s, -stepn);
+          s = s < 0.0f ? 0.0f : s;
+          s = s > 1.0f ? 1.0f : s;
+        }
+        const float g = fa(fm(cx, cx), fm(cy, cy));
+        const float zc = g < 0.04f ? fa(1.0f, s) : 100.0f;
+        best = zc < best ? zc : best;
+      }
+      return best;
+    }
   }
   return 0.0f;
 }
@@ -141,7 +179,8 @@ probe_loops_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 // C interface, loaded with ctypes by tools/probe_loops.py:loops_cuda.
 // ptrs: 2 device pointers — the n float32 inputs and the n float32 outputs;
-// `which` is the case's index in CASES.  Launches on `stream` without
+// `which` is the case's index in CASES, or len(CASES) + its index in
+// EXT_CASES.  Launches on `stream` without
 // synchronising and returns cudaGetLastError() (0 = launched), or
 // cudaErrorInvalidValue for an unknown case.
 extern "C" int srt_probe_loops(void* const* ptrs, int n, int which,

@@ -15,12 +15,14 @@ Two implementations of one step, picked by the device of the tensors:
     takes what `pack` gives for a `pool_plan` plan: `pk`, or `(pk, atlas)`
     with the image texel planes; never the sphere attribute atlas.
 
-Coverage (both implementations, ROADMAP B1.1-B1.5): rects, spheres
-(static and moving, any count), constant media in box and sphere
-boundaries, xz-rect and sphere lights with mixture-PDF light sampling,
-constant, checker, hash-Perlin noise and marble and image albedo, emission,
-gradient/black sky, lambertian/metal/dielectric.  Klein and bezier raise
-NotImplementedError (`check_covered`); `pack` covers every group.
+Coverage (both implementations, ROADMAP B1.1-B1.6): rects, spheres
+(static and moving, any count), cubic Bezier ribbons (any count), constant
+media in box and sphere boundaries, xz-rect and sphere lights with
+mixture-PDF light sampling, constant, checker, hash-Perlin noise and marble
+and image albedo, emission, gradient/black sky, lambertian/metal/dielectric.
+Klein raises NotImplementedError (`check_covered`); `pack` covers every
+group.  The kernels are built per feature set (`kernel_features`): a plan's
+variant holds the code of the groups it has and no other.
 """
 
 from __future__ import annotations
@@ -258,8 +260,8 @@ IMG_ROWS_MAX = 48
 
 def pallas_ok(plan: BouncePlan) -> bool:
     """Fused-kernel eligibility of the JAX package: bounded counts of the
-    exotic groups (the JAX routing bound; the port's media loop takes any
-    count, and klein and bezier are not ported, see `check_covered`)."""
+    exotic groups (the JAX routing bound; the port's media and bezier loops
+    take any count, and klein is not ported, see `check_covered`)."""
     return (plan.n_media <= 16 and plan.n_kleins <= 2
             and plan.n_beziers <= 8)
 
@@ -311,13 +313,11 @@ def pool_plan(scene, config) -> BouncePlan:
 
 def check_covered(plan: BouncePlan) -> None:
     """Raise NotImplementedError for plans outside the ported slices."""
-    missing = [name for name, present in (
-        ("klein", plan.n_kleins), ("bezier", plan.n_beziers)) if present]
-    if missing:
+    if plan.n_kleins:
         raise NotImplementedError(
-            f"the fused bounce step covers ROADMAP B1.1-B1.5 (rects, spheres, "
-            f"media, lights, every texture kind); this plan needs "
-            f"{', '.join(missing)}, which later B1 slices port")
+            "the fused bounce step covers ROADMAP B1.1-B1.6 (rects, spheres, "
+            "beziers, media, lights, every texture kind); this plan needs "
+            "klein, which slice B1.7 ports")
 
 
 def check_kernel_plan(plan: BouncePlan) -> None:
@@ -653,8 +653,8 @@ def _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max):
 def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
     """Closest-hit sweep in pack order, material merged in: the rects,
     unrolled (for any count: the JAX step's chunked loop above UNROLL_MAX
-    gives the unrolled merge's values), then the spheres.  pk is the
-    unbound scene vector, pk_t the tensor itself."""
+    gives the unrolled merge's values), then the spheres, then the bezier
+    ribbons.  pk is the unbound scene vector, pk_t the tensor itself."""
     z = torch.zeros_like(o[0])
     best = {
         "hit": torch.zeros_like(o[0], dtype=torch.bool),
@@ -689,7 +689,106 @@ def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
                           else None)
     if plan.n_spheres:
         best = _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max)
+    for j in range(plan.n_beziers):
+        b = plan.bez_base + j * BEZ_SIZE
+        okc, t_curve = _bezier_hit(plan, pk, b, o, d, t_min, t_max)
+        wn = (-d[0], -d[1], -d[2])               # B11: normal = -ray dir
+        # a ribbon's surface coordinates are (0, 0), as a medium's
+        best = _merge_rec(pk, best, okc, t_curve, wn, b, B_ALB0, B_ALB1,
+                          B_MTYPE, B_TEXK, B_FUZZ, B_REF, B_TEXS,
+                          {"kind": KIND_NONE} if plan.has_image else None)
     return best
+
+
+def _bezier_power(p0, p1, p2, p3):
+    """Bernstein control values -> power-basis coefficients."""
+    return (p0, 3.0 * (p1 - p0), 3.0 * (p0 - 2.0 * p1 + p2),
+            -p0 + 3.0 * p1 - 3.0 * p2 + p3)
+
+
+def _bezier_g_derivs(ax, ay, s):
+    """g(s) = |c(s)|^2 of the curve's ray-space projection c = (cx, cy), its
+    first two derivatives and 2 |c'|^2, in the Horner form of the JAX step."""
+    cx = ax[0] + s * (ax[1] + s * (ax[2] + s * ax[3]))
+    cy = ay[0] + s * (ay[1] + s * (ay[2] + s * ay[3]))
+    cx1 = ax[1] + s * (2.0 * ax[2] + s * (3.0 * ax[3]))
+    cy1 = ay[1] + s * (2.0 * ay[2] + s * (3.0 * ay[3]))
+    cx2 = 2.0 * ax[2] + s * (6.0 * ax[3])
+    cy2 = 2.0 * ay[2] + s * (6.0 * ay[3])
+    g = cx * cx + cy * cy
+    dg = 2.0 * (cx * cx1 + cy * cy1)
+    speed2 = 2.0 * (cx1 * cx1 + cy1 * cy1)
+    d2g = speed2 + 2.0 * (cx * cx2 + cy * cy2)
+    return g, dg, d2g, speed2
+
+
+def _bezier_candidates(plan, pk, b, o, d, t_min, big):
+    """Per seed of the ribbon at packed base b, as [K, m] tensors: the
+    converged root s (no gradient) and the candidate distance, zc(s) where
+    the seed's root is accepted and `big` elsewhere.
+
+    The march of all seeds runs at once and carries no gradient.  The
+    gradient is the root's: s - (corr - corr.detach()) with
+    corr = g' / max(g'', 0.05 |c'|^2 + 1e-12) at the converged s, so zc(s)
+    differentiates as the implicit function does."""
+    dt = d[0].dtype
+    pick = torch.abs(d[0]) > 0.9
+    a_vec = (torch.where(pick, 0.0, 1.0).to(dt),
+             torch.where(pick, 1.0, 0.0).to(dt), torch.zeros_like(d[0]))
+    v_f = unit3(cross3(d, a_vec))
+    u_f = cross3(v_f, d)
+    cxk, cyk, czk = [], [], []
+    for k in range(4):
+        cp = _v(pk, b + B_CP + 3 * k)
+        rel = tuple(cp[i] - o[i] for i in range(3))
+        cxk.append(dot3(rel, u_f))
+        cyk.append(dot3(rel, v_f))
+        czk.append(dot3(rel, d))
+    ax, ay, az = (_bezier_power(*cxk), _bezier_power(*cyk),
+                  _bezier_power(*czk))
+    half_w = pk[b + B_W] * 0.5
+    hw2 = half_w * half_w
+    valid = pk[b + B_VALID] > 0.5
+    K = plan.bez_seeds
+    with torch.no_grad():
+        ax_s, ay_s = ([c.detach() for c in a] for a in (ax, ay))
+        s = ((torch.arange(K, dtype=dt, device=d[0].device) + 0.5)
+             * (1.0 / K))[:, None] + torch.zeros_like(d[0])
+        for _ in range(plan.bez_newton):
+            _, dg, d2g, _ = _bezier_g_derivs(ax_s, ay_s, s)
+            curved = d2g > 1e-12
+            stepn = torch.where(curved, dg / torch.where(curved, d2g, 1e-12),
+                                0.0)
+            s = _clip(s - stepn, 0.0, 1.0)
+    root = s
+    # implicit-function gradients at the root (ops/bezier.py:95-119): the
+    # ROOT is differentiated, not the Newton tape; the curvature floor bounds
+    # the grazing-hit estimator
+    _, dg, d2g, speed2 = _bezier_g_derivs(ax, ay, s)
+    interior = (s > 0.0) & (s < 1.0)
+    d2g_safe = torch.maximum(d2g, 0.05 * speed2 + 1e-12)
+    corr = torch.where(interior, dg / d2g_safe, 0.0)
+    s = s - (corr - corr.detach())
+    g, _, _, _ = _bezier_g_derivs(ax, ay, s)
+    zc = az[0] + s * (az[1] + s * (az[2] + s * az[3]))
+    ok = ((g < hw2) & (zc > 1e-4) & (zc > t_min) & (zc <= big)
+          & valid)                               # bezier.scm:161-166
+    return root, torch.where(ok, zc, big)
+
+
+def _bezier_hit(plan, pk, b, o, d, t_min, big):
+    """The JAX bezier_probe's candidate (okc, t) of the ribbon at packed base
+    b (bezier.scm:161-166 redesigned: ops/bezier.py): Newton on g'(s) = 0
+    from `plan.bez_seeds` fixed seeds in ray space, the closest accepted root.
+
+    The minimum over the seeds' candidates is folded in seed order with
+    torch.minimum, as the JAX fori_loop folds it: several seeds reach one
+    root, and every equal pair splits the cotangent in that order."""
+    _, cand = _bezier_candidates(plan, pk, b, o, d, t_min, big)
+    t_curve = torch.full_like(d[0], big)
+    for k in range(plan.bez_seeds):
+        t_curve = torch.minimum(t_curve, cand[k])
+    return t_curve < big, t_curve
 
 
 def _onb_local(w, x, y, zc):
@@ -1074,10 +1173,23 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
 LAUNCHES = 0
 
 
-def _kernel():
-    """The bounce_step library, built at first use; argtypes declared."""
+def kernel_features(plan: BouncePlan) -> tuple:
+    """The feature set of the plan's kernel variants: the groups of
+    csrc/bounce_common.cuh's compile-time flags that the plan has (spheres,
+    moving spheres, Perlin textures, image texels, media, beziers).  Counts
+    are not part of it: one variant serves any count."""
+    return tuple(name for name, present in (
+        ("spheres", plan.n_spheres),
+        ("moving", plan.n_spheres and plan.has_moving),
+        ("perlin", plan.has_perlin), ("image", plan.img_rows),
+        ("media", plan.n_media), ("bezier", plan.n_beziers)) if present)
+
+
+def _kernel(plan):
+    """The plan's variant of the bounce_step library, built at first use;
+    argtypes declared."""
     from ..utils import cuda_build
-    lib = cuda_build.load("bounce_step")
+    lib = cuda_build.load("bounce_step", kernel_features(plan))
     fn = lib.srt_bounce_step
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
@@ -1090,17 +1202,19 @@ def scene_args(plan: BouncePlan):
     """The plan's statics as the four bounce kernels take them, in their C
     order (csrc/bounce_common.cuh SRT_SCENE_PARAMS): the groups' counts and
     pk offsets, the image size, the bounce cap, the media, the Perlin flag,
-    the texel atlas's rows, the two seeds, and the hit interval."""
+    the texel atlas's rows, the beziers with their seeds and Newton steps,
+    the two seeds, and the hit interval."""
     return (plan.n_rects, plan.rect_base, plan.n_spheres, plan.sph_base,
             int(plan.has_moving), plan.n_lights, plan.lgt_base,
             int(plan.light_sampling), plan.nx, plan.ny, plan.max_depth,
             plan.n_media, plan.med_base, int(plan.has_perlin), plan.img_rows,
+            plan.n_beziers, plan.bez_base, plan.bez_seeds, plan.bez_newton,
             plan.seed & 0xFFFFFFFF, plan.perlin_seed & 0xFFFFFFFF,
             cfg_mod.SHADOW_EPS, cfg_mod.BIG)
 
 
 # The ctypes of `scene_args`.
-SCENE_ARGTYPES = ([ctypes.c_int] * 15 + [ctypes.c_uint32] * 2
+SCENE_ARGTYPES = ([ctypes.c_int] * 19 + [ctypes.c_uint32] * 2
                   + [ctypes.c_double] * 2)
 
 
@@ -1177,7 +1291,7 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     tensors = (pk, gitem, px, py, fresh, alive, depth, *o, *d, time, *rad,
                *tp, *outs, scattering, atlas)
     ptrs = (ctypes.c_void_p * len(tensors))(*[tensor_ptr(t) for t in tensors])
-    fn = _kernel()
+    fn = _kernel(plan)
     with torch.cuda.device(dev):
         err = fn(int(dt == torch.float64), ptrs, m, *scene_args(plan),
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -1234,10 +1348,11 @@ def step_vjp(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
             *split_lanes(grads[n_pk:]))
 
 
-def _kernel_bwd():
-    """The bounce_step_bwd library, built at first use; argtypes declared."""
+def _kernel_bwd(plan):
+    """The plan's variant of the bounce_step_bwd library, built at first
+    use; argtypes declared."""
     from ..utils import cuda_build
-    lib = cuda_build.load("bounce_step_bwd")
+    lib = cuda_build.load("bounce_step_bwd", kernel_features(plan))
     fn = lib.srt_bounce_step_bwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
@@ -1259,7 +1374,9 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     blocks of the kernel's (ceil(m / 256), P) partials, taken in a fixed
     order, so two identical calls give bitwise-equal results.  A winning
     sphere takes cotangent in its centres, radius and, in a moving scene,
-    its times; dtime is then nonzero.  For a plan with image textures pk is
+    its times; dtime is then nonzero.  A winning bezier ribbon takes cotangent
+    in its twelve control-point slots (the root's implicit derivative); its
+    width takes none.  For a plan with image textures pk is
     `pack`'s (pk, atlas) pair and dpk the pair (dpk, datlas): a partials row
     is then P slots followed by the atlas's img_rows * 128 texels, which take
     the albedo cotangent of the lanes that read them, summed the same way."""
@@ -1295,7 +1412,7 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     tensors = (pk, gitem, px, py, fresh, alive, depth, *lanes, *cts,
                partials, *outs, atlas)
     ptrs = (ctypes.c_void_p * len(tensors))(*[tensor_ptr(t) for t in tensors])
-    kernel = _kernel_bwd()
+    kernel = _kernel_bwd(plan)
     with torch.cuda.device(dev):
         err = kernel(int(dt == torch.float64), ptrs, m, plan.size,
                      *scene_args(plan),
@@ -1441,10 +1558,11 @@ def step_packed(plan: BouncePlan, pk, sample_base, state, m, n_work, n_pix,
     return out
 
 
-def _kernel_packed():
-    """The bounce_packed library, built at first use; argtypes declared."""
+def _kernel_packed(plan):
+    """The plan's variant of the bounce_packed library, built at first use;
+    argtypes declared."""
     from ..utils import cuda_build
-    lib = cuda_build.load("bounce_packed")
+    lib = cuda_build.load("bounce_packed", kernel_features(plan))
     fn = lib.srt_bounce_packed
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5
@@ -1498,7 +1616,7 @@ def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,
     ptrs = (ctypes.c_void_p * 5)(pk.data_ptr(), base.data_ptr(),
                                  state.data_ptr(), out.data_ptr(),
                                  tensor_ptr(atlas))
-    kernel = _kernel_packed()
+    kernel = _kernel_packed(plan)
     dev = state.device
     with torch.cuda.device(dev):
         err = kernel(ptrs, *queue_args(plan, m, n_work, n_pix, pix0,

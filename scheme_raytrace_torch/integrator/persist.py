@@ -54,10 +54,11 @@ def chunk_plain(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
     return state, flush, segs
 
 
-def _kernel():
-    """The bounce_persist library, built at first use; argtypes declared."""
+def _kernel(plan):
+    """The plan's variant of the bounce_persist library, built at first use;
+    argtypes declared."""
     from ..utils import cuda_build
-    lib = cuda_build.load("bounce_persist")
+    lib = cuda_build.load("bounce_persist", bounce.kernel_features(plan))
     fn = lib.srt_bounce_persist
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
@@ -89,7 +90,7 @@ def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
                                  state.data_ptr(), out.data_ptr(),
                                  flush.data_ptr(), segs.data_ptr(),
                                  bounce.tensor_ptr(atlas))
-    kernel = _kernel()
+    kernel = _kernel(plan)
     with torch.cuda.device(dev):
         err = kernel(ptrs, T, *bounce.queue_args(plan, m, n_work, n_pix, pix0,
                                                  total_pix),

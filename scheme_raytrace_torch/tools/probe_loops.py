@@ -5,9 +5,13 @@ The nine loop forms of the JAX repro (repro_mosaic_crash.py:29-123) on a
 carry under a mask, the forward-mode tangent of a loop (carried by hand),
 float and bool carries, a bool carried as an int, and an early-exit while
 loop under a cross-lane any().  CASES holds the plain PyTorch versions, in
-the reference's order; `loops_cuda(name, x)` runs csrc/probe_loops.cu, one
-case per launch, bitwise equal to the plain version (the kernel rounds
-each product and sum on its own).  On the card:
+the reference's order.  EXT_CASES holds the port's extension, which the JAX
+tool does not have: the loop form of the bezier probe (a loop over seeds,
+each a fixed count of guarded, clipped Newton steps, an accept test and a
+running minimum).  `loops_cuda(name, x)` runs csrc/probe_loops.cu, one case
+per launch, bitwise equal to the plain version (the kernel rounds each
+product and sum on its own).  `main` returns the two groups' results side by
+side, (cases, ext).  On the card:
 
     python -c "from scheme_raytrace_torch.tools import probe_loops; \\
                print(probe_loops.main())"
@@ -113,6 +117,40 @@ def case_while_any(x):
 CASES = {n[5:]: f for n, f in list(globals().items())
          if n.startswith("case_")}
 
+# The extension's seeds and Newton steps a seed (csrc/probe_loops.cu
+# kBezSeeds, kBezNewton).
+BEZ_SEEDS = 8
+BEZ_NEWTON = 4
+
+
+def ext_bezier_seeds(x):
+    """The bezier probe's loop form (integrator/bounce.py _bezier_hit): the
+    curve c(s) = (s s - a, (s - 0.5) / 2) across a ray, a = x / 4; Newton on
+    g'(s) = 0 for g = |c|^2 from BEZ_SEEDS fixed seeds, BEZ_NEWTON guarded
+    and clipped steps each; the ribbon is hit where g < 0.04, at distance
+    1 + s; the closest hit over the seeds, 100 for none."""
+    a = x * 0.25
+    best = torch.full_like(x, 100.0)
+    for k in range(BEZ_SEEDS):
+        s = torch.zeros_like(x) + (k + 0.5) * (1.0 / BEZ_SEEDS)
+        for _ in range(BEZ_NEWTON):
+            cx, cy, cx1 = s * s - a, (s - 0.5) * 0.5, s * 2.0
+            dg = (cx * cx1 + cy * 0.5) * 2.0
+            d2g = (cx1 * cx1 + 0.25) * 2.0 + cx * 4.0
+            curved = d2g > 1e-12
+            stepn = torch.where(curved, dg / torch.where(curved, d2g, 1e-12),
+                                0.0)
+            s = torch.clamp(s - stepn, 0.0, 1.0)
+        cx, cy = s * s - a, (s - 0.5) * 0.5
+        g = cx * cx + cy * cy
+        best = torch.minimum(best, torch.where(g < 0.04, 1.0 + s, 100.0))
+    return best
+
+
+EXT_CASES = {n[4:]: f for n, f in list(globals().items())
+             if n.startswith("ext_")}
+ALL_CASES = {**CASES, **EXT_CASES}
+
 
 def inputs(seed=0, device=None):
     """A (64, 128) float32 input whose lanes take both sides of every mask
@@ -134,12 +172,13 @@ def _kernel():
 
 
 def loops_cuda(name, x):
-    """CASES[name] through csrc/probe_loops.cu: x a contiguous float32
+    """ALL_CASES[name] through csrc/probe_loops.cu: x a contiguous float32
     tensor on a CUDA device.  Returns a new tensor; raises for an unknown
     case or a refused launch."""
     global LAUNCHES
-    if name not in CASES:
-        raise KeyError(f"no loop case {name!r}; cases: {', '.join(CASES)}")
+    if name not in ALL_CASES:
+        raise KeyError(f"no loop case {name!r}; cases: "
+                       f"{', '.join(ALL_CASES)}")
     if x.device.type != "cuda":
         raise ValueError(f"loops_cuda takes CUDA tensors, got {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous():
@@ -148,7 +187,7 @@ def loops_cuda(name, x):
     ptrs = (ctypes.c_void_p * 2)(x.data_ptr(), out.data_ptr())
     fn = _kernel()
     with torch.cuda.device(x.device):
-        err = fn(ptrs, x.numel(), list(CASES).index(name),
+        err = fn(ptrs, x.numel(), list(ALL_CASES).index(name),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"probe_loops kernel launch failed ({name}): CUDA "
@@ -158,11 +197,16 @@ def loops_cuda(name, x):
 
 
 def loops(name, x):
-    """CASES[name] on the tensor's device: the kernel on a card, the plain
-    version on the CPU."""
-    return loops_cuda(name, x) if x.device.type == "cuda" else CASES[name](x)
+    """ALL_CASES[name] on the tensor's device: the kernel on a card, the
+    plain version on the CPU."""
+    return (loops_cuda(name, x) if x.device.type == "cuda"
+            else ALL_CASES[name](x))
 
 
 def main(device=None):
+    """Every case against its plain version: (the nine cases' results, the
+    extension's)."""
     x = inputs(device=device)
-    return {n: bool(torch.equal(loops(n, x), CASES[n](x))) for n in CASES}
+    same = lambda group: {n: bool(torch.equal(loops(n, x), f(x)))
+                          for n, f in group.items()}
+    return same(CASES), same(EXT_CASES)

@@ -235,8 +235,7 @@ def test_step_raises_outside_the_cornell_slice():
 
 
 @pytest.mark.parametrize("name,group", [
-    ("klein", "klein"), ("cornell_klein", "klein"), ("bezier", "bezier"),
-    ("cornell_bezier", "bezier")])
+    ("klein", "klein"), ("cornell_klein", "klein")])
 def test_step_raises_for_unported_groups(name, group):
     scene, spec, cfg, plan, pk, ins = _plan_pk_ins(name)
     for fn in (tb.step, tb.step_cuda):

@@ -8,7 +8,10 @@ against their forward renders; then the same kernels on the sphere scenes
 (static, moving, the 227-sphere RTOW final scene with P = 4,794), the sphere
 goldens, and the card as the entry points' default device; then on the
 textured and smoke scenes (hash-Perlin noise and marble, image texels with
-the texels' cotangent, constant media) and the config-3 golden.
+the texels' cotangent, constant media) and the config-3 golden; then on the
+bezier scenes (the ribbon probe in K1-K4 and its implicit-root adjoint in
+K2, the fold over tied seeds and the curvature floor's tie among its lanes),
+the config-5 and config-6 goldens, and the kernels' per-feature-set builds.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -16,6 +19,8 @@ The file imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -o addopts=""
 """
 
+import ctypes
+import dataclasses
 import os
 import shutil
 
@@ -29,6 +34,7 @@ from scheme_raytrace_torch.core import rng
 from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
                                               pool_strided)
 from scheme_raytrace_torch.scene import build, compile_scene
+from scheme_raytrace_torch.scene import objects as ob
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
 from scheme_raytrace_torch.utils import cuda_build
 
@@ -52,11 +58,13 @@ def _cornell(dtype, device, spec_fn=scenes.cornell_box):
     return scene, spec.camera(dtype=dtype, aspect=1.0, device=device)
 
 
-def _lane_inputs(m, nx, ny, max_depth, dtype, device, seed=2, box=None):
+def _lane_inputs(m, nx, ny, max_depth, dtype, device, seed=2, box=None,
+                 aim=None):
     """Numpy draws: random gitems (negatives included), fresh/alive masks,
     depths with some lanes at the cap, origins inside the box, unit
     directions, nonzero radiance and throughput.  `box` (lo, hi) scales
-    the origins to a sphere scene and draws the times in [0, 1)."""
+    the origins to a sphere scene and draws the times in [0, 1); `aim`
+    (lo, hi) points every direction at a random point of that box."""
     r = np.random.default_rng(seed)
     gitem = r.integers(-2 ** 31, 2 ** 31, m, dtype=np.int64).astype(np.int32)
     px = r.integers(0, nx, m)
@@ -75,6 +83,10 @@ def _lane_inputs(m, nx, ny, max_depth, dtype, device, seed=2, box=None):
         lo, hi = (np.asarray(b, np.float64)[:, None] for b in box)
         o = lo + o / 500.0 * (hi - lo)
         times = r.random(m)
+    if aim is not None:
+        lo, hi = (np.asarray(b, np.float64)[:, None] for b in aim)
+        dvec = lo + r.random((3, m)) * (hi - lo) - o
+        dvec /= np.linalg.norm(dvec, axis=0, keepdims=True)
     f = lambda x: torch.tensor(x, dtype=dtype, device=device)
     return (torch.tensor(gitem, device=device), f(px), f(py),
             torch.tensor(fresh, device=device),
@@ -454,11 +466,12 @@ def test_probe_ops_cuda_matches_plain(cuda):
         assert float(rel.max()) <= 2e-6
 
 
-@pytest.mark.parametrize("name", list(probe_loops.CASES))
+@pytest.mark.parametrize("name", list(probe_loops.ALL_CASES))
 def test_probe_loops_cuda_matches_plain(cuda, name):
+    # the nine cases and the extension (the bezier probe's loop form)
     x = probe_loops.inputs(seed=2, device=cuda)
     assert torch.equal(probe_loops.loops_cuda(name, x),
-                       probe_loops.CASES[name](x))
+                       probe_loops.ALL_CASES[name](x))
 
 
 def _packed_call(cuda, which):
@@ -494,7 +507,8 @@ def test_new_kernel_build_failure_raises(cuda, which, tmp_path,
         f.write("\n#error deliberately broken\n")
     monkeypatch.setattr(cuda_build, "CSRC", src)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.delitem(cuda_build.LOADED, which, raising=False)
+    monkeypatch.delitem(cuda_build.LOADED, cuda_build.variant_name(which),
+                        raising=False)
     mod, _, count = NEW_KERNELS[which]
     call = _packed_call(cuda, which)
     before = getattr(mod, count)
@@ -508,7 +522,7 @@ def test_new_kernel_launch_failure_raises(cuda, which, monkeypatch):
     # a refused launch (the C side returns a CUDA error) raises and is not
     # counted
     mod, loader, count = NEW_KERNELS[which]
-    monkeypatch.setattr(mod, loader, lambda: (lambda *args: 98))
+    monkeypatch.setattr(mod, loader, lambda *plan: (lambda *args: 98))
     call = _packed_call(cuda, which)
     before = getattr(mod, count)
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -889,3 +903,298 @@ def test_cuda_diff_render_on_the_texture_scenes(cuda, name):
     for k, g in grads.items():
         if g is not None:
             assert torch.isfinite(g).all() and torch.equal(g, grads2[k]), k
+
+
+# --- the bezier scenes (K1-K4; chip_smoke.py's phases 19-22) -------------
+
+# name -> (spec, light sampling, the box the lane origins are drawn from;
+# None: Cornell's cube); the directions are aimed into the control points'
+# bounding box
+BEZIER_SCENES = {
+    "bezier": (scenes.test_bezier, False, ((-3, -0.4, -4), (3, 2, 4))),
+    "cornell_bezier": (scenes.cornell_bezier, True, None),
+    "points_chain": (scenes.points_chain_scene, False,
+                     ((-2.5, -0.4, -2.5), (2.5, 2.5, 2.5))),
+}
+
+
+def _bezier_setup(name, dtype, device):
+    """(plan, pk, lane box, aim box, f32 atol) of a BEZIER_SCENES entry at
+    512^2 spp8; the atol scaled as _sphere_setup scales it."""
+    spec_fn, ls, box = BEZIER_SCENES[name]
+    spec = spec_fn()
+    scene = compile_scene(spec.objects, sky=spec.sky, dtype=dtype,
+                          device=device)
+    cam = spec.camera(dtype=dtype, aspect=1.0, device=device)
+    plan = bounce.pool_plan(scene, SPHERE_CFG.replace(light_sampling=ls))
+    cp = scene.bez_cp.reshape(-1, 3)
+    aim = (cp.amin(0).tolist(), cp.amax(0).tolist())
+    scale = 555.0
+    if scene.has_spheres:
+        scale = max(float(scene.sph_c0.abs().max()),
+                    float(scene.sph_r.abs().max()))
+    return (plan, bounce.pack(scene, cam, plan, dtype), box, aim,
+            1e-3 * scale / 555)
+
+
+def _ribbon_lanes(plan, pk, ins):
+    """The live lanes whose closest hit is a ribbon: its normal is -d."""
+    gitem, px, py, fresh, alive, depth, o, d, time = ins[:9]
+    _, d, _, rec = bounce.hit_record(plan, pk, gitem, px, py, fresh, depth,
+                                     o, d, time)
+    return (alive & rec["hit"] & (rec["wn"][0] == -d[0])
+            & (rec["wn"][1] == -d[1]) & (rec["wn"][2] == -d[2]))
+
+
+@pytest.mark.parametrize("name", sorted(BEZIER_SCENES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_step_cuda_matches_plain_step_on_beziers(cuda, dtype, name):
+    # the bounds of test_step_cuda_matches_plain_step_on_spheres, on lanes
+    # aimed at the curves
+    m = 64 * 1024
+    plan, pk, box, aim, atol = _bezier_setup(name, dtype, cuda)
+    assert plan.n_beziers == {"bezier": 3, "cornell_bezier": 1,
+                              "points_chain": 11}[name]
+    ins = _lane_inputs(m, 512, 512, 100, dtype, cuda, box=box, aim=aim)
+    assert int(_ribbon_lanes(plan, pk, ins).sum()) > m // 100
+    w, w_sc = _stacked(bounce.step(plan, pk, *ins))
+    g, g_sc = _stacked(bounce.step_cuda(plan, pk, *ins))
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        rtol, atol, max_off = 1e-9, 1e-9, 0
+    else:
+        rtol, max_off = 1e-4, m // 1000
+    off = (g_sc != w_sc) | ((g - w).abs() > atol + rtol * w.abs()).any(0)
+    assert torch.isfinite(g).all()
+    assert w_sc.any() and int(off.sum()) <= max_off, int(off.sum())
+
+
+@pytest.mark.parametrize("name", sorted(BEZIER_SCENES))
+def test_step_cuda_bwd_matches_step_vjp_on_beziers(cuda, name):
+    # f64: every lane cotangent within 1e-9 and every pk slot within 1e-8 of
+    # the largest; the control points' slots nonzero, the width's zero; two
+    # launches bitwise equal
+    m = 24 * 1024
+    dtype = torch.float64
+    plan, pk, box, aim, _ = _bezier_setup(name, dtype, cuda)
+    ins = _lane_inputs(m, 512, 512, 100, dtype, cuda, box=box, aim=aim)
+    r = np.random.default_rng(7)
+    cts = bounce.split_lanes([torch.tensor(x, dtype=dtype, device=cuda)
+                              for x in r.normal(size=(13, m))])
+    want = bounce.step_vjp(plan, pk, *ins, *cts)
+    got = bounce.step_cuda_bwd(plan, pk, *ins, *cts)
+    again = bounce.step_cuda_bwd(plan, pk, *ins, *cts)
+    torch.cuda.synchronize()
+    (want_pk, want), (got_pk, got), (again_pk, again) = (
+        _vjp_lanes(x) for x in (want, got, again))
+    assert torch.equal(got_pk, again_pk) and torch.equal(got, again)
+    assert torch.isfinite(got).all() and torch.isfinite(got_pk).all()
+    assert not ((got - want).abs() > 1e-9 + 1e-9 * want.abs()).any()
+    assert (got_pk - want_pk).abs().max() <= 1e-8 * want_pk.abs().max()
+    blocks = got_pk[plan.bez_base:plan.bez_base + plan.n_beziers
+                    * bounce.BEZ_SIZE].reshape(-1, bounce.BEZ_SIZE)
+    assert bool((blocks[:, bounce.B_CP:bounce.B_CP + 12] != 0).all())
+    assert not bool(blocks[:, bounce.B_W].any())
+
+
+def _one_lane(cp, width, o, d, dtype, device, **plan_changes):
+    """One bezier under the black sky and one live lane with a given ray
+    (the setup of tests/test_torch_bezier.py's single lanes): plan, pk, the
+    step's inputs and cotangents on the hit point alone."""
+    objs = [ob.Bezier(np.asarray(cp, float), width,
+                      ob.Lambertian((0.5, 0.5, 0.5)))]
+    scene = compile_scene(objs, sky="black", dtype=dtype, device=device)
+    cam = scenes.SceneSpec(objs, scenes.default_camera(), "black").camera(
+        dtype=dtype, aspect=1.0, device=device)
+    plan = dataclasses.replace(
+        bounce.pool_plan(scene, RenderConfig(nx=4, ny=4, spp=1, max_depth=8)),
+        **plan_changes)
+    f = lambda v: torch.tensor([v], dtype=dtype, device=device)
+    ins = (torch.tensor([7], dtype=torch.int32, device=device), f(0.0),
+           f(0.0), torch.tensor([False], device=device),
+           torch.tensor([True], device=device),
+           torch.tensor([0], dtype=torch.int32, device=device),
+           *bounce.split_lanes([f(v) for v in (*o, *d, 0.0, 0, 0, 0, 1, 1,
+                                               1)]))
+    cts = bounce.split_lanes([f(v) for v in (0.3, -0.7, 1.1,
+                                             *([0.0] * 10))])
+    return plan, bounce.pack(scene, cam, plan, dtype), ins, cts
+
+
+# The lanes of tests/test_torch_bezier.py: a planar loop seen along its
+# normal above its crossing (two roots at one distance, bit for bit: the
+# fold over seeds splits the cotangent between them), and a ray for which,
+# with one seed and no Newton step, g'' equals the curvature floor bit for
+# bit.
+LOOP_CP = [[-1, -0.2, -2], [3, 0.6, -2], [-3, 0.6, -2], [1, -0.2, -2]]
+LOOP_O, LOOP_D = (0.0, 0.0405, 0.5), (0.0, 0.0, -1.0)
+TIE_CP = [[-0.25, -0.75, -2.0], [0.75, 0.0, -2.5], [1.0, 1.0, -3.0],
+          [1.0, -0.25, -3.5]]
+TIE_O = (0.390625, float.fromhex("0x1.d99999999f774p-6"), 0.5)
+
+
+@pytest.mark.parametrize("lane", ["fold", "floor-tie", "floor-below",
+                                  "floor-above"])
+def test_step_cuda_bwd_on_the_bezier_tie_lanes(cuda, lane):
+    # K2 weighs tied seeds at different roots as the fold over seeds does,
+    # and splits the cotangent at the curvature floor's tie (max_adj), as the
+    # plain VJP does; f64, the control points' slots within 1e-12 of the
+    # largest
+    dtype = torch.float64
+    if lane == "fold":
+        plan, pk, ins, cts = _one_lane(LOOP_CP, 0.4, LOOP_O, LOOP_D, dtype,
+                                       cuda)
+        s, cand = bounce._bezier_candidates(
+            plan, pk.unbind(0), plan.bez_base, ins[6], ins[7], 1e-3, 1e9)
+        tied = cand[:, 0] == cand[:, 0].min()
+        assert int(tied.sum()) >= 4
+        assert float(s[tied, 0].max() - s[tied, 0].min()) > 0.5
+    else:
+        oy = TIE_O[1] * {"floor-tie": 1.0, "floor-below": 1 - 1e-9,
+                         "floor-above": 1 + 1e-9}[lane]
+        plan, pk, ins, cts = _one_lane(TIE_CP, 1.0, (TIE_O[0], oy, TIE_O[2]),
+                                       (0.0, 0.0, -1.0), dtype, cuda,
+                                       bez_seeds=1, bez_newton=0)
+    want_pk, want = _vjp_lanes(bounce.step_vjp(plan, pk, *ins, *cts))
+    got_pk, got = _vjp_lanes(bounce.step_cuda_bwd(plan, pk, *ins, *cts))
+    torch.cuda.synchronize()
+    cp = slice(plan.bez_base + bounce.B_CP, plan.bez_base + bounce.B_CP + 12)
+    assert float(want_pk[cp].abs().max()) > 0.1
+    assert ((got_pk - want_pk).abs().max()
+            <= 1e-12 * want_pk.abs().max())
+    assert not ((got - want).abs() > 1e-12 + 1e-12 * want.abs()).any()
+
+
+@pytest.mark.parametrize("name", ["bezier", "cornell_bezier"])
+def test_packed_kernels_on_the_bezier_scenes(cuda, name):
+    # K3 against step_packed (K1's bounds), and one K4 chunk bitwise equal
+    # to 32 K3 launches
+    plan, pk, box, aim, atol = _bezier_setup(name, torch.float32, cuda)
+    n_pix = SPHERE_CFG.n_pixels
+    q = dict(m=M_POOL, n_work=n_pix * SPHERE_CFG.spp, n_pix=n_pix, pix0=0,
+             total_pix=n_pix)
+    sb = torch.tensor([5], dtype=torch.int32, device=cuda)
+    state = packed_state(M_POOL, q["n_work"], plan.max_depth, cuda, box=box)
+    want = bounce.step_packed(plan, pk, sb, state, **q)
+    got = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    g_i, w_i = got.view(torch.int32), want.view(torch.int32)
+    off = ((g_i[0] != w_i[0]) | (got[1] != want[1]) | (g_i[2] != w_i[2])
+           | ((got[3:] - want[3:]).abs()
+              > atol + 1e-4 * want[3:].abs()).any(0))
+    assert torch.isfinite(got[3:]).all()
+    assert int(off.sum()) <= M_POOL // 1000, int(off.sum())
+    T = persist.CHUNK_T
+    got_state, got_flush, got_segs = persist.chunk_cuda(plan, pk, sb, state,
+                                                        T=T, **q)
+    st = state
+    flush = torch.empty_like(got_flush)
+    segs = torch.empty_like(got_segs)
+    for t in range(T):
+        item = st.view(torch.int32)[0]
+        segs[t] = (item < q["n_work"]).sum()
+        st = bounce.step_packed_cuda(plan, pk, sb, st, **q)
+        done = st[1] != 0.0
+        flush.view(torch.int32)[t, 0] = torch.where(done, item % n_pix, -1)
+        flush[t, 1:] = torch.where(done, st[10:13], 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got_state.view(torch.int32), st.view(torch.int32))
+    assert torch.equal(got_flush.view(torch.int32), flush.view(torch.int32))
+    assert torch.equal(got_segs, segs) and int(segs.sum()) > 0
+
+
+@pytest.mark.parametrize("golden,scene_fn", [
+    ("config5_bezier", scenes.test_bezier),
+    ("config6_cornell_bezier", scenes.cornell_bezier)])
+def test_cuda_render_matches_bezier_goldens(cuda, golden, scene_fn):
+    spec = scene_fn()
+    scene = compile_scene(spec.objects, sky=spec.sky)
+    cam = spec.camera(aspect=1.0)
+    cfg = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
+    before = bounce.LAUNCHES
+    mean, state = render.render_image(scene, cam, cfg)
+    assert mean.device.type == "cuda" and bounce.LAUNCHES > before
+    ref = np.load(os.path.join(os.path.dirname(GOLDEN),
+                               golden + ".npz"))["image"]
+    img = mean.cpu().numpy().astype(np.float64)
+    assert np.isfinite(img).all()
+    diff = np.abs(img - ref)
+    assert diff.mean() < 5e-3, diff.mean()
+    assert (diff.max(axis=-1) > 0.05).mean() < 0.01
+
+
+def test_cuda_diff_render_on_the_bezier_scene(cuda):
+    # drained, the forward render's image bitwise, K2 launched once per K1
+    # launch, and two steps' gradients bitwise equal (the control points'
+    # among them; the width's zero)
+    spec = scenes.test_bezier()
+    scene = compile_scene(spec.objects, sky=spec.sky)
+    cam = spec.camera(aspect=1.0)
+    cfg = RenderConfig(nx=32, ny=32, spp=2, max_depth=12)
+    n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
+    params, rest = build.partition(scene)
+
+    def step():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        raw, _, leftover = diff_fused.render_diff_fused(
+            build.combine(leaves, rest), cam, cfg, n_iters)
+        grads = torch.autograd.grad(raw.mean(), list(leaves.values()),
+                                    allow_unused=True)
+        return raw.detach(), int(leftover), dict(zip(leaves, grads))
+
+    fwd, bwd = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    raw, leftover, grads = step()
+    assert leftover == 0
+    assert bounce.LAUNCHES - fwd == bounce.BWD_LAUNCHES - bwd > 0
+    st, _, _ = render.render_with_stats(scene, cam, cfg,
+                                        render.init_state(cfg))
+    assert torch.equal(raw, st.raw_sum.reshape(-1, 3))
+    _, _, grads2 = step()
+    assert float(grads["bez_cp"].abs().max()) > 0
+    assert grads["bez_w"] is None or not bool(grads["bez_w"].any())
+    for k, g in grads.items():
+        if g is not None:
+            assert torch.isfinite(g).all() and torch.equal(g, grads2[k]), k
+
+
+# --- the kernels' builds per feature set ----------------------------------
+
+
+def test_a_plan_loads_its_own_variant(cuda):
+    # Cornell and the bezier scene go through different libraries of one
+    # kernel, each named by its plan's feature set
+    scene, cam = _cornell(torch.float32, cuda)
+    cfg = RenderConfig(nx=16, ny=16, spp=1, max_depth=8, light_sampling=True)
+    plan = bounce.pool_plan(scene, cfg)
+    ins = _lane_inputs(256, 16, 16, 8, torch.float32, cuda)
+    bounce.step_cuda(plan, bounce.pack(scene, cam, plan, torch.float32), *ins)
+    b_plan, b_pk, box, aim, _ = _bezier_setup("bezier", torch.float32, cuda)
+    bounce.step_cuda(b_plan, b_pk, *_lane_inputs(
+        256, 512, 512, 100, torch.float32, cuda, box=box, aim=aim))
+    torch.cuda.synchronize()
+    base = cuda_build.LOADED[cuda_build.variant_name("bounce_step")]
+    bez = cuda_build.LOADED[cuda_build.variant_name(
+        "bounce_step", ("spheres", "bezier"))]
+    assert base["path"] != bez["path"]
+    assert "-DSRT" not in base["log"].splitlines()[0]
+    assert "-DSRT_BEZIER=1" in bez["log"].splitlines()[0]
+    # the Cornell variant spends fewer registers than the bezier one
+    regs = lambda info: max(r["registers"]
+                            for r in cuda_build.resources(info["log"]))
+    assert regs(base) < regs(bez)
+
+
+def test_a_variant_refuses_a_plan_it_does_not_cover(cuda):
+    # the C entry point of the base variant returns cudaErrorInvalidValue
+    # for a plan with ribbons: no launch, and nothing to fall back on
+    b_plan, b_pk, box, aim, _ = _bezier_setup("cornell_bezier", torch.float32,
+                                              cuda)
+    fn = cuda_build.load("bounce_step").srt_bounce_step
+    fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                    ctypes.c_int] + bounce.SCENE_ARGTYPES
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    ptrs = (ctypes.c_void_p * 35)()
+    err = fn(0, ptrs, 256, *bounce.scene_args(b_plan),
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 1                                # cudaErrorInvalidValue

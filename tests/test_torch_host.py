@@ -210,3 +210,66 @@ def test_resolve_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             t_config.resolve_device(None)
+
+
+def test_kernel_variants_are_named_by_feature_set():
+    # utils/cuda_build names a library by its kernel and its plan's feature
+    # set (no nvcc needed): two plans with the same features share a name,
+    # Cornell and the bezier scene do not, counts do not enter
+    from scheme_raytrace_torch.integrator import bounce as tb
+    from scheme_raytrace_torch.utils import cuda_build
+
+    def feats(name, **kw):
+        spec = t_scenes.SCENES[name]()
+        scene = t_build.compile_scene(spec.objects, sky=spec.sky,
+                                      device="cpu")
+        return tb.kernel_features(tb.pool_plan(scene, t_config.RenderConfig(
+            nx=8, ny=8, spp=1, **kw)))
+
+    assert feats("cornell") == feats("cornell", light_sampling=True) == ()
+    assert feats("bezier") == feats("points_chain") == ("spheres", "bezier")
+    assert feats("cornell_bezier") == ("bezier",)
+    assert feats("three_spheres") == feats("test") == ("spheres",)
+    assert feats("random") == ("spheres", "moving")
+    assert feats("textured") == ("spheres", "perlin", "image")
+    assert feats("cornell_smoke") == ("media",)
+    name = cuda_build.variant_name
+    assert name("bounce_step", feats("cornell")) == "bounce_step-base"
+    assert (name("bounce_step_bwd", feats("bezier"))
+            == name("bounce_step_bwd", feats("points_chain"))
+            == "bounce_step_bwd-spheres+bezier")
+    assert name("bounce_step", feats("cornell")) != name(
+        "bounce_step", feats("cornell_bezier"))
+    # a set in any order, each flag once; an unknown flag raises
+    assert name("k", ("bezier", "spheres", "bezier")) == "k-spheres+bezier"
+    assert cuda_build.feature_flags(("bezier", "spheres")) == [
+        "-DSRT_SPHERES=1", "-DSRT_BEZIER=1"]
+    with pytest.raises(ValueError, match="unknown kernel features"):
+        name("k", ("nurbs",))
+    # every flag but the reserved klein one is read by the shared header
+    header = (cuda_build.CSRC / "bounce_common.cuh").read_text()
+    for flag, macro in cuda_build.FEATURES.items():
+        assert (macro in header) == (flag != "klein"), flag
+
+
+def test_build_log_resources_are_parsed():
+    from scheme_raytrace_torch.utils import cuda_build
+    log = """-gencode arch=compute_90a,code=sm_90a -DSRT_BEZIER=1
+built in 9.1 s
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN3abc6kernelIfEEvT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN3abc6kernelIfEEvT_
+    736 bytes stack frame, 234 bytes spill stores, 136 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16224 bytes smem
+ptxas info    : Function properties for _ZN3abc10bezier_adjIfEEvT_
+    64 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN3abc6kernelIdEEvT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN3abc6kernelIdEEvT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, 568 bytes cmem[0]
+"""
+    f32, f64 = cuda_build.resources(log)
+    assert f32 == dict(entry="_ZN3abc6kernelIfEEvT_", registers=128,
+                       spill_stores=234, spill_loads=136, stack=736,
+                       smem=16224)
+    assert (f64["registers"], f64["smem"], f64["stack"]) == (255, 0, 0)

@@ -16,6 +16,10 @@
     __fmul_rn / __fadd_rn) rounds the product and the sum apart, and a mask
     such as a * a < 4 then flips on some lanes.
 
+    The extension case (`EXT_CASES`: the bezier probe's loop form, which
+    the JAX tool does not have) is held against the same loops in numpy
+    float32, bitwise.
+
 The CUDA kernels run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -118,6 +122,38 @@ def test_probe_loops_match_jax_cases(repro, name):
     got = probe_loops.loops(name, x)
     assert got.shape == probe_loops.SHAPE and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_probe_loops_extension_matches_numpy():
+    # the nine cases stay case for case; the extension follows them
+    assert list(probe_loops.ALL_CASES) == [*probe_loops.CASES,
+                                           "bezier_seeds"]
+    x = probe_loops.inputs(seed=3, device="cpu")
+    f = np.float32
+    a = x.numpy() * f(0.25)
+    best = np.full(a.shape, f(100.0))
+    K, N = probe_loops.BEZ_SEEDS, probe_loops.BEZ_NEWTON
+    for k in range(K):
+        s = np.full(a.shape, f((k + 0.5) / K))
+        for _ in range(N):
+            cx, cy, cx1 = s * s - a, (s - f(0.5)) * f(0.5), s * f(2.0)
+            dg = (cx * cx1 + cy * f(0.5)) * f(2.0)
+            d2g = (cx1 * cx1 + f(0.25)) * f(2.0) + cx * f(4.0)
+            curved = d2g > f(1e-12)
+            step = np.where(curved, dg / np.where(curved, d2g, f(1e-12)),
+                            f(0.0))
+            s = np.clip(s - step, f(0.0), f(1.0))
+        cx, cy = s * s - a, (s - f(0.5)) * f(0.5)
+        g = cx * cx + cy * cy
+        best = np.minimum(best, np.where(g < f(0.04), f(1.0) + s, f(100.0)))
+    got = probe_loops.loops("bezier_seeds", x)
+    assert got.dtype == torch.float32 and best.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), best)
+    hit = best < 100.0
+    assert 0.3 < hit.mean() < 0.8 and len(np.unique(best[hit])) > 1000
+    cases, ext = probe_loops.main("cpu")
+    assert list(cases) == list(probe_loops.CASES) and all(cases.values())
+    assert ext == {"bezier_seeds": True}
 
 
 def test_probe_wrappers_take_cuda_tensors_only():

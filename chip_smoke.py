@@ -8,7 +8,8 @@ sampling (BASELINE config 4), the forward render through the three strided
 work pools, the op and loop probes, the sphere scenes up to the RTOW
 final scene (227 spheres) forward and fwd+bwd, and the textured and smoke
 scenes (hash-Perlin noise and marble, image texels, constant media) forward
-and fwd+bwd, and the bezier scenes forward and fwd+bwd, in phases; any
+and fwd+bwd, the bezier scenes and the klein scenes forward and fwd+bwd, in
+phases; any
 failure raises and the exit code is non-zero.  `--phases` takes a
 comma-separated selection of the phase names in PHASES (the default is every
 phase); the device and build phases always run, a phase that needs another's
@@ -51,8 +52,9 @@ kernel table:
      render_pool_persistent (K4), timed as phase 7 times the FIFO pool,
      each with phase 7's exact segment count and its image to rtol 1e-5,
      and one render of each under torch.profiler;
- 12. probes: the op probe (K5) and the nine loop probes (K6) against their
-     plain versions;
+ 12. probes: the op probe (K5) and the nine loop probes and the two
+     extension loop forms (K6: the bezier probe's and the klein march's)
+     against their plain versions;
  13. the kernels on the sphere scenes: K1 against the plain step (65,536
      lanes) and K2 against the plain VJP (24,576 lanes) on test_scene under
      the gradient sky, a moving-sphere scene and the RTOW final scene
@@ -98,7 +100,25 @@ kernel table:
      sampled) at 512x512 spp8 depth 100, forward through the FIFO pool and
      the persistent pool and fwd+bwd, as phase 15 but with five timed runs
      (minimum, median, maximum) and the kernels' device time in one run by
-     CUDA events around every launch.
+     CUDA events around every launch;
+ 24. the kernels on the klein scenes: K1 against the plain step and K2
+     against the plain VJP on klein_scene and cornell_klein, float32 and
+     float64, on lanes aimed at the fractal from outside its precull ball
+     (the share that ends on the klein, the plain march's steps and
+     inversions and the share of marching lanes at the 100-step cap are
+     logged), K2's f64 dpk within 1e-10 and the K_C slots named;
+ 25. K3 against step_packed and one K4 chunk bitwise equal to 32 K3 launches
+     on both klein scenes;
+ 26. there is no klein golden, and f32 and f64 klein renders differ by
+     design: the f32 render of cornell_klein at 32x32 spp2 depth 100 against
+     the plain step's, with tests/test_parity.py's bounds, and its distance
+     from the f64 render logged;
+ 27. the differentiable render of cornell_klein against its forward render
+     (bitwise), and in float64 AD against finite differences on the klein's
+     centre on a window where the estimator's normal holds (KLEIN_FD_CFG);
+ 28. the klein scenes at full width, as phase 23: klein_scene and
+     cornell_klein (light sampled) at 512x512 spp8 depth 100, forward
+     through the FIFO and the persistent pools and fwd+bwd.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -110,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import os
 import statistics
@@ -121,7 +142,7 @@ import numpy as np
 import torch
 
 from scheme_raytrace_torch import render, scenes
-from scheme_raytrace_torch.config import RenderConfig
+from scheme_raytrace_torch.config import SHADOW_EPS, RenderConfig
 from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
                                               pool_fused, pool_packed,
                                               pool_strided)
@@ -214,6 +235,39 @@ CORNELL_BEZIER = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0,
 BEZ_G_OPS, BEZ_STEP_OPS, BEZ_END_OPS = 40, 5, 11
 BEZ_CURVE_OPS, BEZ_FRAME_OPS = 100, 30
 N_TIMED_BEZIER = 5  # timed runs of the bezier cells: minimum, median, maximum
+# The klein scenes: klein_scene (a ground sphere of radius 1000 and the
+# fractal, the camera inside its solid) and cornell_klein (the Cornell walls,
+# a wide light and the fractal; light sampled) at the size of the other
+# full-size configurations, and cornell_klein at 32^2 spp2 depth 100 for the
+# kernel's render against the plain step's.
+KLEIN = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0)
+CORNELL_KLEIN = RenderConfig(nx=512, ny=512, spp=8, max_depth=100, seed=0,
+                             light_sampling=True)
+CONFIG_KLEIN = RenderConfig(nx=32, ny=32, spp=2, max_depth=100, seed=0,
+                            light_sampling=True)
+# The klein probe's operations, counted from csrc/bounce_common.cuh: the
+# precull a live lane (20); a march step: the point (6), the DE's escape test
+# of all six spheres (54) and its tail (13), and the step's accept and
+# retirement tests (28); an inversion: the selected sphere's test and the
+# inversion itself (18); a winner's normal, klein_dist_grad (100), and in K2
+# its adjoint, a second gradient and the Hessian-vector sweep (300).  Floors:
+# the spheres tested before the selected one are not counted.
+KLEIN_PRECULL_OPS, KLEIN_STEP_OPS, KLEIN_INV_OPS = 20, 101, 18
+KLEIN_NORMAL_OPS, KLEIN_ADJ_OPS = 100, 300
+# AD against finite differences on the klein's centre.  The JAX package's
+# estimator (the port's, held to jax.grad) differentiates the hit's t by the
+# implicit function at the march's t_raw but evaluates the normal at
+# o + t_raw d with t_raw held: where the centre's move shifts the hit along
+# the ray, the normal's change from that shift is left out, which FD sees (up
+# to 100% on a curved lobe, by design).  So the check runs where that shift
+# is small: one bounce (no path beyond the first scatter), the y component of
+# the centre (across the view), and the window of 16^2 pixels whose camera
+# rays meet the fractal there; measured on the CPU, AD is within 0.31% of FD
+# (eps 1e-3 and 1e-4 agree).
+KLEIN_FD_CFG = RenderConfig(nx=16, ny=16, spp=1, max_depth=1, seed=0,
+                            dtype="f64", light_sampling=True)
+KLEIN_FD_WINDOW = (2, 8, 10, 13)
+KLEIN_FD_AXIS, KLEIN_FD_EPS = 1, 1e-3
 K1, K2, K3, K4 = ("bounce_step", "bounce_step_bwd", "bounce_packed",
                   "bounce_persist")
 PROBES = ("probe_ops", "probe_loops")
@@ -331,6 +385,14 @@ VARIANTS = {
                     ((K1, K2), grad_bezier_spec)],
     "full-bezier": [((K1, K2, K4), scenes.test_bezier),
                     ((K1, K2, K4), scenes.cornell_bezier)],
+    "kernel-klein": [((K1, K2), scenes.klein_scene),
+                     ((K1, K2), scenes.cornell_klein)],
+    "packed-klein": [((K3, K4), scenes.klein_scene),
+                     ((K3, K4), scenes.cornell_klein)],
+    "golden-klein": [((K1,), scenes.cornell_klein)],
+    "diff-klein": [((K1, K2), scenes.cornell_klein)],
+    "full-klein": [((K1, K2, K4), scenes.klein_scene),
+                   ((K1, K2, K4), scenes.cornell_klein)],
 }
 
 
@@ -358,7 +420,7 @@ def needed_variants(selected):
 # variant without the group must have none of them (its log lists every
 # function ptxas compiled).
 GROUP_FUNCTIONS = {"perlin": "perlin_noise", "media": "medium_adj",
-                   "bezier": "bezier_adj"}
+                   "bezier": "bezier_adj", "klein": "klein_adj"}
 
 
 def phase_build(selected):
@@ -596,28 +658,124 @@ def ribbon_winners(plan, pk, gitem, px, py, fresh, alive, depth, o, d, time,
             & (rec["wn"][1] == -d[1]) & (rec["wn"][2] == -d[2]))
 
 
+def klein_rays(c, m, seed):
+    """Origins and unit directions of m lanes aimed at the klein centred at
+    c: origins outside the march's precull ball (|o - c| in [730, 1000]) on
+    the side of smaller z, the cameras' side, aimed at random points within
+    300 of c; one lane in ten born within 100 of c on each axis, most of
+    them inside the fractal's solid, where the march retires them
+    backward-stuck."""
+    r = np.random.default_rng(seed + 1000)
+    u = r.normal(size=(3, m))
+    u[2] = -np.abs(u[2]) - 1.0
+    u /= np.linalg.norm(u, axis=0)
+    o = c[:, None] + u * r.uniform(730.0, 1000.0, m)
+    inside = r.random(m) < 0.1
+    o[:, inside] = c[:, None] + r.uniform(-100.0, 100.0,
+                                          (3, int(inside.sum())))
+    dv = c[:, None] + r.uniform(-300.0, 300.0, (3, m)) - o
+    return o, dv / np.linalg.norm(dv, axis=0)
+
+
+def klein_inputs(m, config, dtype, device, scene, seed=0):
+    """lane_inputs with the rays of klein_rays about the scene's first
+    klein (a fresh lane still takes the camera's ray)."""
+    ins = lane_inputs(m, config, dtype, device, seed=seed)
+    o, d = klein_rays(scene.kl_center[0].double().cpu().numpy(), m, seed)
+    f = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    return (*ins[:6], tuple(f(x) for x in o), tuple(f(x) for x in d),
+            *ins[8:])
+
+
+def klein_work(plan, pk, gitem, px, py, fresh, alive, depth, o, d, time,
+               *_):
+    """The live lanes whose closest hit is a klein, and the klein march's
+    work on these lanes: the plain march (bounce._klein_march) as the
+    kernels run it, on the live lanes, bounded by the closest hit of the
+    rects and spheres (the klein scenes have no ribbon or medium after the
+    kleins).  Returns (winners, {marching, steps, inversions, stuck,
+    capped})."""
+    pk0 = bounce.split_pk(plan, pk)[0]
+    o, d, _, rec = bounce.hit_record(dataclasses.replace(plan, n_kleins=0),
+                                     pk0, gitem, px, py, fresh, depth, o, d,
+                                     time)
+    live = alive.nonzero()[:, 0]
+    stats = dict(marching=0, steps=0, inversions=0, stuck=0, capped=0)
+    best, won = rec["t"][live], torch.zeros_like(live, dtype=torch.bool)
+    for k in range(plan.n_kleins):
+        b = plan.kl_base + k * bounce.KL_SIZE
+        hit, t = bounce._klein_march(
+            tuple(pk0[b + bounce.K_C + i] for i in range(3)),
+            tuple(x[live] for x in o), tuple(x[live] for x in d), SHADOW_EPS,
+            best, stats)
+        hit = hit & (pk0[b + bounce.K_VALID] > 0.5)
+        best = torch.where(hit, t, best)
+        won = won | hit
+    winners = torch.zeros_like(alive)
+    winners[live] = won
+    return winners, stats
+
+
+def klein_ops(plan, pk, ins, win_ops):
+    """The klein probe's operations on these lanes (see KLEIN_STEP_OPS), a
+    winner counted at win_ops; returns (winners, ops, the march's stats)."""
+    won, st = klein_work(plan, pk, *ins)
+    ops = (int(ins[4].sum()) * plan.n_kleins * KLEIN_PRECULL_OPS
+           + st["steps"] * KLEIN_STEP_OPS + st["inversions"] * KLEIN_INV_OPS
+           + int(won.sum()) * win_ops)
+    return won, ops, st
+
+
+def log_klein_work(tag, name, plan, pk, ins, win_ops):
+    """Logs the lanes' klein winners and march work (the share of marching
+    lanes that reach the step cap); raises if no lane ends on a klein.
+    Returns (winners, ops)."""
+    won, ops, st = klein_ops(plan, pk, ins, win_ops)
+    n_won, n_live = int(won.sum()), int(ins[4].sum())
+    marching = max(st["marching"], 1)
+    log(f"[{tag}] {name}: {n_won} of {n_live} live lanes "
+        f"({n_won / ins[4].numel():.1%} of all) end on the klein; the plain "
+        f"march: {st['marching']} lanes march {st['steps']} steps "
+        f"({st['steps'] / marching:.1f} a lane) "
+        f"with {st['inversions']} inversions "
+        f"({st['inversions'] / max(st['steps'], 1):.2f} a step); "
+        f"{st['capped']} lanes ({st['capped'] / marching:.2%} of those "
+        f"marching) reach the {bounce.cfg_mod.KLEIN_MAX_STEPS}-step cap")
+    if not n_won:
+        raise AssertionError(f"[{tag}] {name}: no lane ends on the klein")
+    return won, ops
+
+
 def scene_bytes(plan):
     """pk and the image texels, each read once, in f32."""
     return (plan.size + plan.img_rows * 128) * 4
 
 
-def k1_bound(plan, pk, m, ins, scattering):
+def k1_bound(plan, pk, m, ins, scattering, klein_ops=0):
     """K1 in f32: 6 queue columns (18 B), 13 floats in, 13 out and one
-    bool a lane, and pk and the texels once; every lane sweeps."""
+    bool a lane, and pk and the texels once; every lane sweeps.  klein_ops:
+    the klein probe's (klein_work)."""
     flops = (m * sweep_flops(plan) + int(ins[3].sum()) * CAMERA_FLOPS
              + int(scattering.sum()) * SHADE_FLOPS
-             + texture_ops(plan, pk, *ins) + bezier_ops(plan, ins[4]))
+             + texture_ops(plan, pk, *ins) + bezier_ops(plan, ins[4])
+             + klein_ops)
     return bound(m * (18 + 13 * 4 + 13 * 4 + 1) + scene_bytes(plan), flops)
 
 
 def check_k1(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
-             aim=None):
+             aim=None, timed=True):
     """K1 against the plain step on one (scene, config, dtype) at the
-    forward pool's width: agreement, flips, times, bound."""
+    forward pool's width: agreement, flips, times (unless not `timed`),
+    bound.  A klein scene's lanes are aimed at the fractal
+    (klein_inputs)."""
     plan = bounce.pool_plan(scene, cfg)
     pk = bounce.pack(scene, cam, plan, dtype)
-    ins = lane_inputs(M, cfg, dtype, dev, box=box, aim=aim)
+    ins = (klein_inputs(M, cfg, dtype, dev, scene) if plan.n_kleins
+           else lane_inputs(M, cfg, dtype, dev, box=box, aim=aim))
     want = flat(bounce.step(plan, pk, *ins))
+    kl_ops = 0
+    if plan.n_kleins:
+        _, kl_ops = log_klein_work(tag, name, plan, pk, ins, KLEIN_NORMAL_OPS)
     if plan.n_beziers:
         n_rib = int(ribbon_winners(plan, pk, *ins).sum())
         log(f"[{tag}] {name}: {n_rib} of {int(ins[4].sum())} live lanes "
@@ -650,23 +808,29 @@ def check_k1(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
             f"kernel is nearer the f64 step on "
             f"{int((k_err < p_err).sum())}, the plain f32 step on "
             f"{int((p_err < k_err).sum())}")
+    limit = 0 if dtype == torch.float64 else MAX_FLIP_FRAC * M
+    if n_bad > limit:
+        raise AssertionError(f"[{tag}] {name}: {n_bad} lanes disagree "
+                             f"(limit {limit:g})")
+    if not timed:
+        return dict(name=name, max_abs_err=max_err, bad=n_bad)
     k_wall = median_ms(lambda: bounce.step_cuda(plan, pk, *ins))
-    p_wall = median_ms(lambda: bounce.step(plan, pk, *ins), n=3)
+    p_wall = median_ms(lambda: bounce.step(plan, pk, *ins),
+                       n=1 if plan.n_kleins else 3)
     # the wrapper launches the kernel and nothing else, so the back-to-back
     # calls' time is the kernel's (the profiler drops device events of short
     # windows, see device_ms: it recorded 12, 1 and 0 of 20 K1 launches)
     k_ms = kernel_ms(lambda: bounce.step_cuda(plan, pk, *ins))
-    p_ms, p_launches = device_ms(lambda: bounce.step(plan, pk, *ins), 2)
-    b_ms, b_by = k1_bound(plan, pk, M, ins, want[1])
+    if plan.n_kleins:                 # some 45,000 launches: p_wall's call
+        p_ms, p_launches = p_wall, float("nan")
+    else:
+        p_ms, p_launches = device_ms(lambda: bounce.step(plan, pk, *ins), 2)
+    b_ms, b_by = k1_bound(plan, pk, M, ins, want[1], kl_ops)
     log(f"[{tag}] {name}: device time per step: kernel {k_ms:.4f} ms "
         f"(CUDA events, back to back), plain {p_ms:.4f} ms ({p_launches:.0f} "
         f"launches); elapsed per call (median, host included): "
         f"kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms; f32 bound "
         f"{b_ms * 1e3:.2f} us ({b_by})")
-    limit = 0 if dtype == torch.float64 else MAX_FLIP_FRAC * M
-    if n_bad > limit:
-        raise AssertionError(f"[{tag}] {name}: {n_bad} lanes disagree "
-                             f"(limit {limit:g})")
     return dict(name=name, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                 wall_ms=k_wall, plain_wall_ms=p_wall, bad=n_bad,
                 bound_ms=b_ms, bound_by=b_by)
@@ -714,42 +878,39 @@ def lanes_of(grads):
     return dpk_of(grads), torch.stack(bounce.flat_lanes(*grads[1:]))
 
 
-def k2_bound(plan, pk, m, ins, scattering):
+def k2_bound(plan, pk, m, ins, scattering, klein_ops=0):
     """K2 in f32: the step's 19 inputs (70 B a lane), 13 cotangents in and
     13 out, pk and the texels once and one row of partials per 256-lane
     block; the replay of the forward and the adjoint of the scattering
     lanes (a Perlin texture is evaluated in both; the bezier march is run
     once, in the replay, and a winner's adjoint is a few hundred operations
-    more, which the floor leaves out)."""
+    more, which the floor leaves out; klein_ops: the klein probe's replay and
+    its winners' adjoints, klein_work)."""
     flops = (m * sweep_flops(plan) + int(ins[3].sum()) * CAMERA_FLOPS
              + 2 * int(scattering.sum()) * SHADE_FLOPS
-             + 2 * texture_ops(plan, pk, *ins) + bezier_ops(plan, ins[4]))
+             + 2 * texture_ops(plan, pk, *ins) + bezier_ops(plan, ins[4])
+             + klein_ops)
     n_bytes = m * (70 + 26 * 4) + scene_bytes(plan) * (1 + -(-m // 256))
     return bound(n_bytes, flops)
 
 
 def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
-             given_rays_dpk=False, aim=None):
+             aim=None, dpk_tol=BWD_F64["dpk"], timed=True):
     """K2 against the plain VJP on one (scene, config, dtype) at the
-    reverse pool's width: bounds, two launches bitwise equal, times.
-
-    `given_rays_dpk` (the sphere scenes; it acts in f32): the dpk sums are
-    held on the lanes whose rays are given, and the fresh lanes' share is
-    logged.  A fresh lane's ray comes from camera_ray, where the kernel
-    fuses products and sums that the plain step rounds one by one; the two
-    directions differ by an ulp, and a ground sphere of radius 100 or 1000
-    amplifies that (bq = oc.d with |oc| the radius; a hit near the horizon
-    has sqrt(disc) near 0 and an adjoint proportional to 1 / sqrt(disc))
-    into differences of a few percent in the f32 camera and sphere slots,
-    where the plain f32 VJP is itself that far, or further, from the plain
-    f64 VJP.  With given rays the probe is bitwise the plain step's and
-    every slot keeps the bounds (measured: within 3% of them on 15 draws).
-    The lanes' cotangents are held on every lane, and in f64 every slot on
-    every lane."""
+    reverse pool's width: bounds, two launches bitwise equal, times.  The
+    lanes' cotangents and every dpk slot are held on every lane that the
+    forward does not flip; in f64 dpk within `dpk_tol` of its largest slot.
+    A fresh lane's camera ray is the plain step's bit for bit (camera_ray
+    rounds op by op), so a big ground sphere, which amplifies an ulp of the
+    ray into percent-level f32 differences of the camera and sphere slots,
+    sees the plain step's ray; the worst slot's share of its bound is
+    logged.  Times and the bound unless not `timed`."""
     f64 = dtype == torch.float64
     plan = bounce.pool_plan(scene, cfg)
     pk = bounce.pack(scene, cam, plan, dtype)
-    ins = lane_inputs(M_BWD, cfg, dtype, dev, seed=3, box=box, aim=aim)
+    ins = (klein_inputs(M_BWD, cfg, dtype, dev, scene, seed=3)
+           if plan.n_kleins else
+           lane_inputs(M_BWD, cfg, dtype, dev, seed=3, box=box, aim=aim))
     r = np.random.default_rng(103)
     cts = [torch.tensor(x, dtype=dtype, device=dev)
            for x in r.normal(size=(13, M_BWD))]
@@ -779,7 +940,7 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
     if f64:
         lane_bad = (err > BWD_F64["atol"]
                     + BWD_F64["rtol"] * want.abs()).any(0)
-        pk_lim = BWD_F64["dpk"] * float(want_pk.abs().max())
+        pk_lim = dpk_tol * float(want_pk.abs().max())
         pk_bad = int(((got_pk - want_pk).abs() > pk_lim).sum())
     else:
         scale = torch.clamp(want[:, keep].abs().amax(1), min=1.0)
@@ -788,38 +949,28 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
         pk_lim = (BWD_F32["atol"] * max(1.0, float(want_pk.abs().max()))
                   + BWD_F32["rtol"] * want_pk.abs())
         pk_off = (got_pk - want_pk).abs() > pk_lim
-        if given_rays_dpk:
-            given = bounce.split_lanes([torch.where(ins[3], 0.0, c)
-                                        for c in bounce.flat_lanes(*cts)])
-            w_pk = dpk_of(bounce.step_vjp(plan, pk, *ins, *given))
-            g_pk = dpk_of(bounce.step_cuda_bwd(plan, pk, *ins, *given))
-            lim = (BWD_F32["atol"] * max(1.0, float(w_pk.abs().max()))
-                   + BWD_F32["rtol"] * w_pk.abs())
-            log(f"[{tag}] {name}: dpk over all lanes: {int(pk_off.sum())} "
-                f"slots outside the bounds, the worst at "
-                f"{float(((got_pk - want_pk).abs() / pk_lim).max()):.2f} of "
-                f"its bound (the fresh lanes' share, logged); over the "
-                f"{int((keep & ~ins[3]).sum())} lanes with given rays the "
-                f"worst slot is at {float(((g_pk - w_pk).abs() / lim).max()):.3f}"
-                f" of its bound (held)")
-            pk_off = (g_pk - w_pk).abs() > lim
+        log(f"[{tag}] {name}: dpk over all lanes, fresh ones included: "
+            f"{int(pk_off.sum())} slots outside the bounds, the worst at "
+            f"{float(((got_pk - want_pk).abs() / pk_lim).max()):.3f} of its "
+            f"bound")
         pk_bad = int(pk_off.sum())
     n_bad = int(lane_bad.sum())
     max_err = float(err[:, keep].max())
     pk_err = float((got_pk - want_pk).abs().max()
                    / want_pk.abs().max())
-    args = (plan, pk, *ins, *cts)
-    k_wall = median_ms(lambda: bounce.step_cuda_bwd(*args))
-    p_wall = median_ms(lambda: bounce.step_vjp(*args), n=2)
-    # CUDA events around back-to-back calls, as for K1.  The wrapper
-    # launches the kernel and the sum of its partials over the blocks: the
-    # kernel's own time is the wrapper's less that of the same sum alone.
-    k_all = kernel_ms(lambda: bounce.step_cuda_bwd(*args))
-    partials = torch.empty(-(-M_BWD // 256), got_pk.numel(), dtype=dtype,
-                           device=dev)
-    k_ms = k_all - kernel_ms(lambda: partials.sum(dim=0))
-    p_ms, p_launches = device_ms(lambda: bounce.step_vjp(*args), 1)
-    b_ms, b_by = k2_bound(plan, pk, M_BWD, ins, fwd[1])
+    kl_ops = 0
+    if plan.n_kleins:
+        wins, kl_ops = log_klein_work(tag, name, plan, pk, ins,
+                                      KLEIN_NORMAL_OPS + KLEIN_ADJ_OPS)
+        # the fractal's centre takes cotangent from the lanes it wins
+        kc = lambda x: x[plan.kl_base + bounce.K_C:plan.kl_base + bounce.K_C
+                         + 3]
+        log(f"[{tag}] {name}: dpk's K_C slots {kc(got_pk).tolist()} (plain "
+            f"{kc(want_pk).tolist()}) from {int((wins & keep).sum())} klein "
+            f"winners")
+        if not (bool((wins & keep).any()) and bool((kc(got_pk) != 0).all())):
+            raise AssertionError(f"[{tag}] {name}: the klein's centre took "
+                                 f"no cotangent")
     if plan.has_image:
         d_atlas = got_pk[plan.size:]
         log(f"[{tag}] {name}: the texels' cotangent: {int((d_atlas != 0).sum())}"
@@ -852,15 +1003,33 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
         f"{n_bad}, max abs err {max_err:.3e}; dpk slots outside "
         f"{pk_bad}, max err / max|dpk| {pk_err:.3e}; time cotangent max "
         f"{float(want[6].abs().max()):.3e}; two launches bitwise equal")
+    if n_bad or pk_bad:
+        raise AssertionError(f"[{tag}] {name}: {n_bad} lanes and "
+                             f"{pk_bad} dpk slots outside the bounds")
+    if not timed:
+        return dict(name=name, max_abs_err=max_err)
+    args = (plan, pk, *ins, *cts)
+    k_wall = median_ms(lambda: bounce.step_cuda_bwd(*args))
+    p_wall = median_ms(lambda: bounce.step_vjp(*args),
+                       n=1 if plan.n_kleins else 2)
+    # CUDA events around back-to-back calls, as for K1.  The wrapper
+    # launches the kernel and the sum of its partials over the blocks: the
+    # kernel's own time is the wrapper's less that of the same sum alone.
+    k_all = kernel_ms(lambda: bounce.step_cuda_bwd(*args))
+    partials = torch.empty(-(-M_BWD // 256), got_pk.numel(), dtype=dtype,
+                           device=dev)
+    k_ms = k_all - kernel_ms(lambda: partials.sum(dim=0))
+    if plan.n_kleins:                 # some 50,000 launches: p_wall's call
+        p_ms, p_launches = p_wall, float("nan")
+    else:
+        p_ms, p_launches = device_ms(lambda: bounce.step_vjp(*args), 1)
+    b_ms, b_by = k2_bound(plan, pk, M_BWD, ins, fwd[1], kl_ops)
     log(f"[{tag}] {name}: device time per call: kernel "
         f"{k_ms:.4f} ms (CUDA events; with the partials' sum {k_all:.4f} "
         f"ms), plain "
         f"VJP {p_ms:.4f} ms ({p_launches:.0f} launches); elapsed per "
         f"call (median): kernel {k_wall:.4f} ms, plain {p_wall:.3f} ms; "
         f"f32 bound {b_ms * 1e3:.2f} us ({b_by})")
-    if n_bad or pk_bad:
-        raise AssertionError(f"[{tag}] {name}: {n_bad} lanes and "
-                             f"{pk_bad} dpk slots outside the bounds")
     return dict(name=name, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                 wall_ms=k_wall, plain_wall_ms=p_wall, bound_ms=b_ms,
                 bound_by=b_by)
@@ -890,14 +1059,14 @@ def phase_kernel_bwd_spheres(dev):
             scene, cam, box, atol = sphere_scene(name, dtype, dev)
             results.append(check_k2(
                 "kernel-bwd-spheres", f"{dtype_name(dtype)}-{name}", scene,
-                cam, RTOW, dtype, dev, box=box, atol=atol,
-                given_rays_dpk=True))
+                cam, RTOW, dtype, dev, box=box, atol=atol))
     return results
 
 
 def check_golden(tag, scene, cam, cfg, golden):
-    """An f32 render against an f64 oracle golden with the bounds of
-    tests/test_parity.py; one kernel launch per pool iteration."""
+    """An f32 render against an f64 oracle golden (a file, or the image
+    itself) with the bounds of tests/test_parity.py; one kernel launch per
+    pool iteration."""
     start = bounce.LAUNCHES
     mean, state = render.render_image(scene, cam, cfg)
     launches = bounce.LAUNCHES - start
@@ -910,7 +1079,7 @@ def check_golden(tag, scene, cam, cfg, golden):
                              f"pool iterations {iters}")
     if not torch.equal(state.raw_sum, state2.raw_sum):
         raise AssertionError(f"[{tag}] two identical renders differ")
-    ref = np.load(golden)["image"]
+    ref = np.load(golden)["image"] if isinstance(golden, str) else golden
     img = mean.cpu().numpy().astype(np.float64)
     if img.shape != ref.shape or not np.isfinite(img).all():
         raise AssertionError(f"[{tag}] image shape or finiteness")
@@ -1163,11 +1332,17 @@ def phase_profile(dev):
     profile_render("profile", scene, cam, FULL)
 
 
-def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED):
+def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED,
+                 recalibrate=False):
     """fwd+bwd steps as bench.py:_measure_fwd_bwd times them: calibration,
     a warm-up, then n_timed steps chained by params -= 1e-6 grad; the counts
     are set to 0 just before and read just after.  Then one step under
-    torch.profiler."""
+    torch.profiler.  `recalibrate` (the klein scenes): each timed step's
+    trip count is calibrated again, outside its timed window, on the moved
+    parameters: a klein path re-hits the fractal up to the depth cap
+    (ROADMAP C.6), so the drain's tail moves with any change of the scene,
+    beyond the 10% slack; those calibrations' forward launches are counted
+    on the path and expected."""
     t0 = time.perf_counter()
     n_iters = diff_fused.calibrate_iters(scene, cam, cfg, slack=1.1)
     calib = time.perf_counter() - t0
@@ -1183,8 +1358,16 @@ def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED):
         raise AssertionError(f"[{tag}] warm-up did not drain")
     torch.cuda.reset_peak_memory_stats()
     times = []
+    block = lambda n: -(-n // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
+    blocks, calib_launches = block(n_iters), 0
     for _ in range(n_timed):
         params = {k: v - 1e-6 * grads[k] for k, v in params.items()}
+        if recalibrate:
+            before = bounce.LAUNCHES
+            n_iters = diff_fused.calibrate_iters(build.combine(params, rest),
+                                                 cam, cfg, slack=1.1)
+            calib_launches += bounce.LAUNCHES - before
+        blocks += block(n_iters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, loss, segs, leftover, grads = fwd_bwd(scene, cam, cfg, n_iters,
@@ -1198,19 +1381,21 @@ def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED):
     peak = torch.cuda.max_memory_allocated()
     segs = int(segs)
     med = statistics.median(times)
-    blocks = -(-n_iters // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
     steps = n_timed + 1
     log(f"[{tag}] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} "
         f"{what} f32: m={cfg.resolve_pool_rays(reverse=True)} "
-        f"n_iters {n_iters} (calibration {calib * 1e3:.1f} ms) -> {blocks} "
-        f"pool iterations; segments {segs}; warm-up {warm * 1e3:.1f} ms; "
+        f"n_iters {n_iters} (calibration {calib * 1e3:.1f} ms) -> "
+        f"{block(n_iters)} pool iterations (the last step; {blocks} over the "
+        f"{steps} steps, {calib_launches} forward launches recalibrating); "
+        f"segments {segs}; warm-up {warm * 1e3:.1f} ms; "
         f"times_ms {[round(t * 1e3, 2) for t in times]}; {spread(times)} "
         f"-> {segs / med:.4e} fwd+bwd rays/s; peak memory "
         f"{peak / 2 ** 30:.3f} GiB; launches forward {launches} backward "
         f"{bwd_launches} over {steps} steps")
-    if not (launches == bwd_launches == steps * blocks):
+    if not (launches - calib_launches == bwd_launches == blocks):
         raise AssertionError(f"[{tag}] launches {launches}/{bwd_launches}"
-                             f" != {steps} x {blocks}")
+                             f" != {blocks} (+ {calib_launches} "
+                             f"recalibrating)")
     if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
         raise AssertionError(f"[{tag}] gradients are not finite")
     touched = sorted(k for k, g in grads.items() if bool((g != 0).any()))
@@ -1219,7 +1404,7 @@ def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED):
         scene, cam, cfg, n_iters, params, rest, loss_fn))
     log_profile(tag, wall_ms, table, ours=("bounce_step",))
     return dict(segments=segs, median_s=med, launches=launches,
-                bwd_launches=bwd_launches, peak=peak, iters=blocks,
+                bwd_launches=bwd_launches, peak=peak, iters=block(n_iters),
                 touched=set(touched),
                 step=lambda: fwd_bwd(scene, cam, cfg, n_iters, params, rest,
                                      loss_fn))
@@ -1380,19 +1565,28 @@ def log_kernel_events(tag, what, fn):
     return totals
 
 
-def packed_texture_ops(plan, pk, sb, state, q):
-    """`texture_ops` and `bezier_ops` of one strided-pool iteration from a
-    packed state."""
+def packed_lanes(plan, sb, state, q):
+    """The step's inputs of the lanes of a packed state (step_packed's)."""
     st_i = state.view(torch.int32)
     alive = st_i[0] < q["n_work"]
-    if not (plan.n_media or plan.has_perlin):
-        return bezier_ops(plan, alive)
     gitem, px, py, _ = bounce.strided_item(
         st_i[0].to(torch.int64), sb.to(torch.int64)[0], q["n_pix"], q["pix0"],
         q["total_pix"], plan.nx, torch.float32)
-    return bezier_ops(plan, alive) + texture_ops(
-        plan, pk, gitem, px, py, (state[1] != 0.0) & alive, alive, st_i[2],
-        tuple(state[3:6]), tuple(state[6:9]), state[9])
+    return (gitem, px, py, (state[1] != 0.0) & alive, alive, st_i[2],
+            tuple(state[3:6]), tuple(state[6:9]), state[9])
+
+
+def packed_texture_ops(plan, pk, sb, state, q, klein=True):
+    """`texture_ops`, `bezier_ops` and (with `klein`) `klein_ops` of one
+    strided-pool iteration from a packed state."""
+    alive = state.view(torch.int32)[0] < q["n_work"]
+    if not (plan.n_media or plan.has_perlin or (klein and plan.n_kleins)):
+        return bezier_ops(plan, alive)
+    ins = packed_lanes(plan, sb, state, q)
+    ops = bezier_ops(plan, alive) + texture_ops(plan, pk, *ins)
+    if klein and plan.n_kleins:
+        ops += klein_ops(plan, pk, ins, KLEIN_NORMAL_OPS)[1]
+    return ops
 
 
 def packed_bound(plan, q, state, T=1, segs=None, tex_ops=0):
@@ -1427,12 +1621,15 @@ def check_k3(tag, setup, state, atol=F32_TOL["atol"]):
     max_err = float((got[3:] - want[3:]).abs()[:, ~bad].max())
     k_ms = kernel_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
                                                      **q))
-    p_ms, p_launches = device_ms(lambda: bounce.step_packed(
-        plan, pk, sb, state, **q), 3)
     k_wall = median_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
                                                        **q))
-    p_wall = median_ms(lambda: bounce.step_packed(plan, pk, sb, state, **q),
-                       n=3)
+    plain = lambda: bounce.step_packed(plan, pk, sb, state, **q)
+    if plan.n_kleins:                 # some 46,000 launches: p_wall's call
+        p_wall = median_ms(plain, n=1)
+        p_ms, p_launches = p_wall, float("nan")
+    else:
+        p_ms, p_launches = device_ms(plain, 3)
+        p_wall = median_ms(plain, n=3)
     live = int((state.view(torch.int32)[0] < q["n_work"]).sum())
     b_ms, b_by = packed_bound(plan, q, state, tex_ops=packed_texture_ops(
         plan, pk, sb, state, q))
@@ -1461,23 +1658,35 @@ def phase_packed_kernel(dev):
 def k3_chunk(plan, pk, sb, state, q, T):
     """T K3 launches from `state`, with the flush rows and segment counts
     the persistent kernel writes, derived on the card; and the chunk's
-    packed_texture_ops, summed over its iterations."""
+    packed_texture_ops, summed over its iterations (the klein march's over
+    all T iterations' lanes at once: one plain march of T m lanes)."""
     flush = torch.empty(T, 4, q["m"], dtype=torch.float32, device=state.device)
     segs = torch.empty(T, dtype=torch.int32, device=state.device)
-    tex_ops = 0
+    tex_ops, states = 0, []
     for t in range(T):
         item = state.view(torch.int32)[0]
         segs[t] = (item < q["n_work"]).sum()
-        tex_ops += packed_texture_ops(plan, pk, sb, state, q)
+        tex_ops += packed_texture_ops(plan, pk, sb, state, q, klein=False)
+        states.append(state)
         state = bounce.step_packed_cuda(plan, pk, sb, state, **q)
         done = state[1] != 0.0
         flush.view(torch.int32)[t, 0] = torch.where(done, item % q["n_pix"],
                                                     -1)
         flush[t, 1:] = torch.where(done, state[10:13], 0.0)
+    if plan.n_kleins:
+        tex_ops += klein_ops(plan, pk, packed_lanes(
+            plan, sb, torch.cat(states, 1), q), KLEIN_NORMAL_OPS)[1]
     return (state, flush, segs), tex_ops
 
 
-def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
+def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS,
+             plain_events=False):
+    """One K4 chunk bitwise against CHUNK_T K3 launches, K4 against
+    chunk_plain, and times.  `plain_events`: the plain chunk is timed by a
+    CUDA event pair around one call (its host syncs included) instead of
+    the profiler, whose per-event cost is minutes for the klein march's
+    hundreds of thousands of launches; its launches are then not
+    counted."""
     plan, pk, q, sb = setup
     T = persist.CHUNK_T
     got = persist.chunk_cuda(plan, pk, sb, state, T=T, **q)
@@ -1536,8 +1745,16 @@ def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
         per_t[t_len] = kernel_ms(lambda: persist.chunk_cuda(
             plan, pk, sb, state, T=t_len, **q), 10)
     k_ms = per_t[T]
-    p_ms, p_launches = device_ms(lambda: persist.chunk_plain(
-        plan, pk, sb, state, T=T, **q), 1)
+    plain = lambda: persist.chunk_plain(plan, pk, sb, state, T=T, **q)
+    if plain_events:                  # the chunk_plain calls above warmed it
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        plain()
+        e1.record()
+        e1.synchronize()
+        p_ms, p_launches = e0.elapsed_time(e1), float("nan")
+    else:
+        p_ms, p_launches = device_ms(plain, 1)
     k3_ms = kernel_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
                                                       **q))
     log(f"[{tag}] device time per chunk: "
@@ -1729,8 +1946,7 @@ def phase_kernel_textures(dev):
             k1.append(check_k1("kernel-textures", tag, scene, cam, cfg, dtype,
                                dev, box=box, atol=atol))
             k2.append(check_k2("kernel-bwd-textures", tag, scene, cam, cfg,
-                               dtype, dev, box=box, atol=atol,
-                               given_rays_dpk=scene.has_spheres))
+                               dtype, dev, box=box, atol=atol))
     return k1, k2
 
 
@@ -1864,8 +2080,7 @@ def phase_kernel_bezier(dev):
             k1.append(check_k1("kernel-bezier", tag, scene, cam, cfg, dtype,
                                dev, box=box, atol=atol, aim=aim))
             k2.append(check_k2("kernel-bwd-bezier", tag, scene, cam, cfg,
-                               dtype, dev, box=box, atol=atol, aim=aim,
-                               given_rays_dpk=scene.has_spheres))
+                               dtype, dev, box=box, atol=atol, aim=aim))
     return k1, k2
 
 
@@ -1968,6 +2183,158 @@ def phase_full_bezier(dev):
     return out
 
 
+# name -> (spec, light sampling, full-size configuration)
+KLEIN_SCENES = {"klein": (scenes.klein_scene, KLEIN),
+                "cornell_klein": (scenes.cornell_klein, CORNELL_KLEIN)}
+
+
+def klein_setup(name, dtype, dev):
+    """(scene, camera, config, f32 atol) of a KLEIN_SCENES entry; the atol as
+    sphere_scene scales it."""
+    spec_fn, cfg = KLEIN_SCENES[name]
+    scene, cam = spec_scene(spec_fn(), dtype, dev)
+    scale = 555.0
+    if scene.has_spheres:
+        scale = max(float(scene.sph_c0.abs().max()),
+                    float(scene.sph_r.abs().max()))
+    return scene, cam, cfg, 1e-3 * scale / 555.0
+
+
+def phase_kernel_klein(dev):
+    """K1 and K2 on the klein scenes, float32 and float64, on lanes aimed at
+    the fractal from outside its precull ball (klein_inputs); K2's f64 dpk
+    within 1e-10 of its largest slot.  The plain klein step is some 45,000
+    launches: it is timed in float32 alone."""
+    k1, k2 = [], []
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        for name in KLEIN_SCENES:
+            scene, cam, cfg, atol = klein_setup(name, dtype, dev)
+            tag = f"{dtype_name(dtype)}-{name}"
+            k1.append(check_k1("kernel-klein", tag, scene, cam, cfg, dtype,
+                               dev, atol=atol, timed=f32))
+            k2.append(check_k2("kernel-bwd-klein", tag, scene, cam, cfg,
+                               dtype, dev, atol=atol, dpk_tol=1e-10,
+                               timed=f32))
+    return k1, k2
+
+
+def klein_packed_state(m, n_work, max_depth, dev, scene, seed=0):
+    """packed_state with the rays of klein_rays."""
+    st = packed_state(m, n_work, max_depth, dev, seed=seed)
+    o, d = klein_rays(scene.kl_center[0].double().cpu().numpy(), m, seed)
+    st[3:9] = torch.tensor(np.concatenate([o, d]), dtype=torch.float32,
+                           device=dev)
+    return st
+
+
+def phase_packed_klein(dev):
+    """K3 against step_packed, and one K4 chunk bitwise equal to 32 K3
+    launches, on klein_scene's and cornell_klein's packed states."""
+    out = {}
+    for name in KLEIN_SCENES:
+        scene, cam, cfg, atol = klein_setup(name, torch.float32, dev)
+        setup = packed_setup(dev, scene, cam, cfg)
+        plan, _, q, _ = setup
+        k3 = check_k3(f"packed-{name}", setup, klein_packed_state(
+            M, q["n_work"], plan.max_depth, dev, scene), atol)
+        k4 = check_k4(f"persist-{name}", setup, klein_packed_state(
+            M, q["n_work"], plan.max_depth, dev, scene, seed=1), atol,
+            chunk_ts=(), plain_events=True)
+        out[name] = (k3, k4)
+    return out
+
+
+def phase_golden_klein(dev):
+    """There is no klein golden, and the f32 render of cornell_klein is not
+    its f64 render within tests/test_parity.py's bounds: most rays scattered
+    off the fractal hit it again just past t_min (the JAX step's acceptance
+    band, DE < eps), and f32 and f64 take some of those re-hits differently,
+    along chains of them (ROADMAP C.6).  So the f32 render (K1) is held
+    against the f32 render of the plain step on the card, at CONFIG_KLEIN,
+    with those bounds, and its distance from the f64 render (K1 in float64)
+    is logged.  The plain step runs on the card, not on the host's CPU: the
+    CPU's sin, cos and log round otherwise, and along the re-hit chains that
+    put 1.2% of the pixels off at 32^2 spp4 (measured on an H100)."""
+    spec = scenes.cornell_klein()
+    scene, cam = spec_scene(spec, torch.float32, dev)
+    kernel_step, bounce.step_cuda = bounce.step_cuda, bounce.step
+    try:                              # the FIFO pool's step: the plain one
+        plain, _ = render.render_image(scene, cam, CONFIG_KLEIN)
+    finally:
+        bounce.step_cuda = kernel_step
+    check_golden("golden-klein cornell_klein, K1 against the plain step",
+                 scene, cam, CONFIG_KLEIN, plain.cpu().numpy())
+    f32, _ = render.render_image(scene, cam, CONFIG_KLEIN)
+    s64, c64 = spec_scene(spec, torch.float64, dev)
+    f64, _ = render.render_image(s64, c64, CONFIG_KLEIN.replace(dtype="f64"))
+    diff = (f32.double() - f64).abs()
+    log(f"[golden-klein] the f32 render against the f64 render (not held): "
+        f"MAE {float(diff.mean()):.3e}, pixels off by > 0.05: "
+        f"{float((diff.amax(-1) > 0.05).double().mean()):.4%}")
+
+
+def phase_diff_klein(dev):
+    """The differentiable render of cornell_klein at CONFIG_KLEIN's size, and
+    in float64 AD against central finite differences on the klein's centre
+    over a window of KLEIN_FD_CFG's image where the fractal is seen."""
+    scene, cam = spec_scene(scenes.cornell_klein(), torch.float32, dev)
+    check_diff("diff-klein", scene, cam, CONFIG_KLEIN)
+    scene, cam = spec_scene(scenes.cornell_klein(), torch.float64, dev)
+    out = check_fd("diff-klein", scene, cam, KLEIN_FD_CFG,
+                   (("kl_center", (0, KLEIN_FD_AXIS)),), KLEIN_FD_EPS,
+                   KLEIN_FD_WINDOW)
+    ad, fd = out["kl_center"]
+    if not (ad != 0.0 and abs(ad - fd) < 0.01 * abs(fd)):
+        raise AssertionError("[diff-klein] f64 kl_center AD not within 1% of "
+                             "FD")
+
+
+def phase_full_klein(dev):
+    """The klein scenes at full width: klein_scene and cornell_klein (light
+    sampled) at 512^2 spp8 depth 100, forward through render_with_stats (the
+    FIFO pool, K1) and the persistent pool (K4) with equal segments and a
+    bitwise-equal image, and the fwd+bwd step through render_diff_fused (K1
+    and K2); five timed runs each, and one run of each with the kernels'
+    launches timed by CUDA events."""
+    out = {}
+    n = N_TIMED_BEZIER
+    for name, (spec_fn, cfg) in KLEIN_SCENES.items():
+        scene, cam = spec_scene(spec_fn(), torch.float32, dev)
+        tag = f"full-{name}"
+        full = run_full(tag, name, scene, cam, cfg, n_timed=n)
+        st0 = render.init_state(cfg)
+        ev_fifo = log_kernel_events(
+            tag, "FIFO render",
+            lambda: render.render_with_stats(scene, cam, cfg, st0))
+        profile_render(tag, scene, cam, cfg)
+        pools = run_pools(tag, POOLS[2:], scene, cam, cfg, full, dev,
+                          n_timed=n)
+        raw0 = torch.zeros(cfg.n_pixels, 3, device=dev)
+        ev_pers = log_kernel_events(
+            tag, "persistent render",
+            lambda: persist.render_pool_persistent(scene, cam, cfg, raw0, 0))
+        same = torch.equal(pools["persistent"]["image"],
+                           full["first"]["image"])
+        log(f"[{tag}] the persistent pool's image equals the FIFO pool's "
+            f"bitwise: {same}")
+        if not same:
+            raise AssertionError(f"[{tag}] the persistent pool's image "
+                                 f"differs from the FIFO pool's")
+        full_bwd = run_full_bwd(f"{tag}-bwd", name, scene, cam, cfg,
+                                n_timed=n, recalibrate=True)
+        ev_bwd = log_kernel_events(f"{tag}-bwd", "fwd+bwd step",
+                                   full_bwd["step"])
+        # klein_scene's camera sits inside the fractal's solid: its centre
+        # takes gradient only through paths that bounce off the ground
+        if name == "cornell_klein" and "kl_center" not in full_bwd["touched"]:
+            raise AssertionError(f"[{tag}-bwd] the klein's centre took no "
+                                 f"gradient: {sorted(full_bwd['touched'])}")
+        out[name] = (full, pools["persistent"], full_bwd,
+                     dict(fifo=ev_fifo, persistent=ev_pers, bwd=ev_bwd))
+    return out
+
+
 def phase_probes(dev):
     """K5 and K6: the probes' own entry points with the counts reset just
     before (the path), then each kernel against its plain version."""
@@ -2015,9 +2382,11 @@ def phase_probes(dev):
             raise AssertionError(f"[probes] K6 case {name} differs from its "
                                  f"plain version")
     hit = float((probe_loops.ext_bezier_seeds(x) < 100.0).float().mean())
+    kl_hit = float((probe_loops.ext_klein_march(x) < 100.0).float().mean())
     log(f"[probes] K6: all {len(probe_loops.CASES)} cases and the extension "
         f"{list(probe_loops.EXT_CASES)} bitwise equal to their plain "
-        f"versions; the bezier loop form hits on {hit:.1%} of the elements")
+        f"versions; the bezier loop form hits on {hit:.1%} of the elements, "
+        f"the klein loop form on {kl_hit:.1%}")
     k5_ms = kernel_ms(lambda: probe_ops.probe_cuda(pack, item))
     k5_plain, k5_pl = device_ms(lambda: probe_ops.probe_plain(pack, item), 5)
     k6_ms = kernel_ms(lambda: [probe_loops.loops_cuda(n, x)
@@ -2039,7 +2408,9 @@ def phase_probes(dev):
     # is below its threshold (all 100 when a lane starts under the fixed
     # point -1/3 of a -> 1.3 a + 0.1, as with these inputs); and the bezier
     # loop form's BEZ_SEEDS seeds of BEZ_NEWTON steps (19 each) and an end
-    # (10).
+    # (10); and the klein loop form's steps (12 each: the point, the
+    # estimate, the accept and retirement tests, and the escape test of both
+    # spheres, 6) and inversions (8 each), counted on these inputs.
     wa, trips = x.clone(), 0
     done = torch.zeros_like(x, dtype=torch.bool)
     while trips < 100 and not bool(done.all()):
@@ -2049,7 +2420,10 @@ def phase_probes(dev):
         trips += 1
     per_elt = (200 + 2000 + 8000 + 40 + 4000 + 40 + 4000 + 40 + 3 * trips
                + probe_loops.BEZ_SEEDS * (probe_loops.BEZ_NEWTON * 19 + 10))
-    k6_b = bound(n_cases * 2 * x.numel() * 4, per_elt * x.numel())
+    kl = dict(steps=0, inversions=0)
+    probe_loops.ext_klein_march(x, kl)
+    k6_b = bound(n_cases * 2 * x.numel() * 4, per_elt * x.numel()
+                 + 12 * kl["steps"] + 8 * kl["inversions"])
     log(f"[probes] bounds: K5 {k5_b[0] * 1e6:.2f} ns ({k5_b[1]}), K6 "
         f"{k6_b[0] * 1e3:.2f} us ({k6_b[1]}; the early-exit loop ran {trips} "
         f"iterations)")
@@ -2091,6 +2465,11 @@ PHASES = {
     "golden-bezier": lambda dev, r: phase_golden_bezier(dev),
     "diff-bezier": lambda dev, r: phase_diff_bezier(dev),
     "full-bezier": lambda dev, r: phase_full_bezier(dev),
+    "kernel-klein": lambda dev, r: phase_kernel_klein(dev),
+    "packed-klein": lambda dev, r: phase_packed_klein(dev),
+    "golden-klein": lambda dev, r: phase_golden_klein(dev),
+    "diff-klein": lambda dev, r: phase_diff_klein(dev),
+    "full-klein": lambda dev, r: phase_full_klein(dev),
 }
 # A phase that reads another's result brings it along.
 NEEDS = {"pools-full": ("full",)}
@@ -2126,9 +2505,12 @@ def kernel_table(r):
     packed_tex, tex_full = r["packed-textures"], r["full-textures"]
     kern_bez, kern_bwd_bez = r["kernel-bezier"]
     packed_bez, bez_full = r["packed-bezier"], r["full-bezier"]
+    kern_kl, kern_bwd_kl = r["kernel-klein"]
+    packed_kl, kl_full = r["packed-klein"], r["full-klein"]
     # the full-size paths of the later slices: (forward, persistent, fwd+bwd)
     later = {**{k: v[:3] for k, v in tex_full.items()},
-             **{k: v[:3] for k, v in bez_full.items()}}
+             **{k: v[:3] for k, v in bez_full.items()},
+             **{k: v[:3] for k, v in kl_full.items()}}
     k1_launches = (full["launches"] + full_bwd["launches"]
                    + pools["strided"]["launches"] + sph_full["launches"]
                    + sph_bwd["launches"]
@@ -2149,10 +2531,10 @@ def kernel_table(r):
             f"{f['launches']}, fwd+bwd step {b['launches']}; bounce_step_bwd "
             f"launches: {b['bwd_launches']}; bounce_persist launches: "
             f"{pers['launches']}")
-    f32 = [k for k in kern + kern_sph + kern_tex + kern_bez
+    f32 = [k for k in kern + kern_sph + kern_tex + kern_bez + kern_kl
            if k["name"].startswith("f32")]
     f32_bwd = [k for k in kern_bwd + kern_bwd_sph + kern_bwd_tex
-               + kern_bwd_bez if k["name"].startswith("f32")]
+               + kern_bwd_bez + kern_bwd_kl if k["name"].startswith("f32")]
     pick = lambda rows, name: next(k for k in rows if k["name"] == name)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     on = lambda k: {key: k[key] for key in keys}
@@ -2175,6 +2557,8 @@ def kernel_table(r):
         "bezier": on(pick(kern_bez, "f32-bezier")),
         "cornell_bezier": on(pick(kern_bez, "f32-cornell_bezier")),
         "points_chain": on(pick(kern_bez, "f32-points_chain")),
+        "klein": on(pick(kern_kl, "f32-klein")),
+        "cornell_klein": on(pick(kern_kl, "f32-cornell_klein")),
     }, {
         "name": "bounce_step_bwd",
         "route": "cuda",
@@ -2192,6 +2576,8 @@ def kernel_table(r):
         "bezier": on(pick(kern_bwd_bez, "f32-bezier")),
         "cornell_bezier": on(pick(kern_bwd_bez, "f32-cornell_bezier")),
         "points_chain": on(pick(kern_bwd_bez, "f32-points_chain")),
+        "klein": on(pick(kern_bwd_kl, "f32-klein")),
+        "cornell_klein": on(pick(kern_bwd_kl, "f32-cornell_klein")),
     }, {
         "name": "bounce_packed",
         "route": "cuda",
@@ -2205,6 +2591,8 @@ def kernel_table(r):
         "cornell_smoke": on(packed_tex["smoke"][0]),
         "bezier": on(packed_bez["bezier"][0]),
         "cornell_bezier": on(packed_bez["cornell_bezier"][0]),
+        "klein": on(packed_kl["klein"][0]),
+        "cornell_klein": on(packed_kl["cornell_klein"][0]),
     }, {
         "name": "bounce_persist",
         "route": "cuda",
@@ -2220,6 +2608,8 @@ def kernel_table(r):
         "cornell_smoke": on(packed_tex["smoke"][1]),
         "bezier": on(packed_bez["bezier"][1]),
         "cornell_bezier": on(packed_bez["cornell_bezier"][1]),
+        "klein": on(packed_kl["klein"][1]),
+        "cornell_klein": on(packed_kl["cornell_klein"][1]),
     }, {
         "name": "probe_ops",
         "route": "cuda",

@@ -9,15 +9,16 @@
 // step, op for op, with two forms of K1's own: cbrt for the fuzz radius and
 // a multiplied-out x^5 in Schlick (the JAX step keeps pow for Mosaic).
 // nvcc contracts mul+add into FMA (no --use_fast_math), except where a
-// comparison reads a value that cancels: the hit point (ray_at), the whole
-// sphere probe (sphere_probe), the media's boundary intervals
-// (medium_probe) and the whole bezier probe (bezier_probe) round every
-// product on its own, as the plain step does.
+// comparison reads a value that cancels: a fresh lane's camera ray
+// (camera_ray), the hit point (ray_at), the whole sphere probe
+// (sphere_probe), the media's boundary intervals (medium_probe), the whole
+// bezier probe (bezier_probe) and the whole klein probe (klein_march,
+// klein_dist_grad) round every product on its own, as the plain step does.
 //
-// Coverage: rects, spheres (static and moving), cubic Bezier ribbons,
-// constant media in box and sphere boundaries; constant, checker,
-// hash-Perlin noise and marble, and image textures (texels from the atlas,
-// an indexed load a channel).
+// Coverage: rects, spheres (static and moving), the Kleinian limit-set
+// fractal, cubic Bezier ribbons, constant media in box and sphere
+// boundaries; constant, checker, hash-Perlin noise and marble, and image
+// textures (texels from the atlas, an indexed load a channel).
 //
 // Feature sets.  The groups a plan may lack are compile-time flags, the
 // SRT_* macros below, set by -D on nvcc's command line
@@ -51,6 +52,9 @@
 #ifndef SRT_BEZIER
 #define SRT_BEZIER 0
 #endif
+#ifndef SRT_KLEIN
+#define SRT_KLEIN 0
+#endif
 
 namespace {
 
@@ -61,6 +65,7 @@ constexpr bool kPerlin = SRT_PERLIN != 0;
 constexpr bool kImage = SRT_IMAGE != 0;
 constexpr bool kMedia = SRT_MEDIA != 0;
 constexpr bool kBeziers = SRT_BEZIER != 0;
+constexpr bool kKleins = SRT_KLEIN != 0;
 
 // Packed-scene layout: the offsets of scheme_raytrace_torch/integrator/
 // bounce.py (tests/test_torch_bounce.py holds each constant equal).
@@ -140,7 +145,19 @@ constexpr int B_REF = 23;
 constexpr int B_TEXS = 24;
 constexpr int BEZ_SIZE = 25;
 
-// A rect, a sphere, a medium and a bezier block end in the same material
+// per-klein fields: the fractal's centre
+constexpr int K_C = 0;
+constexpr int K_VALID = 3;
+constexpr int K_MTYPE = 4;
+constexpr int K_ALB0 = 5;
+constexpr int K_ALB1 = 8;
+constexpr int K_TEXK = 11;
+constexpr int K_FUZZ = 12;
+constexpr int K_REF = 13;
+constexpr int K_TEXS = 14;
+constexpr int KL_SIZE = 15;
+
+// A rect, a sphere, a medium, a bezier and a klein block end in the same material
 // record (mtype, alb0, alb1, texk, fuzz, ref, texs): the shading reads the
 // winner's through its mtype slot `mat` and these offsets from it, whatever
 // its group.
@@ -158,20 +175,25 @@ static_assert(S_ALB0 - S_MTYPE == kAlb0 && S_ALB1 - S_MTYPE == kAlb1 &&
                   M_REF - M_MTYPE == kRef && M_TEXS - M_MTYPE == kTexs &&
                   B_ALB0 - B_MTYPE == kAlb0 && B_ALB1 - B_MTYPE == kAlb1 &&
                   B_TEXK - B_MTYPE == kTexk && B_FUZZ - B_MTYPE == kFuzz &&
-                  B_REF - B_MTYPE == kRef && B_TEXS - B_MTYPE == kTexs,
-              "rect, sphere, medium and bezier blocks share one material "
-              "record");
+                  B_REF - B_MTYPE == kRef && B_TEXS - B_MTYPE == kTexs &&
+                  K_ALB0 - K_MTYPE == kAlb0 && K_ALB1 - K_MTYPE == kAlb1 &&
+                  K_TEXK - K_MTYPE == kTexk && K_FUZZ - K_MTYPE == kFuzz &&
+                  K_REF - K_MTYPE == kRef && K_TEXS - K_MTYPE == kTexs,
+              "rect, sphere, medium, bezier and klein blocks share one "
+              "material record");
 
 // The kind of a closest-hit winner, and its mtype slot's offset in its block.
 constexpr int kRect = 0;
 constexpr int kSphere = 1;
 constexpr int kMedium = 2;
 constexpr int kBezier = 3;
+constexpr int kKlein = 4;
 __device__ __forceinline__ int mat_offset(int kind) {
-  return kind == kSphere ? S_MTYPE
-                         : (kind == kRect ? R_MTYPE
-                                          : (kind == kMedium ? M_MTYPE
-                                                             : B_MTYPE));
+  return kind == kSphere   ? S_MTYPE
+         : kind == kRect   ? R_MTYPE
+         : kind == kMedium ? M_MTYPE
+         : kind == kKlein  ? K_MTYPE
+                           : B_MTYPE;
 }
 
 constexpr int L_KIND = 0;
@@ -284,6 +306,19 @@ __device__ __forceinline__ V3<T> unit(V3<T> a) {
   return scale(a, Math<T>::rsqrt(dd < lo ? lo : dd));
 }
 
+// Products and sums rounded on their own (never contracted into an FMA),
+// for the code whose comparisons read values that cancel.
+template <typename T>
+__device__ __forceinline__ T mul_(T a, T b) { return Math<T>::mul_rn(a, b); }
+template <typename T>
+__device__ __forceinline__ T add_(T a, T b) { return Math<T>::add_rn(a, b); }
+template <typename T>
+__device__ __forceinline__ T sub_(T a, T b) { return Math<T>::add_rn(a, -b); }
+template <typename T>
+__device__ __forceinline__ T dot_rn(V3<T> a, V3<T> b) {
+  return add_(add_(mul_(a.x, b.x), mul_(a.y, b.y)), mul_(a.z, b.z));
+}
+
 template <typename T>
 __device__ __forceinline__ T ld(const T* __restrict__ pk, int k) {
   return __ldg(pk + k);
@@ -356,6 +391,7 @@ struct Statics {
   int n_lights, lgt_base, light_sampling;
   int nx, ny, max_depth;
   int n_media, med_base, has_perlin, img_rows;
+  int n_kleins, kl_base;
   int n_beziers, bez_base, bez_seeds, bez_newton;
   uint32_t seed, perlin_seed;
 };
@@ -366,7 +402,8 @@ inline bool features_cover(const Statics& s) {
   return (kSpheres || s.n_spheres == 0) &&
          (kMoving || !s.has_moving || s.n_spheres == 0) &&
          (kPerlin || !s.has_perlin) && (kImage || s.img_rows == 0) &&
-         (kMedia || s.n_media == 0) && (kBeziers || s.n_beziers == 0);
+         (kMedia || s.n_media == 0) && (kBeziers || s.n_beziers == 0) &&
+         (kKleins || s.n_kleins == 0);
 }
 
 // The scene arguments every bounce kernel's C entry point ends in, in
@@ -375,15 +412,15 @@ inline bool features_cover(const Statics& s) {
   int n_rects, int rect_base, int n_spheres, int sph_base, int has_moving,  \
       int n_lights, int lgt_base, int light_sampling, int nx, int ny,       \
       int max_depth, int n_media, int med_base, int has_perlin,             \
-      int img_rows, int n_beziers, int bez_base, int bez_seeds,             \
-      int bez_newton, uint32_t seed, uint32_t perlin_seed, double t_min,    \
-      double t_max
+      int img_rows, int n_kleins, int kl_base, int n_beziers, int bez_base, \
+      int bez_seeds, int bez_newton, uint32_t seed, uint32_t perlin_seed,   \
+      double t_min, double t_max
 #define SRT_STATICS(m)                                                       \
   Statics {                                                                  \
     m, n_rects, rect_base, n_spheres, sph_base, has_moving, n_lights,        \
         lgt_base, light_sampling, nx, ny, max_depth, n_media, med_base,      \
-        has_perlin, img_rows, n_beziers, bez_base, bez_seeds, bez_newton,    \
-        seed, perlin_seed                                                    \
+        has_perlin, img_rows, n_kleins, kl_base, n_beziers, bez_base,        \
+        bez_seeds, bez_newton, seed, perlin_seed                             \
   }
 
 // The light that u_pick picks (pdfs.lights_sample_u's selection).
@@ -458,7 +495,10 @@ __device__ T lights_value(const T* __restrict__ pk, const Statics& s,
   return total * T(1.0 / double(s.n_lights));
 }
 
-// The camera ray of a fresh lane (main.scm:452-469; bounce.py _camera_ray).
+// The camera ray of a fresh lane (main.scm:452-469; bounce.py _camera_ray),
+// every product and sum rounded on its own in the plain step's order (the
+// card's rsqrt normalises it, as torch.rsqrt does there): a fused form moves
+// the direction by an ulp, and a big sphere's probe amplifies that.
 template <typename T>
 __device__ __forceinline__ void camera_ray(const T* __restrict__ pk,
                                            const Statics& s, uint32_t item,
@@ -467,21 +507,32 @@ __device__ __forceinline__ void camera_ray(const T* __restrict__ pk,
   T u[8];
   uniforms4<T>(s.seed, item, CAMERA_DEPTH, 0u, u);
   uniforms4<T>(s.seed, item, CAMERA_DEPTH, 1u, u + 4);
-  T sx = (px + u[0]) * T(1.0 / double(s.nx));
-  T ty = (py + u[1]) * T(1.0 / double(s.ny));
-  T r = Math<T>::sqrt(u[2]);
-  T phi = T(kTwoPi) * u[3];
-  T lens = ld(pk, H_LENS_R);
-  T rdx = lens * r * Math<T>::cos(phi);
-  T rdy = lens * r * Math<T>::sin(phi);
-  V3<T> off = add(scale(ld3(pk, H_CAM_U), rdx), scale(ld3(pk, H_CAM_VV), rdy));
-  V3<T> org = ld3(pk, H_CAM_O);
-  V3<T> ll = ld3(pk, H_CAM_LL), hor = ld3(pk, H_CAM_H), ver = ld3(pk, H_CAM_V);
-  o = add(org, off);
-  d = unit(V3<T>{ll.x + sx * hor.x + ty * ver.x - org.x - off.x,
-                 ll.y + sx * hor.y + ty * ver.y - org.y - off.y,
-                 ll.z + sx * hor.z + ty * ver.z - org.z - off.z});
-  time = ld(pk, H_T0) + u[4] * ld(pk, H_DT);
+  const T sx = mul_(add_(px, u[0]), T(1.0 / double(s.nx)));
+  const T ty = mul_(add_(py, u[1]), T(1.0 / double(s.ny)));
+  const T r = Math<T>::sqrt(u[2]);
+  const T phi = mul_(T(kTwoPi), u[3]);
+  const T lr = mul_(ld(pk, H_LENS_R), r);
+  const T rdx = mul_(lr, Math<T>::cos(phi));
+  const T rdy = mul_(lr, Math<T>::sin(phi));
+  const V3<T> cu = ld3(pk, H_CAM_U), cv = ld3(pk, H_CAM_VV);
+  const V3<T> off = {add_(mul_(cu.x, rdx), mul_(cv.x, rdy)),
+                     add_(mul_(cu.y, rdx), mul_(cv.y, rdy)),
+                     add_(mul_(cu.z, rdx), mul_(cv.z, rdy))};
+  const V3<T> org = ld3(pk, H_CAM_O);
+  const V3<T> ll = ld3(pk, H_CAM_LL), hor = ld3(pk, H_CAM_H),
+              ver = ld3(pk, H_CAM_V);
+  o = {add_(org.x, off.x), add_(org.y, off.y), add_(org.z, off.z)};
+  const V3<T> dv = {
+      sub_(sub_(add_(add_(ll.x, mul_(sx, hor.x)), mul_(ty, ver.x)), org.x),
+           off.x),
+      sub_(sub_(add_(add_(ll.y, mul_(sx, hor.y)), mul_(ty, ver.y)), org.y),
+           off.y),
+      sub_(sub_(add_(add_(ll.z, mul_(sx, hor.z)), mul_(ty, ver.z)), org.z),
+           off.z)};
+  const T q = dot_rn(dv, dv);
+  const T inv = Math<T>::rsqrt(q < T(1e-12) ? T(1e-12) : q);
+  d = {mul_(dv.x, inv), mul_(dv.y, inv), mul_(dv.z, inv)};
+  time = add_(ld(pk, H_T0), mul_(u[4], ld(pk, H_DT)));
 }
 
 // Closest hit: the rect sweep in pack order (geometry.scm:33-50).  Returns
@@ -521,13 +572,6 @@ __device__ __forceinline__ int closest_rect(const T* __restrict__ pk,
 // is rounded on its own (mul_rn results are never contracted), in the plain
 // step's order, and the probe's t is bitwise the plain step's on the same
 // inputs; sqrt and division are IEEE.
-
-template <typename T>
-__device__ __forceinline__ T dot_rn(V3<T> a, V3<T> b) {
-  return Math<T>::add_rn(Math<T>::add_rn(Math<T>::mul_rn(a.x, b.x),
-                                         Math<T>::mul_rn(a.y, b.y)),
-                         Math<T>::mul_rn(a.z, b.z));
-}
 
 // What a sphere probe leaves for its caller: the forward keeps t, the
 // backward replays the winner's probe and reads the rest.
@@ -728,12 +772,6 @@ __device__ __forceinline__ int closest_medium(const T* __restrict__ pk,
 // both).  One thread runs its lane's seeds and steps in registers.
 
 template <typename T>
-__device__ __forceinline__ T mul_(T a, T b) { return Math<T>::mul_rn(a, b); }
-template <typename T>
-__device__ __forceinline__ T add_(T a, T b) { return Math<T>::add_rn(a, b); }
-template <typename T>
-__device__ __forceinline__ T sub_(T a, T b) { return Math<T>::add_rn(a, -b); }
-template <typename T>
 __device__ __forceinline__ V3<T> cross_rn(V3<T> a, V3<T> b) {
   return {sub_(mul_(a.y, b.z), mul_(a.z, b.y)),
           sub_(mul_(a.z, b.x), mul_(a.x, b.z)),
@@ -921,6 +959,185 @@ __device__ __forceinline__ int closest_bezier(const T* __restrict__ pk,
   return best_b;
 }
 
+// --- the Kleinian limit set (geometry.scm:590-661; bounce.py _klein_dist,
+// _klein_dist_grad, _klein_march, _klein_hit) ---------------------------------
+// A sphere trace of a distance estimate (DE): up to kKleinIters inversions of
+// the point in six spheres, then 0.7 (|P| - 125) / |dr|.  `d2 < r2` (which
+// sphere inverts), the march's `dist < eps`, its t bounds, the
+// backward-stuck, receding and outside tests and the precull's `disc <= 0`
+// read values that an ulp moves, and an ulp can change the number of
+// inversions and so the whole march.  So every product and sum of the probe
+// is rounded on its own, in the plain step's order, with IEEE division and
+// sqrt: the march is the plain step's bit for bit.  One thread marches its
+// lane in registers and leaves each loop when that lane is done.
+
+constexpr int kKleinIters = 10;          // config.KLEIN_ITERATIONS
+constexpr int kKleinSteps = 100;         // config.KLEIN_MAX_STEPS
+constexpr double kKleinEps = 0.001;      // config.KLEIN_SURF_EPS
+constexpr double kKleinDeScale = 0.7;    // config.KLEIN_DE_SCALE
+constexpr double kKleinR = 125.0;        // config.KLEIN_R
+constexpr double kKleinR2 = 300.0 * 300.0;   // config.KLEIN_SPHERE_R squared
+// bounce.py KLEIN_PRECULL_R and KLEIN_RECEDE_R, squared
+constexpr double kKleinPrecull2 = 726.0 * 726.0;
+constexpr double kKleinRecede2 = 900.0 * 900.0;
+
+// Inversion sphere i's centre, klein-local (bounce.py _KLEIN_SPHERES).
+template <typename T>
+__device__ __forceinline__ V3<T> klein_sphere(int i) {
+  const T a = T(300.0), h = T(424.26);
+  return i < 4 ? V3<T>{i < 2 ? a : -a, (i & 1) ? -a : a, T(0)}
+               : V3<T>{T(0), T(0), i == 4 ? h : -h};
+}
+
+// The first of the six spheres whose interior holds P (the plain step's
+// masked sequential select), with P's offset x from its centre s and
+// d2 = |x|^2; -1 when none does and P has escaped.
+template <typename T>
+__device__ __forceinline__ int klein_select(V3<T> P, V3<T>& x, V3<T>& sp,
+                                            T& d2) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    sp = klein_sphere<T>(i);
+    x = {sub_(P.x, sp.x), sub_(P.y, sp.y), sub_(P.z, sp.z)};
+    d2 = dot_rn(x, x);
+    if (d2 < T(kKleinR2)) return i;
+  }
+  return -1;
+}
+
+// The DE at p of the klein centred at c (bounce.py _klein_dist).
+template <typename T>
+__device__ __forceinline__ T klein_dist(V3<T> c, V3<T> p) {
+  V3<T> P = {sub_(p.x, c.x), sub_(p.y, c.y), sub_(p.z, c.z)};
+  T dr = T(1);
+  for (int it = 0; it < kKleinIters; ++it) {
+    V3<T> x, sp;
+    T d2;
+    if (klein_select<T>(P, x, sp, d2) < 0) break;
+    const T scale = T(kKleinR2) / (d2 < Math<T>::tiny() ? Math<T>::tiny()
+                                                         : d2);
+    P = {add_(mul_(x.x, scale), sp.x), add_(mul_(x.y, scale), sp.y),
+         add_(mul_(x.z, scale), sp.z)};
+    dr = mul_(dr, scale);
+  }
+  return mul_(T(kKleinDeScale), sub_(Math<T>::sqrt(dot_rn(P, P)), T(kKleinR))) /
+         Math<T>::abs(dr);
+}
+
+// The DE at p and its exact gradient g (bounce.py _klein_dist_grad): the
+// three unit tangents dP/dq_j and ddr/dq_j ride beside the primal.  Not
+// inlined: K1 calls it for a klein winner's normal, K2 for its adjoint.
+template <typename T>
+__device__ __noinline__ T klein_dist_grad(V3<T> c, V3<T> p, V3<T>& g) {
+  V3<T> P = {sub_(p.x, c.x), sub_(p.y, c.y), sub_(p.z, c.z)};
+  T dr = T(1);
+  V3<T> tj[3] = {{T(1), T(0), T(0)}, {T(0), T(1), T(0)}, {T(0), T(0), T(1)}};
+  T dd[3] = {T(0), T(0), T(0)};
+  for (int it = 0; it < kKleinIters; ++it) {
+    V3<T> x, sp;
+    T d2;
+    if (klein_select<T>(P, x, sp, d2) < 0) break;
+    const T inv = T(1) / (d2 < Math<T>::tiny() ? Math<T>::tiny() : d2);
+    const T scale = mul_(T(kKleinR2), inv);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const T w = mul_(mul_(T(2), dot_rn(x, tj[j])), inv);
+      tj[j] = {mul_(scale, sub_(tj[j].x, mul_(x.x, w))),
+               mul_(scale, sub_(tj[j].y, mul_(x.y, w))),
+               mul_(scale, sub_(tj[j].z, mul_(x.z, w)))};
+      dd[j] = mul_(scale, sub_(dd[j], mul_(w, dr)));
+    }
+    P = {add_(mul_(x.x, scale), sp.x), add_(mul_(x.y, scale), sp.y),
+         add_(mul_(x.z, scale), sp.z)};
+    dr = mul_(dr, scale);
+  }
+  const T q = dot_rn(P, P);
+  const T ln = Math<T>::sqrt(q < Math<T>::tiny() ? Math<T>::tiny() : q);
+  const T adr = Math<T>::abs(dr);
+  const T lr = sub_(ln, T(kKleinR));
+  // d(de)/d(q_j) = K / |dr| ((P . t_j) / |P| - (|P| - R) ddr_j / dr)
+  const T k = T(kKleinDeScale) / adr;
+  const T rat = lr / dr;
+  T gj[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    gj[j] = mul_(k, sub_(dot_rn(P, tj[j]) / ln, mul_(rat, dd[j])));
+  g = {gj[0], gj[1], gj[2]};
+  return mul_(T(kKleinDeScale), lr) / adr;
+}
+
+// The sphere trace of the klein at block b along (o, d) (bounce.py
+// _klein_march): false when the ray misses; on a hit, t is where the DE
+// fell under eps inside (t_min, t_max).  t_max is the closest hit so far,
+// so the bound is exact.  The ray starts retired when it never enters the
+// precull ball on (t_min, t_max); a step retires it on an accept, when it is
+// backward-stuck (DE <= 0 at a parameter <= t_min), past t_max, or receding
+// outside the recede ball.
+template <typename T>
+__device__ __forceinline__ bool klein_march(const T* __restrict__ pk, int b,
+                                            V3<T> o, V3<T> d, T t_min,
+                                            T t_max, T& t) {
+  const V3<T> c = ld3(pk, b + K_C);
+  const V3<T> oc = {sub_(o.x, c.x), sub_(o.y, c.y), sub_(o.z, c.z)};
+  const T bq = dot_rn(oc, d);
+  const T cq = sub_(dot_rn(oc, oc), T(kKleinPrecull2));
+  const T disc = sub_(mul_(bq, bq), cq);
+  const T sq = Math<T>::sqrt(disc < T(0) ? T(0) : disc);
+  if (disc <= T(0) || add_(-bq, sq) <= t_min || sub_(-bq, sq) >= t_max)
+    return false;
+  T len = T(0);
+  for (int k = 0; k < kKleinSteps; ++k) {
+    const V3<T> p = {add_(o.x, mul_(d.x, len)), add_(o.y, mul_(d.y, len)),
+                     add_(o.z, mul_(d.z, len))};
+    const T dist = klein_dist<T>(c, p);
+    const T new_len = add_(len, dist);
+    if (dist < T(kKleinEps) && new_len > t_min && new_len < t_max) {
+      t = new_len;
+      return true;
+    }
+    const bool stuck = dist <= T(0) && len <= t_min;
+    len = new_len;
+    const V3<T> pc = {sub_(add_(o.x, mul_(d.x, len)), c.x),
+                      sub_(add_(o.y, mul_(d.y, len)), c.y),
+                      sub_(add_(o.z, mul_(d.z, len)), c.z)};
+    const bool receding = dot_rn(pc, d) > T(0);
+    const bool outside = dot_rn(pc, pc) > T(kKleinRecede2);
+    if (stuck || len >= t_max || (receding && outside)) return false;
+  }
+  return false;
+}
+
+// A klein winner's normal at its hit point p = o + t d: unit(g), g the DE's
+// gradient there.
+template <typename T>
+__device__ __forceinline__ V3<T> klein_normal(const T* __restrict__ pk, int b,
+                                              V3<T> p) {
+  V3<T> g;
+  klein_dist_grad<T>(ld3(pk, b + K_C), p, g);
+  return unit(g);
+}
+
+// The kleins, after the spheres, in pack order, each march bounded by the
+// closest hit so far: a hit always beats best_t, so the strict `<` of the
+// merge holds.  Returns the winning klein's pk offset, or -1 when none is hit
+// before best_t.
+template <typename T>
+__device__ __forceinline__ int closest_klein(const T* __restrict__ pk,
+                                             const Statics& s, V3<T> o,
+                                             V3<T> d, T t_min, T& best_t) {
+  int best_b = -1;
+  for (int k = 0; k < s.n_kleins; ++k) {
+    const int b = s.kl_base + k * KL_SIZE;
+    T t;
+    if (klein_march<T>(pk, b, o, d, t_min, best_t, t) &&
+        ld(pk, b + K_VALID) > T(0.5)) {
+      best_t = t;
+      best_b = b;
+    }
+  }
+  return best_b;
+}
+
 // What the closest hit leaves for the backward, beside the winner: the
 // winning medium's or ribbon's probe record.
 template <typename T>
@@ -930,9 +1147,9 @@ struct HitExtra {
 };
 
 // The closest hit over the groups: the winner's pk offset (-1 on a miss),
-// its t in best_t and its kind (kRect, kSphere, kBezier, kMedium).  The
-// ribbons and the media are probed for live lanes only: a dead lane's hit is
-// never read.
+// its t in best_t and its kind (kRect, kSphere, kKlein, kBezier, kMedium).
+// The kleins, the ribbons and the media are probed for live lanes only: a
+// dead lane's hit is never read.
 template <typename T>
 __device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
                                            const Statics& s, uint32_t item,
@@ -948,6 +1165,15 @@ __device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
     if (sph_b >= 0) {
       kind = kSphere;
       best_b = sph_b;
+    }
+  }
+  if constexpr (kKleins) {
+    if (alive) {
+      const int kl_b = closest_klein<T>(pk, s, o, d, t_min, best_t);
+      if (kl_b >= 0) {
+        kind = kKlein;
+        best_b = kl_b;
+      }
     }
   }
   if constexpr (kBeziers) {
@@ -1224,10 +1450,11 @@ __device__ __forceinline__ T schlick_prob(T ref_idx, T cosine, bool refr_ok) {
 }
 
 // One bounce of one lane (bounce.py:step): regenerate a fresh lane's camera
-// ray, sweep the rects, spheres and ribbons for the closest hit, let a medium
-// scatter before it, add the sky on a miss and the emission on a hit, and
-// scatter by the winner's material (a sphere's normal comes from its hit
-// point, a ribbon's is -d, a medium's is (1, 0, 0)).  `atlas` holds the image texels (null
+// ray, sweep the rects, spheres, kleins and ribbons for the closest hit, let
+// a medium scatter before it, add the sky on a miss and the emission on a
+// hit, and scatter by the winner's material (a sphere's normal comes from its
+// hit point, a klein's from its DE's gradient there, a ribbon's is -d, a
+// medium's is (1, 0, 0)).  `atlas` holds the image texels (null
 // for a plan without image textures).  o, d, time, rad and tp are updated in
 // place; returns `scattering`.  Lanes that cannot scatter (dead, missed, at
 // the bounce cap) skip the shading, and only the winning material's rule
@@ -1281,6 +1508,8 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
       wn = ld3(pk, best_b + R_WN);
     } else if (kBeziers && kind == kBezier) {
       wn = {-d.x, -d.y, -d.z};                    // B11: normal = -ray dir
+    } else if (kKleins && kind == kKlein) {
+      wn = klein_normal<T>(pk, best_b, p);
     }
     const int mat = best_b + mat_offset(kind);
     const T mtype = ld(pk, mat);

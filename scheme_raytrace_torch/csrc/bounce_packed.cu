@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_packed
-// with the coverage of bounce_step.cu (rects, spheres, bezier ribbons, media,
-// every texture kind), built per feature set as it is: one bounce of every
+// with the coverage of bounce_step.cu (rects, spheres, kleins, bezier
+// ribbons, media, every texture kind), built per feature set as it is: one bounce of every
 // lane plus the strided work re-issue (a lane whose path terminates takes the
 // item m further on), on the whole pool state held in one [N_PACKED, m]
 // float32 array with the int fields stored as their bits.

@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/persist.py:_make_call (body _kernel)
-// with the coverage of bounce_step.cu (rects, spheres, bezier ribbons, media,
-// every texture kind), built per feature set as it is.  It
+// with the coverage of bounce_step.cu (rects, spheres, kleins, bezier
+// ribbons, media, every texture kind), built per feature set as it is.  It
 // takes the packed pool state (bounce_packed.cu's [N_PACKED, m] float32
 // layout) and returns the state after T iterations, the T flush rows
 // ([T, 4, m] float32: the finished path's pixel as int32 bits, -1 where the

@@ -2,10 +2,12 @@
 //
 // Replaces the Pallas TPU megakernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas  (its body: step)
-// for ROADMAP B1.1-B1.6: regeneration of fresh lanes' camera rays from
-// PCG4D draws, the oriented-plane rect sweep, the sphere sweep (static and
-// moving spheres, any count) and the bezier ribbons' Newton-on-seeds probe
-// with the closest-hit material pick, constant media that scatter before
+// with all of it: regeneration of fresh lanes' camera rays from PCG4D
+// draws, the oriented-plane rect sweep, the sphere sweep (static and moving
+// spheres, any count), the sphere trace of the Kleinian limit set and the
+// bezier ribbons' Newton-on-seeds probe with the closest-hit material pick
+// (each built in only for the plans that have it), constant media that
+// scatter before
 // the closest solid hit, the sky on a
 // miss, constant, checker, hash-Perlin noise and marble and image-texel
 // albedo, emission, mixture-PDF light sampling over xz-rect and sphere
@@ -46,10 +48,10 @@
 // row tuning.  nvcc contracts mul+add into FMA (no --use_fast_math; sqrt,
 // division, sin and cos are IEEE / full-accuracy), except in the hit point
 // (ray_at), which the checker texture's sign test reads on planes through
-// the origin, and in the sphere probe, whose quadratic cancels on a ground
-// sphere.  So the kernel agrees with the plain step to rounding, not
-// bitwise; the tolerances in chip_smoke.py and tests/test_torch_bounce.py
-// state how far.
+// the origin, and in the camera ray and the sphere, klein and bezier probes,
+// whose comparisons read values that cancel (bounce_common.cuh).  So the
+// kernel agrees with the plain step to rounding, not bitwise; the
+// tolerances in chip_smoke.py and tests/test_torch_bounce.py state how far.
 //
 // What bounds it on an H100.  Per bounce a lane moves about 33 values of
 // 4 B in and out (8.7 MB at m = 65,536 lanes, about 3 us at 3.35 TB/s).
@@ -64,9 +66,13 @@
 // A bezier ribbon costs a live lane bez_seeds x (bez_newton + 1)
 // evaluations of g and its derivatives, about 60 unfused operations and a
 // division each: 17 k operations a ribbon at 32 seeds of 8 steps, which
-// bounds every bezier scene by operations.  The kernel is built per feature
-// set (bounce_common.cuh): a variant holds the code of the groups its plan
-// has.  PERF.md holds what was measured.
+// bounds every bezier scene by operations.  A klein march is up to 100
+// steps of up to 10 sphere inversions (about 100 unfused operations a step
+// and 18 an inversion); a lane leaves it when it is done, but a warp runs at
+// its slowest lane's pace, and a few lanes in a thousand march all 100
+// steps: divergence, not the operations the data needs, sets its time.  The
+// kernel is built per feature set (bounce_common.cuh): a variant holds the
+// code of the groups its plan has.  PERF.md holds what was measured.
 
 #include "bounce_common.cuh"
 

@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas TPU kernel
 //     scheme_raytrace_tpu/integrator/bounce.py:as_pallas_bwd
-// with the coverage of bounce_step.cu (ROADMAP B2.1-B2.5: rects, spheres,
-// moving spheres, any sphere count, bezier ribbons, constant media, Perlin
-// and image textures), built per feature set as it is (bounce_common.cuh).  Given the step's INPUTS and the cotangents of its five float
+// with the coverage of bounce_step.cu (rects, spheres, moving spheres, any
+// sphere count, kleins, bezier ribbons, constant media, Perlin and image
+// textures), built per feature set as it is (bounce_common.cuh).  Given the
+// step's INPUTS and the cotangents of its five float
 // outputs (o', d', time', rad', tp'), it returns the cotangents of (pk, the
 // image texels, o, d, time, rad, tp): the exact vector-Jacobian product of
 // scheme_raytrace_torch/integrator/bounce.py:step, whose plain VJP
@@ -49,6 +50,18 @@
 // bit, their parts are equal and the kernel takes the first seed with weight
 // one, which is exact; otherwise it marches the seeds again and weighs each
 // seed at the winning t as the fold does (bezier_adj).
+//
+// Kleins.  The march carries no gradient.  A winning klein's t is the march's
+// t_raw with the implicit-function correction t_raw - (corr - stop(corr)),
+// corr = (DE - eps) / denom at p = o + t_raw d, denom = g . d kept off zero
+// at +-1e-6 (a constant there), g the DE's gradient; its normal is unit(g).
+// So t's cotangent reaches the DE and denom, the normal's reaches g, and
+// both go into p - c, i.e. into o, d and the centre K_C (minus p's), through
+// the DE's gradient g and its Hessian H: the cotangent v of g takes H v.  H
+// is symmetric (g is a gradient), so H v is one more forward sweep of the
+// fixed inversion loop along v, with second-order tangents beside the first
+// ones (klein_hvp): no iteration state is stored, and the result equals
+// autograd's reverse sweep to rounding.  A call (klein_adj), not inlined.
 //
 // Image texels.  The TPU kernel refuses image plans in reverse mode (its
 // texel gather has no transpose there).  Here the albedo cotangent of a
@@ -97,8 +110,10 @@
 // reverse pool's 24,576 lanes, plus 96 x P partials), and computes the
 // forward's sweep and shading and about as much again for the adjoint: on
 // Cornell bytes bound it, on the 227-sphere scene the sweep's operations.
-// The warp reductions add 5 shuffles per touched slot, distinct winner and
-// warp.  PERF.md holds what was measured.
+// On a klein scene the replay's march dominates, with its divergence (see
+// bounce_step.cu); a klein winner's adjoint adds two sweeps of the inversion
+// loop.  The warp reductions add 5 shuffles per touched slot, distinct
+// winner and warp.  PERF.md holds what was measured.
 
 #include "bounce_common.cuh"
 
@@ -496,6 +511,93 @@ __device__ __noinline__ void bezier_adj(const T* __restrict__ pk,
   g_d = add(g_d, cross(a, unit_adj(f.cr, g_v)));
 }
 
+// H v for the klein centred at c at the point p: the derivative of the DE's
+// gradient g (klein_dist_grad) along v.  The inversion loop again, each of
+// its values carried with its derivative along v (a primed name): the
+// primal P, dr, the tangents t_j and dd_j, and P', dr', t_j', dd_j', 32
+// values in registers; the selected spheres are the primal's.
+template <typename T>
+__device__ __forceinline__ V3<T> klein_hvp(V3<T> c, V3<T> p, V3<T> v) {
+  const T tiny = Math<T>::tiny();
+  // the primal rounded as klein_dist_grad rounds it: the same spheres invert
+  V3<T> P = {sub_(p.x, c.x), sub_(p.y, c.y), sub_(p.z, c.z)}, Pp = v;
+  T dr = T(1), drp = T(0);
+  V3<T> tj[3] = {{T(1), T(0), T(0)}, {T(0), T(1), T(0)}, {T(0), T(0), T(1)}};
+  V3<T> tp[3] = {{T(0), T(0), T(0)}, {T(0), T(0), T(0)}, {T(0), T(0), T(0)}};
+  T dd[3] = {T(0), T(0), T(0)}, ddp[3] = {T(0), T(0), T(0)};
+  for (int it = 0; it < kKleinIters; ++it) {
+    V3<T> x, sp;
+    T d2;
+    if (klein_select<T>(P, x, sp, d2) < 0) break;
+    const V3<T> xp = Pp;
+    const T inv = T(1) / (d2 < tiny ? tiny : d2);
+    const T invp = d2 > tiny ? -inv * inv * (T(2) * dot(x, xp)) : T(0);
+    const T sc = mul_(T(kKleinR2), inv), scp = T(kKleinR2) * invp;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const T a = dot(x, tj[j]);
+      const T ap = dot(xp, tj[j]) + dot(x, tp[j]);
+      const T w = T(2) * a * inv;
+      const T wp = T(2) * (ap * inv + a * invp);
+      const V3<T> e = sub(tj[j], scale(x, w));
+      tp[j] = add(scale(e, scp),
+                  scale(sub(sub(tp[j], scale(xp, w)), scale(x, wp)), sc));
+      tj[j] = scale(e, sc);
+      const T f = dd[j] - w * dr;
+      ddp[j] = scp * f + sc * (ddp[j] - wp * dr - w * drp);
+      dd[j] = sc * f;
+    }
+    Pp = add(scale(xp, sc), scale(x, scp));
+    P = {add_(mul_(x.x, sc), sp.x), add_(mul_(x.y, sc), sp.y),
+         add_(mul_(x.z, sc), sp.z)};
+    drp = drp * sc + dr * scp;
+    dr = mul_(dr, sc);
+  }
+  const T q = dot(P, P);
+  const T ln = Math<T>::sqrt(q < tiny ? tiny : q);
+  const T lnp = q > tiny ? dot(P, Pp) / ln : T(0);
+  const T k = T(kKleinDeScale) / Math<T>::abs(dr);
+  const T kp = -k * drp / dr;
+  const T rat = (ln - T(kKleinR)) / dr;
+  const T ratp = (lnp - rat * drp) / dr;
+  T hv[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const T e = dot(P, tj[j]) / ln;
+    const T ep = (dot(Pp, tj[j]) + dot(P, tp[j])) / ln - e * lnp / ln;
+    hv[j] = kp * (e - rat * dd[j]) + k * (ep - ratp * dd[j] - rat * ddp[j]);
+  }
+  return {hv[0], hv[1], hv[2]};
+}
+
+// Reverse of a winning klein's t and normal wn in o, d and its centre, for
+// their cotangents g_t and g_wn: adds to g_o, g_d and g_c (the K_C slots).
+// t_raw is the march's t (best_t), which carries no gradient.
+template <typename T>
+__device__ __noinline__ void klein_adj(const T* __restrict__ pk, int b,
+                                       V3<T> o, V3<T> d, T t_raw, T g_t,
+                                       V3<T> g_wn, V3<T>& g_o, V3<T>& g_d,
+                                       V3<T>& g_c) {
+  const V3<T> c = ld3(pk, b + K_C);
+  const V3<T> p = ray_at(o, t_raw, d);
+  V3<T> g;
+  const T dist = klein_dist_grad<T>(c, p, g);
+  const T ddt = dot(g, d);
+  const bool wide = Math<T>::abs(ddt) > T(1e-6);
+  const T denom = wide ? ddt : (ddt >= T(0) ? T(1e-6) : T(-1e-6));
+  // t = t_raw - corr + stop(corr), corr = (dist - eps) / denom
+  const T g_dist = -g_t / denom;
+  const T g_ddt = wide ? g_t * (dist - T(kKleinEps)) / (denom * denom) : T(0);
+  // wn = unit(g), ddt = g . d
+  const V3<T> g_g = add(unit_adj(g, g_wn), scale(d, g_ddt));
+  g_d = add(g_d, scale(g, g_ddt));
+  // dist = DE(q), g = grad DE(q), q = o + t_raw d - c
+  const V3<T> g_q = add(scale(g, g_dist), klein_hvp<T>(c, p, g_g));
+  g_o = add(g_o, g_q);
+  g_d = add(g_d, scale(g_q, t_raw));
+  g_c = sub(g_c, g_q);
+}
+
 // Sum over the warp in a fixed butterfly order; every lane gets the sum.
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -590,6 +692,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
   const bool hit = b >= 0;
   const bool sph = kSpheres && hit && kind == kSphere;
   const bool bez = kBeziers && hit && kind == kBezier;
+  const bool kl = kKleins && hit && kind == kKlein;
   const T t_eff = hit ? best_t : T(0);
   const V3<T> p = ray_at(o, t_eff, d);
   // the winner's normal; a sphere's probe is replayed for the adjoint
@@ -604,6 +707,8 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
     wn = ld3(pk, b + R_WN);
   } else if (bez) {
     wn = {-d.x, -d.y, -d.z};                    // a ribbon's: -ray dir
+  } else if (kl) {
+    wn = klein_normal<T>(pk, b, p);             // a klein's: unit(grad DE)
   } else if (hit) {
     wn = {T(1), T(0), T(0)};                    // a medium's
   }
@@ -857,6 +962,12 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
       for (int k = 0; k < kMedSlots; ++k) gm[k] = T(0);
       medium_adj<T>(pk, b, o, d, prm.t_min, prm.t_max, ex.med.lx, g_t, g_o,
                     g_d, gm);
+    } else if (kl) {
+      // t = t_raw - corr, wn = unit(g) at p = o + t_raw d: into o, d and the
+      // centre (the entry's geometry vector)
+      V3<T> g_c = {T(0), T(0), T(0)};
+      klein_adj<T>(pk, b, o, d, best_t, g_t, g_wn, g_o, g_d, g_c);
+      c.wn = g_c;
     } else if (bez) {
       // the normal -d; t = zc(s) at the root of g'.  The control points'
       // slots are redone in the block reduction
@@ -934,10 +1045,11 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
 }
 
 // The pk slots a winner's cotangent touches, in the order of its list entry:
-// the geometry vector (R_WN, a sphere's S_C0), the geometry scalar (R_K,
-// S_R), ALB0, ALB1, FUZZ, REF, TEXS, and for a sphere of a moving scene
-// S_C1, S_T0 and S_T1.  A rect, or a sphere of a static scene, uses the
-// first kRectSlots; a medium or a ribbon the material slots among them, from
+// the geometry vector (R_WN, a sphere's S_C0, a klein's K_C), the geometry
+// scalar (R_K, S_R; a klein has none), ALB0, ALB1, FUZZ, REF, TEXS, and for a
+// sphere of a moving scene S_C1, S_T0 and S_T1.  A rect, or a sphere of a
+// static scene, uses the first kRectSlots, a klein all of them but the
+// geometry scalar; a medium or a ribbon the material slots among them, from
 // kGeomSlots on (their geometry slots are redone per medium and per ribbon,
 // see medium_adj and bezier_adj).  A variant without moving spheres keeps
 // the first kRectSlots only.
@@ -951,9 +1063,10 @@ constexpr int kSlots = kMoving ? kAllSlots : kRectSlots;
 static_assert(kBezSlots <= kMedSlots, "a ribbon's slots fit a medium's array");
 
 // The kind of the winner at pk offset b (pack order: rects, spheres,
-// lights, media, ribbons).
+// lights, media, kleins, ribbons).
 __device__ __forceinline__ int win_kind(const Statics& s, int b) {
   if (kBeziers && b >= s.bez_base) return kBezier;
+  if (kKleins && b >= s.kl_base) return kKlein;
   if (kMedia && b >= s.med_base) return kMedium;
   return kSpheres && b >= s.sph_base ? kSphere : kRect;
 }
@@ -966,7 +1079,7 @@ __device__ __forceinline__ bool material_only(int kind) {
 // Entry slot j of a winner of `kind` -> its offset in the winner's pk block.
 __device__ __forceinline__ int win_slot(int kind, int j) {
   const bool sph = kind == kSphere;
-  if (j < 3) return (sph ? S_C0 : R_WN) + j;
+  if (j < 3) return (sph ? S_C0 : (kind == kKlein ? K_C : R_WN)) + j;
   if (j == 3) return sph ? S_R : R_K;
   if (j < kRectSlots) {
     const int mat = mat_offset(kind);
@@ -1053,6 +1166,7 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
       const int b = s_win[w][e / kSlots], j = e % kSlots;
       const int kind = win_kind(s, b);
       if (material_only(kind) ? (j >= kGeomSlots && j < kRectSlots)
+          : kind == kKlein    ? (j != kGeomSlots - 1 && j < kRectSlots)
                               : (j < kRectSlots ||
                                  (kind == kSphere && s.has_moving)))
         part[b + win_slot(kind, j)] += s_val[w][e / kSlots][j];

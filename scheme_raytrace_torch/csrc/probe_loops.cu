@@ -9,10 +9,13 @@
 // and bool carries in nested loops, a bool carried as an int, and an
 // early-exit while loop whose condition is a cross-lane any() (here over
 // the block, with __syncthreads_or).  These are the loop shapes of the rect
-// sweep and the light loop.  One extension case follows the nine, which the
+// sweep and the light loop.  Two extension cases follow the nine, which the
 // JAX tool does not have: the loop form of the bezier probe (bounce_common.cuh
 // bezier_probe), a loop over seeds, each a fixed count of guarded, clipped
-// Newton steps on g'(s) = 0, then an accept test and a running minimum.  The
+// Newton steps on g'(s) = 0, then an accept test and a running minimum; and
+// that of the klein march (klein_march), a bounded sphere trace whose lane
+// retires on its own (an accept, backward-stuck, or past a bound) around an
+// inner inversion loop that the lane leaves when its point escapes.  The
 // plain PyTorch twins are scheme_raytrace_torch/tools/probe_loops.py:CASES
 // and EXT_CASES.
 //
@@ -38,6 +41,7 @@ enum Case {
   FORI, NESTED_FORI, FORI_CARRY5, JVP_FORI, NESTED_FLOAT_CARRY,
   SINGLE_BOOL_CARRY, NESTED_BOOL_CARRY, BOOL_CARRY_AS_I32, WHILE_ANY,
   BEZIER_SEEDS,      // the extension: tools/probe_loops.py:EXT_CASES
+  KLEIN_MARCH,
   N_CASES
 };
 
@@ -45,6 +49,15 @@ enum Case {
 // BEZ_NEWTON).
 constexpr int kBezSeeds = 8;
 constexpr int kBezNewton = 4;
+// The klein loop form's march steps and inversions a step at most
+// (probe_loops.py KLEIN_STEPS, KLEIN_ITERS); its two inversion spheres'
+// centres and r^2 (KLEIN_SPHERES, KLEIN_R2).
+constexpr int kKlSteps = 40;
+constexpr int kKlIters = 6;
+__device__ __forceinline__ float klein_centre(int i) {
+  return i == 0 ? -1.0f : 2.0f;
+}
+constexpr float kKlR2 = 0.36f;
 
 // a * 1.1 + 0.1 where a * a < 4 (the masked update of the bool carries)
 __device__ __forceinline__ void masked_step(float& a, bool& e) {
@@ -150,6 +163,38 @@ __device__ float run_case(int which, float x) {
         best = zc < best ? zc : best;
       }
       return best;
+    }
+    case KLEIN_MARCH: {
+      // from x along +1: the estimate 0.5 (|P| - 0.3) / |dr| after up to
+      // kKlIters inversions (the first sphere holding the point), an
+      // accept under 1e-3 past 1e-3, retired stuck or past 6
+      float len = 0.0f;
+      for (int k = 0; k < kKlSteps; ++k) {
+        float p = fa(x, len), dr = 1.0f;
+        for (int it = 0; it < kKlIters; ++it) {
+          bool found = false;
+          for (int i = 0; i < 2; ++i) {
+            const float q = fa(p, -klein_centre(i));
+            const float q2 = fm(q, q);
+            if (q2 < kKlR2) {
+              const float sc = kKlR2 / (q2 < 1.17549435e-38f
+                                               ? 1.17549435e-38f : q2);
+              p = fa(fm(q, sc), klein_centre(i));
+              dr = fm(dr, sc);
+              found = true;
+              break;
+            }
+          }
+          if (!found) break;
+        }
+        const float dist = fm(fa(fabsf(p), -0.3f), 0.5f) / fabsf(dr);
+        const float new_len = fa(len, dist);
+        if (dist < 1e-3f && new_len > 1e-3f) return new_len;
+        const bool stuck = dist <= 0.0f && len <= 1e-3f;
+        len = new_len;
+        if (stuck || fa(x, len) > 6.0f) return 100.0f;
+      }
+      return 100.0f;
     }
   }
   return 0.0f;

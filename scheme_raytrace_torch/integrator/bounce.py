@@ -15,14 +15,14 @@ Two implementations of one step, picked by the device of the tensors:
     takes what `pack` gives for a `pool_plan` plan: `pk`, or `(pk, atlas)`
     with the image texel planes; never the sphere attribute atlas.
 
-Coverage (both implementations, ROADMAP B1.1-B1.6): rects, spheres
-(static and moving, any count), cubic Bezier ribbons (any count), constant
-media in box and sphere boundaries, xz-rect and sphere lights with
-mixture-PDF light sampling, constant, checker, hash-Perlin noise and marble
-and image albedo, emission, gradient/black sky, lambertian/metal/dielectric.
-Klein raises NotImplementedError (`check_covered`); `pack` covers every
-group.  The kernels are built per feature set (`kernel_features`): a plan's
-variant holds the code of the groups it has and no other.
+Coverage (both implementations, every group of the JAX step): rects,
+spheres (static and moving, any count), the Kleinian limit-set fractal
+(sphere-traced, any count), cubic Bezier ribbons (any count), constant media
+in box and sphere boundaries, xz-rect and sphere lights with mixture-PDF
+light sampling, constant, checker, hash-Perlin noise and marble and image
+albedo, emission, gradient/black sky, lambertian/metal/dielectric.  The
+kernels are built per feature set (`kernel_features`): a plan's variant
+holds the code of the groups it has and no other.
 """
 
 from __future__ import annotations
@@ -260,8 +260,8 @@ IMG_ROWS_MAX = 48
 
 def pallas_ok(plan: BouncePlan) -> bool:
     """Fused-kernel eligibility of the JAX package: bounded counts of the
-    exotic groups (the JAX routing bound; the port's media and bezier loops
-    take any count, and klein is not ported, see `check_covered`)."""
+    exotic groups (the JAX routing bound; the port's media, klein and bezier
+    loops take any count)."""
     return (plan.n_media <= 16 and plan.n_kleins <= 2
             and plan.n_beziers <= 8)
 
@@ -311,19 +311,9 @@ def pool_plan(scene, config) -> BouncePlan:
     return dataclasses.replace(make_plan(scene, config), attr_sweep=False)
 
 
-def check_covered(plan: BouncePlan) -> None:
-    """Raise NotImplementedError for plans outside the ported slices."""
-    if plan.n_kleins:
-        raise NotImplementedError(
-            "the fused bounce step covers ROADMAP B1.1-B1.6 (rects, spheres, "
-            "beziers, media, lights, every texture kind); this plan needs "
-            "klein, which slice B1.7 ports")
-
-
 def check_kernel_plan(plan: BouncePlan) -> None:
-    """`check_covered` for the CUDA wrappers: the kernels load the winner's
+    """The plan check of the CUDA wrappers: the kernels load the winner's
     `pk` row and read no sphere attribute atlas (`pool_plan`)."""
-    check_covered(plan)
     if plan.attr_sweep:
         raise ValueError("the bounce kernels take no sphere attribute atlas: "
                          "build the plan with bounce.pool_plan")
@@ -650,10 +640,199 @@ def _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max):
     }
 
 
+# --- the Kleinian limit set (geometry.scm:590-661; the JAX step's
+# _klein_dist, _klein_dist_grad, _klein_march and klein_probe) -------------
+
+# Inversion-sphere positions, klein-local (geometry.scm:591-599)
+_KLEIN_SPHERES = ((300.0, 300.0, 0.0), (300.0, -300.0, 0.0),
+                  (-300.0, 300.0, 0.0), (-300.0, -300.0, 0.0),
+                  (0.0, 0.0, 424.26), (0.0, 0.0, -424.26))
+# The march's bounds, the JAX step's numbers: the acceptance set {DE < eps}
+# lies inside |p - c| < 724.26 (every inversion ball B(s_i, 300) has
+# |s_i| = 424.26; outside them the DE is 0.7 (|p - c| - 125)), so a ray that
+# never enters the ball of radius KLEIN_PRECULL_R can never accept, and a ray
+# receding outside KLEIN_RECEDE_R never comes back.
+KLEIN_PRECULL_R = 726.0
+KLEIN_RECEDE_R = 900.0
+
+
+def _klein_inversion(px, py, pz, active):
+    """One iteration's inversion: for each lane, the first of the six
+    spheres whose interior holds the point, among the `active` lanes.  The
+    JAX step's masked sequential select, with every sphere's offset and d2
+    computed at once: a sphere after the selected one only ever sees the
+    inverted point through a mask that is false, so the first sphere with
+    d2 < r2 at the lane's point is the one the select picks, with the same
+    values.  Returns (sel, dx, dy, dz, d2, sx, sy, sz) of that sphere for
+    every lane (the first sphere's where none holds it)."""
+    s = px.new_tensor(_KLEIN_SPHERES)                        # [6, 3]
+    dx, dy, dz = px - s[:, 0:1], py - s[:, 1:2], pz - s[:, 2:3]
+    d2 = dx * dx + dy * dy + dz * dz
+    inside = (d2 < cfg_mod.KLEIN_SPHERE_R * cfg_mod.KLEIN_SPHERE_R) & active
+    idx = inside.to(torch.uint8).argmax(0)                   # the first one
+    pick = lambda x: x.gather(0, idx[None])[0]
+    return (inside.any(0), pick(dx), pick(dy), pick(dz), pick(d2),
+            s[idx, 0], s[idx, 1], s[idx, 2])
+
+
+def _klein_dist(c, px, py, pz, stats=None):
+    """The distance estimate (geometry.scm:602-624): up to KLEIN_ITERATIONS
+    inversions, a lane leaving the loop when its point escapes every
+    inversion sphere (it never changes again).  On the CPU the loop ends
+    when no lane is active; on the card, where that test would be a host
+    sync each iteration, it runs all of them, with the same values.
+    `stats` (a dict), if given, counts the inversions."""
+    px, py, pz = px - c[0], py - c[1], pz - c[2]
+    r2 = cfg_mod.KLEIN_SPHERE_R * cfg_mod.KLEIN_SPHERE_R
+    tiny = torch.finfo(px.dtype).tiny
+    dr = torch.ones_like(px)
+    active = torch.ones_like(px, dtype=torch.bool)
+    for _ in range(cfg_mod.KLEIN_ITERATIONS):
+        sel, dx, dy, dz, d2, sx, sy, sz = _klein_inversion(px, py, pz, active)
+        if stats is not None:
+            stats["inversions"] += int(sel.sum())
+        if not (px.is_cuda or bool(sel.any())):
+            break
+        scale = px.new_tensor(r2) / _max(d2, tiny)
+        px = torch.where(sel, dx * scale + sx, px)
+        py = torch.where(sel, dy * scale + sy, py)
+        pz = torch.where(sel, dz * scale + sz, pz)
+        dr = torch.where(sel, dr * scale, dr)
+        active = sel
+    ln = torch.sqrt(px * px + py * py + pz * pz)
+    return cfg_mod.KLEIN_DE_SCALE * (ln - cfg_mod.KLEIN_R) / torch.abs(dr)
+
+
+def _klein_dist_grad(c, px, py, pz):
+    """The distance estimate and its exact spatial gradient g in one
+    inversion loop: the three unit tangents d(P)/d(x0), d(P)/d(y0),
+    d(P)/d(z0) ride beside the primal (dx' = scale (dx - x w) with
+    w = 2 (x.dx) / |x|^2, and ddr' = scale (ddr - w dr)), 17 carried values.
+    Differentiable: autograd through it gives the second derivatives."""
+    px, py, pz = px - c[0], py - c[1], pz - c[2]
+    r2 = cfg_mod.KLEIN_SPHERE_R * cfg_mod.KLEIN_SPHERE_R
+    tiny = torch.finfo(px.dtype).tiny
+    one, zero = torch.ones_like(px), torch.zeros_like(px)
+    dr = one
+    tan = [[one, zero, zero, zero], [zero, one, zero, zero],
+           [zero, zero, one, zero]]          # (tx, ty, tz, dd) per axis
+    active = torch.ones_like(px, dtype=torch.bool)
+    for _ in range(cfg_mod.KLEIN_ITERATIONS):
+        sel, dx, dy, dz, d2, sx, sy, sz = _klein_inversion(
+            px.detach(), py.detach(), pz.detach(), active)
+        if not bool(sel.any()):
+            break
+        # the same offsets, from the differentiable point
+        dx, dy, dz = px - sx, py - sy, pz - sz
+        d2 = dx * dx + dy * dy + dz * dz
+        inv_d2 = 1.0 / _max(d2, tiny)
+        scale = r2 * inv_d2
+        for j in range(3):
+            tx, ty, tz, dd = tan[j]
+            w = 2.0 * (dx * tx + dy * ty + dz * tz) * inv_d2
+            tan[j] = [torch.where(sel, scale * (tx - dx * w), tx),
+                      torch.where(sel, scale * (ty - dy * w), ty),
+                      torch.where(sel, scale * (tz - dz * w), tz),
+                      torch.where(sel, scale * (dd - w * dr), dd)]
+        px = torch.where(sel, dx * scale + sx, px)
+        py = torch.where(sel, dy * scale + sy, py)
+        pz = torch.where(sel, dz * scale + sz, pz)
+        dr = torch.where(sel, dr * scale, dr)
+        active = sel
+    ln = torch.sqrt(_max(px * px + py * py + pz * pz, tiny))
+    adr = torch.abs(dr)
+    de = cfg_mod.KLEIN_DE_SCALE * (ln - cfg_mod.KLEIN_R) / adr
+    # d(de)/d(x0_j) = K/|dr| * ((P . t_j)/|P| - (|P| - R)*ddr_j/dr)
+    k = adr.new_tensor(cfg_mod.KLEIN_DE_SCALE) / adr
+    rat = (ln - cfg_mod.KLEIN_R) / dr
+    g = tuple(k * ((px * tx + py * ty + pz * tz) / ln - rat * dd)
+              for tx, ty, tz, dd in tan)
+    return de, g
+
+
+def _klein_march(c, o, d, t_min, t_max, stats=None):
+    """The sphere trace (geometry.scm:646-661), with the JAX step's exact
+    retirements; no gradient.  t_max is a lane tensor, the closest solid hit
+    so far: an accept at t >= t_max loses the strict closest-hit merge, so
+    the bound is exact.  A lane starts retired when its ray never enters
+    the ball of radius KLEIN_PRECULL_R about c on (t_min, t_max) (d is
+    unit); it retires on an accept, backward-stuck (a DE <= 0 point at
+    parameter <= t_min: no later step clears t_min), past t_max, or receding
+    outside KLEIN_RECEDE_R.  Each step runs on the lanes still marching.
+    Returns (hit, the parameter where each lane stopped).  `stats` (a dict),
+    if given, counts the lanes that march, their steps and inversions, the
+    backward-stuck retirements, and the lanes still marching at the
+    KLEIN_MAX_STEPS cap."""
+    ox, oy, oz = o[0] - c[0], o[1] - c[1], o[2] - c[2]
+    bq = ox * d[0] + oy * d[1] + oz * d[2]
+    cq = ox * ox + oy * oy + oz * oz - KLEIN_PRECULL_R * KLEIN_PRECULL_R
+    disc = bq * bq - cq
+    sq = torch.sqrt(_max(disc, 0.0))
+    miss = (disc <= 0.0) | (-bq + sq <= t_min) | (-bq - sq >= t_max)
+    ray_len = torch.zeros_like(o[0])
+    hit = torch.zeros_like(miss)
+    live = (~miss).nonzero()[:, 0]
+    if stats is not None:
+        stats["marching"] += live.numel()
+    for _ in range(cfg_mod.KLEIN_MAX_STEPS):
+        if live.numel() == 0:
+            break
+        if stats is not None:
+            stats["steps"] += live.numel()
+        lo, ld = [x[live] for x in o], [x[live] for x in d]
+        length, tm = ray_len[live], t_max[live]
+        dist = _klein_dist(c, lo[0] + ld[0] * length, lo[1] + ld[1] * length,
+                           lo[2] + ld[2] * length, stats)
+        new_len = length + dist
+        accept = ((dist < cfg_mod.KLEIN_SURF_EPS) & (new_len > t_min)
+                  & (new_len < tm))
+        stuck = (dist <= 0.0) & (length <= t_min)
+        if stats is not None:
+            stats["stuck"] += int((stuck & ~accept).sum())
+        ray_len[live] = new_len
+        hit[live] = accept
+        px = lo[0] + ld[0] * new_len - c[0]
+        py = lo[1] + ld[1] * new_len - c[1]
+        pz = lo[2] + ld[2] * new_len - c[2]
+        receding = (px * ld[0] + py * ld[1] + pz * ld[2]) > 0.0
+        outside = ((px * px + py * py + pz * pz)
+                   > KLEIN_RECEDE_R * KLEIN_RECEDE_R)
+        live = live[~(accept | stuck | (new_len >= tm)
+                      | (receding & outside))]
+    if stats is not None:
+        stats["capped"] += live.numel()
+    return hit, ray_len
+
+
+def _klein_hit(pk, b, o, d, t_min, best_t):
+    """The JAX klein_probe's candidate (ok, t, wn) of the klein at packed
+    base b: the march bounded by the closest hit so far runs without
+    gradient; the hit's t is attached by the implicit-function correction
+    t = t_raw - (corr - corr.detach()), corr = (DE - eps) / (g . d) at the
+    root (g . d kept off zero at +-1e-6), and the normal is unit(g), g the
+    DE's exact gradient there."""
+    c = _v(pk, b + K_C)
+    with torch.no_grad():
+        hitk, t_raw = _klein_march(tuple(x.detach() for x in c),
+                                   tuple(x.detach() for x in o),
+                                   tuple(x.detach() for x in d), t_min,
+                                   best_t.detach())
+    p_raw = tuple(o[i] + t_raw * d[i] for i in range(3))
+    dist, g = _klein_dist_grad(c, *p_raw)
+    ddt = g[0] * d[0] + g[1] * d[1] + g[2] * d[2]
+    denom = torch.where(torch.abs(ddt) > 1e-6, ddt,
+                        torch.where(ddt >= 0.0, ddt.new_tensor(1e-6),
+                                    ddt.new_tensor(-1e-6)))
+    corr = torch.where(hitk, (dist - cfg_mod.KLEIN_SURF_EPS) / denom, 0.0)
+    t = t_raw - (corr - corr.detach())
+    return hitk & (pk[b + K_VALID] > 0.5), t, unit3(g)
+
+
 def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
     """Closest-hit sweep in pack order, material merged in: the rects,
     unrolled (for any count: the JAX step's chunked loop above UNROLL_MAX
-    gives the unrolled merge's values), then the spheres, then the bezier
+    gives the unrolled merge's values), then the spheres, then the kleins
+    (each march bounded by the closest hit so far), then the bezier
     ribbons.  pk is the unbound scene vector, pk_t the tensor itself."""
     z = torch.zeros_like(o[0])
     best = {
@@ -689,6 +868,13 @@ def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
                           else None)
     if plan.n_spheres:
         best = _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max)
+    for k in range(plan.n_kleins):
+        b = plan.kl_base + k * KL_SIZE
+        ok, t, wn = _klein_hit(pk, b, o, d, t_min, best["t"])
+        # a klein's surface coordinates are (0, 0), as a ribbon's
+        best = _merge_rec(pk, best, ok, t, wn, b, K_ALB0, K_ALB1, K_MTYPE,
+                          K_TEXK, K_FUZZ, K_REF, K_TEXS,
+                          {"kind": KIND_NONE} if plan.has_image else None)
     for j in range(plan.n_beziers):
         b = plan.bez_base + j * BEZ_SIZE
         okc, t_curve = _bezier_hit(plan, pk, b, o, d, t_min, t_max)
@@ -1041,7 +1227,6 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     (pk, atlas) pair: the image texel planes come first in the atlas, and
     its sphere attribute rows are not read (see `_sweep_spheres`).
     """
-    check_covered(plan)
     pk, atlas = split_pk(plan, pk)
     dt = px.dtype
     # --- regenerate fresh lanes, closest hit, media -------------------------
@@ -1176,13 +1361,14 @@ LAUNCHES = 0
 def kernel_features(plan: BouncePlan) -> tuple:
     """The feature set of the plan's kernel variants: the groups of
     csrc/bounce_common.cuh's compile-time flags that the plan has (spheres,
-    moving spheres, Perlin textures, image texels, media, beziers).  Counts
-    are not part of it: one variant serves any count."""
+    moving spheres, Perlin textures, image texels, media, beziers, kleins).
+    Counts are not part of it: one variant serves any count."""
     return tuple(name for name, present in (
         ("spheres", plan.n_spheres),
         ("moving", plan.n_spheres and plan.has_moving),
         ("perlin", plan.has_perlin), ("image", plan.img_rows),
-        ("media", plan.n_media), ("bezier", plan.n_beziers)) if present)
+        ("media", plan.n_media), ("bezier", plan.n_beziers),
+        ("klein", plan.n_kleins)) if present)
 
 
 def _kernel(plan):
@@ -1202,19 +1388,20 @@ def scene_args(plan: BouncePlan):
     """The plan's statics as the four bounce kernels take them, in their C
     order (csrc/bounce_common.cuh SRT_SCENE_PARAMS): the groups' counts and
     pk offsets, the image size, the bounce cap, the media, the Perlin flag,
-    the texel atlas's rows, the beziers with their seeds and Newton steps,
-    the two seeds, and the hit interval."""
+    the texel atlas's rows, the kleins, the beziers with their seeds and
+    Newton steps, the two seeds, and the hit interval."""
     return (plan.n_rects, plan.rect_base, plan.n_spheres, plan.sph_base,
             int(plan.has_moving), plan.n_lights, plan.lgt_base,
             int(plan.light_sampling), plan.nx, plan.ny, plan.max_depth,
             plan.n_media, plan.med_base, int(plan.has_perlin), plan.img_rows,
+            plan.n_kleins, plan.kl_base,
             plan.n_beziers, plan.bez_base, plan.bez_seeds, plan.bez_newton,
             plan.seed & 0xFFFFFFFF, plan.perlin_seed & 0xFFFFFFFF,
             cfg_mod.SHADOW_EPS, cfg_mod.BIG)
 
 
 # The ctypes of `scene_args`.
-SCENE_ARGTYPES = ([ctypes.c_int] * 19 + [ctypes.c_uint32] * 2
+SCENE_ARGTYPES = ([ctypes.c_int] * 21 + [ctypes.c_uint32] * 2
                   + [ctypes.c_double] * 2)
 
 

@@ -8,7 +8,9 @@ loop under a cross-lane any().  CASES holds the plain PyTorch versions, in
 the reference's order.  EXT_CASES holds the port's extension, which the JAX
 tool does not have: the loop form of the bezier probe (a loop over seeds,
 each a fixed count of guarded, clipped Newton steps, an accept test and a
-running minimum).  `loops_cuda(name, x)` runs csrc/probe_loops.cu, one case
+running minimum) and that of the klein march (a bounded sphere trace with
+per-lane retirement around an inner inversion loop that a lane leaves when
+its point escapes).  `loops_cuda(name, x)` runs csrc/probe_loops.cu, one case
 per launch, bitwise equal to the plain version (the kernel rounds each
 product and sum on its own).  `main` returns the two groups' results side by
 side, (cases, ext).  On the card:
@@ -145,6 +147,61 @@ def ext_bezier_seeds(x):
         g = cx * cx + cy * cy
         best = torch.minimum(best, torch.where(g < 0.04, 1.0 + s, 100.0))
     return best
+
+
+# The klein loop form's march steps, inversions a step at most, inversion
+# spheres (centre, r^2) and distance-estimate constants (csrc/probe_loops.cu
+# kKlSteps, kKlIters).
+KLEIN_STEPS = 40
+KLEIN_ITERS = 6
+KLEIN_SPHERES = (-1.0, 2.0)
+KLEIN_R2 = 0.36
+
+
+def ext_klein_march(x, stats=None):
+    """The klein march's loop form (integrator/bounce.py _klein_march) on a
+    line: from x, step along +1 by a distance estimate that up to KLEIN_ITERS
+    inversions in two spheres (the first whose interior holds the point)
+    scale, 0.5 (|P| - 0.3) / |dr|; a lane accepts where the estimate falls
+    under 1e-3 past 1e-3 (its distance is the result), and retires
+    backward-stuck (an estimate <= 0 at a distance <= 1e-3) or past 6; 100
+    for a lane that never accepts.  The loop form of the JAX step's, masks and
+    all; the kernel's lane leaves each loop when it is done.  `stats` (a
+    dict), if given, counts the steps and the inversions of the lanes still
+    marching."""
+    tiny = torch.finfo(x.dtype).tiny
+    length = torch.zeros_like(x)
+    out = torch.full_like(x, 100.0)
+    done = torch.zeros_like(x, dtype=torch.bool)
+    for _ in range(KLEIN_STEPS):
+        if bool(done.all()):
+            break
+        if stats is not None:
+            stats["steps"] += int((~done).sum())
+        p, dr = x + length, torch.ones_like(x)
+        active = torch.ones_like(done)
+        for _ in range(KLEIN_ITERS):
+            found = torch.zeros_like(done)
+            for s in KLEIN_SPHERES:
+                q = p - s
+                q2 = q * q
+                sel = active & ~found & (q2 < KLEIN_R2)
+                scale = x.new_tensor(KLEIN_R2) / torch.maximum(
+                    q2, x.new_tensor(tiny))
+                p = torch.where(sel, q * scale + s, p)
+                dr = torch.where(sel, dr * scale, dr)
+                found = found | sel
+            active = active & found
+            if stats is not None:
+                stats["inversions"] += int((active & ~done).sum())
+        dist = (torch.abs(p) - 0.3) * 0.5 / torch.abs(dr)
+        new_len = length + dist
+        accept = ~done & (dist < 1e-3) & (new_len > 1e-3)
+        stuck = (dist <= 0.0) & (length <= 1e-3)
+        out = torch.where(accept, new_len, out)
+        length = torch.where(done, length, new_len)
+        done = done | accept | stuck | (x + length > 6.0)
+    return out
 
 
 EXT_CASES = {n[4:]: f for n, f in list(globals().items())

@@ -42,7 +42,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # The compile-time feature flags of the bounce kernels, in the order a
 # variant's name lists them: flag -> the macro csrc/bounce_common.cuh reads.
-# "klein" is reserved for the klein group's slice; no source reads it yet.
 FEATURES = {"spheres": "SRT_SPHERES", "moving": "SRT_MOVING",
             "perlin": "SRT_PERLIN", "image": "SRT_IMAGE",
             "media": "SRT_MEDIA", "bezier": "SRT_BEZIER",

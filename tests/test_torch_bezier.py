@@ -261,17 +261,6 @@ def test_step_matches_pallas_interpret():
     assert bad.sum() <= 1, int(bad.sum())            # one f32 flip of 128
 
 
-def test_only_klein_raises():
-    # check_covered raises for klein plans alone
-    for name in ("bezier", "cornell_bezier", "points_chain"):
-        plan, _, _ = _plan_pk(name, "f32")
-        tb.check_covered(_t_plan(plan))
-        tb.check_kernel_plan(_t_plan(plan))
-    plan = dataclasses.replace(_t_plan(plan), n_kleins=1)
-    with pytest.raises(NotImplementedError, match="klein"):
-        tb.check_covered(plan)
-
-
 # --- the VJP ----------------------------------------------------------------
 
 

@@ -234,18 +234,6 @@ def test_step_raises_outside_the_cornell_slice():
             traversal="bvh"), torch.zeros(64, 3), 0)
 
 
-@pytest.mark.parametrize("name,group", [
-    ("klein", "klein"), ("cornell_klein", "klein")])
-def test_step_raises_for_unported_groups(name, group):
-    scene, spec, cfg, plan, pk, ins = _plan_pk_ins(name)
-    for fn in (tb.step, tb.step_cuda):
-        with pytest.raises(NotImplementedError, match=group):
-            fn(plan, pk, *ins)
-    with pytest.raises(NotImplementedError, match="B1"):
-        t_pool.render_pool_auto(scene, spec.camera(device="cpu"), cfg,
-                                torch.zeros(64, 3), 0)
-
-
 def test_kernel_wrappers_take_no_atlas():
     spec = t_scenes.random_scene(seed=0)
     scene = t_build.compile_scene(spec.objects, sky=spec.sky, device="cpu")

@@ -11,7 +11,9 @@ textured and smoke scenes (hash-Perlin noise and marble, image texels with
 the texels' cotangent, constant media) and the config-3 golden; then on the
 bezier scenes (the ribbon probe in K1-K4 and its implicit-root adjoint in
 K2, the fold over tied seeds and the curvature floor's tie among its lanes),
-the config-5 and config-6 goldens, and the kernels' per-feature-set builds.
+the config-5 and config-6 goldens, the kernels' per-feature-set builds, and
+the klein scenes (the sphere trace in K1-K4 and its implicit-function
+adjoint in K2, and a variant without the klein flag refusing a klein plan).
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -605,14 +607,11 @@ def test_step_cuda_bwd_matches_step_vjp_on_spheres(cuda, dtype, name):
     # The bounds of test_step_cuda_bwd_matches_step_vjp, and two launches
     # bitwise equal.  f64 on "rtow" is the P = 4,794 case: its partials go
     # through per-warp winner lists, not a [warps, P] array in shared
-    # memory.  f32: the dpk sums are held on the lanes whose rays are
-    # given.  A fresh lane's ray comes from camera_ray, where the kernel
-    # fuses products and sums that the plain step rounds one by one; a
-    # ground sphere of radius 100 or 1000 amplifies that ulp into percent
-    # differences of the f32 camera and sphere slots, where the plain f32
-    # VJP is itself as far from the f64 VJP (chip_smoke.py's check_k2 logs
-    # the fresh lanes' share).  Their adjoint is held in f64 here, and in
-    # f32 on the Cornell scenes.
+    # memory.  f32: the dpk sums are held over every lane the forward does
+    # not flip, fresh ones included: camera_ray rounds op by op, so a fresh
+    # lane's ray is the plain step's bit for bit, and a ground sphere of
+    # radius 100 or 1000, which would amplify an ulp of it into percent
+    # differences of the camera and sphere slots, sees the plain step's ray.
     m = 24 * 1024
     f64 = dtype == torch.float64
     plan, pk, box, atol = _sphere_setup(name, dtype, cuda)
@@ -644,10 +643,7 @@ def test_step_cuda_bwd_matches_step_vjp_on_spheres(cuda, dtype, name):
     scale = torch.clamp(want[:, keep].abs().amax(1), min=1.0)
     assert not ((err > 1e-5 * scale[:, None] + 1e-3 * want.abs())
                 & keep).any()
-    given = bounce.split_lanes([torch.where(ins[3], 0.0, c)
-                                for c in bounce.flat_lanes(*cts)])
-    want_pk = bounce.step_vjp(plan, pk, *ins, *given)[0]
-    got_pk = bounce.step_cuda_bwd(plan, pk, *ins, *given)[0]
+    assert bool(ins[3].any())                        # fresh lanes included
     assert float(want_pk[plan.sph_base:].abs().max()) > 0
     assert not ((got_pk - want_pk).abs()
                 > 1e-5 * max(1.0, float(want_pk.abs().max()))
@@ -1198,3 +1194,158 @@ def test_a_variant_refuses_a_plan_it_does_not_cover(cuda):
     err = fn(0, ptrs, 256, *bounce.scene_args(b_plan),
              torch.cuda.current_stream().cuda_stream)
     assert err == 1                                # cudaErrorInvalidValue
+
+
+# --- the klein scenes (K1-K4; chip_smoke.py's phases 24-27) ---------------
+
+KLEIN_SCENES = {"klein": (scenes.klein_scene, False),
+                "cornell_klein": (scenes.cornell_klein, True)}
+
+
+def _klein_setup(name, dtype, device, m, seed=2):
+    """(plan, pk, the step's inputs, f32 atol) of a KLEIN_SCENES entry at
+    512^2 spp8: chip_smoke.py's lanes, aimed at the fractal from outside
+    its precull ball on the cameras' side, one in ten born near its centre;
+    the atol scaled as _sphere_setup scales it."""
+    spec_fn, ls = KLEIN_SCENES[name]
+    spec = spec_fn()
+    scene = compile_scene(spec.objects, sky=spec.sky, dtype=dtype,
+                          device=device)
+    cam = spec.camera(dtype=dtype, aspect=1.0, device=device)
+    plan = bounce.pool_plan(scene, SPHERE_CFG.replace(light_sampling=ls))
+    c = scene.kl_center[0].double().cpu().numpy()
+    r = np.random.default_rng(seed + 1000)
+    u = r.normal(size=(3, m))
+    u[2] = -np.abs(u[2]) - 1.0
+    u /= np.linalg.norm(u, axis=0)
+    o = c[:, None] + u * r.uniform(730.0, 1000.0, m)
+    inside = r.random(m) < 0.1
+    o[:, inside] = c[:, None] + r.uniform(-100.0, 100.0,
+                                          (3, int(inside.sum())))
+    dv = c[:, None] + r.uniform(-300.0, 300.0, (3, m)) - o
+    dv /= np.linalg.norm(dv, axis=0)
+    ins = _lane_inputs(m, 512, 512, 100, dtype, device, seed=seed)
+    f = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    ins = (*ins[:6], tuple(f(x) for x in o), tuple(f(x) for x in dv),
+           *ins[8:])
+    scale = 555.0
+    if scene.has_spheres:
+        scale = max(float(scene.sph_c0.abs().max()),
+                    float(scene.sph_r.abs().max()))
+    return plan, bounce.pack(scene, cam, plan, dtype), ins, 1e-3 * scale / 555
+
+
+def _klein_winners(plan, pk, ins):
+    """The live lanes whose closest hit is the klein: the record's t beats
+    that of the plan without it."""
+    gitem, px, py, fresh, alive, depth, o, d, time = ins[:9]
+    recs = [bounce.hit_record(p, pk, gitem, px, py, fresh, depth, o, d,
+                              time)[3]
+            for p in (plan, dataclasses.replace(plan, n_kleins=0))]
+    return alive & recs[0]["hit"] & (~recs[1]["hit"]
+                                     | (recs[0]["t"] < recs[1]["t"]))
+
+
+@pytest.mark.parametrize("name", sorted(KLEIN_SCENES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_step_cuda_matches_plain_step_on_kleins(cuda, dtype, name):
+    # the bounds of test_step_cuda_matches_plain_step_on_spheres, on lanes
+    # aimed at the fractal: f64 every lane, f32 all but 0.1%
+    m = 64 * 1024
+    plan, pk, ins, atol = _klein_setup(name, dtype, cuda, m)
+    assert plan.n_kleins == 1 and bounce.kernel_features(plan)[-1] == "klein"
+    assert int(_klein_winners(plan, pk, ins).sum()) > m // 100
+    w, w_sc = _stacked(bounce.step(plan, pk, *ins))
+    g, g_sc = _stacked(bounce.step_cuda(plan, pk, *ins))
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        rtol, atol, max_off = 1e-9, 1e-9, 0
+    else:
+        rtol, max_off = 1e-4, m // 1000
+    off = (g_sc != w_sc) | ((g - w).abs() > atol + rtol * w.abs()).any(0)
+    assert torch.isfinite(g).all()
+    assert w_sc.any() and int(off.sum()) <= max_off, int(off.sum())
+
+
+@pytest.mark.parametrize("name", sorted(KLEIN_SCENES))
+def test_step_cuda_bwd_matches_step_vjp_on_kleins(cuda, name):
+    # f64: every lane cotangent within 1e-9 and every pk slot within 1e-10 of
+    # the largest; the klein's centre slots nonzero; two launches bitwise
+    # equal
+    m = 24 * 1024
+    dtype = torch.float64
+    plan, pk, ins, _ = _klein_setup(name, dtype, cuda, m, seed=3)
+    r = np.random.default_rng(7)
+    cts = bounce.split_lanes([torch.tensor(x, dtype=dtype, device=cuda)
+                              for x in r.normal(size=(13, m))])
+    want = bounce.step_vjp(plan, pk, *ins, *cts)
+    got = bounce.step_cuda_bwd(plan, pk, *ins, *cts)
+    again = bounce.step_cuda_bwd(plan, pk, *ins, *cts)
+    torch.cuda.synchronize()
+    (want_pk, want), (got_pk, got), (again_pk, again) = (
+        _vjp_lanes(x) for x in (want, got, again))
+    assert torch.equal(got_pk, again_pk) and torch.equal(got, again)
+    assert torch.isfinite(got).all() and torch.isfinite(got_pk).all()
+    assert not ((got - want).abs() > 1e-9 + 1e-9 * want.abs()).any()
+    assert (got_pk - want_pk).abs().max() <= 1e-10 * want_pk.abs().max()
+    kc = got_pk[plan.kl_base + bounce.K_C:plan.kl_base + bounce.K_C + 3]
+    assert bool((kc != 0).all())
+
+
+@pytest.mark.parametrize("name", sorted(KLEIN_SCENES))
+def test_packed_kernels_on_the_klein_scenes(cuda, name):
+    # K3 against step_packed (K1's bounds), and one K4 chunk bitwise equal
+    # to 32 K3 launches
+    plan, pk, ins, atol = _klein_setup(name, torch.float32, cuda, M_POOL)
+    n_pix = SPHERE_CFG.n_pixels
+    q = dict(m=M_POOL, n_work=n_pix * SPHERE_CFG.spp, n_pix=n_pix, pix0=0,
+             total_pix=n_pix)
+    sb = torch.tensor([5], dtype=torch.int32, device=cuda)
+    state = packed_state(M_POOL, q["n_work"], plan.max_depth, cuda)
+    state[3:9] = torch.stack([*ins[6], *ins[7]])
+    want = bounce.step_packed(plan, pk, sb, state, **q)
+    got = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    g_i, w_i = got.view(torch.int32), want.view(torch.int32)
+    off = ((g_i[0] != w_i[0]) | (got[1] != want[1]) | (g_i[2] != w_i[2])
+           | ((got[3:] - want[3:]).abs()
+              > atol + 1e-4 * want[3:].abs()).any(0))
+    assert torch.isfinite(got[3:]).all()
+    assert int(off.sum()) <= M_POOL // 1000, int(off.sum())
+    T = persist.CHUNK_T
+    got_state, got_flush, got_segs = persist.chunk_cuda(plan, pk, sb, state,
+                                                        T=T, **q)
+    st = state
+    flush = torch.empty_like(got_flush)
+    segs = torch.empty_like(got_segs)
+    for t in range(T):
+        item = st.view(torch.int32)[0]
+        segs[t] = (item < q["n_work"]).sum()
+        st = bounce.step_packed_cuda(plan, pk, sb, st, **q)
+        done = st[1] != 0.0
+        flush.view(torch.int32)[t, 0] = torch.where(done, item % n_pix, -1)
+        flush[t, 1:] = torch.where(done, st[10:13], 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got_state.view(torch.int32), st.view(torch.int32))
+    assert torch.equal(got_flush.view(torch.int32), flush.view(torch.int32))
+    assert torch.equal(got_segs, segs) and int(segs.sum()) > 0
+
+
+def test_a_variant_without_klein_refuses_a_klein_plan(cuda):
+    # the spheres-only variant's C entry points return
+    # cudaErrorInvalidValue for klein_scene's plan (a ground sphere and a
+    # klein): no launch, and nothing to fall back on
+    plan, _, _, _ = _klein_setup("klein", torch.float32, cuda, 256)
+    for name, n_ptrs in (("bounce_step", 35), ("bounce_step_bwd", 48)):
+        fn = getattr(cuda_build.load(name, ("spheres",)),
+                     "srt_" + name)
+        extra = [ctypes.c_int] if name == "bounce_step_bwd" else []
+        fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                        ctypes.c_int, *extra] + bounce.SCENE_ARGTYPES
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        ptrs = (ctypes.c_void_p * n_ptrs)()
+        size = [plan.size] if extra else []
+        err = fn(0, ptrs, 256, *size, *bounce.scene_args(plan),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 1, name                      # cudaErrorInvalidValue

@@ -233,6 +233,8 @@ def test_kernel_variants_are_named_by_feature_set():
     assert feats("random") == ("spheres", "moving")
     assert feats("textured") == ("spheres", "perlin", "image")
     assert feats("cornell_smoke") == ("media",)
+    assert feats("klein") == ("spheres", "klein")
+    assert feats("cornell_klein") == ("klein",)
     name = cuda_build.variant_name
     assert name("bounce_step", feats("cornell")) == "bounce_step-base"
     assert (name("bounce_step_bwd", feats("bezier"))
@@ -246,10 +248,10 @@ def test_kernel_variants_are_named_by_feature_set():
         "-DSRT_SPHERES=1", "-DSRT_BEZIER=1"]
     with pytest.raises(ValueError, match="unknown kernel features"):
         name("k", ("nurbs",))
-    # every flag but the reserved klein one is read by the shared header
+    # every flag is read by the shared header
     header = (cuda_build.CSRC / "bounce_common.cuh").read_text()
     for flag, macro in cuda_build.FEATURES.items():
-        assert (macro in header) == (flag != "klein"), flag
+        assert macro in header, flag
 
 
 def test_build_log_resources_are_parsed():

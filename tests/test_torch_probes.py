@@ -16,9 +16,9 @@
     __fmul_rn / __fadd_rn) rounds the product and the sum apart, and a mask
     such as a * a < 4 then flips on some lanes.
 
-    The extension case (`EXT_CASES`: the bezier probe's loop form, which
-    the JAX tool does not have) is held against the same loops in numpy
-    float32, bitwise.
+    The extension cases (`EXT_CASES`: the bezier probe's and the klein
+    march's loop forms, which the JAX tool does not have) are held against
+    the same loops in numpy float32, bitwise.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -127,7 +127,7 @@ def test_probe_loops_match_jax_cases(repro, name):
 def test_probe_loops_extension_matches_numpy():
     # the nine cases stay case for case; the extension follows them
     assert list(probe_loops.ALL_CASES) == [*probe_loops.CASES,
-                                           "bezier_seeds"]
+                                           "bezier_seeds", "klein_march"]
     x = probe_loops.inputs(seed=3, device="cpu")
     f = np.float32
     a = x.numpy() * f(0.25)
@@ -153,7 +153,47 @@ def test_probe_loops_extension_matches_numpy():
     assert 0.3 < hit.mean() < 0.8 and len(np.unique(best[hit])) > 1000
     cases, ext = probe_loops.main("cpu")
     assert list(cases) == list(probe_loops.CASES) and all(cases.values())
-    assert ext == {"bezier_seeds": True}
+    assert ext == {"bezier_seeds": True, "klein_march": True}
+
+
+def test_probe_loops_klein_march_matches_numpy():
+    # the march as the kernel's lane runs it, in numpy float32 with a mask a
+    # lane: the lane leaves the inner loop when its point escapes both
+    # spheres, and the march when it accepts, sticks or passes 6
+    x = probe_loops.inputs(seed=4, device="cpu").numpy()
+    f = np.float32
+    r2, tiny = f(probe_loops.KLEIN_R2), np.finfo(np.float32).tiny
+    length = np.zeros_like(x)
+    out = np.full_like(x, f(100.0))
+    live = np.ones(x.shape, bool)
+    for _ in range(probe_loops.KLEIN_STEPS):
+        p, dr = x + length, np.ones_like(x)
+        inner = live.copy()
+        for _ in range(probe_loops.KLEIN_ITERS):
+            found = np.zeros_like(inner)
+            for s in probe_loops.KLEIN_SPHERES:
+                q = p - f(s)
+                q2 = q * q
+                sel = inner & ~found & (q2 < r2)
+                sc = r2 / np.maximum(q2, tiny)
+                p = np.where(sel, q * sc + f(s), p)
+                with np.errstate(over="ignore"):   # dr may overflow to inf
+                    dr = np.where(sel, dr * sc, dr)
+                found |= sel
+            inner &= found
+        dist = (np.abs(p) - f(0.3)) * f(0.5) / np.abs(dr)
+        new_len = length + dist
+        accept = live & (dist < f(1e-3)) & (new_len > f(1e-3))
+        out = np.where(accept, new_len, out)
+        stuck = (dist <= 0) & (length <= f(1e-3))
+        length = np.where(live, new_len, length)
+        live &= ~(accept | stuck | (x + length > f(6.0)))
+    got = probe_loops.loops("klein_march", probe_loops.inputs(seed=4,
+                                                               device="cpu"))
+    assert got.dtype == torch.float32 and out.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), out)
+    hit = out < 100.0
+    assert 0.3 < hit.mean() < 0.9 and len(np.unique(out[hit])) > 1000
 
 
 def test_probe_wrappers_take_cuda_tensors_only():

@@ -118,7 +118,16 @@ kernel table:
      centre on a window where the estimator's normal holds (KLEIN_FD_CFG);
  28. the klein scenes at full width, as phase 23: klein_scene and
      cornell_klein (light sampled) at 512x512 spp8 depth 100, forward
-     through the FIFO and the persistent pools and fwd+bwd.
+     through the FIFO and the persistent pools and fwd+bwd;
+ 29. the tile of threads a lane (kernel-tile): K1 and K2 at every tile width
+     (1, 2, 4, 8) against the one-thread search (w = 1) on the eight scenes
+     of the full-size paths and two tie plans (a Cornell wall and a sphere
+     duplicated right behind themselves with another material), float32
+     and float64: K1's 14 outputs and K2's 13 lane cotangents bit for bit
+     on every lane, K2's dpk within its bound, two K2 launches at the
+     chosen width bitwise equal, the duplicates never picked; then the
+     widths' device times in float32, swept up and down.  The other phases
+     run K1 and K2 at the width `bounce.tile_width` chooses.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -340,6 +349,47 @@ def rtow_spec():
     return scenes.random_scene(seed=0)
 
 
+# The tie plans of the kernel-tile phase: a primitive duplicated right
+# behind itself in pack order, with another material.  A lane that hits it
+# meets both at one t, bit for bit, and the sweep must keep the first: a
+# wrong pick changes the throughput (another albedo) or the scatter rule.
+# Adjacent in pack order, the two fall on different threads of every tile
+# width above 1.  `scenes_mod` and `ob_mod` are this package's scenes and
+# objects, or a package with the same names (the CPU tests build the JAX
+# package's twin of each plan with them).
+TIE_ALBEDO = (0.1, 0.2, 0.7)
+
+
+def cornell_tie_spec(scenes_mod=scenes, ob_mod=ob):
+    """The Cornell box with its red wall (a rect in the plane x = 0)
+    duplicated right behind itself in a blue-grey Lambertian."""
+    spec = scenes_mod.cornell_box()
+    objs = list(spec.objects)
+    objs.insert(2, dataclasses.replace(
+        objs[1], material=ob_mod.Lambertian(TIE_ALBEDO)))
+    return scenes_mod.SceneSpec(objs, spec.camera_kwargs, spec.sky)
+
+
+def spheres_tie_spec(scenes_mod=scenes, ob_mod=ob):
+    """three_spheres with its centre sphere duplicated right behind itself
+    in a fuzzy metal."""
+    spec = scenes_mod.three_spheres()
+    objs = list(spec.objects)
+    objs.insert(2, dataclasses.replace(
+        objs[1], material=ob_mod.Metal((0.8, 0.8, 0.8), 0.3)))
+    return scenes_mod.SceneSpec(objs, spec.camera_kwargs, spec.sky)
+
+
+# name -> (spec, the box the lane origins are drawn from (None: Cornell's
+# cube), the box the lanes are aimed at): the aim box covers the duplicated
+# primitive, so most lanes meet it
+TIE_SCENES = {
+    "cornell_tie": (cornell_tie_spec, None, ((0, 0, 0), (1, 555, 555))),
+    "spheres_tie": (spheres_tie_spec, ((-2, -0.4, 0), (2, 1.5, 1)),
+                    ((-0.4, -0.4, -1.4), (0.4, 0.4, -0.6))),
+}
+
+
 # phase -> the (kernels, scene) pairs whose variants it launches: what the
 # build phase compiles ahead of the timed windows.  A variant is named by its
 # plan's feature set, which the scene alone decides.
@@ -393,6 +443,11 @@ VARIANTS = {
     "diff-klein": [((K1, K2), scenes.cornell_klein)],
     "full-klein": [((K1, K2, K4), scenes.klein_scene),
                    ((K1, K2, K4), scenes.cornell_klein)],
+    "kernel-tile": [((K1, K2), f) for f in (
+        scenes.cornell_box, rtow_spec, scenes.textured_scene,
+        scenes.cornell_smoke, scenes.test_bezier, scenes.cornell_bezier,
+        scenes.klein_scene, scenes.cornell_klein, cornell_tie_spec,
+        spheres_tie_spec)],
 }
 
 
@@ -878,10 +933,20 @@ def lanes_of(grads):
     return dpk_of(grads), torch.stack(bounce.flat_lanes(*grads[1:]))
 
 
+def k2_dpk_bound(dtype, want_pk, dpk_tol=BWD_F64["dpk"]):
+    """K2's stated dpk bound against a reference dpk, a slot at a time: in
+    f64 `dpk_tol` of the largest slot, in f32 BWD_F32's atol (scaled by the
+    largest slot, at least 1) and rtol."""
+    top = float(want_pk.abs().max())
+    if dtype == torch.float64:
+        return dpk_tol * top
+    return BWD_F32["atol"] * max(1.0, top) + BWD_F32["rtol"] * want_pk.abs()
+
+
 def k2_bound(plan, pk, m, ins, scattering, klein_ops=0):
     """K2 in f32: the step's 19 inputs (70 B a lane), 13 cotangents in and
-    13 out, pk and the texels once and one row of partials per 256-lane
-    block; the replay of the forward and the adjoint of the scattering
+    13 out, pk and the texels once and one row of partials per 256 lanes
+    (the fewest rows a launch writes, at one thread a lane); the replay of the forward and the adjoint of the scattering
     lanes (a Perlin texture is evaluated in both; the bezier march is run
     once, in the replay, and a winner's adjoint is a few hundred operations
     more, which the floor leaves out; klein_ops: the klein probe's replay and
@@ -940,14 +1005,13 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
     if f64:
         lane_bad = (err > BWD_F64["atol"]
                     + BWD_F64["rtol"] * want.abs()).any(0)
-        pk_lim = dpk_tol * float(want_pk.abs().max())
+        pk_lim = k2_dpk_bound(dtype, want_pk, dpk_tol)
         pk_bad = int(((got_pk - want_pk).abs() > pk_lim).sum())
     else:
         scale = torch.clamp(want[:, keep].abs().amax(1), min=1.0)
         lane_bad = (err > BWD_F32["atol"] * scale[:, None]
                     + BWD_F32["rtol"] * want.abs()).any(0) & keep
-        pk_lim = (BWD_F32["atol"] * max(1.0, float(want_pk.abs().max()))
-                  + BWD_F32["rtol"] * want_pk.abs())
+        pk_lim = k2_dpk_bound(dtype, want_pk)
         pk_off = (got_pk - want_pk).abs() > pk_lim
         log(f"[{tag}] {name}: dpk over all lanes, fresh ones included: "
             f"{int(pk_off.sum())} slots outside the bounds, the worst at "
@@ -1013,11 +1077,12 @@ def check_k2(tag, name, scene, cam, cfg, dtype, dev, box=None, atol=None,
     p_wall = median_ms(lambda: bounce.step_vjp(*args),
                        n=1 if plan.n_kleins else 2)
     # CUDA events around back-to-back calls, as for K1.  The wrapper
-    # launches the kernel and the sum of its partials over the blocks: the
-    # kernel's own time is the wrapper's less that of the same sum alone.
+    # launches the kernel and the sum of its partials over the blocks (a row
+    # a block at the plan's tile width): the kernel's own time is the
+    # wrapper's less that of the same sum alone.
     k_all = kernel_ms(lambda: bounce.step_cuda_bwd(*args))
-    partials = torch.empty(-(-M_BWD // 256), got_pk.numel(), dtype=dtype,
-                           device=dev)
+    partials = bounce.bwd_partials(plan, M_BWD, bounce.tile_width(
+        plan, bwd=True), dtype, dev).zero_()
     k_ms = k_all - kernel_ms(lambda: partials.sum(dim=0))
     if plan.n_kleins:                 # some 50,000 launches: p_wall's call
         p_ms, p_launches = p_wall, float("nan")
@@ -2335,6 +2400,164 @@ def phase_full_klein(dev):
     return out
 
 
+# The scenes of the kernel-tile phase: the eight scenes of the full-size
+# paths and the two tie plans, each with its kernel phase's lanes.
+TILE_SCENES = ("cornell", "rtow", "textured", "cornell_smoke", "bezier",
+               "cornell_bezier", "klein", "cornell_klein", "cornell_tie",
+               "spheres_tie")
+
+
+def tile_case(name, dtype, dev):
+    """(plan, pk, inputs) of a TILE_SCENES entry at its full-size
+    configuration; inputs(m, seed) draws m lanes as the scene's kernel phase
+    draws them (Cornell's cube, a sphere scene's box, rays aimed into the
+    curves' box, at the fractal, or at a tie plan's duplicated primitive)."""
+    kw = {}
+    if name == "cornell":
+        (scene, cam), cfg = cornell(dtype, dev), FULL
+    elif name == "rtow":
+        scene, cam, box, _ = sphere_scene("rtow", dtype, dev)
+        cfg, kw = RTOW, dict(box=box)
+    elif name in ("textured", "cornell_smoke"):
+        scene, cam, cfg, box, _ = texture_scene(
+            "smoke" if name == "cornell_smoke" else name, dtype, dev)
+        kw = dict(box=box)
+    elif name in BEZIER_SCENES:
+        scene, cam, cfg, box, aim, _ = bezier_scene(name, dtype, dev)
+        kw = dict(box=box, aim=aim)
+    elif name in KLEIN_SCENES:
+        scene, cam, cfg, _ = klein_setup(name, dtype, dev)
+        kw = None
+    else:
+        spec_fn, box, aim = TIE_SCENES[name]
+        scene, cam = spec_scene(spec_fn(), dtype, dev)
+        cfg = FULL.replace(light_sampling=name == "cornell_tie")
+        kw = dict(box=box, aim=aim)
+    plan = bounce.pool_plan(scene, cfg)
+    pk = bounce.pack(scene, cam, plan, dtype)
+
+    def inputs(m, seed):
+        if kw is None:
+            return klein_inputs(m, cfg, dtype, dev, scene, seed=seed)
+        return lane_inputs(m, cfg, dtype, dev, seed=seed, **kw)
+    return plan, pk, inputs
+
+
+def bits(x):
+    """A float tensor's bits, for comparisons bit for bit (NaN included)."""
+    return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+
+
+
+
+def phase_kernel_tile(dev):
+    """K1 and K2 at every tile width against the one-thread search (w = 1)
+    on TILE_SCENES, float32 and float64: K1's 14 outputs and K2's 13 lane
+    cotangents bit for bit on every lane, K2's dpk within its stated bound
+    of w = 1's, two K2 launches at the chosen width bitwise equal; the tie
+    plans' duplicated primitive never wins.  Then, in float32, the widths'
+    device times (CUDA events), swept up and down."""
+    sweep = {}
+    for dtype in (torch.float32, torch.float64):
+        for name in TILE_SCENES:
+            tag = f"{dtype_name(dtype)}-{name}"
+            plan, pk, inputs = tile_case(name, dtype, dev)
+            w1, w2 = bounce.tile_width(plan), bounce.tile_width(plan, bwd=True)
+            ins = inputs(M, 0)
+            k1 = {w: flat(bounce.step_cuda(plan, pk, *ins, tile=w))
+                  for w in bounce.TILE_WIDTHS}
+            ref = k1[1]
+            for w, got in k1.items():
+                bad = ((bits(got[0]) != bits(ref[0])).any(0)
+                       | (got[1] != ref[1]))
+                if bad.any():
+                    raise AssertionError(f"[kernel-tile] {tag}: K1 at w={w} "
+                                         f"differs from w=1 on "
+                                         f"{int(bad.sum())} lanes")
+            if name in TIE_SCENES:
+                # the duplicate (another material) is never the winner: the
+                # plain step on the plan without it gives the same lanes
+                spec = {"cornell_tie": scenes.cornell_box,
+                        "spheres_tie": scenes.three_spheres}[name]()
+                s0, c0 = spec_scene(spec, dtype, dev)
+                p0 = bounce.pool_plan(s0, FULL.replace(
+                    light_sampling=name == "cornell_tie"))
+                pk0 = bounce.pack(s0, c0, p0, dtype)
+                alone = flat(bounce.step_cuda(p0, pk0, *ins))
+                same = (torch.equal(bits(alone[0]), bits(ref[0]))
+                        and torch.equal(alone[1], ref[1]))
+                n_hit = int(bounce.hit_record(p0, pk0, *ins[:4],
+                                              *ins[5:9])[3]["hit"].sum())
+                log(f"[kernel-tile] {tag}: {n_hit} of {M} lanes hit; the "
+                    f"kernel equals itself on the plan without the duplicate: "
+                    f"{same}")
+                if not same:
+                    raise AssertionError(f"[kernel-tile] {tag}: a tie kept "
+                                         f"the duplicate")
+            bins = inputs(M_BWD, 3)
+            r = np.random.default_rng(103)
+            cts = bounce.split_lanes([torch.tensor(x, dtype=dtype, device=dev)
+                                      for x in r.normal(size=(13, M_BWD))])
+            k2 = {w: lanes_of(bounce.step_cuda_bwd(plan, pk, *bins, *cts,
+                                                   tile=w))
+                  for w in bounce.TILE_WIDTHS}
+            again = lanes_of(bounce.step_cuda_bwd(plan, pk, *bins, *cts))
+            torch.cuda.synchronize()
+            ref_pk, ref_lanes = k2[1]
+            lim = k2_dpk_bound(dtype, ref_pk, 1e-10 if plan.n_kleins
+                               else BWD_F64["dpk"])
+            worst = 0.0
+            for w, (g_pk, g_lanes) in k2.items():
+                n_lane = int((bits(g_lanes) != bits(ref_lanes)).any(0).sum())
+                share = float(((g_pk - ref_pk).abs() / lim).max())
+                worst = max(worst, share)
+                if n_lane or share > 1.0:
+                    raise AssertionError(
+                        f"[kernel-tile] {tag}: K2 at w={w}: {n_lane} lanes "
+                        f"differ from w=1, dpk at {share:.3g} of its bound")
+            if not (torch.equal(bits(again[0]), bits(k2[w2][0]))
+                    and torch.equal(bits(again[1]), bits(k2[w2][1]))):
+                raise AssertionError(f"[kernel-tile] {tag}: two K2 launches "
+                                     f"at w={w2} differ")
+            log(f"[kernel-tile] {tag}: K1 at w = 2, 4, 8 equals w = 1 bit for "
+                f"bit on all {M} lanes (14 outputs); K2's 13 lane cotangents "
+                f"likewise on all {M_BWD}, dpk at most {worst:.3g} of its "
+                f"bound from w = 1's; two K2 launches at the chosen w={w2} "
+                f"bitwise equal; chosen K1 w={w1}")
+            if dtype == torch.float32:
+                sweep[name] = tile_sweep(plan, pk, ins, bins, cts)
+                sweep[name]["chosen"] = dict(k1=w1, k2=w2)
+    log_tile_sweep(sweep)
+    return sweep
+
+
+def tile_sweep(plan, pk, ins, bins, cts):
+    """Device time of K1 and K2 at each tile width, in turns (1, 2, 4, 8,
+    then 8, 4, 2, 1): {k1, k2, k2_sum: {w: [ms up, ms down]}}, K2's without
+    and k2_sum with the sum of its partials (its wrapper's)."""
+    dev, dt = bins[1].device, bins[1].dtype
+    out = dict(k1={}, k2={}, k2_sum={})
+    for w in bounce.TILE_WIDTHS + bounce.TILE_WIDTHS[::-1]:
+        k1 = kernel_ms(lambda: bounce.step_cuda(plan, pk, *ins, tile=w))
+        k2_all = kernel_ms(lambda: bounce.step_cuda_bwd(plan, pk, *bins,
+                                                        *cts, tile=w))
+        parts = bounce.bwd_partials(plan, M_BWD, w, dt, dev).zero_()
+        k2 = k2_all - kernel_ms(lambda: parts.sum(dim=0))
+        for key, ms in (("k1", k1), ("k2", k2), ("k2_sum", k2_all)):
+            out[key].setdefault(w, []).append(ms)
+    return out
+
+
+def log_tile_sweep(sweep):
+    """The sweep's table: each scene's times at each width, up and down."""
+    for name, sw in sweep.items():
+        for key in ("k1", "k2", "k2_sum"):
+            log(f"[kernel-tile] sweep {name} {key} (us, up / down; chosen "
+                f"{sw['chosen']['k1' if key == 'k1' else 'k2']}): "
+                + ", ".join(f"w={w} {a * 1e3:.2f} / {b * 1e3:.2f}"
+                            for w, (a, b) in sorted(sw[key].items())))
+
+
 def phase_probes(dev):
     """K5 and K6: the probes' own entry points with the counts reset just
     before (the path), then each kernel against its plain version."""
@@ -2470,6 +2693,7 @@ PHASES = {
     "golden-klein": lambda dev, r: phase_golden_klein(dev),
     "diff-klein": lambda dev, r: phase_diff_klein(dev),
     "full-klein": lambda dev, r: phase_full_klein(dev),
+    "kernel-tile": lambda dev, r: phase_kernel_tile(dev),
 }
 # A phase that reads another's result brings it along.
 NEEDS = {"pools-full": ("full",)}
@@ -2507,6 +2731,13 @@ def kernel_table(r):
     packed_bez, bez_full = r["packed-bezier"], r["full-bezier"]
     kern_kl, kern_bwd_kl = r["kernel-klein"]
     packed_kl, kl_full = r["packed-klein"], r["full-klein"]
+    sweep = r["kernel-tile"]
+    # each scene's chosen tile width and its times at every width (the
+    # faster of the sweep's two passes), K2's without its partials' sum
+    tile = lambda key: {name: dict(
+        chosen=sw["chosen"]["k1" if key == "k1" else "k2"],
+        ms={w: min(t) for w, t in sw[key].items()})
+        for name, sw in sweep.items()}
     # the full-size paths of the later slices: (forward, persistent, fwd+bwd)
     later = {**{k: v[:3] for k, v in tex_full.items()},
              **{k: v[:3] for k, v in bez_full.items()},
@@ -2559,6 +2790,7 @@ def kernel_table(r):
         "points_chain": on(pick(kern_bez, "f32-points_chain")),
         "klein": on(pick(kern_kl, "f32-klein")),
         "cornell_klein": on(pick(kern_kl, "f32-cornell_klein")),
+        "tile": tile("k1"),
     }, {
         "name": "bounce_step_bwd",
         "route": "cuda",
@@ -2578,6 +2810,7 @@ def kernel_table(r):
         "points_chain": on(pick(kern_bwd_bez, "f32-points_chain")),
         "klein": on(pick(kern_bwd_kl, "f32-klein")),
         "cornell_klein": on(pick(kern_bwd_kl, "f32-cornell_klein")),
+        "tile": tile("k2"),
     }, {
         "name": "bounce_packed",
         "route": "cuda",

@@ -3,7 +3,10 @@
 // the packed-state kernel (bounce_packed.cu) and the persistent kernel
 // (bounce_persist.cu).  The backward replays each lane exactly as the
 // forward ran it, and the three forward kernels run one lane body
-// (bounce_lane), so they trace identical paths from identical inputs.
+// (bounce_lane), so they trace identical paths from identical inputs.  K1
+// and K2 run a lane on a tile of w threads (Tile), over which the
+// closest-hit sweeps split; every w gives the one-thread search's values
+// bit for bit, and K3 and K4 run w = 1.
 //
 // Every function here follows scheme_raytrace_torch/integrator/bounce.py:
 // step, op for op, with two forms of K1's own: cbrt for the fuzz radius and
@@ -226,6 +229,65 @@ constexpr double kPi = 3.141592653589793;
 constexpr double kTwoPi = 2.0 * kPi;
 
 constexpr int kThreads = 256;
+
+// The tile of a lane: the w consecutive threads of a warp that carry it (w
+// a power of two, 1 to kMaxTile; a kernel argument of K1 and K2, 1 in K3
+// and K4), this thread's rank r in it, and the tile's threads as a shuffle
+// mask.  The closest-hit sweeps split over the tile (each thread probes its
+// share, in pack order) and the tile combines the shares with shuffles;
+// everything else runs on every thread of the tile, on the same values.
+// At w = 1 every split is the one-thread search itself and no shuffle runs.
+constexpr int kMaxTile = 8;
+
+struct Tile {
+  int w, r;
+  unsigned mask;
+};
+
+// The widths a kernel takes.
+inline bool tile_width_ok(int w) {
+  return w >= 1 && w <= kMaxTile && (w & (w - 1)) == 0;
+}
+
+// The blocks of kThreads threads that carry m lanes at w threads a lane
+// (K1's and K2's launch; integrator/bounce.py kernel_blocks).
+inline int lane_blocks(int m, int w) {
+  return (m * w + kThreads - 1) / kThreads;
+}
+
+// The tile of width w that holds this thread (w divides 32, so no tile
+// straddles a warp).
+__device__ __forceinline__ Tile lane_tile(int w) {
+  const int lane = threadIdx.x & 31;
+  return {w, lane & (w - 1), ((1u << w) - 1u) << (lane & ~(w - 1))};
+}
+
+// One thread a lane, as K3 and K4 run it.
+__device__ __forceinline__ Tile one_thread() {
+  return {1, 0, 1u << (threadIdx.x & 31)};
+}
+
+// v of the tile's thread r ^ off.
+template <typename V>
+__device__ __forceinline__ V tile_xor(const Tile& tl, V v, int off) {
+  return __shfl_xor_sync(tl.mask, v, off, tl.w);
+}
+
+// The tile's lexicographic minimum of (t, b), on every thread of the tile:
+// with b a pk offset (-1 for none), it is the first primitive in pack order
+// among those at the least t, which is what a sequential fold with the
+// strict `<` keeps.
+template <typename T>
+__device__ __forceinline__ void tile_first_min(const Tile& tl, T& t, int& b) {
+  for (int off = 1; off < tl.w; off <<= 1) {
+    const T ot = tile_xor(tl, t, off);
+    const int ob = tile_xor(tl, b, off);
+    if (ot < t || (ot == t && ob < b)) {
+      t = ot;
+      b = ob;
+    }
+  }
+}
 
 // Full-accuracy math for each precision (no implicit double promotion).
 template <typename T> struct Math;
@@ -537,15 +599,17 @@ __device__ __forceinline__ void camera_ray(const T* __restrict__ pk,
 
 // Closest hit: the rect sweep in pack order (geometry.scm:33-50).  Returns
 // the winner's pk offset (-1 on a miss) and its t in best_t.  The strict <
-// keeps the first of equal-t rects, as _merge_rec does.
+// keeps the first of equal-t rects, as _merge_rec does.  Thread r of the
+// tile sweeps rects r, r + w, ...; the tile's first minimum of (t, offset)
+// is the sequential sweep's winner, ties included.
 template <typename T>
 __device__ __forceinline__ int closest_rect(const T* __restrict__ pk,
                                             const Statics& s, V3<T> o,
                                             V3<T> d, T t_min, T t_max,
-                                            T& best_t) {
+                                            T& best_t, const Tile& tl) {
   best_t = t_max;
   int best_b = -1;
-  for (int r = 0; r < s.n_rects; ++r) {
+  for (int r = tl.r; r < s.n_rects; r += tl.w) {
     const int b = s.rect_base + r * RECT_SIZE;
     V3<T> wn = ld3(pk, b + R_WN);
     T dn = dot(d, wn);
@@ -562,6 +626,7 @@ __device__ __forceinline__ int closest_rect(const T* __restrict__ pk,
       best_b = b;
     }
   }
+  tile_first_min(tl, best_t, best_b);
   return best_b;
 }
 
@@ -636,14 +701,19 @@ __device__ __forceinline__ bool sphere_probe(const T* __restrict__ pk,
 // plain indexed load of its pk row afterwards, so no attribute atlas is
 // read.  best_t comes in as the rect sweep's; the strict < keeps a rect, or
 // an earlier sphere, at a tie.  Returns the winning sphere's pk offset, or
-// -1 when no sphere beats best_t.
+// -1 when no sphere beats best_t.  The probe reads t_max, not best_t, so
+// thread r of the tile probes spheres r, r + w, ... against the same
+// best_t, and the tile's first minimum of (t, offset) is the sequential
+// sweep's winner (a thread that beats nothing keeps (best_t, -1), above
+// every sphere that does).
 template <typename T>
 __device__ __forceinline__ int closest_sphere(const T* __restrict__ pk,
                                               const Statics& s, V3<T> o,
                                               V3<T> d, T time, T t_min,
-                                              T t_max, T& best_t) {
+                                              T t_max, T& best_t,
+                                              const Tile& tl) {
   int best_b = -1;
-  for (int k = 0; k < s.n_spheres; ++k) {
+  for (int k = tl.r; k < s.n_spheres; k += tl.w) {
     const int b = s.sph_base + k * SPH_SIZE;
     SphereHit<T> h;
     if (sphere_probe<T>(pk, s, b, o, d, time, t_min, t_max, h) &&
@@ -652,6 +722,7 @@ __device__ __forceinline__ int closest_sphere(const T* __restrict__ pk,
       best_b = b;
     }
   }
+  tile_first_min(tl, best_t, best_b);
   return best_b;
 }
 
@@ -769,7 +840,8 @@ __device__ __forceinline__ int closest_medium(const T* __restrict__ pk,
 // every product and sum of the probe, the frame and the march included, is
 // rounded on its own, in the plain step's order: t is the plain step's bit
 // for bit wherever rsqrt and the division agree (they are the card's own in
-// both).  One thread runs its lane's seeds and steps in registers.
+// both).  Each thread of the lane's tile runs its run of seeds, all steps in
+// registers, and the tile joins the runs' records (tile_join).
 
 template <typename T>
 __device__ __forceinline__ V3<T> cross_rn(V3<T> a, V3<T> b) {
@@ -902,13 +974,45 @@ struct BezierHit {
   bool same_s;
 };
 
+// The record of two runs of seeds, a's before b's: the record of the seeds
+// of both in seed order, as the sequential fold leaves it.  A later run
+// wins only with a smaller t; at an equal t the ties add up, the first
+// seed's s stays a's, and all tied seeds share it only if both runs' do and
+// their first ones agree.
+template <typename T>
+__device__ __forceinline__ BezierHit<T> bezier_join(const BezierHit<T>& a,
+                                                    const BezierHit<T>& b) {
+  if (b.t < a.t) return b;
+  if (!(b.t == a.t)) return a;
+  return {a.t, a.s, a.ties + b.ties, a.same_s && b.same_s && b.s == a.s};
+}
+
+// The tile's record of all seeds, on every thread, from each thread's
+// record of its run of seeds (thread r's run precedes thread r + 1's): the
+// runs are joined pairwise, neighbours first, so every join has its earlier
+// run on the left.
+template <typename T>
+__device__ __forceinline__ void tile_join(const Tile& tl, BezierHit<T>& h) {
+  for (int off = 1; off < tl.w; off <<= 1) {
+    BezierHit<T> o;
+    o.t = tile_xor(tl, h.t, off);
+    o.s = tile_xor(tl, h.s, off);
+    o.ties = tile_xor(tl, h.ties, off);
+    o.same_s = tile_xor(tl, int(h.same_s), off) != 0;
+    h = (tl.r & off) ? bezier_join(o, h) : bezier_join(h, o);
+  }
+}
+
 // The JAX bezier_probe's candidate: true when the ribbon at block b is hit.
+// Thread r of the tile marches the r-th of w runs of consecutive seeds, and
+// the tile joins the runs' records in seed order (tile_join).
 template <typename T>
 __device__ __forceinline__ bool bezier_probe(const T* __restrict__ pk,
                                              const Statics& st, int b,
                                              V3<T> o, V3<T> d,
                                              const BezierFrame<T>& f, T t_min,
-                                             T big, BezierHit<T>& h) {
+                                             T big, BezierHit<T>& h,
+                                             const Tile& tl) {
   if (!(ld(pk, b + B_VALID) > T(0.5))) return false;
   BezierCurve<T> c;
   bezier_curve<T>(pk, b, o, d, f, c);
@@ -918,7 +1022,8 @@ __device__ __forceinline__ bool bezier_probe(const T* __restrict__ pk,
   h.s = T(0);
   h.ties = 0;
   h.same_s = true;
-  for (int k = 0; k < st.bez_seeds; ++k) {
+  const int k_end = (tl.r + 1) * st.bez_seeds / tl.w;
+  for (int k = tl.r * st.bez_seeds / tl.w; k < k_end; ++k) {
     T s, zc;
     if (!bezier_seed<T>(c, k, st.bez_seeds, st.bez_newton, hw2, t_min, big, s,
                         zc))
@@ -933,23 +1038,25 @@ __device__ __forceinline__ bool bezier_probe(const T* __restrict__ pk,
       h.same_s = h.same_s && s == h.s;
     }
   }
+  tile_join(tl, h);
   return h.t < big;
 }
 
 // The bezier sweep, after the spheres, in pack order with the strict `<`.
 // Returns the winning ribbon's pk offset, or -1 when none beats best_t; `win`
-// is then its probe's record.
+// is then its probe's record.  Every curve's seeds are split over the tile.
 template <typename T>
 __device__ __forceinline__ int closest_bezier(const T* __restrict__ pk,
                                               const Statics& s, V3<T> o,
                                               V3<T> d, T t_min, T t_max,
-                                              T& best_t, BezierHit<T>& win) {
+                                              T& best_t, BezierHit<T>& win,
+                                              const Tile& tl) {
   int best_b = -1;
   const BezierFrame<T> f = bezier_frame(d);
   for (int j = 0; j < s.n_beziers; ++j) {
     const int b = s.bez_base + j * BEZ_SIZE;
     BezierHit<T> h;
-    if (bezier_probe<T>(pk, s, b, o, d, f, t_min, t_max, h) &&
+    if (bezier_probe<T>(pk, s, b, o, d, f, t_min, t_max, h, tl) &&
         h.t < best_t) {
       best_t = h.t;
       best_b = b;
@@ -968,8 +1075,9 @@ __device__ __forceinline__ int closest_bezier(const T* __restrict__ pk,
 // read values that an ulp moves, and an ulp can change the number of
 // inversions and so the whole march.  So every product and sum of the probe
 // is rounded on its own, in the plain step's order, with IEEE division and
-// sqrt: the march is the plain step's bit for bit.  One thread marches its
-// lane in registers and leaves each loop when that lane is done.
+// sqrt: the march is the plain step's bit for bit.  The march is one chain
+// and is not split: every thread of the lane's tile marches it in registers
+// and leaves each loop when that lane is done.
 
 constexpr int kKleinIters = 10;          // config.KLEIN_ITERATIONS
 constexpr int kKleinSteps = 100;         // config.KLEIN_MAX_STEPS
@@ -991,24 +1099,38 @@ __device__ __forceinline__ V3<T> klein_sphere(int i) {
 
 // The first of the six spheres whose interior holds P (the plain step's
 // masked sequential select), with P's offset x from its centre s and
-// d2 = |x|^2; -1 when none does and P has escaped.
+// d2 = |x|^2; -1 when none does and P has escaped.  The six offsets and
+// squared distances are computed side by side, then the first that passes
+// is selected from the last one back: the same values as testing the
+// spheres one after another, without a chain of six dependent tests.
 template <typename T>
 __device__ __forceinline__ int klein_select(V3<T> P, V3<T>& x, V3<T>& sp,
                                             T& d2) {
+  V3<T> xs[6];
+  T d2s[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
-    sp = klein_sphere<T>(i);
-    x = {sub_(P.x, sp.x), sub_(P.y, sp.y), sub_(P.z, sp.z)};
-    d2 = dot_rn(x, x);
-    if (d2 < T(kKleinR2)) return i;
+    const V3<T> si = klein_sphere<T>(i);
+    xs[i] = {sub_(P.x, si.x), sub_(P.y, si.y), sub_(P.z, si.z)};
+    d2s[i] = dot_rn(xs[i], xs[i]);
   }
-  return -1;
+  int sel = -1;
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    if (d2s[i] < T(kKleinR2)) {
+      sel = i;
+      x = xs[i];
+      sp = klein_sphere<T>(i);
+      d2 = d2s[i];
+    }
+  }
+  return sel;
 }
 
-// The DE at p of the klein centred at c (bounce.py _klein_dist).
+// The DE of the klein at the offset P = p - c from its centre (bounce.py
+// _klein_dist).
 template <typename T>
-__device__ __forceinline__ T klein_dist(V3<T> c, V3<T> p) {
-  V3<T> P = {sub_(p.x, c.x), sub_(p.y, c.y), sub_(p.z, c.z)};
+__device__ __forceinline__ T klein_de(V3<T> P) {
   T dr = T(1);
   for (int it = 0; it < kKleinIters; ++it) {
     V3<T> x, sp;
@@ -1072,7 +1194,9 @@ __device__ __noinline__ T klein_dist_grad(V3<T> c, V3<T> p, V3<T>& g) {
 // so the bound is exact.  The ray starts retired when it never enters the
 // precull ball on (t_min, t_max); a step retires it on an accept, when it is
 // backward-stuck (DE <= 0 at a parameter <= t_min), past t_max, or receding
-// outside the recede ball.
+// outside the recede ball.  The receding and outside tests read the next
+// step's offset P = o + len d - c, rounded as the DE reads it, so it is
+// computed once and handed on.
 template <typename T>
 __device__ __forceinline__ bool klein_march(const T* __restrict__ pk, int b,
                                             V3<T> o, V3<T> d, T t_min,
@@ -1086,10 +1210,11 @@ __device__ __forceinline__ bool klein_march(const T* __restrict__ pk, int b,
   if (disc <= T(0) || add_(-bq, sq) <= t_min || sub_(-bq, sq) >= t_max)
     return false;
   T len = T(0);
+  V3<T> P = {sub_(add_(o.x, mul_(d.x, len)), c.x),
+             sub_(add_(o.y, mul_(d.y, len)), c.y),
+             sub_(add_(o.z, mul_(d.z, len)), c.z)};
   for (int k = 0; k < kKleinSteps; ++k) {
-    const V3<T> p = {add_(o.x, mul_(d.x, len)), add_(o.y, mul_(d.y, len)),
-                     add_(o.z, mul_(d.z, len))};
-    const T dist = klein_dist<T>(c, p);
+    const T dist = klein_de<T>(P);
     const T new_len = add_(len, dist);
     if (dist < T(kKleinEps) && new_len > t_min && new_len < t_max) {
       t = new_len;
@@ -1097,11 +1222,11 @@ __device__ __forceinline__ bool klein_march(const T* __restrict__ pk, int b,
     }
     const bool stuck = dist <= T(0) && len <= t_min;
     len = new_len;
-    const V3<T> pc = {sub_(add_(o.x, mul_(d.x, len)), c.x),
-                      sub_(add_(o.y, mul_(d.y, len)), c.y),
-                      sub_(add_(o.z, mul_(d.z, len)), c.z)};
-    const bool receding = dot_rn(pc, d) > T(0);
-    const bool outside = dot_rn(pc, pc) > T(kKleinRecede2);
+    P = {sub_(add_(o.x, mul_(d.x, len)), c.x),
+         sub_(add_(o.y, mul_(d.y, len)), c.y),
+         sub_(add_(o.z, mul_(d.z, len)), c.z)};
+    const bool receding = dot_rn(P, d) > T(0);
+    const bool outside = dot_rn(P, P) > T(kKleinRecede2);
     if (stuck || len >= t_max || (receding && outside)) return false;
   }
   return false;
@@ -1149,19 +1274,23 @@ struct HitExtra {
 // The closest hit over the groups: the winner's pk offset (-1 on a miss),
 // its t in best_t and its kind (kRect, kSphere, kKlein, kBezier, kMedium).
 // The kleins, the ribbons and the media are probed for live lanes only: a
-// dead lane's hit is never read.
+// dead lane's hit is never read.  The rect and sphere sweeps and every
+// ribbon's seeds are split over the lane's tile, which leaves each sweep's
+// winner on every thread of it; the klein march (bounded by the winner so
+// far) and the media (which read best_t) run on every thread, on the same
+// values.
 template <typename T>
 __device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
                                            const Statics& s, uint32_t item,
                                            int depth, bool alive, V3<T> o,
                                            V3<T> d, T time, T t_min, T t_max,
                                            T& best_t, int& kind,
-                                           HitExtra<T>& ex) {
-  int best_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t);
+                                           HitExtra<T>& ex, const Tile& tl) {
+  int best_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t, tl);
   kind = kRect;
   if constexpr (kSpheres) {
     const int sph_b =
-        closest_sphere<T>(pk, s, o, d, time, t_min, t_max, best_t);
+        closest_sphere<T>(pk, s, o, d, time, t_min, t_max, best_t, tl);
     if (sph_b >= 0) {
       kind = kSphere;
       best_b = sph_b;
@@ -1179,7 +1308,7 @@ __device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
   if constexpr (kBeziers) {
     if (alive) {
       const int bez_b =
-          closest_bezier<T>(pk, s, o, d, t_min, t_max, best_t, ex.bez);
+          closest_bezier<T>(pk, s, o, d, t_min, t_max, best_t, ex.bez, tl);
       if (bez_b >= 0) {
         kind = kBezier;
         best_b = bez_b;
@@ -1458,7 +1587,8 @@ __device__ __forceinline__ T schlick_prob(T ref_idx, T cosine, bool refr_ok) {
 // for a plan without image textures).  o, d, time, rad and tp are updated in
 // place; returns `scattering`.  Lanes that cannot scatter (dead, missed, at
 // the bounce cap) skip the shading, and only the winning material's rule
-// runs, with only the PCG4D column groups that rule draws from.
+// runs, with only the PCG4D column groups that rule draws from.  Every
+// thread of the lane's tile `tl` runs it and ends with the same values.
 template <typename T>
 __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
                                             const T* __restrict__ atlas,
@@ -1466,7 +1596,8 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
                                             T t_max, uint32_t item, T px,
                                             T py, bool fresh, bool alive,
                                             int depth, V3<T>& o, V3<T>& d,
-                                            T& time, V3<T>& rad, V3<T>& tp) {
+                                            T& time, V3<T>& rad, V3<T>& tp,
+                                            const Tile& tl) {
   // --- regenerate fresh lanes (camera rays; main.scm:452-469) ------------
   if (fresh) {
     camera_ray<T>(pk, s, item, px, py, o, d, time);
@@ -1480,7 +1611,7 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
   int kind;
   HitExtra<T> ex;
   const int best_b = closest_hit<T>(pk, s, item, depth, alive, o, d, time,
-                                    t_min, t_max, best_t, kind, ex);
+                                    t_min, t_max, best_t, kind, ex, tl);
   const bool hit = best_b >= 0;
   const T t_eff = hit ? best_t : T(0);          // miss: p = o
   const V3<T> p = ray_at(o, t_eff, d);
@@ -1629,7 +1760,8 @@ __device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
     V3<float> tp = {v[13], v[14], v[15]};
     scattering = bounce_lane<float>(pk, atlas, s, t_min, t_max, gitem,
                                     float(gpix % s.nx), float(gpix / s.nx),
-                                    fresh, true, depth, o, d, time, rad, tp);
+                                    fresh, true, depth, o, d, time, rad, tp,
+                                    one_thread());
     v[3] = o.x;  v[4] = o.y;  v[5] = o.z;
     v[6] = d.x;  v[7] = d.y;  v[8] = d.z;
     v[9] = time;

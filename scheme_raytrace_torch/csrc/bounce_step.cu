@@ -20,9 +20,18 @@
 // kernel ran it, and the packed and persistent kernels share so that they
 // trace the same paths.
 //
-// Design.  One thread per lane, 256 threads per block.  Every lane reads
-// and writes its own SoA columns (19 in, 14 out), so neighbouring threads
-// touch neighbouring addresses.  The packed scene `pk` (P floats, 506 for
+// Design.  A tile of w consecutive threads of a warp carries one lane (w =
+// 1, 2, 4 or 8, a kernel argument: integrator/bounce.py tile_width), 256
+// threads per block.  The closest-hit sweeps split over the tile: thread r
+// probes rects and spheres r, r + w, ... and the r-th run of each ribbon's
+// seeds, folding its share in pack order with the strict `<`, and the tile
+// combines the shares with xor shuffles (bounce_common.cuh Tile): the first
+// minimum of (t, pack offset) for rects and spheres, the seed records joined
+// in seed order for a ribbon.  That is the sequential sweep's winner, ties
+// included, so every w gives w = 1's outputs bit for bit.  The klein march,
+// the media and the shading run on every thread of the tile, on the same
+// values, and the tile's first thread stores.  K3 and K4 run w = 1.  Every
+// lane reads and writes its own SoA columns (19 in, 14 out).  The packed scene `pk` (P floats, 506 for
 // Cornell) is read at plan offsets through the read-only data cache: every
 // thread of a warp reads the same address, which the cache broadcasts; this
 // takes the place of the TPU kernel's SMEM scalar view (_SmemPk).  The
@@ -72,7 +81,21 @@
 // its slowest lane's pace, and a few lanes in a thousand march all 100
 // steps: divergence, not the operations the data needs, sets its time.  The
 // kernel is built per feature set (bounce_common.cuh): a variant holds the
-// code of the groups its plan has.  PERF.md holds what was measured.
+// code of the groups its plan has.
+//
+// Launch geometry, and what bounds each w.  The forward pool's 65,536 lanes
+// are ceil(65,536 w / 256) blocks: 256 at w = 1, where 48-75 registers let
+// 3-5 blocks share an SM, so the launch is under one wave of the 132 SMs
+// (about 2 blocks, 16 warps, an SM) and its time is the serial chain of its
+// slowest lanes; 512 at w = 2 (one wave), 1,024 and 2,048 at w = 4 and 8 (2
+// and 4 waves).  A tile shortens the sweep's chain w-fold but issues the
+// lane's shading on all its w threads, so past the point where the launch
+// fills the card, a wider tile is bound by the instructions it issues, not
+// by the chain: on the H100, w = 2 is fastest on Cornell's 18 rects and the
+// 227 spheres, w = 4 on the ribbons (whose probe is mostly issue-bound
+// already), and a klein, which a tile only repeats, stays at w = 1 (PERF.md
+// holds the sweep).  The block count is lane_blocks, which the wrapper
+// mirrors.
 
 #include "bounce_common.cuh"
 
@@ -92,15 +115,17 @@ struct Params {
   bool* scattering;
   const T* atlas;      // [img_rows, 128] image texels; null without images
   Statics s;
+  int w;               // threads a lane (the tile's width)
   T t_min, t_max;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bounce_step_kernel(const Params<T> prm) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / prm.w;
   const Statics& s = prm.s;
-  if (i >= s.m) return;
+  if (i >= s.m) return;                 // the whole tile: i is its lane's
+  const Tile tl = lane_tile(prm.w);
   const T* __restrict__ pk = prm.pk;
 
   V3<T> o = {prm.in[0][i], prm.in[1][i], prm.in[2][i]};
@@ -111,8 +136,9 @@ bounce_step_kernel(const Params<T> prm) {
   const bool scattering = bounce_lane<T>(
       pk, prm.atlas, s, prm.t_min, prm.t_max, uint32_t(prm.gitem[i]), prm.px[i],
       prm.py[i], prm.fresh[i], prm.alive[i], prm.depth[i], o, d, time, rad,
-      tp);
+      tp, tl);
 
+  if (tl.r != 0) return;                // the tile's first thread stores
   prm.out[0][i] = o.x;  prm.out[1][i] = o.y;  prm.out[2][i] = o.z;
   prm.out[3][i] = d.x;  prm.out[4][i] = d.y;  prm.out[5][i] = d.z;
   prm.out[6][i] = time;
@@ -122,8 +148,8 @@ bounce_step_kernel(const Params<T> prm) {
 }
 
 template <typename T>
-int launch(void* const* ptrs, const Statics& s, double t_min, double t_max,
-           cudaStream_t stream) {
+int launch(void* const* ptrs, const Statics& s, int w, double t_min,
+           double t_max, cudaStream_t stream) {
   Params<T> prm;
   prm.pk = static_cast<const T*>(ptrs[0]);
   prm.gitem = static_cast<const int32_t*>(ptrs[1]);
@@ -137,10 +163,10 @@ int launch(void* const* ptrs, const Statics& s, double t_min, double t_max,
   prm.scattering = static_cast<bool*>(ptrs[33]);
   prm.atlas = static_cast<const T*>(ptrs[34]);
   prm.s = s;
+  prm.w = w;
   prm.t_min = T(t_min);
   prm.t_max = T(t_max);
-  const int blocks = (s.m + kThreads - 1) / kThreads;
-  bounce_step_kernel<T><<<blocks, kThreads, 0, stream>>>(prm);
+  bounce_step_kernel<T><<<lane_blocks(s.m, w), kThreads, 0, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -149,16 +175,18 @@ int launch(void* const* ptrs, const Statics& s, double t_min, double t_max,
 // C interface, loaded with ctypes by integrator/bounce.py:step_cuda.
 // ptrs: 35 device pointers — pk; gitem px py fresh alive depth and the 13
 // float lane columns (inputs); the 13 float columns and scattering
-// (outputs); the image texel atlas (null when img_rows is 0).  Launches on
-// `stream` without synchronising and returns cudaGetLastError()
+// (outputs); the image texel atlas (null when img_rows is 0).  w: threads a
+// lane, a power of two from 1 to kMaxTile (bounce.py tile_width).  Launches
+// on `stream` without synchronising and returns cudaGetLastError()
 // (0 = launched), or cudaErrorInvalidValue for a plan that this variant's
-// feature set does not cover.
-extern "C" int srt_bounce_step(int is_f64, void* const* ptrs, int m,
+// feature set does not cover or a w it does not take.
+extern "C" int srt_bounce_step(int is_f64, void* const* ptrs, int m, int w,
                                SRT_SCENE_PARAMS, void* stream) {
   if (m <= 0) return 0;
   const Statics s = SRT_STATICS(m);
-  if (!features_cover(s)) return int(cudaErrorInvalidValue);
+  if (!features_cover(s) || !tile_width_ok(w))
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(ptrs, s, t_min, t_max, st)
-                : launch<float>(ptrs, s, t_min, t_max, st);
+  return is_f64 ? launch<double>(ptrs, s, w, t_min, t_max, st)
+                : launch<float>(ptrs, s, w, t_min, t_max, st);
 }

@@ -11,10 +11,16 @@
 // scheme_raytrace_torch/integrator/bounce.py:step, whose plain VJP
 // (bounce.step_vjp, torch autograd) is its oracle.
 //
-// Design.  One thread per lane, 256 threads per block.  Each lane replays
+// Design.  A tile of w threads per lane (w = 1, 2, 4 or 8, a kernel
+// argument, as in bounce_step.cu), 256 threads per block.  Each lane replays
 // the forward with the device functions of bounce_common.cuh, the same
-// code bounce_step.cu runs, so the backward sees the lane the forward saw;
-// the residuals are the step's inputs and nothing else.  Then it runs the
+// code bounce_step.cu runs, the closest-hit sweeps split over the tile, so
+// the backward sees the lane the forward saw; the residuals are the step's
+// inputs and nothing else.  Every thread of the tile runs the adjoint on
+// the same values, and the tile's first thread writes the lane's
+// cotangents and alone keeps its pk cotangent for the block's reductions
+// (the others leave it empty), so every w gives w = 1's lane cotangents
+// bit for bit and each lane enters the reductions once.  Then it runs the
 // adjoint of the branch the lane took, written by hand section by section
 // (camera regeneration, hit point, sky, emission, checker select, the
 // mixture-PDF lambertian with its light sample and light value, metal,
@@ -113,7 +119,14 @@
 // On a klein scene the replay's march dominates, with its divergence (see
 // bounce_step.cu); a klein winner's adjoint adds two sweeps of the inversion
 // loop.  The warp reductions add 5 shuffles per touched slot, distinct
-// winner and warp.  PERF.md holds what was measured.
+// winner and warp.  The reverse pool's 24,576 lanes are ceil(24,576 w /
+// 256) blocks: at w = 1 96 blocks of 98-128 registers a thread leave 36 of
+// the 132 SMs idle and hold 8 warps on each of the others, so the launch
+// waits for its slowest lane's chain; w = 2 fills every SM (192 blocks), and
+// wider tiles repeat the adjoint's instructions on more threads than the
+// card issues for free (PERF.md).  A block writes one row of partials, so
+// the wrapper's sum over rows grows with w.  PERF.md holds what was
+// measured.
 
 #include "bounce_common.cuh"
 
@@ -446,13 +459,17 @@ constexpr int kBezSlots = 12;
 // block b, for t's cotangent g_t: adds to g_o, g_d and gb (indexed from
 // B_CP).  h is the probe's record of the winner (t, the first seed's root,
 // the seeds tied at t).  Replays the frame and the curve, and the march as
-// well where tied seeds sit at different roots.
+// well where tied seeds sit at different roots: the tile marches w seeds
+// side by side, one a thread, and every thread of it then takes their
+// roots in seed order, so the tied seeds' parts are added in the order of
+// the one-thread loop and every w gives the same sums bit for bit.
 template <typename T>
 __device__ __noinline__ void bezier_adj(const T* __restrict__ pk,
                                         const Statics& st, int b, V3<T> o,
                                         V3<T> d, T t_min, T big,
                                         BezierHit<T> h, T g_t, V3<T>& g_o,
-                                        V3<T>& g_d, T gb[kBezSlots]) {
+                                        V3<T>& g_d, T gb[kBezSlots],
+                                        const Tile tl) {
   const BezierFrame<T> f = bezier_frame(d);
   BezierCurve<T> c;
   bezier_curve<T>(pk, b, o, d, f, c);
@@ -468,16 +485,25 @@ __device__ __noinline__ void bezier_adj(const T* __restrict__ pk,
     const T half_w = ld(pk, b + B_W) * T(0.5);
     const T hw2 = mul_(half_w, half_w);
     int seen = 0;
-    for (int k = 0; k < st.bez_seeds; ++k) {
-      T s, zc;
-      if (!bezier_seed<T>(c, k, st.bez_seeds, st.bez_newton, hw2, t_min, big,
-                          s, zc) || zc != h.t)
-        continue;
-      ++seen;
-      T w = T(1);
-      for (int e = h.ties - (seen < 2 ? 2 : seen) + 1; e > 0; --e)
-        w *= T(0.5);
-      bezier_seed_adj(c, s, g_t * w, ga[0], ga[1], ga[2]);
+    for (int k0 = 0; k0 < st.bez_seeds; k0 += tl.w) {
+      const int k = k0 + tl.r;
+      T s = T(0), zc = T(0);
+      const bool tied =
+          k < st.bez_seeds &&
+          bezier_seed<T>(c, k, st.bez_seeds, st.bez_newton, hw2, t_min, big,
+                         s, zc) &&
+          zc == h.t;
+      for (int q = 0; q < tl.w && k0 + q < st.bez_seeds; ++q) {
+        const T sq = tl.w == 1 ? s : __shfl_sync(tl.mask, s, q, tl.w);
+        const bool tq =
+            tl.w == 1 ? tied : __shfl_sync(tl.mask, int(tied), q, tl.w) != 0;
+        if (!tq) continue;
+        ++seen;
+        T w = T(1);
+        for (int e = h.ties - (seen < 2 ? 2 : seen) + 1; e > 0; --e)
+          w *= T(0.5);
+        bezier_seed_adj(c, sq, g_t * w, ga[0], ga[1], ga[2]);
+      }
     }
   }
   // power basis -> Bernstein control values (bezier_power), per axis; then
@@ -623,6 +649,7 @@ struct BwdParams {
   const T* atlas;      // [img_rows, 128] image texels; null without images
   Statics s;
   int P;
+  int w;               // threads a lane (the tile's width)
   T t_min, t_max;
 };
 
@@ -658,10 +685,13 @@ struct LaneGrads {
 
 // The adjoint of lane i: replays the forward, writes the lane's 13 input
 // cotangents and leaves its pk cotangent in c (zeroed, win = l_pick =
-// tex[0] = -1, by the caller).
+// tex[0] = -1, by the caller).  Every thread of the lane's tile runs it on
+// the same values (the replayed sweeps split over the tile); the tile's
+// first thread writes the cotangents.
 template <typename T>
 __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
-                                             LaneGrads<T>& c) {
+                                             LaneGrads<T>& c,
+                                             const Tile& tl) {
   const Statics& s = prm.s;
   const T* __restrict__ pk = prm.pk;
   const T lo = T(1e-12);
@@ -688,7 +718,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
   int kind;
   HitExtra<T> ex;
   const int b = closest_hit<T>(pk, s, item, depth, alive, o, d, time,
-                               prm.t_min, prm.t_max, best_t, kind, ex);
+                               prm.t_min, prm.t_max, best_t, kind, ex, tl);
   const bool hit = b >= 0;
   const bool sph = kSpheres && hit && kind == kSphere;
   const bool bez = kBeziers && hit && kind == kBezier;
@@ -981,7 +1011,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
 #pragma unroll
       for (int k = 0; k < kBezSlots; ++k) gb[k] = T(0);
       bezier_adj<T>(pk, s, b, o, d, prm.t_min, prm.t_max, ex.bez, g_t, g_o,
-                    g_d, gb);
+                    g_d, gb, tl);
     } else {
       // t = (K - o.wn) / (d.wn); the normal is a pk leaf
       const T dn = dot(d, wn);
@@ -1034,6 +1064,7 @@ __device__ __forceinline__ void lane_adjoint(const BwdParams<T>& prm, int i,
     g_o = g_d = g_tp = V3<T>{T(0), T(0), T(0)};
   }
 
+  if (tl.r != 0) return;
   const bool keep = !fresh;
   prm.out[0][i] = g_o.x;  prm.out[1][i] = g_o.y;  prm.out[2][i] = g_o.z;
   prm.out[3][i] = g_d.x;  prm.out[4][i] = g_d.y;  prm.out[5][i] = g_d.z;
@@ -1110,10 +1141,17 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
   T* part = prm.dpk_part + size_t(blockIdx.x) * (P + A);   // this block's row
   for (int k = threadIdx.x; k < P + A; k += kThreads) part[k] = T(0);
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  // w threads a lane; only the tile's first thread keeps its lane's pk
+  // cotangent, so every lane enters the reductions once
+  const int i = (blockIdx.x * kThreads + threadIdx.x) / prm.w;
+  const Tile tl = lane_tile(prm.w);
   LaneGrads<T> c = {};
   c.win = c.l_pick = c.tex[0] = -1;
-  if (i < s.m) lane_adjoint(prm, i, c);
+  if (i < s.m) lane_adjoint(prm, i, c, tl);
+  if (tl.r != 0) {
+    c = LaneGrads<T>{};
+    c.win = c.l_pick = c.tex[0] = -1;
+  }
 
   // --- warp sums: the header, then one list entry per distinct winner ----
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1253,7 +1291,7 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
         V3<T> scratch_o = {T(0), T(0), T(0)}, scratch_d = scratch_o;
         if (mine)
           bezier_adj<T>(pk, s, b, c.mo, c.md, prm.t_min, prm.t_max, c.bh,
-                        c.m_gt, scratch_o, scratch_d, gb);
+                        c.m_gt, scratch_o, scratch_d, gb, one_thread());
 #pragma unroll
         for (int k = 0; k < kBezSlots; ++k) {
           const T v = warp_sum(gb[k]);
@@ -1306,8 +1344,8 @@ bounce_step_bwd_kernel(const BwdParams<T> prm) {
 }
 
 template <typename T>
-int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
-               double t_max, cudaStream_t stream) {
+int launch_bwd(void* const* ptrs, const Statics& s, int P, int w,
+               double t_min, double t_max, cudaStream_t stream) {
   BwdParams<T> prm;
   prm.pk = static_cast<const T*>(ptrs[0]);
   prm.gitem = static_cast<const int32_t*>(ptrs[1]);
@@ -1323,10 +1361,11 @@ int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
   prm.atlas = static_cast<const T*>(ptrs[47]);
   prm.s = s;
   prm.P = P;
+  prm.w = w;
   prm.t_min = T(t_min);
   prm.t_max = T(t_max);
-  const int blocks = (s.m + kThreads - 1) / kThreads;
-  bounce_step_bwd_kernel<T><<<blocks, kThreads, 0, stream>>>(prm);
+  bounce_step_bwd_kernel<T><<<lane_blocks(s.m, w), kThreads, 0, stream>>>(
+      prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1335,17 +1374,21 @@ int launch_bwd(void* const* ptrs, const Statics& s, int P, double t_min,
 // C interface, loaded with ctypes by integrator/bounce.py:step_cuda_bwd.
 // ptrs: 48 device pointers — pk; gitem px py fresh alive depth and the 13
 // float lane columns (the step's inputs); the 13 cotangents of its float
-// outputs; the (ceil(m / 256), P + img_rows * 128) partials of the pk and
-// atlas cotangents; the 13 lane cotangents (outputs); the image texel atlas
-// (null when img_rows is 0).  Launches on `stream` without synchronising and
-// returns the CUDA error (0 = launched; cudaErrorInvalidValue for a plan that
-// this variant's feature set does not cover).
+// outputs; the (lane_blocks(m, w), P + img_rows * 128) partials of the pk and
+// atlas cotangents, one row a block; the 13 lane cotangents (outputs); the
+// image texel atlas (null when img_rows is 0).  w: threads a lane, a power of
+// two from 1 to kMaxTile (bounce.py tile_width).  Launches on `stream`
+// without synchronising and returns the CUDA error (0 = launched;
+// cudaErrorInvalidValue for a plan that this variant's feature set does not
+// cover or a w it does not take).
 extern "C" int srt_bounce_step_bwd(int is_f64, void* const* ptrs, int m,
-                                   int P, SRT_SCENE_PARAMS, void* stream) {
+                                   int P, int w, SRT_SCENE_PARAMS,
+                                   void* stream) {
   if (m <= 0) return 0;
   const Statics s = SRT_STATICS(m);
-  if (!features_cover(s)) return int(cudaErrorInvalidValue);
+  if (!features_cover(s) || !tile_width_ok(w))
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_bwd<double>(ptrs, s, P, t_min, t_max, st)
-                : launch_bwd<float>(ptrs, s, P, t_min, t_max, st);
+  return is_f64 ? launch_bwd<double>(ptrs, s, P, w, t_min, t_max, st)
+                : launch_bwd<float>(ptrs, s, P, w, t_min, t_max, st);
 }

@@ -22,7 +22,9 @@ in box and sphere boundaries, xz-rect and sphere lights with mixture-PDF
 light sampling, constant, checker, hash-Perlin noise and marble and image
 albedo, emission, gradient/black sky, lambertian/metal/dielectric.  The
 kernels are built per feature set (`kernel_features`): a plan's variant
-holds the code of the groups it has and no other.
+holds the code of the groups it has and no other.  K1 and its backward run
+each lane on a tile of `tile_width(plan)` threads, over which the
+closest-hit sweeps split; every width gives the same lanes bit for bit.
 """
 
 from __future__ import annotations
@@ -1379,7 +1381,8 @@ def _kernel(plan):
     fn = lib.srt_bounce_step
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                        ctypes.c_int] + SCENE_ARGTYPES + [ctypes.c_void_p])
+                        ctypes.c_int, ctypes.c_int] + SCENE_ARGTYPES
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -1403,6 +1406,45 @@ def scene_args(plan: BouncePlan):
 # The ctypes of `scene_args`.
 SCENE_ARGTYPES = ([ctypes.c_int] * 21 + [ctypes.c_uint32] * 2
                   + [ctypes.c_double] * 2)
+
+# Threads a block of K1 and K2 (csrc/bounce_common.cuh kThreads), the
+# widths of the tile of threads that carries one lane there (kMaxTile = 8),
+# and the sweep length (rects and spheres) from which tile_width splits it
+# over two threads a lane.
+THREADS = 256
+TILE_WIDTHS = (1, 2, 4, 8)
+TILE_SWEEP_MIN = 16
+
+
+def tile_width(plan: BouncePlan, bwd: bool = False) -> int:
+    """Threads a lane of the bounce kernel (K1) or, with `bwd`, of its
+    backward (K2) for this plan: the width of the tile over which the
+    closest-hit sweeps split (csrc/bounce_common.cuh Tile).  Every width
+    gives the same lanes bit for bit; this is the fastest of the widths 1,
+    2, 4 and 8 that the H100 measured (chip_smoke.py's kernel-tile phase,
+    PERF.md).  Every thread of a tile runs the lane's shading, so a width
+    pays only where the split chain is long: the bezier probe's seeds (4 in
+    K1, 2 in K2) and a sweep of TILE_SWEEP_MIN or more rects and spheres
+    (2).  A klein march cannot be split, and a tile only repeats it."""
+    if plan.n_kleins:
+        return 1
+    if plan.n_beziers:
+        return 2 if bwd else 4
+    return 2 if plan.n_rects + plan.n_spheres >= TILE_SWEEP_MIN else 1
+
+
+def kernel_blocks(m: int, w: int) -> int:
+    """The blocks of K1's and K2's launch for m lanes at w threads a lane
+    (csrc/bounce_common.cuh lane_blocks): ceil(m w / THREADS).  K2 writes one
+    row of partials a block."""
+    return -(-(m * w) // THREADS)
+
+
+def check_tile(w) -> int:
+    """A tile width the kernels take, else ValueError."""
+    if w not in TILE_WIDTHS:
+        raise ValueError(f"tile width must be one of {TILE_WIDTHS}, got {w}")
+    return w
 
 
 def _check_lane(name, x, dtype, m, device, fn="step_cuda"):
@@ -1438,11 +1480,13 @@ def tensor_ptr(x):
 
 
 def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
-              o, d, time, rad, tp):
+              o, d, time, rad, tp, tile=None):
     """`step` through the CUDA kernel: same signature, same results to
     floating-point tolerance (the kernel contracts mul+add into FMAs,
     outside the hit point and the sphere probe, and takes cbrt for the fuzz
-    radius where `step` keeps the JAX pow form).
+    radius where `step` keeps the JAX pow form).  `tile` is the threads a
+    lane (TILE_WIDTHS), `tile_width(plan)` when None; every width gives the
+    same outputs bit for bit.
 
     Every tensor must lie on one CUDA device, contiguous: pk [plan.size]
     (or `pack`'s (pk, atlas) pair for a plan with image textures) and the
@@ -1456,6 +1500,7 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     dev = px.device
     if dev.type != "cuda":
         raise ValueError(f"step_cuda takes CUDA tensors, got {dev}")
+    w = check_tile(tile_width(plan) if tile is None else tile)
     dt = px.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"step_cuda: float32 or float64 lanes, got {dt}")
@@ -1480,7 +1525,7 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     ptrs = (ctypes.c_void_p * len(tensors))(*[tensor_ptr(t) for t in tensors])
     fn = _kernel(plan)
     with torch.cuda.device(dev):
-        err = fn(int(dt == torch.float64), ptrs, m, *scene_args(plan),
+        err = fn(int(dt == torch.float64), ptrs, m, w, *scene_args(plan),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"bounce_step kernel launch failed: CUDA error {err}")
@@ -1543,23 +1588,35 @@ def _kernel_bwd(plan):
     fn = lib.srt_bounce_step_bwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                        ctypes.c_int, ctypes.c_int] + SCENE_ARGTYPES
-                       + [ctypes.c_void_p])
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                       + SCENE_ARGTYPES + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def bwd_partials(plan: BouncePlan, m, w, dtype, device):
+    """K2's partials of the pk and atlas cotangents for m lanes at w threads
+    a lane: one row a block of its launch (kernel_blocks), P slots and then
+    the atlas's img_rows * 128 texels; the kernel writes every entry."""
+    return torch.empty(kernel_blocks(m, w), plan.size + plan.img_rows * 128,
+                       dtype=dtype, device=device)
+
+
 def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
-                  o, d, time, rad, tp, ct_o, ct_d, ct_time, ct_rad, ct_tp):
+                  o, d, time, rad, tp, ct_o, ct_d, ct_time, ct_rad, ct_tp,
+                  tile=None):
     """`step_vjp` through the CUDA kernel csrc/bounce_step_bwd.cu (the port
     of the Pallas `as_pallas_bwd`): it replays the step from its inputs and
     runs the adjoint, lane by lane.
 
     Takes the step's inputs as `step_cuda` does and the 13 cotangent lanes
-    in the float lanes' dtype, all contiguous on one CUDA device.  Returns
-    (dpk, do, dd, dtime, drad, dtp) as new tensors; dpk is the sum over
-    blocks of the kernel's (ceil(m / 256), P) partials, taken in a fixed
-    order, so two identical calls give bitwise-equal results.  A winning
+    in the float lanes' dtype, all contiguous on one CUDA device.  `tile`
+    is the threads a lane (TILE_WIDTHS), `tile_width(plan, bwd=True)` when
+    None: every width gives the same lane cotangents bit for bit, and dpk
+    summed in another order.  Returns (dpk, do, dd, dtime, drad, dtp) as new
+    tensors; dpk is the sum over blocks of the kernel's (kernel_blocks(m,
+    tile), P) partials, taken in a fixed order, so two identical calls give
+    bitwise-equal results.  A winning
     sphere takes cotangent in its centres, radius and, in a moving scene,
     its times; dtime is then nonzero.  A winning bezier ribbon takes cotangent
     in its twelve control-point slots (the root's implicit derivative); its
@@ -1572,6 +1629,7 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     dev = px.device
     if dev.type != "cuda":
         raise ValueError(f"step_cuda_bwd takes CUDA tensors, got {dev}")
+    w = check_tile(tile_width(plan, bwd=True) if tile is None else tile)
     dt = px.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"step_cuda_bwd: float32 or float64 lanes, got {dt}")
@@ -1590,9 +1648,7 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
         _check_lane(name, x, torch.bool, m, dev, fn)
     pk, atlas = _check_pk(plan, pk, dt, dev, fn)
 
-    # one row of partials per 256-lane block of the kernel: dpk, then datlas
-    partials = torch.empty(-(-m // 256), plan.size + plan.img_rows * 128,
-                           dtype=dt, device=dev)
+    partials = bwd_partials(plan, m, w, dt, dev)
     outs = [torch.empty_like(px) for _ in range(13)]
     # the order of srt_bounce_step_bwd's pointer array: pk, 19 lanes in,
     # 13 cotangents, the partials, 13 lane cotangents out, the atlas
@@ -1601,7 +1657,7 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     ptrs = (ctypes.c_void_p * len(tensors))(*[tensor_ptr(t) for t in tensors])
     kernel = _kernel_bwd(plan)
     with torch.cuda.device(dev):
-        err = kernel(int(dt == torch.float64), ptrs, m, plan.size,
+        err = kernel(int(dt == torch.float64), ptrs, m, plan.size, w,
                      *scene_args(plan),
                      torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -13,7 +13,9 @@ bezier scenes (the ribbon probe in K1-K4 and its implicit-root adjoint in
 K2, the fold over tied seeds and the curvature floor's tie among its lanes),
 the config-5 and config-6 goldens, the kernels' per-feature-set builds, and
 the klein scenes (the sphere trace in K1-K4 and its implicit-function
-adjoint in K2, and a variant without the klein flag refusing a klein plan).
+adjoint in K2, and a variant without the klein flag refusing a klein plan),
+and K1 and K2 at every tile width of threads a lane bit for bit against the
+one-thread search (w = 1), on the tie plans of chip_smoke.py among others.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -1182,16 +1184,14 @@ def test_a_plan_loads_its_own_variant(cuda):
 
 def test_a_variant_refuses_a_plan_it_does_not_cover(cuda):
     # the C entry point of the base variant returns cudaErrorInvalidValue
-    # for a plan with ribbons: no launch, and nothing to fall back on
+    # for a plan with ribbons: no launch, and nothing to fall back on.  The
+    # wrapper's own loader declares the entry point's arguments (the tile
+    # width among them, after m).
     b_plan, b_pk, box, aim, _ = _bezier_setup("cornell_bezier", torch.float32,
                                               cuda)
-    fn = cuda_build.load("bounce_step").srt_bounce_step
-    fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                    ctypes.c_int] + bounce.SCENE_ARGTYPES
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = bounce._kernel(dataclasses.replace(b_plan, n_beziers=0))
     ptrs = (ctypes.c_void_p * 35)()
-    err = fn(0, ptrs, 256, *bounce.scene_args(b_plan),
+    err = fn(0, ptrs, 256, 1, *bounce.scene_args(b_plan),
              torch.cuda.current_stream().cuda_stream)
     assert err == 1                                # cudaErrorInvalidValue
 
@@ -1334,18 +1334,64 @@ def test_packed_kernels_on_the_klein_scenes(cuda, name):
 def test_a_variant_without_klein_refuses_a_klein_plan(cuda):
     # the spheres-only variant's C entry points return
     # cudaErrorInvalidValue for klein_scene's plan (a ground sphere and a
-    # klein): no launch, and nothing to fall back on
+    # klein): no launch, and nothing to fall back on.  The wrappers' own
+    # loaders declare the entry points' arguments (the tile width among
+    # them, after m and, in K2, P).
     plan, _, _, _ = _klein_setup("klein", torch.float32, cuda, 256)
-    for name, n_ptrs in (("bounce_step", 35), ("bounce_step_bwd", 48)):
-        fn = getattr(cuda_build.load(name, ("spheres",)),
-                     "srt_" + name)
-        extra = [ctypes.c_int] if name == "bounce_step_bwd" else []
-        fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                        ctypes.c_int, *extra] + bounce.SCENE_ARGTYPES
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    spheres = dataclasses.replace(plan, n_kleins=0)
+    for fn, n_ptrs, size in ((bounce._kernel(spheres), 35, []),
+                             (bounce._kernel_bwd(spheres), 48, [plan.size])):
         ptrs = (ctypes.c_void_p * n_ptrs)()
-        size = [plan.size] if extra else []
-        err = fn(0, ptrs, 256, *size, *bounce.scene_args(plan),
+        err = fn(0, ptrs, 256, *size, 1, *bounce.scene_args(plan),
                  torch.cuda.current_stream().cuda_stream)
-        assert err == 1, name                      # cudaErrorInvalidValue
+        assert err == 1, n_ptrs                    # cudaErrorInvalidValue
+
+
+# --- the tile of threads a lane (K1, K2; chip_smoke.py's kernel-tile) -----
+
+TILE_CASES = ["cornell_tie", "spheres_tie", "rtow", "bezier", "cornell_klein"]
+
+
+@pytest.mark.parametrize("name", TILE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_tile_widths_equal_the_one_thread_search(cuda, dtype, name):
+    # K1 at every tile width gives w = 1's 14 outputs bit for bit, and K2
+    # its 13 lane cotangents, with dpk (summed in another order) within its
+    # stated bound; the tie plans meet the duplicated primitive on most lanes
+    import chip_smoke
+    m = 4096
+    plan, pk, inputs = chip_smoke.tile_case(name, dtype, cuda)
+    ins = inputs(m, 0)
+    ref = _stacked(bounce.step_cuda(plan, pk, *ins, tile=1))
+    r = np.random.default_rng(103)
+    bins = inputs(m, 3)
+    cts = bounce.split_lanes([torch.tensor(x, dtype=dtype, device=cuda)
+                              for x in r.normal(size=(13, m))])
+    ref_pk, *ref_g = bounce.step_cuda_bwd(plan, pk, *bins, *cts, tile=1)
+    ref_pk, ref_g = _dpk_vec((ref_pk,)), torch.stack(
+        bounce.flat_lanes(*ref_g))
+    lim = chip_smoke.k2_dpk_bound(
+        dtype, ref_pk, 1e-10 if plan.n_kleins else chip_smoke.BWD_F64["dpk"])
+    bits = chip_smoke.bits
+    for w in bounce.TILE_WIDTHS[1:]:
+        got = _stacked(bounce.step_cuda(plan, pk, *ins, tile=w))
+        g_pk, *g = bounce.step_cuda_bwd(plan, pk, *bins, *cts, tile=w)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(got[0]), bits(ref[0])), w
+        assert torch.equal(got[1], ref[1]), w
+        assert torch.equal(bits(torch.stack(bounce.flat_lanes(*g))),
+                           bits(ref_g)), w
+        assert bool(((_dpk_vec((g_pk,)) - ref_pk).abs() <= lim).all()), w
+
+
+def test_tile_width_outside_the_kernels_raises(cuda):
+    import chip_smoke
+    plan, pk, inputs = chip_smoke.tile_case("cornell", torch.float32, cuda)
+    ins = inputs(256, 0)
+    before = bounce.LAUNCHES
+    with pytest.raises(ValueError, match="tile width"):
+        bounce.step_cuda(plan, pk, *ins, tile=3)
+    with pytest.raises(ValueError, match="tile width"):
+        bounce.step_cuda(plan, pk, *ins, tile=16)
+    assert bounce.LAUNCHES == before

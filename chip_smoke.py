@@ -126,8 +126,20 @@ kernel table:
      and float64: K1's 14 outputs and K2's 13 lane cotangents bit for bit
      on every lane, K2's dpk within its bound, two K2 launches at the
      chosen width bitwise equal, the duplicates never picked; then the
-     widths' device times in float32, swept up and down.  The other phases
-     run K1 and K2 at the width `bounce.tile_width` chooses.
+     widths' device times in float32, swept up and down.  Then K3 and K4
+     (float32 only) at every width on the same ten plans' packed states:
+     K3's 16 state rows bit for bit w = 1's on every lane, one K4 chunk of
+     32 iterations bit for bit w = 1's and 32 K3 launches' (the state, every
+     flush row, the segments), two chunks at the chosen width equal, the
+     duplicates never picked; and their device times at 65,536 lanes, swept
+     up and down, beside each variant's registers, spills, resident blocks
+     an SM and the launch's waves.  The other phases run K1 and K2 at the
+     width `bounce.tile_width` chooses, K3 at that width too, and K4 at
+     `persist.tile_width`'s;
+ 30. K4 at one thread a lane (persist-w1): one chunk on the eight scenes'
+     packed states, timed by CUDA events.  It calls only what the port had
+     before K4 took a width, so a copy of this script at the root of an
+     older tree times that tree's K4 alike, in turns with this one.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -140,6 +152,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import inspect
 import json
 import os
 import statistics
@@ -443,11 +456,15 @@ VARIANTS = {
     "diff-klein": [((K1, K2), scenes.cornell_klein)],
     "full-klein": [((K1, K2, K4), scenes.klein_scene),
                    ((K1, K2, K4), scenes.cornell_klein)],
-    "kernel-tile": [((K1, K2), f) for f in (
+    "kernel-tile": [((K1, K2, K3, K4), f) for f in (
         scenes.cornell_box, rtow_spec, scenes.textured_scene,
         scenes.cornell_smoke, scenes.test_bezier, scenes.cornell_bezier,
         scenes.klein_scene, scenes.cornell_klein, cornell_tie_spec,
         spheres_tie_spec)],
+    "persist-w1": [((K4,), f) for f in (
+        scenes.cornell_box, rtow_spec, scenes.textured_scene,
+        scenes.cornell_smoke, scenes.test_bezier, scenes.cornell_bezier,
+        scenes.klein_scene, scenes.cornell_klein)],
 }
 
 
@@ -1698,7 +1715,8 @@ def check_k3(tag, setup, state, atol=F32_TOL["atol"]):
     live = int((state.view(torch.int32)[0] < q["n_work"]).sum())
     b_ms, b_by = packed_bound(plan, q, state, tex_ops=packed_texture_ops(
         plan, pk, sb, state, q))
-    log(f"[{tag}] K3 f32 m={M} P={plan.size} ({live} live lanes): kernel vs "
+    log(f"[{tag}] K3 f32 m={M} w={bounce.tile_width(plan)} P={plan.size} "
+        f"({live} live lanes): kernel vs "
         f"plain step_packed: lanes disagreeing {n_bad} (an int row, fresh, "
         f"or a float row outside rtol {F32_TOL['rtol']:g} atol "
         f"{atol:.3g}); max abs err on the other lanes "
@@ -1720,28 +1738,39 @@ def phase_packed_kernel(dev):
                     packed_state(M, q["n_work"], plan.max_depth, dev))
 
 
-def k3_chunk(plan, pk, sb, state, q, T):
-    """T K3 launches from `state`, with the flush rows and segment counts
-    the persistent kernel writes, derived on the card; and the chunk's
+def k3_chunk(plan, pk, sb, state, q, T, tile=None, ops=True):
+    """T K3 launches (at `tile` threads a lane, the plan's width for None)
+    from `state`, with the flush rows and segment counts the persistent
+    kernel writes, derived on the card; and, with `ops`, the chunk's
     packed_texture_ops, summed over its iterations (the klein march's over
-    all T iterations' lanes at once: one plain march of T m lanes)."""
+    all T iterations' lanes at once: one plain march of T m lanes), else
+    0."""
     flush = torch.empty(T, 4, q["m"], dtype=torch.float32, device=state.device)
     segs = torch.empty(T, dtype=torch.int32, device=state.device)
     tex_ops, states = 0, []
     for t in range(T):
         item = state.view(torch.int32)[0]
         segs[t] = (item < q["n_work"]).sum()
-        tex_ops += packed_texture_ops(plan, pk, sb, state, q, klein=False)
-        states.append(state)
-        state = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+        if ops:
+            tex_ops += packed_texture_ops(plan, pk, sb, state, q, klein=False)
+            states.append(state)
+        state = bounce.step_packed_cuda(plan, pk, sb, state, **q, tile=tile)
         done = state[1] != 0.0
         flush.view(torch.int32)[t, 0] = torch.where(done, item % q["n_pix"],
                                                     -1)
         flush[t, 1:] = torch.where(done, state[10:13], 0.0)
-    if plan.n_kleins:
+    if ops and plan.n_kleins:
         tex_ops += klein_ops(plan, pk, packed_lanes(
             plan, sb, torch.cat(states, 1), q), KLEIN_NORMAL_OPS)[1]
     return (state, flush, segs), tex_ops
+
+
+def same_chunk(got, want):
+    """Whether two chunks (state, flush, segs) are equal bit for bit, each
+    part on its own."""
+    return [torch.equal(bits(g) if g.is_floating_point() else g,
+                        bits(w) if w.is_floating_point() else w)
+            for g, w in zip(got, want)]
 
 
 def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS,
@@ -1757,12 +1786,11 @@ def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS,
     got = persist.chunk_cuda(plan, pk, sb, state, T=T, **q)
     want, tex_ops = k3_chunk(plan, pk, sb, state, q, T)
     torch.cuda.synchronize()
-    same = [torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
-                        w.view(torch.int32) if w.is_floating_point() else w)
-            for g, w in zip(got, want)]
-    log(f"[{tag}] one K4 chunk of T={T} against {T} K3 launches "
-        f"from the same state: state, flush rows, segments bitwise equal: "
-        f"{same}; segments {int(got[2].sum())}")
+    same = same_chunk(got, want)
+    log(f"[{tag}] one K4 chunk of T={T} at w={persist.tile_width(plan)} "
+        f"against {T} K3 launches at w={bounce.tile_width(plan)} from the "
+        f"same state: state, flush rows, segments bitwise equal: {same}; "
+        f"segments {int(got[2].sum())}")
     if not all(same):
         raise AssertionError(f"[{tag}] K4 differs from K3 launches")
     # against the plain chunk at T = 4.  Each iteration is held on its own:
@@ -1926,8 +1954,17 @@ def run_pools(tag, pools, scene, cam, cfg, full, dev, n_timed=N_TIMED):
                                  f"pool's")
         results[name] = dict(segments=segs, iters=iters, median_s=med,
                              launches=counts[count], image=first_raw)
-    # reproducible on the card: a second persistent render, bitwise
-    again, _, _ = persist.render_pool_persistent(scene, cam, cfg, raw0, 0)
+    # reproducible on the card: a second persistent render, bitwise, with
+    # its kernels' launches timed by CUDA events
+    with KernelEvents() as ev:
+        again, _, _ = persist.render_pool_persistent(scene, cam, cfg, raw0, 0)
+        events = ev.totals()
+    k4_ms, k4_n = events[K4]
+    plan = bounce.pool_plan(scene, cfg)
+    log(f"[{tag}] persistent render: K4 at w={persist.tile_width(plan)} "
+        f"{k4_ms:.3f} ms in {k4_n} chunks ({k4_ms / k4_n:.4f} ms a chunk), by "
+        f"CUDA events around every launch")
+    results["persistent"]["events"] = events
     same = torch.equal(again, results["persistent"]["image"])
     same_sp = all(torch.equal(r["image"], results["persistent"]["image"])
                   for r in results.values())
@@ -2225,10 +2262,7 @@ def phase_full_bezier(dev):
         profile_render(tag, scene, cam, cfg)
         pools = run_pools(tag, POOLS[2:], scene, cam, cfg, full, dev,
                           n_timed=n)
-        raw0 = torch.zeros(cfg.n_pixels, 3, device=dev)
-        ev_pers = log_kernel_events(
-            tag, "persistent render",
-            lambda: persist.render_pool_persistent(scene, cam, cfg, raw0, 0))
+        ev_pers = pools["persistent"]["events"]
         same = torch.equal(pools["persistent"]["image"],
                            full["first"]["image"])
         log(f"[{tag}] the persistent pool's image equals the FIFO pool's "
@@ -2375,10 +2409,7 @@ def phase_full_klein(dev):
         profile_render(tag, scene, cam, cfg)
         pools = run_pools(tag, POOLS[2:], scene, cam, cfg, full, dev,
                           n_timed=n)
-        raw0 = torch.zeros(cfg.n_pixels, 3, device=dev)
-        ev_pers = log_kernel_events(
-            tag, "persistent render",
-            lambda: persist.render_pool_persistent(scene, cam, cfg, raw0, 0))
+        ev_pers = pools["persistent"]["events"]
         same = torch.equal(pools["persistent"]["image"],
                            full["first"]["image"])
         log(f"[{tag}] the persistent pool's image equals the FIFO pool's "
@@ -2402,16 +2433,15 @@ def phase_full_klein(dev):
 
 # The scenes of the kernel-tile phase: the eight scenes of the full-size
 # paths and the two tie plans, each with its kernel phase's lanes.
-TILE_SCENES = ("cornell", "rtow", "textured", "cornell_smoke", "bezier",
-               "cornell_bezier", "klein", "cornell_klein", "cornell_tie",
-               "spheres_tie")
+PATH_SCENES = ("cornell", "rtow", "textured", "cornell_smoke", "bezier",
+               "cornell_bezier", "klein", "cornell_klein")
+TILE_SCENES = PATH_SCENES + ("cornell_tie", "spheres_tie")
 
 
-def tile_case(name, dtype, dev):
-    """(plan, pk, inputs) of a TILE_SCENES entry at its full-size
-    configuration; inputs(m, seed) draws m lanes as the scene's kernel phase
-    draws them (Cornell's cube, a sphere scene's box, rays aimed into the
-    curves' box, at the fractal, or at a tie plan's duplicated primitive)."""
+def tile_scene(name, dtype, dev):
+    """(scene, camera, config, lane box) of a TILE_SCENES entry at its
+    full-size configuration; the box is lane_inputs' and packed_state's
+    box and aim keywords, None for a klein scene (klein_rays)."""
     kw = {}
     if name == "cornell":
         (scene, cam), cfg = cornell(dtype, dev), FULL
@@ -2433,6 +2463,15 @@ def tile_case(name, dtype, dev):
         scene, cam = spec_scene(spec_fn(), dtype, dev)
         cfg = FULL.replace(light_sampling=name == "cornell_tie")
         kw = dict(box=box, aim=aim)
+    return scene, cam, cfg, kw
+
+
+def tile_case(name, dtype, dev):
+    """(plan, pk, inputs) of a TILE_SCENES entry at its full-size
+    configuration; inputs(m, seed) draws m lanes as the scene's kernel phase
+    draws them (Cornell's cube, a sphere scene's box, rays aimed into the
+    curves' box, at the fractal, or at a tie plan's duplicated primitive)."""
+    scene, cam, cfg, kw = tile_scene(name, dtype, dev)
     plan = bounce.pool_plan(scene, cfg)
     pk = bounce.pack(scene, cam, plan, dtype)
 
@@ -2443,6 +2482,24 @@ def tile_case(name, dtype, dev):
     return plan, pk, inputs
 
 
+def packed_tile_case(name, dev, m=M):
+    """(setup, state) of a TILE_SCENES entry for the packed kernels: its
+    full-size f32 plan and queue (packed_setup, at m lanes), and state(seed),
+    a packed state of m lanes whose rays are drawn as the kernel phases draw
+    them (packed_state with the scene's lane box, klein_packed_state)."""
+    scene, cam, cfg, kw = tile_scene(name, torch.float32, dev)
+    plan, pk, q, sb = packed_setup(dev, scene, cam, cfg)
+    q = dict(q, m=m)
+
+    def state(seed):
+        if kw is None:
+            return klein_packed_state(m, q["n_work"], plan.max_depth, dev,
+                                      scene, seed=seed)
+        return packed_state(m, q["n_work"], plan.max_depth, dev, seed=seed,
+                            **kw)
+    return (plan, pk, q, sb), state
+
+
 def bits(x):
     """A float tensor's bits, for comparisons bit for bit (NaN included)."""
     return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
@@ -2450,13 +2507,25 @@ def bits(x):
 
 
 
-def phase_kernel_tile(dev):
+def tie_alone(name, dtype, dev):
+    """(plan, pk) of a tie plan without its duplicate, at the tie plan's
+    configuration."""
+    spec = {"cornell_tie": scenes.cornell_box,
+            "spheres_tie": scenes.three_spheres}[name]()
+    s0, c0 = spec_scene(spec, dtype, dev)
+    p0 = bounce.pool_plan(s0, FULL.replace(
+        light_sampling=name == "cornell_tie"))
+    return p0, bounce.pack(s0, c0, p0, dtype)
+
+
+def phase_kernel_tile(dev, build):
     """K1 and K2 at every tile width against the one-thread search (w = 1)
     on TILE_SCENES, float32 and float64: K1's 14 outputs and K2's 13 lane
     cotangents bit for bit on every lane, K2's dpk within its stated bound
     of w = 1's, two K2 launches at the chosen width bitwise equal; the tie
     plans' duplicated primitive never wins.  Then, in float32, the widths'
-    device times (CUDA events), swept up and down."""
+    device times (CUDA events), swept up and down.  Then K3 and K4 on the
+    same plans' packed states (packed_tile), with `build`'s registers."""
     sweep = {}
     for dtype in (torch.float32, torch.float64):
         for name in TILE_SCENES:
@@ -2476,13 +2545,8 @@ def phase_kernel_tile(dev):
                                          f"{int(bad.sum())} lanes")
             if name in TIE_SCENES:
                 # the duplicate (another material) is never the winner: the
-                # plain step on the plan without it gives the same lanes
-                spec = {"cornell_tie": scenes.cornell_box,
-                        "spheres_tie": scenes.three_spheres}[name]()
-                s0, c0 = spec_scene(spec, dtype, dev)
-                p0 = bounce.pool_plan(s0, FULL.replace(
-                    light_sampling=name == "cornell_tie"))
-                pk0 = bounce.pack(s0, c0, p0, dtype)
+                # kernel on the plan without it gives the same lanes
+                p0, pk0 = tie_alone(name, dtype, dev)
                 alone = flat(bounce.step_cuda(p0, pk0, *ins))
                 same = (torch.equal(bits(alone[0]), bits(ref[0]))
                         and torch.equal(alone[1], ref[1]))
@@ -2528,7 +2592,114 @@ def phase_kernel_tile(dev):
                 sweep[name] = tile_sweep(plan, pk, ins, bins, cts)
                 sweep[name]["chosen"] = dict(k1=w1, k2=w2)
     log_tile_sweep(sweep)
+    for name in TILE_SCENES:
+        packed = packed_tile(name, dev, build)
+        sweep[name]["chosen"].update(packed.pop("chosen"))
+        sweep[name].update(packed)
     return sweep
+
+
+def packed_tile(name, dev, build):
+    """K3 and K4 at every tile width against one thread a lane (w = 1) on a
+    TILE_SCENES plan's packed states (f32, M lanes): K3's 16 state rows bit
+    for bit; one K4 chunk of CHUNK_T iterations bit for bit w = 1's and
+    CHUNK_T K3 launches' at w = 1 (the state, every flush row, the
+    segments), and two chunks at the chosen width equal; on a tie plan, K3
+    equal to itself on the plan without the duplicate.  Then the widths'
+    device times (CUDA events, 1, 2, 4, 8 and back), each variant's
+    registers and spills (`build`), its resident blocks an SM and the
+    launch's waves at each width.  Returns {k3, k4: {w: [ms up, ms down]},
+    res: {k3, k4: resources}, chosen: {k3, k4}}."""
+    tag = f"kernel-tile packed-{name}"
+    (plan, pk, q, sb), state_of = packed_tile_case(name, dev)
+    T, widths = persist.CHUNK_T, bounce.TILE_WIDTHS
+    chosen = dict(k3=bounce.tile_width(plan), k4=persist.tile_width(plan))
+    st3, st4 = state_of(0), state_of(1)
+    k3 = {w: bounce.step_packed_cuda(plan, pk, sb, st3, **q, tile=w)
+          for w in widths}
+    k4 = {w: persist.chunk_cuda(plan, pk, sb, st4, T=T, **q, tile=w)
+          for w in widths}
+    chain, _ = k3_chunk(plan, pk, sb, st4, q, T, tile=1, ops=False)
+    again = persist.chunk_cuda(plan, pk, sb, st4, T=T, **q)
+    torch.cuda.synchronize()
+    for w in widths:
+        n_bad = int((bits(k3[w]) != bits(k3[1])).any(0).sum())
+        same = same_chunk(k4[w], k4[1]) + same_chunk(k4[w], chain)
+        if n_bad or not all(same):
+            raise AssertionError(
+                f"[{tag}] w={w}: K3 differs from w=1 on {n_bad} lanes; K4 "
+                f"against w=1 and against {T} K3 launches (state, flush, "
+                f"segments): {same}")
+    if not all(same_chunk(again, k4[chosen["k4"]])):
+        raise AssertionError(f"[{tag}] two K4 chunks at w={chosen['k4']} "
+                             f"differ")
+    live = int((st3.view(torch.int32)[0] < q["n_work"]).sum())
+    log(f"[{tag}] K3 at w = 2, 4, 8 equals w = 1 bit for bit on all {M} "
+        f"lanes (16 rows; {live} live); one K4 chunk of T={T} at every w "
+        f"equals w = 1 and {T} K3 launches bit for bit (state, flush rows, "
+        f"segments: {int(chain[2].sum())}); two chunks at the chosen "
+        f"w={chosen['k4']} equal; chosen K3 w={chosen['k3']}")
+    if name in TIE_SCENES:
+        p0, pk0 = tie_alone(name, torch.float32, dev)
+        alone = bounce.step_packed_cuda(p0, pk0, sb, st3, **q, tile=1)
+        ins = packed_lanes(plan, sb, st3, q)
+        n_hit = int((bounce.hit_record(p0, pk0, *ins[:4], *ins[5:9])[3]["hit"]
+                     & ins[4]).sum())
+        same = torch.equal(bits(alone), bits(k3[1]))
+        log(f"[{tag}] {n_hit} of {live} live lanes hit; K3 equals itself on "
+            f"the plan without the duplicate: {same}")
+        if not same:
+            raise AssertionError(f"[{tag}] a tie kept the duplicate")
+    out = dict(k3={}, k4={}, res={}, chosen=chosen)
+    for w in widths + widths[::-1]:
+        out["k3"].setdefault(w, []).append(kernel_ms(
+            lambda: bounce.step_packed_cuda(plan, pk, sb, st3, **q, tile=w)))
+        out["k4"].setdefault(w, []).append(kernel_ms(
+            lambda: persist.chunk_cuda(plan, pk, sb, st4, T=T, **q, tile=w),
+            10))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    feats = bounce.kernel_features(plan)
+    for key, kern in (("k3", K3), ("k4", K4)):
+        res = build[cuda_build.variant_name(kern, feats)][0]
+        regs = res["registers"]
+        out["res"][key] = dict(
+            registers=regs, spills=res["spill_stores"],
+            resident=bounce.resident_blocks(regs),
+            waves={w: bounce.launch_waves(M, w, regs, sms) for w in widths})
+        r = out["res"][key]
+        times = (f"w={w} {a * 1e3:.2f} / {b * 1e3:.2f}"
+                 for w, (a, b) in sorted(out[key].items()))
+        log(f"[{tag}] sweep {key} (us, up / down; chosen {chosen[key]}): "
+            + ", ".join(times)
+            + f"; {regs} registers, {r['spills']} B spilled, "
+            f"{r['resident']} blocks of {bounce.THREADS} an SM, waves on "
+            f"{sms} SMs " + ", ".join(f"w={w} {n}"
+                                      for w, n in r["waves"].items()))
+    return out
+
+
+def phase_persist_w1(dev):
+    """K4 at one thread a lane (w = 1) on the eight scenes of the full-size
+    paths: one chunk of CHUNK_T iterations from the kernel phases' packed
+    states (packed_tile_case, seed 1), timed by CUDA events, the faster of
+    two.  It calls only what the port had before K4 took a width (then
+    chunk_cuda ran one thread a lane and took no `tile`), so this script,
+    copied to the root of an older tree, times that tree's K4 alike: two
+    trees run in turns in one call separate K4's loop without its block
+    barrier from its tile."""
+    one = ({"tile": 1} if "tile" in inspect.signature(
+        persist.chunk_cuda).parameters else {})
+    out = {}
+    for name in PATH_SCENES:
+        (plan, pk, q, sb), state_of = packed_tile_case(name, dev)
+        st = state_of(1)
+        out[name] = min(kernel_ms(lambda: persist.chunk_cuda(
+            plan, pk, sb, st, T=persist.CHUNK_T, **q, **one), 10)
+            for _ in range(2))
+    log(f"[persist-w1] K4 at w = 1, T={persist.CHUNK_T}, ms a chunk (the "
+        f"faster of two), from {ROOT}: "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in out.items()))
+    return out
 
 
 def tile_sweep(plan, pk, ins, bins, cts):
@@ -2693,7 +2864,8 @@ PHASES = {
     "golden-klein": lambda dev, r: phase_golden_klein(dev),
     "diff-klein": lambda dev, r: phase_diff_klein(dev),
     "full-klein": lambda dev, r: phase_full_klein(dev),
-    "kernel-tile": lambda dev, r: phase_kernel_tile(dev),
+    "kernel-tile": lambda dev, r: phase_kernel_tile(dev, r["build"]),
+    "persist-w1": lambda dev, r: phase_persist_w1(dev),
 }
 # A phase that reads another's result brings it along.
 NEEDS = {"pools-full": ("full",)}
@@ -2733,10 +2905,10 @@ def kernel_table(r):
     packed_kl, kl_full = r["packed-klein"], r["full-klein"]
     sweep = r["kernel-tile"]
     # each scene's chosen tile width and its times at every width (the
-    # faster of the sweep's two passes), K2's without its partials' sum
+    # faster of the sweep's two passes), K2's without its partials' sum, K3's
+    # and K4's on packed states
     tile = lambda key: {name: dict(
-        chosen=sw["chosen"]["k1" if key == "k1" else "k2"],
-        ms={w: min(t) for w, t in sw[key].items()})
+        chosen=sw["chosen"][key], ms={w: min(t) for w, t in sw[key].items()})
         for name, sw in sweep.items()}
     # the full-size paths of the later slices: (forward, persistent, fwd+bwd)
     later = {**{k: v[:3] for k, v in tex_full.items()},
@@ -2826,6 +2998,7 @@ def kernel_table(r):
         "cornell_bezier": on(packed_bez["cornell_bezier"][0]),
         "klein": on(packed_kl["klein"][0]),
         "cornell_klein": on(packed_kl["cornell_klein"][0]),
+        "tile": tile("k3"),
     }, {
         "name": "bounce_persist",
         "route": "cuda",
@@ -2843,6 +3016,7 @@ def kernel_table(r):
         "cornell_bezier": on(packed_bez["cornell_bezier"][1]),
         "klein": on(packed_kl["klein"][1]),
         "cornell_klein": on(packed_kl["cornell_klein"][1]),
+        "tile": tile("k4"),
     }, {
         "name": "probe_ops",
         "route": "cuda",

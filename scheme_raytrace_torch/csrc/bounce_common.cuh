@@ -3,10 +3,9 @@
 // the packed-state kernel (bounce_packed.cu) and the persistent kernel
 // (bounce_persist.cu).  The backward replays each lane exactly as the
 // forward ran it, and the three forward kernels run one lane body
-// (bounce_lane), so they trace identical paths from identical inputs.  K1
-// and K2 run a lane on a tile of w threads (Tile), over which the
-// closest-hit sweeps split; every w gives the one-thread search's values
-// bit for bit, and K3 and K4 run w = 1.
+// (bounce_lane), so they trace identical paths from identical inputs.  All
+// four run a lane on a tile of w threads (Tile), over which the closest-hit
+// sweeps split; every w gives the one-thread search's values bit for bit.
 //
 // Every function here follows scheme_raytrace_torch/integrator/bounce.py:
 // step, op for op, with two forms of K1's own: cbrt for the fuzz radius and
@@ -229,11 +228,12 @@ constexpr double kPi = 3.141592653589793;
 constexpr double kTwoPi = 2.0 * kPi;
 
 constexpr int kThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;   // a whole warp
 
 // The tile of a lane: the w consecutive threads of a warp that carry it (w
-// a power of two, 1 to kMaxTile; a kernel argument of K1 and K2, 1 in K3
-// and K4), this thread's rank r in it, and the tile's threads as a shuffle
-// mask.  The closest-hit sweeps split over the tile (each thread probes its
+// a power of two, 1 to kMaxTile; a kernel argument of K1, K2, K3 and K4),
+// this thread's rank r in it, and the tile's threads as a shuffle mask.
+// The closest-hit sweeps split over the tile (each thread probes its
 // share, in pack order) and the tile combines the shares with shuffles;
 // everything else runs on every thread of the tile, on the same values.
 // At w = 1 every split is the one-thread search itself and no shuffle runs.
@@ -250,7 +250,7 @@ inline bool tile_width_ok(int w) {
 }
 
 // The blocks of kThreads threads that carry m lanes at w threads a lane
-// (K1's and K2's launch; integrator/bounce.py kernel_blocks).
+// (the launch of K1, K2, K3 and K4; integrator/bounce.py kernel_blocks).
 inline int lane_blocks(int m, int w) {
   return (m * w + kThreads - 1) / kThreads;
 }
@@ -262,7 +262,7 @@ __device__ __forceinline__ Tile lane_tile(int w) {
   return {w, lane & (w - 1), ((1u << w) - 1u) << (lane & ~(w - 1))};
 }
 
-// One thread a lane, as K3 and K4 run it.
+// One thread a lane: K2's adjoint of one ribbon, which a thread runs alone.
 __device__ __forceinline__ Tile one_thread() {
   return {1, 0, 1u << (threadIdx.x & 31)};
 }
@@ -1735,13 +1735,16 @@ struct Queue {
 // nothing but their fresh and depth words (both become 0), as in the
 // reference, where the step runs on them with alive = false.  Returns
 // alive; `terminated` and `pix` (item % n_pix) describe the finished path.
+// Every thread of the lane's tile `tl` runs it on the same v (a copy each)
+// and ends with the same v; the caller stores from the first thread only.
 __device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
                                             const float* __restrict__ atlas,
                                             const Statics& s, float t_min,
                                             float t_max, const Queue& q,
                                             int32_t sample_base,
                                             float v[N_PACKED],
-                                            bool& terminated, int& pix) {
+                                            bool& terminated, int& pix,
+                                            const Tile& tl) {
   const int32_t item = __float_as_int(v[0]);
   const bool fresh = v[1] != 0.0f;
   const int32_t depth = __float_as_int(v[2]);
@@ -1761,7 +1764,7 @@ __device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
     scattering = bounce_lane<float>(pk, atlas, s, t_min, t_max, gitem,
                                     float(gpix % s.nx), float(gpix / s.nx),
                                     fresh, true, depth, o, d, time, rad, tp,
-                                    one_thread());
+                                    tl);
     v[3] = o.x;  v[4] = o.y;  v[5] = o.z;
     v[6] = d.x;  v[7] = d.y;  v[8] = d.z;
     v[9] = time;

@@ -14,29 +14,53 @@
 //
 // Design, for the GPU rather than copied from the TPU grid.  The TPU kernel
 // is a grid of T sequential steps over one VMEM-resident block of the whole
-// pool.  Here lanes are independent, so each thread owns one lane: it loads
-// the lane's 16 state words into registers once, runs T iterations of
-// packed_step (bounce_common.cuh: the pixel and RNG key of the work item,
-// bounce_lane, the strided re-issue), writes its flush words as each
-// iteration ends, and writes the state once at the end.  Nothing crosses
-// lanes but the segment count: each block counts its live lanes with
-// __syncthreads_count and adds the count to seg[t] with an integer
-// atomicAdd, which is exact in any order, so the count is deterministic.
-// Drained lanes (item >= n_work) run no-op iterations, as in the reference.
+// pool.  Here lanes are independent, so each lane is owned by a tile of w
+// consecutive threads of a warp (w = 1, 2, 4 or 8, a kernel argument:
+// integrator/persist.py tile_width), 256 threads per block, lane_blocks(m,
+// w) blocks, as K1 and K3 run.  Every thread of a tile loads the lane's 16
+// state words into registers once and runs T iterations of packed_step
+// (bounce_common.cuh: the pixel and RNG key of the work item, bounce_lane
+// with the closest-hit sweeps split over the tile, the strided re-issue) on
+// the same values; the tile's first thread writes the flush words as each
+// iteration ends and the state once at the end.  Drained lanes (item >=
+// n_work) run no-op iterations, as in the reference.
 //
-// Bitwise equal to T launches of bounce_packed.cu.  The iteration is the
-// same packed_step.  Between iterations the carried state (time included,
-// which feeds the moving spheres' centres) passes through an empty asm
-// statement (opaque), so the compiler sees it as K3 does, as values loaded
-// from memory: no mul of one iteration is contracted with an add of the
-// next into an FMA.
+// Nothing crosses lanes but the segment count, and nothing crosses warps
+// inside the loop: each warp counts its tiles' live lanes with a ballot of
+// the first threads' alive flags (threads past m vote false) and its lane
+// 0 adds the count into the block's row of T counters in shared memory.
+// After the loop one __syncthreads, then the block adds its T counts into
+// seg with integer atomicAdds.  Integer sums are exact in any order, so the
+// counts are deterministic.  With no block barrier in the loop a warp runs
+// its T iterations at its own lanes' pace: the block takes the slowest
+// warp's sum over the iterations, not the sum over the iterations of the
+// slowest warp, which matters where a few lanes run long (a klein march at
+// its 100-step cap, a ribbon hit beside misses).
+//
+// Bitwise equal to T launches of bounce_packed.cu at any w.  The iteration
+// is the same packed_step.  Between iterations the carried state (time
+// included, which feeds the moving spheres' centres) passes through an
+// empty asm statement (opaque), so the compiler sees it as K3 does, as
+// values loaded from memory: no mul of one iteration is contracted with an
+// add of the next into an FMA.
 //
 // What bounds it on an H100.  Per iteration a lane does K1's work (~1 kflop
-// on Cornell, ~10 kflop with 227 spheres) and writes 4 flush words (1 MB per iteration at m = 65,536); the state moves
-// once per launch.  A warp runs until its slowest lane's T paths are done
-// with their iterations; paths of different lengths diverge in the shading
-// branches.  Compute and divergence, not bandwidth, are the expected
-// limit; PERF.md holds what was measured.
+// on Cornell, ~10 kflop with 227 spheres, 17 k operations a ribbon) and
+// writes 4 flush words (1 MB per iteration at m = 65,536); the state moves
+// once per launch.  Compute and the chain of the slowest lanes, not
+// bandwidth, are the limit.  A persistent block holds its SM for all T
+// iterations, so a launch of more blocks than the card keeps resident (5, 4
+// and 3 blocks of 256 an SM at 48, 64 and 80 registers) runs its extra
+// blocks only after the first finish their whole chunk: the width rule
+// (persist.py tile_width) keeps the launch within one wave unless the
+// sweep shows more winning.  Measured on the H100 (PERF.md): the loop
+// without its barrier, at w = 1, cut a chunk by 19% on klein, 5-8% on the
+// ribbons and cornell_klein, under 5% elsewhere; the tile then cut RTOW
+// 1.72 to 1.53 ms and Cornell 0.312 to 0.294 ms at w = 2, and the ribbons
+// 6.24 to 5.63 ms at w = 4 (three waves at 80 registers).  The tile gains
+// less than in K3, where one launch is one iteration: here different warps
+// are at different iterations and already fill the SM between the slowest
+// lanes' chains (RTOW at w = 1: 54 us an iteration against K3's 87 us).
 
 #include "bounce_common.cuh"
 
@@ -51,6 +75,7 @@ struct PersistParams {
   int32_t* seg;                 // [T], zeroed by the caller
   const float* atlas;           // image texels; null without images
   int T;
+  int w;                        // threads a lane (the tile's width)
   Statics s;
   Queue q;
   float t_min, t_max;
@@ -63,9 +88,14 @@ __device__ __forceinline__ void opaque(float& x) {
 
 __global__ void __launch_bounds__(kThreads)
 bounce_persist_kernel(const PersistParams prm) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ int32_t live[];   // [T]: the block's live lanes
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / prm.w;
   const int m = prm.q.m;
-  const bool lane = i < m;          // every thread reaches the block count
+  const bool lane = i < m;          // every thread reaches the block's count
+  const Tile tl = lane_tile(prm.w);
+  const bool first = lane && tl.r == 0;
+  for (int t = threadIdx.x; t < prm.T; t += blockDim.x) live[t] = 0;
+  __syncthreads();
   const int32_t sample_base = __ldg(prm.sample_base);
   float v[N_PACKED];
 #pragma unroll
@@ -79,20 +109,25 @@ bounce_persist_kernel(const PersistParams prm) {
       bool terminated;
       int pix;
       alive = packed_step(prm.pk, prm.atlas, prm.s, prm.t_min, prm.t_max, prm.q,
-                          sample_base, v, terminated, pix);
-      float* f = prm.flush + size_t(t) * 4 * m + i;
-      f[0] = __int_as_float(terminated ? pix : -1);
-      f[m] = terminated ? v[10] : 0.0f;
-      f[2 * m] = terminated ? v[11] : 0.0f;
-      f[3 * m] = terminated ? v[12] : 0.0f;
+                          sample_base, v, terminated, pix, tl);
+      if (first) {
+        float* f = prm.flush + size_t(t) * 4 * m + i;
+        f[0] = __int_as_float(terminated ? pix : -1);
+        f[m] = terminated ? v[10] : 0.0f;
+        f[2 * m] = terminated ? v[11] : 0.0f;
+        f[3 * m] = terminated ? v[12] : 0.0f;
+      }
     }
-    const int live = __syncthreads_count(alive);
-    if (threadIdx.x == 0 && live) atomicAdd(prm.seg + t, live);
+    const int n = __popc(__ballot_sync(kFullMask, first && alive));
+    if ((threadIdx.x & 31) == 0 && n) atomicAdd(live + t, n);
   }
-  if (lane) {
+  if (first) {
 #pragma unroll
     for (int k = 0; k < N_PACKED; ++k) prm.st_out[size_t(k) * m + i] = v[k];
   }
+  __syncthreads();
+  for (int t = threadIdx.x; t < prm.T; t += blockDim.x)
+    if (live[t]) atomicAdd(prm.seg + t, live[t]);
 }
 
 }  // namespace
@@ -101,13 +136,17 @@ bounce_persist_kernel(const PersistParams prm) {
 // ptrs: 7 device pointers — pk, sample_base ([1] int32), the state in and
 // the state out ([N_PACKED, m] float32 each), the flush rows ([T, 4, m]
 // float32), the segment counts ([T] int32, zeroed by the caller) and the
-// image texel atlas (null when img_rows is 0).  Launches on `stream`
-// without synchronising and returns cudaGetLastError() (0 = launched).
-extern "C" int srt_bounce_persist(void* const* ptrs, int T, int m,
+// image texel atlas (null when img_rows is 0).  w: threads a lane, a power
+// of two from 1 to kMaxTile.  Launches on `stream` without synchronising,
+// with T * 4 bytes of dynamic shared memory, and returns cudaGetLastError()
+// (0 = launched), or cudaErrorInvalidValue for a plan that this variant's
+// feature set does not cover or a w it does not take.
+extern "C" int srt_bounce_persist(void* const* ptrs, int T, int w, int m,
                                   int n_work, int n_pix, int pix0,
                                   int total_pix, SRT_SCENE_PARAMS,
                                   void* stream) {
   if (m <= 0 || T <= 0) return 0;
+  if (!tile_width_ok(w)) return int(cudaErrorInvalidValue);
   PersistParams prm;
   prm.pk = static_cast<const float*>(ptrs[0]);
   prm.sample_base = static_cast<const int32_t*>(ptrs[1]);
@@ -117,13 +156,13 @@ extern "C" int srt_bounce_persist(void* const* ptrs, int T, int m,
   prm.seg = static_cast<int32_t*>(ptrs[5]);
   prm.atlas = static_cast<const float*>(ptrs[6]);
   prm.T = T;
+  prm.w = w;
   prm.s = SRT_STATICS(m);
   if (!features_cover(prm.s)) return int(cudaErrorInvalidValue);
   prm.q = Queue{m, n_work, n_pix, pix0, total_pix};
   prm.t_min = float(t_min);
   prm.t_max = float(t_max);
-  const int blocks = (m + kThreads - 1) / kThreads;
-  bounce_persist_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(
-                                                   stream)>>>(prm);
+  bounce_persist_kernel<<<lane_blocks(m, w), kThreads, T * sizeof(int32_t),
+                          static_cast<cudaStream_t>(stream)>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }

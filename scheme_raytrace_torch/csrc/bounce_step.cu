@@ -30,10 +30,11 @@
 // in seed order for a ribbon.  That is the sequential sweep's winner, ties
 // included, so every w gives w = 1's outputs bit for bit.  The klein march,
 // the media and the shading run on every thread of the tile, on the same
-// values, and the tile's first thread stores.  K3 and K4 run w = 1.  Every
-// lane reads and writes its own SoA columns (19 in, 14 out).  The packed scene `pk` (P floats, 506 for
-// Cornell) is read at plan offsets through the read-only data cache: every
-// thread of a warp reads the same address, which the cache broadcasts; this
+// values, and the tile's first thread stores.  K3 and K4 run the same tile.
+// Every lane reads and writes its own SoA columns (19 in, 14 out).  The
+// packed scene `pk` (P floats, 506 for Cornell) is read at plan offsets
+// through the read-only data cache: every thread of a warp reads the same
+// address, which the cache broadcasts; this
 // takes the place of the TPU kernel's SMEM scalar view (_SmemPk).  The
 // plan's statics are kernel arguments.  Rects, then spheres, are swept in
 // pack order with the strict `<` of _merge_rec, so ties keep the first

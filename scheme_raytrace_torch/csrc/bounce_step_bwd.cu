@@ -132,7 +132,6 @@
 
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarps = kThreads / 32;
 
 // The adjoint of every clamp of the plain step, y = max(x, c): the share of

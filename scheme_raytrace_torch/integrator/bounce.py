@@ -1417,15 +1417,16 @@ TILE_SWEEP_MIN = 16
 
 
 def tile_width(plan: BouncePlan, bwd: bool = False) -> int:
-    """Threads a lane of the bounce kernel (K1) or, with `bwd`, of its
-    backward (K2) for this plan: the width of the tile over which the
-    closest-hit sweeps split (csrc/bounce_common.cuh Tile).  Every width
-    gives the same lanes bit for bit; this is the fastest of the widths 1,
-    2, 4 and 8 that the H100 measured (chip_smoke.py's kernel-tile phase,
-    PERF.md).  Every thread of a tile runs the lane's shading, so a width
-    pays only where the split chain is long: the bezier probe's seeds (4 in
-    K1, 2 in K2) and a sweep of TILE_SWEEP_MIN or more rects and spheres
-    (2).  A klein march cannot be split, and a tile only repeats it."""
+    """Threads a lane of the bounce kernel (K1) and the packed kernel (K3)
+    or, with `bwd`, of the backward (K2) for this plan: the width of the
+    tile over which the closest-hit sweeps split (csrc/bounce_common.cuh
+    Tile).  Every width gives the same lanes bit for bit; this is the
+    fastest of the widths 1, 2, 4 and 8 that the H100 measured
+    (chip_smoke.py's kernel-tile phase, PERF.md), for K1 and K3 alike.
+    Every thread of a tile runs the lane's shading, so a width pays only
+    where the split chain is long: the bezier probe's seeds (4 in K1 and K3,
+    2 in K2) and a sweep of TILE_SWEEP_MIN or more rects and spheres (2).  A
+    klein march cannot be split, and a tile only repeats it."""
     if plan.n_kleins:
         return 1
     if plan.n_beziers:
@@ -1434,10 +1435,33 @@ def tile_width(plan: BouncePlan, bwd: bool = False) -> int:
 
 
 def kernel_blocks(m: int, w: int) -> int:
-    """The blocks of K1's and K2's launch for m lanes at w threads a lane
-    (csrc/bounce_common.cuh lane_blocks): ceil(m w / THREADS).  K2 writes one
-    row of partials a block."""
+    """The blocks of the launch of K1, K2, K3 and K4 for m lanes at w
+    threads a lane (csrc/bounce_common.cuh lane_blocks): ceil(m w /
+    THREADS).  K2 writes one row of partials a block."""
     return -(-(m * w) // THREADS)
+
+
+# An H100 SM: 65,536 registers, allocated to a warp in units of 256 (a
+# thread's count rounded up to 8), and at most 2,048 threads.  The card has
+# 132 SMs.
+SM_REGISTERS = 65536
+SM_THREADS = 2048
+SMS = 132
+
+
+def resident_blocks(registers: int) -> int:
+    """Blocks of THREADS threads an SM keeps resident for a kernel of
+    `registers` a thread (ptxas's count; the kernels use no more than a few
+    hundred bytes of shared memory, which never binds)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = SM_REGISTERS // per_warp
+    return min(warps // (THREADS // 32), SM_THREADS // THREADS)
+
+
+def launch_waves(m: int, w: int, registers: int, sms: int = SMS) -> int:
+    """Waves of the launch of m lanes at w threads a lane: its blocks over
+    the blocks the card keeps resident at once."""
+    return -(-kernel_blocks(m, w) // (resident_blocks(registers) * sms))
 
 
 def check_tile(w) -> int:
@@ -1808,7 +1832,7 @@ def _kernel_packed(plan):
     lib = cuda_build.load("bounce_packed", kernel_features(plan))
     fn = lib.srt_bounce_packed
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
                        + SCENE_ARGTYPES + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -1841,10 +1865,12 @@ def queue_args(plan: BouncePlan, m, n_work, n_pix, pix0, total_pix):
 
 
 def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,
-                     n_pix, pix0, total_pix):
+                     n_pix, pix0, total_pix, tile=None):
     """`step_packed` through the CUDA kernel csrc/bounce_packed.cu (the port
     of the Pallas `as_pallas_packed`): same signature and results to the
-    kernel's rounding (it contracts mul+add into FMAs, as K1 does).
+    kernel's rounding (it contracts mul+add into FMAs, as K1 does).  `tile`
+    is the threads a lane (TILE_WIDTHS), `tile_width(plan)` when None;
+    every width gives the same state bit for bit.
 
     state: a contiguous [N_PACKED, m] float32 tensor on a CUDA device; pk
     [plan.size] float32 on it (or `pack`'s (pk, atlas) pair); sample_base an
@@ -1854,6 +1880,7 @@ def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,
     synchronising and raises if the launch is refused."""
     global PACKED_LAUNCHES
     fn = "step_packed_cuda"
+    w = check_tile(tile_width(plan) if tile is None else tile)
     pk, atlas, base = check_packed(fn, plan, pk, sample_base, state, m)
     out = torch.empty_like(state)
     ptrs = (ctypes.c_void_p * 5)(pk.data_ptr(), base.data_ptr(),
@@ -1862,8 +1889,8 @@ def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,
     kernel = _kernel_packed(plan)
     dev = state.device
     with torch.cuda.device(dev):
-        err = kernel(ptrs, *queue_args(plan, m, n_work, n_pix, pix0,
-                                       total_pix),
+        err = kernel(ptrs, w, *queue_args(plan, m, n_work, n_pix, pix0,
+                                          total_pix),
                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"bounce_packed kernel launch failed: CUDA error "

@@ -5,7 +5,8 @@ The strided pool (integrator/pool_strided.py) with its loop, queue and
 state moved into the kernel: one launch of the persistent kernel (K4,
 `chunk_cuda`, csrc/bounce_persist.cu, on the card; the plain `chunk_plain`
 on the CPU) runs T iterations over the packed state (bounce.py N_PACKED
-layout), each lane in its own thread with its state in registers, and
+layout), each lane on a tile of `tile_width(plan)` threads with its state
+in registers, and
 returns the new state, one flush row per iteration ([T, 4, m] float32: the
 finished path's pixel as int32 bits, -1 for none, then its radiance, 0
 there) and the live lanes of each iteration (the segments).  The host adds
@@ -54,6 +55,23 @@ def chunk_plain(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
     return state, flush, segs
 
 
+def tile_width(plan) -> int:
+    """Threads a lane of the persistent kernel (K4) for this plan: the width
+    of the tile over which each iteration's closest-hit sweeps split
+    (csrc/bounce_common.cuh Tile).  Every width gives the same chunk bit for
+    bit.  The rule is the fastest of the widths 1, 2, 4 and 8 that the H100
+    measured (chip_smoke.py's kernel-tile phase, PERF.md), which is K1's and
+    K3's (`bounce.tile_width`): 2 for a sweep of bounce.TILE_SWEEP_MIN or
+    more rects and spheres (one wave: 512 blocks, 4-5 resident an SM at
+    48-60 registers), 1 for a shorter sweep and with a klein, whose march a
+    tile only repeats, and 4 for the bezier probe's seeds, although at 80
+    registers (3 blocks an SM) its 1,024 blocks take three waves
+    (bounce.launch_waves): a block holds its SM for all T iterations, but
+    the split seeds win 9% and 6% over w = 2 on `bezier` and
+    `cornell_bezier`."""
+    return bounce.tile_width(plan)
+
+
 def _kernel(plan):
     """The plan's variant of the bounce_persist library, built at first use;
     argtypes declared."""
@@ -61,17 +79,19 @@ def _kernel(plan):
     lib = cuda_build.load("bounce_persist", bounce.kernel_features(plan))
     fn = lib.srt_bounce_persist
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 7
                        + bounce.SCENE_ARGTYPES + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
-               total_pix, T=CHUNK_T):
+               total_pix, T=CHUNK_T, tile=None):
     """`chunk_plain` through the CUDA kernel csrc/bounce_persist.cu (the
     port of the Pallas persistent kernel `_make_call`): one launch for T
     iterations, bitwise equal to T launches of `bounce.step_packed_cuda`.
+    `tile` is the threads a lane (bounce.TILE_WIDTHS), `tile_width(plan)`
+    when None; every width gives the same chunk bit for bit.
 
     Takes what `bounce.step_packed_cuda` takes, on one CUDA device, and
     T >= 1.  Returns (state, flush, segs) as new tensors; launches on the
@@ -79,6 +99,7 @@ def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
     refused."""
     global PERSIST_LAUNCHES
     fn = "chunk_cuda"
+    w = bounce.check_tile(tile_width(plan) if tile is None else tile)
     pk, atlas, sb = bounce.check_packed(fn, plan, pk, sample_base, state, m)
     if T < 1:
         raise ValueError(f"{fn}: T must be at least 1, got {T}")
@@ -92,8 +113,8 @@ def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
                                  bounce.tensor_ptr(atlas))
     kernel = _kernel(plan)
     with torch.cuda.device(dev):
-        err = kernel(ptrs, T, *bounce.queue_args(plan, m, n_work, n_pix, pix0,
-                                                 total_pix),
+        err = kernel(ptrs, T, w, *bounce.queue_args(plan, m, n_work, n_pix,
+                                                    pix0, total_pix),
                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"bounce_persist kernel launch failed: CUDA error "

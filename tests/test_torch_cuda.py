@@ -14,8 +14,9 @@ K2, the fold over tied seeds and the curvature floor's tie among its lanes),
 the config-5 and config-6 goldens, the kernels' per-feature-set builds, and
 the klein scenes (the sphere trace in K1-K4 and its implicit-function
 adjoint in K2, and a variant without the klein flag refusing a klein plan),
-and K1 and K2 at every tile width of threads a lane bit for bit against the
-one-thread search (w = 1), on the tie plans of chip_smoke.py among others.
+and K1, K2, K3 and K4 at every tile width of threads a lane bit for bit
+against the one-thread search (w = 1), on the tie plans of chip_smoke.py
+among others, K4 at every width also against 32 K3 launches.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -407,7 +408,8 @@ def test_step_packed_cuda_matches_step_packed(cuda):
     sb = torch.tensor([5], dtype=torch.int32, device=cuda)
     want = bounce.step_packed(plan, pk, sb, state, **q)
     before = bounce.PACKED_LAUNCHES
-    got = bounce.step_packed_cuda(plan, pk, sb, state, **q)
+    w = bounce.tile_width(plan)             # the plan's width: 2 on Cornell
+    got = bounce.step_packed_cuda(plan, pk, sb, state, **q, tile=w)
     again = bounce.step_packed_cuda(plan, pk, sb, state, **q)
     torch.cuda.synchronize()
     assert bounce.PACKED_LAUNCHES == before + 2
@@ -422,14 +424,15 @@ def test_step_packed_cuda_matches_step_packed(cuda):
 
 def test_chunk_cuda_equals_packed_launches(cuda):
     # one K4 launch of T iterations is bitwise equal to T K3 launches: the
-    # state, every flush row, and the segment counts
+    # state, every flush row, and the segment counts; each at its plan's
+    # width (K4 2, K3 2 on Cornell)
     plan, pk, q = _packed_plan(cuda)
     state = packed_state(q["m"], q["n_work"], plan.max_depth, cuda, seed=1)
     sb = torch.tensor([3], dtype=torch.int32, device=cuda)
     T = persist.CHUNK_T
     before = persist.PERSIST_LAUNCHES
-    got_state, got_flush, got_segs = persist.chunk_cuda(plan, pk, sb, state,
-                                                        T=T, **q)
+    got_state, got_flush, got_segs = persist.chunk_cuda(
+        plan, pk, sb, state, T=T, **q, tile=persist.tile_width(plan))
     assert persist.PERSIST_LAUNCHES == before + 1
     st = state
     flush = torch.empty_like(got_flush)
@@ -437,7 +440,8 @@ def test_chunk_cuda_equals_packed_launches(cuda):
     for t in range(T):
         item = st.view(torch.int32)[0]
         segs[t] = (item < q["n_work"]).sum()
-        st = bounce.step_packed_cuda(plan, pk, sb, st, **q)
+        st = bounce.step_packed_cuda(plan, pk, sb, st, **q,
+                                     tile=bounce.tile_width(plan))
         done = st[1] != 0.0
         flush.view(torch.int32)[t, 0] = torch.where(done, item % q["n_pix"],
                                                     -1)
@@ -1395,3 +1399,66 @@ def test_tile_width_outside_the_kernels_raises(cuda):
     with pytest.raises(ValueError, match="tile width"):
         bounce.step_cuda(plan, pk, *ins, tile=16)
     assert bounce.LAUNCHES == before
+
+
+# --- the tile in the packed kernels (K3, K4; chip_smoke.py's kernel-tile) --
+
+PACKED_TILE_CASES = ["cornell", "rtow", "textured", "cornell_smoke", "bezier",
+                     "cornell_bezier", "klein", "cornell_klein",
+                     "cornell_tie", "spheres_tie"]
+
+
+def _same_chunk(got, want):
+    import chip_smoke
+    return all(chip_smoke.same_chunk(got, want))
+
+
+@pytest.mark.parametrize("name", PACKED_TILE_CASES)
+def test_packed_tile_widths_equal_one_thread(cuda, name):
+    # K3 at every tile width gives w = 1's 16 state rows bit for bit; one K4
+    # chunk at every width gives w = 1's and CHUNK_T K3 launches' state,
+    # flush rows and segments bit for bit; two chunks from one state give
+    # equal segments
+    import chip_smoke
+    assert PACKED_TILE_CASES == list(chip_smoke.TILE_SCENES)
+    (plan, pk, q, sb), state_of = chip_smoke.packed_tile_case(name, cuda,
+                                                              m=4096)
+    T = persist.CHUNK_T
+    st3, st4 = state_of(0), state_of(1)
+    k3 = bounce.step_packed_cuda(plan, pk, sb, st3, **q, tile=1)
+    chain, _ = chip_smoke.k3_chunk(plan, pk, sb, st4, q, T, tile=1,
+                                   ops=False)
+    assert int(chain[2].sum()) > 0
+    for w in bounce.TILE_WIDTHS:
+        got3 = bounce.step_packed_cuda(plan, pk, sb, st3, **q, tile=w)
+        got4 = persist.chunk_cuda(plan, pk, sb, st4, T=T, **q, tile=w)
+        again = persist.chunk_cuda(plan, pk, sb, st4, T=T, **q, tile=w)
+        torch.cuda.synchronize()
+        assert torch.equal(got3.view(torch.int32), k3.view(torch.int32)), w
+        assert _same_chunk(got4, chain), w
+        assert torch.equal(again[2], got4[2]), w
+
+
+def test_packed_tile_width_outside_the_kernels_raises(cuda):
+    import chip_smoke
+    (plan, pk, q, sb), state_of = chip_smoke.packed_tile_case(
+        "cornell", cuda, m=256)
+    st = state_of(0)
+    before = (bounce.PACKED_LAUNCHES, persist.PERSIST_LAUNCHES)
+    for tile in (3, 16):
+        with pytest.raises(ValueError, match="tile width"):
+            bounce.step_packed_cuda(plan, pk, sb, st, **q, tile=tile)
+        with pytest.raises(ValueError, match="tile width"):
+            persist.chunk_cuda(plan, pk, sb, st, T=2, **q, tile=tile)
+    assert (bounce.PACKED_LAUNCHES, persist.PERSIST_LAUNCHES) == before
+
+
+def test_packed_kernels_refuse_a_tile_width(cuda):
+    # past the wrappers, the C side refuses a width too
+    plan, pk, q = _packed_plan(cuda)
+    for fn, n_ptrs, head in ((bounce._kernel_packed(plan), 5, (3,)),
+                             (persist._kernel(plan), 7, (2, 3))):
+        ptrs = (ctypes.c_void_p * n_ptrs)()
+        err = fn(ptrs, *head, *bounce.queue_args(plan, 256, 256, 256, 0, 256),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 1, n_ptrs                    # cudaErrorInvalidValue

@@ -8,7 +8,8 @@ sampling (BASELINE config 4), the forward render through the three strided
 work pools, the op and loop probes, the sphere scenes up to the RTOW
 final scene (227 spheres) forward and fwd+bwd, and the textured and smoke
 scenes (hash-Perlin noise and marble, image texels, constant media) forward
-and fwd+bwd, the bezier scenes and the klein scenes forward and fwd+bwd, in
+and fwd+bwd, the bezier scenes and the klein scenes forward and fwd+bwd, and
+the general pool (BVH, russian roulette, material sort, 4,901 prims), in
 phases; any
 failure raises and the exit code is non-zero.  `--phases` takes a
 comma-separated selection of the phase names in PHASES (the default is every
@@ -140,6 +141,24 @@ kernel table:
      packed states, timed by CUDA events.  It calls only what the port had
      before K4 took a width, so a copy of this script at the root of an
      older tree times that tree's K4 alike, in turns with this one.
+ 31. the general pool (integrator/pool.render_pool, plain PyTorch, no
+     kernel) against its references (general-check): its flush on the card
+     bit for bit the lane-order sum, and per run below its float64 render at
+     24x24 spp2 on the card against the same pool on the CPU (segments and
+     iterations exact, the image within 1e-9), the material-sorted render
+     bitwise the masked one;
+ 32-36. the general pool's five runs, float32 at 65,536 lanes and depth
+     100, each a warm-up (one of its pool iterations profiled for launches
+     and busy share) and three timed renders from zeros, bitwise equal, with
+     segments, iterations and peak memory, and no kernel launched:
+     `render --scene random --bvh sah` at the CLI's 200x200 (one chunk of 4
+     passes; general-cli); the RTOW scene at 512^2 spp1 through the SAH and
+     the median BVH, within 1e-5 of each other and within the parity bounds
+     of the fused FIFO render (general-rtow); a grid of 4,901 spheres at
+     512^2 spp1, brute and SAH (general-grid); Cornell with russian roulette
+     at 512^2 spp16 (general-rr); RTOW 200^2 spp16 with the material-sorted
+     shading, bitwise the masked (general-sort).  The BVH runs are cut in spp
+     to fit the time limit.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -166,7 +185,7 @@ import torch
 from scheme_raytrace_torch import render, scenes
 from scheme_raytrace_torch.config import SHADOW_EPS, RenderConfig
 from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
-                                              pool_fused, pool_packed,
+                                              pool, pool_fused, pool_packed,
                                               pool_strided)
 from scheme_raytrace_torch.scene import build, compile_scene
 from scheme_raytrace_torch.scene import objects as ob
@@ -323,14 +342,19 @@ def spread(times):
             f"{max(times) * 1e3:.2f} ms")
 
 
+def smi_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is false)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     log(f"[device] nvidia-smi: {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count "
@@ -465,6 +489,12 @@ VARIANTS = {
         scenes.cornell_box, rtow_spec, scenes.textured_scene,
         scenes.cornell_smoke, scenes.test_bezier, scenes.cornell_bezier,
         scenes.klein_scene, scenes.cornell_klein)],
+    "general-check": [],
+    "general-cli": [],
+    "general-rtow": [((K1,), rtow_spec)],
+    "general-grid": [],
+    "general-rr": [((K1,), scenes.cornell_box)],
+    "general-sort": [],
 }
 
 
@@ -1180,11 +1210,12 @@ def phase_golden(dev):
     check_golden("golden", scene, cam, CONFIG4, GOLDEN)
 
 
-def spec_scene(spec, dtype, dev=None):
-    """A SceneSpec compiled with its own sky; with no `dev` the scene and
-    camera land on the card, the port's default."""
+def spec_scene(spec, dtype, dev=None, bvh=None):
+    """A SceneSpec compiled with its own sky (and a BVH when `bvh` names a
+    builder); with no `dev` the scene and camera land on the card, the
+    port's default."""
     scene = compile_scene(spec.objects, sky=spec.sky, dtype=dtype,
-                          lights=spec.lights, device=dev)
+                          lights=spec.lights, bvh=bvh, device=dev)
     return scene, spec.camera(dtype=dtype, aspect=1.0, device=dev)
 
 
@@ -1889,14 +1920,16 @@ POOLS = (("strided", pool_strided.render_pool_strided, "LAUNCHES"),
 
 
 def launch_counts():
-    return dict(LAUNCHES=bounce.LAUNCHES,
+    """Every kernel wrapper's launch count (K1-K6)."""
+    return dict(LAUNCHES=bounce.LAUNCHES, BWD_LAUNCHES=bounce.BWD_LAUNCHES,
                 PACKED_LAUNCHES=bounce.PACKED_LAUNCHES,
-                PERSIST_LAUNCHES=persist.PERSIST_LAUNCHES)
+                PERSIST_LAUNCHES=persist.PERSIST_LAUNCHES,
+                probe_ops=probe_ops.LAUNCHES, probe_loops=probe_loops.LAUNCHES)
 
 
 def reset_counts():
-    bounce.LAUNCHES = bounce.PACKED_LAUNCHES = 0
-    persist.PERSIST_LAUNCHES = 0
+    bounce.LAUNCHES = bounce.BWD_LAUNCHES = bounce.PACKED_LAUNCHES = 0
+    persist.PERSIST_LAUNCHES = probe_ops.LAUNCHES = probe_loops.LAUNCHES = 0
 
 
 def run_pools(tag, pools, scene, cam, cfg, full, dev, n_timed=N_TIMED):
@@ -2431,6 +2464,370 @@ def phase_full_klein(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The general pool (integrator/pool.render_pool): what bounce.supported
+# rejects — BVH traversal, russian roulette, material sort, more than
+# MAX_FUSED_PRIMS prims.  Plain PyTorch on the card; it launches none of
+# K1-K6 (the JAX pool runs no Pallas kernel either).  Five runs, float32,
+# the pool width auto (65,536 lanes), depth 100.
+# ---------------------------------------------------------------------------
+
+# Eager PyTorch spends about 15 us of host time a launch and the BVH walk
+# about 57 launches a step, so a pool iteration takes 50-120 ms on RTOW and
+# about 100 iterations drain even one pass (its depth-100 tail): the three
+# BVH runs are cut in spp (never in width or depth) to fit the ~180 s these
+# phases may add, as PERF.md records.
+# 1. `render --scene random --bvh sah` at the CLI's defaults, 200x200, cut
+#    from spp16 (four calls of `--chunk` 4 passes) to one call of 4 passes;
+#    its 160,000 work items over 65,536 lanes make lanes i and i + 40,000
+#    flush one pixel in one iteration.
+GEN_CLI = RenderConfig(nx=200, ny=200, spp=4, max_depth=100, seed=0,
+                       traversal="bvh")
+GEN_CLI_CHUNKS = 1
+# 2. the same scene at 512^2 (cut from spp8 to spp1) through the general
+#    pool, SAH and median BVH, beside the fused FIFO render of the
+#    brute-compiled scene.
+GEN_RTOW = RenderConfig(nx=512, ny=512, spp=1, max_depth=100, seed=0,
+                        traversal="bvh")
+# 3. a scene over 4,096 prims: 70 x 70 spheres and the ground (4,901), brute
+#    and SAH, at 512^2 (cut from spp8 to spp1).
+GEN_GRID = RenderConfig(nx=512, ny=512, spp=1, max_depth=100, seed=0)
+GRID_SIDE = 70
+# 4. Cornell, light sampled, russian roulette from depth 4, 512^2 spp16.
+GEN_RR = RenderConfig(nx=512, ny=512, spp=16, max_depth=100, seed=0,
+                      light_sampling=True, russian_roulette=True,
+                      rr_start_depth=4)
+# 5. RTOW 200^2 spp16 with the material-sorted shading, against the masked
+#    shading.
+GEN_SORT = RenderConfig(nx=200, ny=200, spp=16, max_depth=100, seed=0,
+                        material_sort=True)
+N_TIMED_GENERAL = 3
+# The card against the CPU, both float64 and plain PyTorch, per run's scene
+# and options at 24^2 spp2: the same segments, the image within 1e-9.
+GEN_SMALL = dict(nx=24, ny=24, spp=2, max_depth=100, seed=0, dtype="f64")
+
+
+def grid_spec(n=GRID_SIDE * GRID_SIDE):
+    """tools/bench_bvh_crossover.py:26-41's grid_scene(n), from this
+    package's objects: sqrt(n) x sqrt(n) lambertian spheres of radius 0.2
+    and the ground sphere, under the gradient sky."""
+    side = int(round(n ** 0.5))
+    rng = np.random.default_rng(7)
+    objs = [ob.Sphere((0, -1000.0, 0), 1000.0,
+                      ob.Lambertian((0.5, 0.5, 0.5)))]
+    for i in range(side):
+        for j in range(side):
+            c = (i - side / 2 + 0.5, 0.2, j - side / 2 + 0.5)
+            objs.append(ob.Sphere(c, 0.2, ob.Lambertian(
+                tuple(rng.uniform(0.1, 0.9, 3)))))
+    cam_kwargs = dict(lookfrom=(side * 0.9, side * 0.35, side * 0.9),
+                      lookat=(0.0, 0.0, 0.0), vfov=30.0)
+    return scenes.SceneSpec(objs, cam_kwargs, "gradient")
+
+
+def general_render(scene, cam, cfg, chunks=1):
+    """One render from zeros through render_with_stats: `chunks` chained
+    calls of cfg.spp passes, as the CLI renders.  Returns (raw sum, segments,
+    iterations); a value is fetched before it returns."""
+    st = render.init_state(cfg)
+    segs, iters = 0, 0
+    for _ in range(chunks):
+        st, s, i = render.render_with_stats(scene, cam, cfg, st)
+        segs, iters = segs + int(s), iters + i
+    float(st.raw_sum[0, 0, 0])
+    return st.raw_sum, segs, iters
+
+
+def profiled_render(scene, cam, cfg, chunks=1, first=3, n=1):
+    """general_render with pool iterations first .. first + n - 1 of its
+    first call under torch.profiler (a whole render holds too many launches
+    to trace, and reading each event costs the host ~0.1 ms): returns the
+    render's (raw, segments, iterations) and those iterations' device
+    events an iteration and the card's busy share of their wall (None when
+    the profiler saw no device time).  Wraps pool._step for the one
+    render."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    orig = pool._step
+    seen, box = [0], {}
+
+    def step(*a, **k):
+        seen[0] += 1
+        if seen[0] == first:
+            torch.cuda.synchronize()
+            box["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            box["prof"].__enter__()
+            box["t0"] = time.perf_counter()
+        out = orig(*a, **k)
+        if seen[0] == first + n - 1:
+            torch.cuda.synchronize()
+            box["wall"] = time.perf_counter() - box["t0"]
+            box["prof"].__exit__(None, None, None)
+        return out
+
+    pool._step = step
+    try:
+        out = general_render(scene, cam, cfg, chunks)
+    finally:
+        pool._step = orig
+    if "wall" not in box:
+        return out, None
+    ev = [e for e in box["prof"].events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e6
+    return out, dict(launches=len(ev) / n,
+                     busy=busy / box["wall"] if ev else None,
+                     iter_ms=box["wall"] * 1e3 / n)
+
+
+def run_general(tag, what, scene, cam, cfg, chunks=1, n_timed=N_TIMED_GENERAL):
+    """A general-pool run: a warm-up render from zeros (one of its steady
+    pool iterations profiled for its launches and the card's busy share),
+    then n_timed renders from zeros, each image bitwise the warm-up's;
+    walls (minimum, median, maximum), exact segments, iterations and peak
+    memory.  No kernel of K1-K6 may launch."""
+    if bounce.supported(scene, cfg):
+        raise AssertionError(f"[{tag}] bounce.supported takes this scene: "
+                             f"it would not reach the general pool")
+    reset_counts()                            # the main path's counts start
+    t0 = time.perf_counter()
+    (image, segs, iters), prof = profiled_render(scene, cam, cfg, chunks)
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        img, s, i = general_render(scene, cam, cfg, chunks)
+        times.append(time.perf_counter() - t0)
+        if (s, i) != (segs, iters) or not torch.equal(img, image):
+            raise AssertionError(f"[{tag}] a second render differs: segments "
+                                 f"{s} / {segs}, iterations {i} / {iters}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = launch_counts()
+    mean = (image / (cfg.spp * chunks)).cpu().numpy()
+    med = statistics.median(times)
+    log(f"[{tag}] {smi_line()}: {cfg.nx}x{cfg.ny} spp{cfg.spp * chunks}"
+        f"{f' in {chunks} calls' if chunks > 1 else ''} depth{cfg.max_depth} "
+        f"{what}: m={min(cfg.resolve_pool_rays(), cfg.n_pixels * cfg.spp)} "
+        f"segments {segs} in {iters} pool iterations; warm-up "
+        f"{warm * 1e3:.1f} ms (one iteration profiled); times_ms "
+        f"{[round(t * 1e3, 2) for t in times]}; "
+        f"{spread(times)} -> {segs / med:.4e} rays/s; every render bitwise "
+        f"the warm-up's; peak memory {peak:.3f} GiB; kernel launches "
+        f"{counts}")
+    if prof is not None:
+        log(f"[{tag}] the warm-up's pool iteration 3 under the profiler: "
+            f"{prof['launches']:.0f} device launches an iteration, "
+            f"{prof['iter_ms']:.2f} ms an iteration, busy "
+            f"{prof['busy']:.1%}" if prof["busy"] is not None else
+            f"[{tag}] the profiler recorded no device time: not measured")
+    if any(counts.values()):
+        raise AssertionError(f"[{tag}] the general pool launched a kernel: "
+                             f"{counts}")
+    if not np.isfinite(mean).all() or mean.max() <= 0.0:
+        raise AssertionError(f"[{tag}] frame is not finite or is black")
+    log(f"[{tag}] frame mean {mean.mean():.4f} max {mean.max():.3f}")
+    return dict(raw=image, mean=mean, segments=segs, iters=iters,
+                times=times, median_s=med, peak_gib=peak, prof=prof)
+
+
+def check_flush(dev):
+    """The general pool's flush on the card (`pool.flush_add_`: rounds of
+    index_add_ into unique rows) against the CPU's serial index_add_ in lane
+    order, bit for bit, on values whose sum depends on the order: the CLI's
+    duplicates (lane i and i + 40,000) and 64-fold ones, with a third of
+    the lanes not done."""
+    g = torch.Generator().manual_seed(3)
+    m = M
+    draw = lambda *shape: ((torch.rand(*shape, generator=g) - 0.5)
+                           * torch.exp(8.0 * torch.randn(*shape, generator=g)))
+    for n_pix in (40000, 1024):
+        pix = torch.arange(m) % n_pix
+        done = torch.rand(m, generator=g) < 2 / 3
+        val = torch.where(done[:, None], draw(m, 3), 0.0)
+        raw0 = draw(n_pix, 3)                       # earlier passes
+        want = raw0.clone().index_add_(0, pix, val)
+        rev = raw0.clone().index_add_(0, pix.flip(0), val.flip(0))
+        buf = torch.cat([raw0, torch.zeros(m, 3)]).to(dev)
+        got = pool.flush_add_(buf, pix.to(dev), val.to(dev),
+                              done.to(dev))[:n_pix].cpu()
+        log(f"[general-flush] {m} lanes over {n_pix} pixels: the card's "
+            f"flush equals the lane-order add bitwise: "
+            f"{torch.equal(got, want)}; pixels where lane order matters "
+            f"(the reversed add differs): {int((rev != want).any(1).sum())}")
+        if not torch.equal(got, want) or not (rev != want).any():
+            raise AssertionError("[general-flush] the card's flush is not "
+                                 "the lane-order add")
+
+
+def check_general_small(dev):
+    """Each run's scene and options at 24^2 spp2 depth 100 in float64: the
+    general pool on the card against the same pool on the CPU (plain
+    PyTorch both), segments and iterations exact and the image within
+    1e-9; the material-sorted render bitwise the masked one on the card."""
+    rtow, grid = scenes.random_scene(seed=0), grid_spec()
+    cases = (("rtow-sah", rtow, "sah", dict(traversal="bvh")),
+             ("rtow-median", rtow, "median", dict(traversal="bvh")),
+             ("grid-brute", grid, None, {}),
+             ("grid-sah", grid, "sah", dict(traversal="bvh")),
+             ("cornell-rr", scenes.cornell_box(), None,
+              dict(light_sampling=True, russian_roulette=True)),
+             ("rtow-sort", rtow, None, dict(material_sort=True)))
+    for name, spec, bvh, kw in cases:
+        cfg = RenderConfig(**GEN_SMALL, **kw)
+        out = {}
+        for where in (dev, "cpu"):
+            scene, cam = spec_scene(spec, torch.float64, where, bvh)
+            raw, segs, iters = pool.render_pool_auto(
+                scene, cam, cfg, torch.zeros(cfg.n_pixels, 3,
+                                             dtype=torch.float64,
+                                             device=where), 0)
+            out[str(where)] = (raw.cpu(), int(segs), iters)
+        (g, gs, gi), (c, cs, ci) = out[str(dev)], out["cpu"]
+        err = float((g - c).abs().max())
+        log(f"[general-small] {name}: card / CPU segments {gs} / {cs}, "
+            f"iterations {gi} / {ci}, max |image difference| {err:.3e}")
+        if (gs, gi) != (cs, ci) or not torch.allclose(g, c, rtol=1e-9,
+                                                      atol=1e-9):
+            raise AssertionError(f"[general-small] {name}: the card's general "
+                                 f"pool differs from the CPU's")
+    for dtype in (torch.float64, torch.float32):
+        scene, cam = spec_scene(rtow, dtype, dev)
+        cfg = RenderConfig(**{**GEN_SMALL, "dtype": dtype_name(dtype)})
+        z = torch.zeros(cfg.n_pixels, 3, dtype=dtype, device=dev)
+        a = pool.render_pool(scene, cam, cfg, z, 0)
+        b = pool.render_pool(scene, cam, cfg.replace(material_sort=True), z,
+                             0)
+        same = torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
+        log(f"[general-small] rtow {dtype_name(dtype)}: the material-sorted "
+            f"render equals the masked one bitwise: {same}")
+        if not same:
+            raise AssertionError("[general-small] shade_sorted differs from "
+                                 "shade on the card")
+
+
+def phase_general_check(dev):
+    check_flush(dev)
+    check_general_small(dev)
+
+
+def phase_general_cli(dev):
+    """Run 1: `render --scene random --bvh sah` at the CLI's defaults."""
+    scene, cam = spec_scene(scenes.random_scene(seed=0), torch.float32, dev,
+                            "sah")
+    return run_general("general-cli", "random, SAH BVH", scene, cam, GEN_CLI,
+                       chunks=GEN_CLI_CHUNKS)
+
+
+def phase_general_rtow(dev):
+    """Run 2: the RTOW scene at 512^2 through the general pool with the SAH
+    and the median BVH, against each other (within 1e-5) and against the
+    fused FIFO render of the brute-compiled scene (tests/test_parity.py's
+    bounds; segments within tests/test_bounce.py's 0.01 s + 50)."""
+    spec = scenes.random_scene(seed=0)
+    out = {}
+    for bvh in ("sah", "median"):
+        scene, cam = spec_scene(spec, torch.float32, dev, bvh)
+        out[bvh] = run_general(f"general-rtow-{bvh}", f"RTOW, {bvh} BVH",
+                               scene, cam, GEN_RTOW)
+    d = np.abs(out["sah"]["mean"] - out["median"]["mean"]).max()
+    log(f"[general-rtow] SAH against median: max |difference| {d:.3e} "
+        f"(< 1e-5)")
+    if not d < 1e-5:
+        raise AssertionError("[general-rtow] the SAH and median images differ")
+    scene, cam = spec_scene(spec, torch.float32, dev)
+    fused_cfg = GEN_RTOW.replace(traversal="brute")
+    reset_counts()
+    st, fsegs, fiters = render.render_with_stats(scene, cam, fused_cfg,
+                                                 render.init_state(fused_cfg))
+    if bounce.LAUNCHES != fiters:
+        raise AssertionError("[general-rtow] the fused render did not run K1")
+    fmean = (st.raw_sum / fused_cfg.spp).cpu().numpy()
+    diff = np.abs(out["sah"]["mean"] - fmean)
+    mae, outliers = diff.mean(), (diff.max(axis=-1) > 0.05).mean()
+    gsegs, fsegs = out["sah"]["segments"], int(fsegs)
+    log(f"[general-rtow] general (SAH) against the fused FIFO render "
+        f"({fiters} K1 launches): MAE {mae:.3e} (< 5e-3), pixels off by > "
+        f"0.05: {outliers:.4%} (< 1%); segments {gsegs} / {fsegs} "
+        f"(|difference| {abs(gsegs - fsegs)} <= {0.01 * gsegs + 50:.0f})")
+    if not (mae < 5e-3 and outliers < 0.01
+            and abs(gsegs - fsegs) <= 0.01 * gsegs + 50):
+        raise AssertionError("[general-rtow] the general pool is off the "
+                             "fused render")
+    return out
+
+
+def phase_general_grid(dev):
+    """Run 3: 4,901 prims (70 x 70 spheres and the ground) through the brute
+    general pool and the SAH BVH, compared as
+    tests/test_bvh.py::test_grid_scene_image_identical_brute_vs_bvh does
+    (mean |difference| < 2e-3, under 2% of pixels off by > 0.05)."""
+    spec = grid_spec()
+    out = {}
+    for name, bvh, cfg in (("brute", None, GEN_GRID),
+                           ("sah", "sah", GEN_GRID.replace(traversal="bvh"))):
+        scene, cam = spec_scene(spec, torch.float32, dev, bvh)
+        out[name] = run_general(f"general-grid-{name}",
+                                f"grid of {scene.sph_r.shape[0]} spheres, "
+                                f"{name}", scene, cam, cfg)
+    diff = np.abs(out["brute"]["mean"] - out["sah"]["mean"])
+    mae, outliers = diff.mean(), (diff.max(axis=-1) > 0.05).mean()
+    ratio = out["sah"]["median_s"] / out["brute"]["median_s"]
+    log(f"[general-grid] SAH against brute: mean |difference| {mae:.3e} "
+        f"(< 2e-3), max {diff.max():.3e}, pixels off by > 0.05 "
+        f"{outliers:.4%} (< 2%); wall SAH / brute {ratio:.3f}")
+    if not (mae < 2e-3 and outliers < 0.02):
+        raise AssertionError("[general-grid] the SAH image is off the brute "
+                             "image")
+    return out
+
+
+def phase_general_rr(dev):
+    """Run 4: Cornell, light sampled, with russian roulette; its frame mean
+    against the fused render's without (an unbiased estimator of the same
+    image: within 2%), with fewer segments."""
+    scene, cam = spec_scene(scenes.cornell_box(), torch.float32, dev)
+    out = run_general("general-rr", "Cornell, russian roulette", scene, cam,
+                      GEN_RR)
+    plain = GEN_RR.replace(russian_roulette=False)
+    st, segs, _ = render.render_with_stats(scene, cam, plain,
+                                           render.init_state(plain))
+    ref = float((st.raw_sum / plain.spp).mean())
+    rel = abs(float(out["mean"].mean()) - ref) / ref
+    log(f"[general-rr] frame mean {float(out['mean'].mean()):.5f} against "
+        f"{ref:.5f} without roulette (relative {rel:.3e}, < 2e-2); segments "
+        f"{out['segments']} against {int(segs)}")
+    if not (rel < 2e-2 and out["segments"] < int(segs)):
+        raise AssertionError("[general-rr] the roulette render is off")
+    return out
+
+
+def phase_general_sort(dev):
+    """Run 5: RTOW with the material-sorted shading, timed, and its image
+    bitwise the masked shading's: one render of the general pool called
+    directly (render_pool_auto sends RTOW without the sort to the fused
+    pool), also timed."""
+    scene, cam = spec_scene(scenes.random_scene(seed=0), torch.float32,
+                            dev)
+    out = run_general("general-sort", "RTOW, material sort", scene, cam,
+                      GEN_SORT)
+    masked_cfg = GEN_SORT.replace(material_sort=False)
+    t0 = time.perf_counter()
+    raw, segs, iters = pool.render_pool(
+        scene, cam, masked_cfg,
+        torch.zeros(masked_cfg.n_pixels, 3, device=dev), 0)
+    float(raw[0, 0])
+    wall = time.perf_counter() - t0
+    same = (torch.equal(out["raw"].reshape(-1, 3), raw)
+            and out["segments"] == int(segs) and out["iters"] == iters)
+    log(f"[general-sort] sorted against masked shading: bitwise {same}; "
+        f"median wall sorted {out['median_s'] * 1e3:.2f} ms, one masked "
+        f"render {wall * 1e3:.2f} ms ({int(segs)} segments, {iters} "
+        f"iterations)")
+    if not same:
+        raise AssertionError("[general-sort] the sorted render differs")
+    return out, wall
+
+
 # The scenes of the kernel-tile phase: the eight scenes of the full-size
 # paths and the two tie plans, each with its kernel phase's lanes.
 PATH_SCENES = ("cornell", "rtow", "textured", "cornell_smoke", "bezier",
@@ -2866,6 +3263,12 @@ PHASES = {
     "full-klein": lambda dev, r: phase_full_klein(dev),
     "kernel-tile": lambda dev, r: phase_kernel_tile(dev, r["build"]),
     "persist-w1": lambda dev, r: phase_persist_w1(dev),
+    "general-check": lambda dev, r: phase_general_check(dev),
+    "general-cli": lambda dev, r: phase_general_cli(dev),
+    "general-rtow": lambda dev, r: phase_general_rtow(dev),
+    "general-grid": lambda dev, r: phase_general_grid(dev),
+    "general-rr": lambda dev, r: phase_general_rr(dev),
+    "general-sort": lambda dev, r: phase_general_sort(dev),
 }
 # A phase that reads another's result brings it along.
 NEEDS = {"pools-full": ("full",)}

@@ -69,7 +69,8 @@ class RenderConfig:
     light_sampling: bool = False  # mixture cosine/light PDF (pdf.scm intent, B5)
     russian_roulette: bool = False  # OFF for parity (SURVEY §7.3 item 3)
     rr_start_depth: int = 4
-    # "brute" masked sweep or "bvh" traversal (the latter is not ported yet)
+    # "brute" masked sweep or "bvh" traversal (general pool; needs a scene
+    # compiled with bvh=, else it brute-forces)
     traversal: str = "brute"
     # Reverse-mode path (fixed-length scan); not ported yet
     differentiable: bool = False
@@ -87,7 +88,7 @@ class RenderConfig:
     # Bezier intersection: seed samples and Newton steps
     bezier_seeds: int = 32
     bezier_newton: int = 8
-    # Material-sorted shading for the general pool (not ported yet)
+    # Material-sorted shading for the general pool (bit-identical to masked)
     material_sort: bool = False
 
     def replace(self, **kw) -> "RenderConfig":

@@ -1,1 +1,2 @@
-"""Integrators: the fused bounce step and the regeneration pools."""
+"""Integrators: the fused bounce step, the general pool's hit query and
+shading, and the regeneration pools."""

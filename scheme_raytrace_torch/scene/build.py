@@ -5,8 +5,6 @@ flat, typed parameter arrays and the material/texture object graph becomes
 integer-id tables.  The host-side flattening is the JAX module's, line for
 line, in numpy; only the final arrays become torch tensors on `device`.
 The float fields are the differentiable scene leaves (`partition`).
-
-Not ported yet: the flat sphere BVH (`bvh=`, ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import bvh as bvh_mod
 from . import objects as ob
 from ..config import resolve_device
 
@@ -53,7 +52,8 @@ _DATA_FIELDS = [
     # textures
     "tex_type", "tex_color", "tex_child0", "tex_child1", "tex_scale",
     "tex_image", "tex_iw", "tex_ih", "images",
-    # flat threaded sphere BVH (empty until A.11 ports scene/bvh.py)
+    # flat threaded BVH over spheres and rects (scene/bvh.py;
+    # geometry.scm:217-374)
     "bvh_pmin", "bvh_pmax", "bvh_hit", "bvh_miss", "bvh_prims",
     # sky gradient endpoints (black sky = both zero)
     "sky_a", "sky_b",
@@ -283,12 +283,10 @@ def compile_scene(objs: Sequence[ob.Hittable], sky: str = "black",
     `sky`: "gradient" (main.scm:91-95) or "black" (main.scm:97-98).
     `lights`: hittables to importance-sample (xz-rects/spheres); default:
     auto-detect primitives with DiffuseLight material.
-    `bvh`: must be None until the BVH build is ported (ROADMAP A.11).
+    `bvh`: None (brute-force sweeps), "median" (geometry.scm:217-260) or
+    "sah" (geometry.scm:282-374) — builds a flat threaded BVH over the
+    spheres and rects, traversed when RenderConfig.traversal == "bvh".
     """
-    if bvh is not None:
-        raise NotImplementedError(
-            "compile_scene(bvh=...): the BVH build is not ported yet "
-            "(ROADMAP A.11)")
     mats = _Registry()
     texs = _Registry()
 
@@ -484,9 +482,32 @@ def compile_scene(objs: Sequence[ob.Hittable], sky: str = "black",
     else:
         sky_a, sky_b = np.asarray(sky[0], np.float64), np.asarray(sky[1], np.float64)
 
-    bvh_arrays = (np.zeros((1, 3)), np.zeros((1, 3)),
-                  np.full(1, -1, np.int32), np.full(1, -1, np.int32),
-                  np.full((1, 4), -1, np.int32))
+    # ---- analytic-prim BVH (optional) ---------------------------------------
+    # Global prim ids: spheres [0, nS), rects [nS, nS + nR) — one tree over
+    # both groups (beziers and the klein keep their own sweeps).
+    has_bvh = bvh is not None and bool(spheres or rects)
+    if has_bvh:
+        parts_min, parts_max = [], []
+        if spheres:
+            s_pmin, s_pmax = bvh_mod.sphere_bounds(sph_c0, sph_c1, sph_r)
+            parts_min.append(s_pmin)
+            parts_max.append(s_pmax)
+        if rects:
+            r_pmin, r_pmax = bvh_mod.rect_bounds(
+                rect_axis, rect_k, rect_a0, rect_a1, rect_b0, rect_b1,
+                rect_rot, rect_trans)
+            parts_min.append(r_pmin)
+            parts_max.append(r_pmax)
+        b_pmin = np.concatenate(parts_min)
+        b_pmax = np.concatenate(parts_max)
+        flat = (bvh_mod.build_sah(b_pmin, b_pmax) if bvh == "sah"
+                else bvh_mod.build_median(b_pmin, b_pmax, bvh_seed))
+        bvh_arrays = (flat.pmin, flat.pmax, flat.hit_link, flat.miss_link,
+                      flat.prims)
+    else:
+        bvh_arrays = (np.zeros((1, 3)), np.zeros((1, 3)),
+                      np.full(1, -1, np.int32), np.full(1, -1, np.int32),
+                      np.full((1, 4), -1, np.int32))
 
     arrays = dict(
         sph_c0=sph_c0, sph_c1=sph_c1, sph_t0=sph_t0, sph_t1=sph_t1,
@@ -525,7 +546,7 @@ def compile_scene(objs: Sequence[ob.Hittable], sky: str = "black",
         has_rect_xform=bool(rects) and not all(
             np.allclose(xf.rot, np.eye(3)) and np.allclose(xf.trans, 0.0)
             for (_, xf, _, _) in rects),
-        has_bvh=False,
+        has_bvh=has_bvh,
         perlin_seed=perlin_seed,
         img_dims=tuple(
             (int(np.asarray(t.data).shape[0]), int(np.asarray(t.data).shape[1]))

@@ -16,7 +16,10 @@ the klein scenes (the sphere trace in K1-K4 and its implicit-function
 adjoint in K2, and a variant without the klein flag refusing a klein plan),
 and K1, K2, K3 and K4 at every tile width of threads a lane bit for bit
 against the one-thread search (w = 1), on the tie plans of chip_smoke.py
-among others, K4 at every width also against 32 K3 launches.
+among others, K4 at every width also against 32 K3 launches; and the
+general pool on the card (no kernel): its flush bitwise the lane-order sum,
+its float64 renders equal to the CPU's (BVH, russian roulette, material
+sort), the sorted shading bitwise the masked one, a 4,901-sphere scene.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -1462,3 +1465,96 @@ def test_packed_kernels_refuse_a_tile_width(cuda):
         err = fn(ptrs, *head, *bounce.queue_args(plan, 256, 256, 256, 0, 256),
                  torch.cuda.current_stream().cuda_stream)
         assert err == 1, n_ptrs                    # cudaErrorInvalidValue
+
+
+# ---------------------------------------------------------------------------
+# The general pool (integrator/pool.render_pool) on the card: plain PyTorch,
+# no kernel of K1-K6.
+# ---------------------------------------------------------------------------
+
+def test_general_flush_is_the_lane_order_sum_on_the_card(cuda):
+    """pool.flush_add_ on CUDA tensors (rounds of index_add_ into unique
+    rows) equals the CPU's serial index_add_ bit for bit, where lane order
+    shows in float32."""
+    from scheme_raytrace_torch.integrator import pool
+    g = torch.Generator().manual_seed(0)
+    m, n_pix = 65536, 40000
+    pix = torch.arange(m) % n_pix
+    done = torch.rand(m, generator=g) < 0.7
+    val = torch.where(done[:, None], (torch.rand(m, 3, generator=g) - 0.5)
+                      * torch.exp(8 * torch.randn(m, 3, generator=g)), 0.0)
+    raw0 = torch.randn(n_pix, 3, generator=g)
+    want = raw0.clone().index_add_(0, pix, val)
+    assert not torch.equal(raw0.clone().index_add_(0, pix.flip(0),
+                                                   val.flip(0)), want)
+    buf = torch.cat([raw0, torch.zeros(m, 3)]).to(cuda)
+    got = pool.flush_add_(buf, pix.to(cuda), val.to(cuda), done.to(cuda))
+    assert torch.equal(got[:n_pix].cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["random-sah", "random-median",
+                                  "cornell-rr", "random-sort"])
+def test_general_pool_on_the_card_equals_the_cpu_f64(cuda, case):
+    """The general pool in float64 on the card and on the CPU (both plain
+    PyTorch): segments and iterations exact, the image within 1e-9; no
+    kernel launches."""
+    from scheme_raytrace_torch.integrator import pool
+    name, opt = case.split("-")
+    spec = (scenes.random_scene(seed=0) if name == "random"
+            else scenes.cornell_box())
+    bvh = opt if opt in ("sah", "median") else None
+    kw = dict(sah=dict(traversal="bvh"), median=dict(traversal="bvh"),
+              rr=dict(russian_roulette=True, light_sampling=True),
+              sort=dict(material_sort=True))[opt]
+    cfg = RenderConfig(nx=16, ny=16, spp=2, max_depth=100, dtype="f64", **kw)
+    out = []
+    before = (bounce.LAUNCHES, bounce.PACKED_LAUNCHES,
+              persist.PERSIST_LAUNCHES)
+    for dev in (cuda, "cpu"):
+        scene = compile_scene(spec.objects, sky=spec.sky, bvh=bvh,
+                              dtype=torch.float64, device=dev)
+        cam = spec.camera(aspect=1.0, dtype=torch.float64, device=dev)
+        raw, segs, iters = pool.render_pool_auto(
+            scene, cam, cfg, torch.zeros(256, 3, dtype=torch.float64,
+                                         device=dev), 0)
+        out.append((raw.cpu(), int(segs), iters))
+    assert (bounce.LAUNCHES, bounce.PACKED_LAUNCHES,
+            persist.PERSIST_LAUNCHES) == before
+    assert out[0][1:] == out[1][1:]
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-9, atol=1e-9)
+
+
+def test_general_shade_sorted_is_bitwise_on_the_card(cuda):
+    """material_sort on the card: the sorted render equals the masked one
+    bit for bit in float32 (shade is elementwise on the card's lanes)."""
+    from scheme_raytrace_torch.integrator import pool
+    spec = scenes.random_scene(seed=0)
+    scene = compile_scene(spec.objects, sky=spec.sky, device=cuda)
+    cam = spec.camera(aspect=1.0, device=cuda)
+    cfg = RenderConfig(nx=32, ny=32, spp=2, max_depth=100)
+    z = torch.zeros(cfg.n_pixels, 3, device=cuda)
+    a = pool.render_pool(scene, cam, cfg, z, 0)
+    b = pool.render_pool(scene, cam, cfg.replace(material_sort=True), z, 0)
+    assert torch.equal(a[0], b[0]) and int(a[1]) == int(b[1]) and a[2] == b[2]
+
+
+def test_general_pool_over_4096_prims_on_the_card(cuda):
+    """A scene over MAX_FUSED_PRIMS renders through render_image on the
+    card (the general pool's [N, S] sweep, and its SAH BVH) with no kernel
+    launch, and both images agree."""
+    import chip_smoke
+    spec = chip_smoke.grid_spec()
+    cfg = RenderConfig(nx=32, ny=32, spp=1, max_depth=100)
+    imgs = []
+    before = bounce.LAUNCHES
+    for bvh in (None, "sah"):
+        scene = compile_scene(spec.objects, sky=spec.sky, bvh=bvh,
+                              device=cuda)
+        assert not bounce.supported(scene, cfg)
+        mean, _ = render.render_image(
+            scene, spec.camera(aspect=1.0, device=cuda),
+            cfg.replace(traversal="bvh" if bvh else "brute"))
+        imgs.append(mean)
+    assert bounce.LAUNCHES == before
+    assert torch.isfinite(imgs[0]).all() and imgs[0].max() > 0
+    assert (imgs[0] - imgs[1]).abs().mean() < 2e-3

@@ -80,10 +80,14 @@ def test_compile_scene_equals_jax(name):
 
 
 def test_compile_scene_bvh_not_ported():
-    spec = t_scenes.test_scene()
-    with pytest.raises(NotImplementedError, match="A.11"):
-        t_build.compile_scene(spec.objects, sky=spec.sky, bvh="sah",
-                              device="cpu")
+    # the BVH build is ported: compile_scene(bvh="sah") fills the bvh_*
+    # fields as the JAX package does (tests/test_torch_bvh.py for more)
+    j_spec, t_spec = j_scenes.test_scene(), t_scenes.test_scene()
+    j_scene = j_build.compile_scene(j_spec.objects, sky=j_spec.sky, bvh="sah")
+    t_scene = t_build.compile_scene(t_spec.objects, sky=t_spec.sky, bvh="sah",
+                                    device="cpu")
+    assert t_scene.has_bvh and j_scene.has_bvh
+    _assert_scene_equal(j_scene, t_scene)
 
 
 def test_scene_from_arrays_round_trips():

@@ -8,8 +8,9 @@ sampling (BASELINE config 4), the forward render through the three strided
 work pools, the op and loop probes, the sphere scenes up to the RTOW
 final scene (227 spheres) forward and fwd+bwd, and the textured and smoke
 scenes (hash-Perlin noise and marble, image texels, constant media) forward
-and fwd+bwd, the bezier scenes and the klein scenes forward and fwd+bwd, and
-the general pool (BVH, russian roulette, material sort, 4,901 prims), in
+and fwd+bwd, the bezier scenes and the klein scenes forward and fwd+bwd,
+the general pool (BVH, russian roulette, material sort, 4,901 prims), and
+the differentiable wavefront (render_pass and its gradients), in
 phases; any
 failure raises and the exit code is non-zero.  `--phases` takes a
 comma-separated selection of the phase names in PHASES (the default is every
@@ -159,6 +160,25 @@ kernel table:
      at 512^2 spp16 (general-rr); RTOW 200^2 spp16 with the material-sorted
      shading, bitwise the masked (general-sort).  The BVH runs are cut in spp
      to fit the time limit.
+ 37. the differentiable wavefront (integrator/wavefront.py, render_pass,
+     plain PyTorch, threefry keys, no kernel) against its references
+     (wave-check): float64 on the card against the CPU on three scenes (the
+     while mode's render_pass within 1e-9 with exact segments, the scan's
+     gradients of every leaf and camera field within 1e-9); the six parity
+     configs' float64 gradients against the goldens' grad_ad (1e-6) and
+     their float32 gradients on the big workload (16x16 spp32, spp128 for
+     config 5) against grad_ad_big within each config's f32_grad_rtol; the
+     scan's image bitwise the while mode's, several passes in one wavefront
+     bitwise one at a time; two identical float32 gradient runs, bitwise or
+     the leaves that differ, beside the graph's accumulating backward nodes;
+ 38. the flagship entry's workload at full size (wave-full): BASELINE config
+     4 at 512x512 spp1 depth 100, float32: render_pass in the while mode (a
+     warm-up, its third bounce profiled, then three passes) and the
+     differentiable training step (loss sum(mean^2)/numel, every leaf's and
+     camera field's gradient, a warm-up and three steps chained by
+     params -= 1e-6 grad, then steps at depths 2 and 4 profiled for the
+     launches a bounce and the busy share), with segments, bounces and peak
+     memory, and no kernel of K1-K6 launched.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -182,11 +202,13 @@ import time
 import numpy as np
 import torch
 
-from scheme_raytrace_torch import render, scenes
+from scheme_raytrace_torch import parity, render, scenes
+from scheme_raytrace_torch.camera import CAMERA_FIELDS, Camera
 from scheme_raytrace_torch.config import SHADOW_EPS, RenderConfig
+from scheme_raytrace_torch.core import rng
 from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
                                               pool, pool_fused, pool_packed,
-                                              pool_strided)
+                                              pool_strided, wavefront)
 from scheme_raytrace_torch.scene import build, compile_scene
 from scheme_raytrace_torch.scene import objects as ob
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
@@ -495,6 +517,8 @@ VARIANTS = {
     "general-grid": [],
     "general-rr": [((K1,), scenes.cornell_box)],
     "general-sort": [],
+    "wave-check": [],
+    "wave-full": [],
 }
 
 
@@ -2828,6 +2852,382 @@ def phase_general_sort(dev):
     return out, wall
 
 
+# ---------------------------------------------------------------------------
+# The differentiable wavefront (integrator/wavefront.py, render.render_pass,
+# render.render_passes): plain PyTorch on the card, threefry keys, no kernel
+# (the JAX wavefront runs no Pallas kernel either).  The flagship entry's
+# path (`__graft_entry__.entry()` runs render_pass) and the path of the
+# parity harness's gradient goldens.
+# ---------------------------------------------------------------------------
+
+# wave-check: the card against the CPU, float64, at small sizes: the while
+# mode's render_pass (image within 1e-9, exact segments) and the scan's
+# gradients of every leaf and camera field (within 1e-9 of the largest
+# |gradient| floor, test_parity.py's scale rule)
+WAVE_SMALL = (
+    ("cornell", scenes.cornell_box,
+     dict(nx=16, ny=16, max_depth=8, light_sampling=True)),
+    ("cornell_smoke", scenes.cornell_smoke,
+     dict(nx=8, ny=8, max_depth=8, light_sampling=True)),
+    ("cornell_klein", scenes.cornell_klein, dict(nx=8, ny=8, max_depth=8)),
+)
+WAVE_GRAD = dict(nx=8, ny=8, spp=1, max_depth=2, seed=0, dtype="f64",
+                 differentiable=True)
+WAVE_F64_GOLDEN_RTOL = 1e-6       # the card's f64 AD against grad_ad
+# two identical f32 gradient runs, and the scan against the while mode
+WAVE_REPEAT = RenderConfig(nx=64, ny=64, spp=1, max_depth=8, seed=0,
+                           light_sampling=True, differentiable=True)
+WAVE_SCAN = RenderConfig(nx=64, ny=64, spp=1, max_depth=100, seed=0,
+                         light_sampling=True)
+# wave-full: BASELINE config 4 at its nominal 512^2, spp1, depth 100, f32
+WAVE_FULL = RenderConfig(nx=512, ny=512, spp=1, max_depth=100, seed=0,
+                         light_sampling=True)
+# autograd nodes whose CUDA backward adds into a gathered tensor: through
+# float atomics (index_add_, scatter_add_) or a sort (index_put_ with
+# accumulate=True, embedding's segments: core/vecmath.take)
+ACCUMULATING_NODES = {
+    "EmbeddingBackward0": "embedding_dense_backward (sorted segments)",
+    "IndexBackward0": "index_put_(accumulate=True)",
+    "IndexSelectBackward0": "index_add_ (atomicAdd)",
+    "GatherBackward0": "scatter_add_ (atomicAdd)",
+    "TakeAlongDimBackward0": "scatter_add_ (atomicAdd)",
+}
+
+
+def wave_grads(scene, cam, cfg, loss_fn=None, walk=False):
+    """Every float leaf's and camera field's gradient of a differentiable
+    render (the mean image's mean, or loss_fn(mean)): (loss, {name:
+    gradient}, and with `walk` the graph's accumulating nodes {name:
+    count})."""
+    params, rest = build.partition(scene)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    c = Camera(**{f: getattr(cam, f).detach().clone().requires_grad_()
+                  for f in CAMERA_FIELDS})
+    mean, _ = render.render_image(build.combine(params, rest), c, cfg)
+    loss = mean.mean() if loss_fn is None else loss_fn(mean)
+    nodes, seen, todo = {}, set(), [loss.grad_fn] if walk else []
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        name = type(fn).__name__
+        if name in ACCUMULATING_NODES:
+            nodes[name] = nodes.get(name, 0) + 1
+        todo.extend(f for f, _ in fn.next_functions)
+    leaves = list(params.values()) + [getattr(c, f) for f in CAMERA_FIELDS]
+    names = list(params) + [f"camera:{f}" for f in CAMERA_FIELDS]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss, {n: (torch.zeros_like(x) if g is None else g).cpu().double()
+                  for n, x, g in zip(names, leaves, grads)}, nodes
+
+
+def rel_to_floor(got, want):
+    """|got - want| over max(|want|, 5% of the largest |want|): the scale
+    rule of tests/test_parity.py:85, over every named gradient at once."""
+    top = max(float(w.abs().max()) for w in want.values() if w.numel())
+    return {k: float(((got[k] - w).abs()
+                      / torch.clamp(w.abs(), min=0.05 * top + 1e-300)).max())
+            if w.numel() else 0.0 for k, w in want.items()}, top
+
+
+def wave_pass(scene, cam, cfg, pass_idx=0):
+    """The while mode's pass `pass_idx`: its RayState (radiance, segments,
+    bounces run) through render._trace_passes, the pass's keys as
+    render_pass derives them."""
+    dev = scene.device
+    key = rng.fold_in(rng.root_key(cfg.seed, dev), pass_idx)
+    return render._trace_passes(scene, cam, cfg, key, cfg.torch_dtype)
+
+
+def check_wave_small(dev):
+    """Per WAVE_SMALL scene, float64, the card against the CPU: the while
+    mode's pass (image within 1e-9, segments and bounces exact) and the
+    scan's gradients at 8^2 depth 2 (within 1e-9 of the floor)."""
+    for name, spec_fn, kw in WAVE_SMALL:
+        spec = spec_fn()
+        cfg = RenderConfig(spp=1, seed=0, dtype="f64", **kw)
+        gcfg = RenderConfig(**WAVE_GRAD,
+                            light_sampling=kw.get("light_sampling", False))
+        out = {}
+        for where in (dev, "cpu"):
+            scene, cam = spec_scene(spec, torch.float64, where)
+            st = wave_pass(scene, cam, cfg)
+            _, grads, _ = wave_grads(scene, cam, gcfg)
+            out[str(where)] = (st.radiance.cpu(), int(st.segments), st.depth,
+                               grads)
+        (g, gs, gd, gg), (c, cs, cd, cg) = out[str(dev)], out["cpu"]
+        err = float((g - c).abs().max())
+        rel, top = rel_to_floor(gg, cg)
+        worst = max(rel, key=rel.get)
+        log(f"[wave-check] {name} f64 {cfg.nx}x{cfg.ny} depth"
+            f"{cfg.max_depth}: card / CPU segments {gs} / {cs}, bounces "
+            f"{gd} / {cd}, max |image difference| {err:.3e}; gradients of "
+            f"{len(rel)} leaves at 8x8 depth 2: worst {worst} "
+            f"{rel[worst]:.3e} of the floor (largest |gradient| {top:.4e})")
+        if ((gs, gd) != (cs, cd) or not torch.allclose(g, c, rtol=1e-9,
+                                                      atol=1e-9)
+                or rel[worst] >= 1e-9
+                or not all(bool(torch.isfinite(x).all())
+                           for x in gg.values())):
+            raise AssertionError(f"[wave-check] {name}: the card's wavefront "
+                                 f"differs from the CPU's")
+
+
+def check_wave_goldens(dev):
+    """The six parity configs on the card: f64 AD on the small workload
+    against grad_ad, and f32 AD on the big one (16^2 spp32, spp128 for
+    config 5) against grad_ad_big within each config's f32_grad_rtol
+    (tests/test_parity.py::test_gradients_match_f64_oracle)."""
+    out = {}
+    for pc in parity.PARITY_CONFIGS:
+        g = np.load(os.path.join(ROOT, parity.GOLDEN_DIR, f"{pc.name}.npz"))
+        t0 = time.perf_counter()
+        ad64 = parity.probe_gradients(pc, torch.float64, "ad", device=dev)
+        t1 = time.perf_counter()
+        ad32 = parity.probe_gradients(pc, torch.float32, "ad", big=True,
+                                      device=dev)
+        t2 = time.perf_counter()
+        scale64 = np.maximum(np.abs(g["grad_ad"]),
+                             0.05 * np.abs(g["grad_ad"]).max() + 1e-7)
+        rel64 = np.abs(ad64 - g["grad_ad"]) / scale64
+        ref = g["grad_ad_big"]
+        scale = np.maximum(np.abs(ref), 0.05 * np.abs(ref).max() + 1e-7)
+        rel32 = np.abs(ad32 - ref) / scale
+        log(f"[wave-check] {pc.name}: f64 AD {ad64.tolist()} against "
+            f"grad_ad, worst {rel64.max():.3e} ({t1 - t0:.2f} s); f32 AD "
+            f"16x16 spp{pc.grad_spp_big} {ad32.tolist()} against "
+            f"grad_ad_big {ref.tolist()}: rel {rel32.round(4).tolist()} "
+            f"(bound {pc.f32_grad_rtol}; {t2 - t1:.2f} s)")
+        if (not np.isfinite(ad32).all() or rel64.max() >= WAVE_F64_GOLDEN_RTOL
+                or (rel32 >= pc.f32_grad_rtol).any()):
+            raise AssertionError(f"[wave-check] {pc.name}: the card's "
+                                 f"gradients miss the goldens")
+        out[pc.name] = dict(rel64=float(rel64.max()),
+                            rel32=rel32.tolist(), f32_s=t2 - t1)
+    return out
+
+
+def check_wave_modes(dev):
+    """f32 on the card: the scan's image bitwise the while mode's (64^2
+    depth 100), and several passes in one wavefront bitwise one at a
+    time."""
+    scene, cam = spec_scene(scenes.cornell_box(), torch.float32, dev)
+    wh = wave_pass(scene, cam, WAVE_SCAN)
+    sc = wave_pass(scene, cam, WAVE_SCAN.replace(differentiable=True))
+    same = (torch.equal(wh.radiance, sc.radiance)
+            and int(wh.segments) == int(sc.segments))
+    log(f"[wave-check] scan against while, f32 {WAVE_SCAN.nx}x"
+        f"{WAVE_SCAN.ny} depth {WAVE_SCAN.max_depth}: bitwise {same}; segments {int(wh.segments)}; bounces {wh.depth} (while) / "
+        f"{sc.depth} (scan)")
+    cfg = RenderConfig(nx=16, ny=16, spp=6, max_depth=8, seed=0,
+                       light_sampling=True, differentiable=True)
+    st0 = render.init_state(cfg, device=scene.device)
+    batched, _ = render.render_passes(scene, cam, cfg, st0)
+    seq = st0
+    for _ in range(cfg.spp):
+        seq = render.render_pass(scene, cam, cfg, seq, seq.sample_count)
+    one = torch.equal(batched.raw_sum, seq.raw_sum)
+    log(f"[wave-check] {cfg.spp} passes in one wavefront against one at a "
+        f"time, f32 16x16: bitwise {one}")
+    if not (same and one):
+        raise AssertionError("[wave-check] the wavefront's modes differ")
+
+
+def check_wave_repeat(dev):
+    """Two identical f32 gradient runs (WAVE_REPEAT, Cornell): bitwise
+    equal, or the leaves that differ and by how much, beside the graph's
+    nodes whose backward accumulates into a gathered tensor."""
+    scene, cam = spec_scene(scenes.cornell_box(), torch.float32, dev)
+    _, a, nodes = wave_grads(scene, cam, WAVE_REPEAT, walk=True)
+    _, b, _ = wave_grads(scene, cam, WAVE_REPEAT)
+    differ = {k: float((a[k] - b[k]).abs().max()) for k in a
+              if not torch.equal(a[k], b[k])}
+    named = {k: f"{n} x {ACCUMULATING_NODES[k]}" for k, n in nodes.items()}
+    log(f"[wave-check] two f32 gradient runs ({WAVE_REPEAT.nx}x"
+        f"{WAVE_REPEAT.ny} depth {WAVE_REPEAT.max_depth}, {len(a)} leaves): bitwise equal: {not differ}; leaves that differ (max "
+        f"|difference|): {differ or 'none'}; accumulating backward nodes "
+        f"in the graph: {named}")
+    return dict(differ=differ, nodes=nodes)
+
+
+def phase_wave_check(dev):
+    reset_counts()
+    check_wave_small(dev)
+    goldens = check_wave_goldens(dev)
+    check_wave_modes(dev)
+    repeat = check_wave_repeat(dev)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[wave-check] a kernel launched: {counts}")
+    return dict(goldens=goldens, repeat=repeat)
+
+
+def profiled_bounce(fn, which=3):
+    """Run fn() with the `which`-th wavefront bounce under torch.profiler:
+    (fn's result, that bounce's device launches, its wall ms and the card's
+    busy share of it).  Wraps wavefront._bounce for the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    orig, seen, box = wavefront._bounce, [0], {}
+
+    def bounce_fn(*a, **k):
+        seen[0] += 1
+        if seen[0] != which:
+            return orig(*a, **k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            box["wall"] = time.perf_counter() - t0
+        box["ev"] = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        return out
+
+    wavefront._bounce = bounce_fn
+    try:
+        out = fn()
+    finally:
+        wavefront._bounce = orig
+    ev = box["ev"]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e6
+    return out, len(ev), box["wall"] * 1e3, (busy / box["wall"] if ev
+                                             else None)
+
+
+def profiled_step(step):
+    """One call of step() under torch.profiler (device events only): its
+    device launches, wall ms, the card's busy share and {kernel name:
+    (device us, launches)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    table = {}
+    for e in ev:
+        us, k = table.get(e.name, (0.0, 0))
+        table[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    busy = sum(us for us, _ in table.values()) / 1e6
+    return len(ev), wall * 1e3, (busy / wall if ev else None), table
+
+
+def wave_render(scene, cam, cfg):
+    """render_pass in the while mode, the flagship entry's call: a warm-up
+    (its third bounce profiled), then N_TIMED passes chained from zeros."""
+    reset_counts()
+    t0 = time.perf_counter()
+    first, launches, b_ms, busy = profiled_bounce(
+        lambda: wave_pass(scene, cam, cfg))
+    float(first.radiance[0, 0])
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    st, times = render.init_state(cfg, device=scene.device), []
+    for i in range(N_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = render.render_pass(scene, cam, cfg, st, i)
+        float(st.raw_sum[0, 0, 0])
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            frame0 = st.raw_sum.clone()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = launch_counts()
+    segs, med = int(first.segments), statistics.median(times)
+    same = torch.equal(frame0.reshape(-1, 3), first.radiance)
+    mean = (st.raw_sum / N_TIMED).cpu().numpy()
+    log(f"[wave-full] render_pass, while mode, {cfg.nx}x{cfg.ny} depth"
+        f"{cfg.max_depth} f32 ({smi_line()}): pass 0 {segs} segments in "
+        f"{first.depth} bounces; warm-up {warm * 1e3:.1f} ms (bounce 3 "
+        f"profiled); times_ms {[round(t * 1e3, 2) for t in times]}; "
+        f"{spread(times)} -> {segs / med:.4e} rays/s; bounce 3: {launches} "
+        f"device launches, {b_ms:.2f} ms, busy "
+        f"{'not measured' if busy is None else f'{busy:.1%}'}; peak memory "
+        f"{peak:.3f} GiB; the timed pass 0 bitwise the warm-up: {same}; "
+        f"kernel launches {counts}")
+    if any(counts.values()) or not same:
+        raise AssertionError("[wave-full] render_pass launched a kernel or "
+                             "changed between calls")
+    if not np.isfinite(mean).all() or mean.max() <= 0.0:
+        raise AssertionError("[wave-full] frame is not finite or is black")
+    log(f"[wave-full] frame mean {mean.mean():.4f} max {mean.max():.3f}")
+    return dict(segments=segs, bounces=first.depth, times=times,
+                median_s=med, launches=launches, bounce_ms=b_ms, busy=busy,
+                peak_gib=peak)
+
+
+def wave_step(scene, cam, cfg):
+    """The differentiable training step: the scan's render of cfg, loss
+    sum(mean^2)/numel, every float leaf's and camera field's gradient; a
+    warm-up, then N_TIMED steps chained by params -= 1e-6 grad.  Then
+    steps at depths 2 and 4 under the profiler: launches a bounce (their
+    difference over 2 bounces) and the busy share."""
+    loss_fn = lambda mean: (mean ** 2).sum() / mean.numel()
+    reset_counts()
+
+    def step(scene, cam, cfg=cfg):
+        loss, grads, _ = wave_grads(scene, cam, cfg, loss_fn)
+        return float(loss.detach()), grads
+
+    t0 = time.perf_counter()
+    _, grads = step(scene, cam)
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(N_TIMED):
+        params, rest = build.partition(scene)
+        scene = build.combine({k: v - 1e-6 * grads[k].to(v)
+                               for k, v in params.items()}, rest)
+        cam = Camera(**{f: getattr(cam, f) - 1e-6 * grads[
+            f"camera:{f}"].to(getattr(cam, f)) for f in CAMERA_FIELDS})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = step(scene, cam)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = launch_counts()
+    st = wave_pass(scene, cam, cfg)
+    segs = int(st.segments)
+    prof = {d: profiled_step(lambda d=d: step(
+        scene, cam, cfg.replace(max_depth=d))) for d in (2, 4)}
+    per_bounce = (prof[4][0] - prof[2][0]) / 2
+    log_profile("wave-full step depth 4", prof[4][1], prof[4][3])
+    med = statistics.median(times)
+    log(f"[wave-full] training step, scan, {cfg.nx}x{cfg.ny} depth"
+        f"{cfg.max_depth} f32: {cfg.max_depth + 1} bounces, {segs} live "
+        f"segments; warm-up {warm * 1e3:.1f} ms; times_ms "
+        f"{[round(t * 1e3, 2) for t in times]}; {spread(times)} -> "
+        f"{segs / med:.4e} fwd+bwd rays/s; peak memory {peak:.3f} GiB; "
+        f"profiled steps at depth 2 / 4: {prof[2][0]} / {prof[4][0]} device "
+        f"launches ({per_bounce:.0f} a bounce, forward, recompute and "
+        f"backward), {prof[2][1]:.1f} / {prof[4][1]:.1f} ms, busy "
+        f"{'not measured' if prof[4][2] is None else f'{prof[4][2]:.1%}'} "
+        f"at depth 4; kernel launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"[wave-full] the step launched a kernel: "
+                             f"{counts}")
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        raise AssertionError("[wave-full] gradients are not finite")
+    touched = sorted(k for k, g in grads.items() if bool((g != 0).any()))
+    log(f"[wave-full] every leaf's gradient finite; nonzero for {touched}")
+    return dict(segments=segs, times=times, median_s=med, peak_gib=peak,
+                per_bounce=per_bounce, busy=prof[4][2])
+
+
+def phase_wave_full(dev):
+    scene, cam = spec_scene(scenes.cornell_box(), torch.float32, dev)
+    out = wave_render(scene, cam, WAVE_FULL)
+    out["step"] = wave_step(scene, cam,
+                            WAVE_FULL.replace(differentiable=True))
+    return out
+
+
 # The scenes of the kernel-tile phase: the eight scenes of the full-size
 # paths and the two tie plans, each with its kernel phase's lanes.
 PATH_SCENES = ("cornell", "rtow", "textured", "cornell_smoke", "bezier",
@@ -3269,6 +3669,8 @@ PHASES = {
     "general-grid": lambda dev, r: phase_general_grid(dev),
     "general-rr": lambda dev, r: phase_general_rr(dev),
     "general-sort": lambda dev, r: phase_general_sort(dev),
+    "wave-check": lambda dev, r: phase_wave_check(dev),
+    "wave-full": lambda dev, r: phase_wave_full(dev),
 }
 # A phase that reads another's result brings it along.
 NEEDS = {"pools-full": ("full",)}

@@ -13,6 +13,7 @@ import math
 import torch
 
 from .config import resolve_device
+from .core import rng
 from .core import vecmath as vm
 from .ops import sampling
 
@@ -83,3 +84,16 @@ def get_rays_u(cam: Camera, s, t, lens_r1, lens_r2, time_xi):
     d = (lower_left + s[..., None] * horizontal + t[..., None] * vertical
          - origin - offset)
     return o, vm.unit(d), time
+
+
+def get_rays(cam: Camera, s, t, key):
+    """Key-based get_rays_u (the differentiable wavefront's stream): the key
+    splits in two, for the lens [..., 2] and the shutter-time [...] draws.
+
+    A batch of keys [..., K, 2] takes s and t of shape [..., K, n] and
+    draws each key's n rays from it alone, as `jax.vmap` over the keys."""
+    k_lens, k_time = rng.split(key, 2).unbind(-2)
+    shape = s.shape[key.dim() - 1:]
+    r = rng.uniform(k_lens, shape + (2,), s.dtype)
+    time_xi = rng.uniform(k_time, shape, s.dtype)
+    return get_rays_u(cam, s, t, r[..., 0], r[..., 1], time_xi)

@@ -1,12 +1,79 @@
 """Batched 3-vector algebra on ``[..., 3]`` tensors (vec.scm:7-70).
 
 The port of scheme_raytrace_tpu/core/vecmath.py, plus material.scm:41-43
-(reflect), :59-67 (refract) and :69-74 (schlick).
+(reflect), :59-67 (refract) and :69-74 (schlick), and `maximum` / `clip`,
+JAX's `jnp.maximum` / `jnp.clip` against a constant with JAX's gradient at
+a tie, which every port of such a line uses.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def maximum(x, c):
+    """jnp.maximum(x, c) for a constant c: at a tie the gradient splits
+    0.5 / 0.5 between the two sides, as in JAX (torch.clamp would pass all
+    of it to x)."""
+    return torch.maximum(x, x.new_tensor(c))
+
+
+def minimum(x, c):
+    """jnp.minimum(x, c) for a constant c, with JAX's tie gradient."""
+    return torch.minimum(x, x.new_tensor(c))
+
+
+def clip(x, lo, hi):
+    """jnp.clip(x, lo, hi) with JAX's tie gradients (see `maximum`)."""
+    return minimum(maximum(x, lo), hi)
+
+
+# Tables of up to this many rows sum a gather's cotangents by a one-hot
+# product, in chunks of TAKE_CHUNK rows; larger ones (an image atlas) by
+# embedding's backward.
+TAKE_ROWS_MAX = 1024
+TAKE_CHUNK = 256
+
+
+class _Take(torch.autograd.Function):
+    """flat[idx] for a [T, D] table and an index per lane; the backward sums
+    each row's cotangents as a one-hot [T, N] by [N, D] product."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = flat.shape[0]
+        return flat[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        lanes = idx.reshape(1, -1)
+        parts = []
+        for r0 in range(0, ctx.rows, TAKE_CHUNK):
+            rows = torch.arange(r0, min(r0 + TAKE_CHUNK, ctx.rows),
+                                device=idx.device)
+            parts.append((rows[:, None] == lanes).to(g.dtype) @ g)
+        return torch.cat(parts), None
+
+
+def take(table, idx):
+    """table[idx] over the table's first axis, for an integer index per lane:
+    the same values as indexing, with a backward that is fast and bitwise
+    repeatable on the card.  The advanced index's own backward (index_put_
+    with accumulate) walks a row's duplicates one after another on CUDA,
+    which held a 512x512 training step's card busy for most of its 30 s,
+    and embedding's or index_select's add through float atomics, whose
+    order changes a float32 sum from run to run; here a table of up to
+    TAKE_ROWS_MAX rows sums by a one-hot matrix product.  A larger table
+    (an image atlas) takes embedding's backward."""
+    flat = table.reshape(table.shape[0], -1)
+    if flat.shape[0] <= TAKE_ROWS_MAX:
+        out = _Take.apply(flat, idx.long())
+    else:
+        out = torch.nn.functional.embedding(idx, flat)
+    return out.reshape(idx.shape + table.shape[1:])
 
 
 def vec3(x, y, z, dtype=None):
@@ -76,7 +143,7 @@ def schlick(cosine, ref_idx):
     masked one bit for bit."""
     r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
     r0 = r0 * r0
-    x = torch.clamp(1.0 - cosine, min=0.0)
+    x = maximum(1.0 - cosine, 0.0)
     x2 = x * x
     return r0 + (1.0 - r0) * (x2 * x2 * x)
 

@@ -38,6 +38,7 @@ import torch
 from .. import config as cfg_mod
 from ..camera import _basis
 from ..core import rng
+from ..core import vecmath as vm
 from ..scene import build as sb
 from ..scene import objects as ob
 from ..scene import perlin as perlin_mod
@@ -80,16 +81,9 @@ def where3(m, a, b):
     return tuple(torch.where(m, x, y) for x, y in zip(a, b))
 
 
-def _max(x, c):
-    """jnp.maximum(x, c) for a constant c: at a tie the gradient splits
-    0.5 / 0.5 between the two sides, as in JAX (torch.clamp would pass all
-    of it to x)."""
-    return torch.maximum(x, x.new_tensor(c))
-
-
-def _clip(x, lo, hi):
-    """jnp.clip(x, lo, hi) with JAX's tie gradients (see _max)."""
-    return torch.minimum(_max(x, lo), x.new_tensor(hi))
+# jnp.maximum / jnp.clip against a constant, with JAX's tie gradients
+_max = vm.maximum
+_clip = vm.clip
 
 
 def unit3(a, eps=1e-12):

@@ -24,7 +24,7 @@ _PI = math.pi
 def cosine_value(n, direction):
     """pdf.scm:18-26 — max(cos, 0)/pi about normal n."""
     cosine = vm.dot(vm.unit(direction), n)
-    return torch.clamp(cosine, min=0.0) / _PI
+    return vm.maximum(cosine, 0.0) / _PI
 
 
 def cosine_sample_u(r1, r2, n):
@@ -54,7 +54,7 @@ def _rect_value_one(rect, origin, direction):
     area = (x1 - x0) * (z1 - z0)
     dist_sq = t * t                      # |direction| == 1
     cosine = torch.abs(dy)
-    denom = torch.where(inside, torch.clamp(cosine * area, min=1e-12), 1.0)
+    denom = torch.where(inside, vm.maximum(cosine * area, 1e-12), 1.0)
     return torch.where(inside, dist_sq / denom, 0.0)
 
 
@@ -64,15 +64,14 @@ def _sphere_value_one(center, radius, origin, direction):
     oc = center - origin
     dist_sq = vm.sq_len(oc)
     outside = dist_sq > radius * radius
-    ratio = torch.clamp(radius * radius / torch.clamp(dist_sq, min=1e-12),
-                        0.0, 1.0)
+    ratio = vm.clip(radius * radius / vm.maximum(dist_sq, 1e-12), 0.0, 1.0)
     # double-where: inside the sphere 1 - ratio hits 0 and sqrt' blows up
     cos_theta_max = torch.sqrt(torch.where(outside, 1.0 - ratio, 1.0))
     solid_angle = 2.0 * _PI * (1.0 - cos_theta_max)
     # the direction must meet the sphere: cos(angle to centre) >= cos_theta_max
     cos_dir = vm.dot(vm.unit(direction), vm.unit(oc))
     hitting = outside & (cos_dir >= cos_theta_max)
-    return torch.where(hitting, 1.0 / torch.clamp(solid_angle, min=1e-12),
+    return torch.where(hitting, 1.0 / vm.maximum(solid_angle, 1e-12),
                        0.0)
 
 
@@ -97,7 +96,7 @@ def lights_sample_u(r_pick, r_a, r_b, r_s1, r_s2, scene, origin):
     pick = torch.clamp((r_pick * scene.n_lights).to(torch.int32),
                        max=scene.n_lights - 1).long()
     kind = scene.light_kind[pick]
-    rect = scene.light_rect[pick]                       # [N,5]
+    rect = vm.take(scene.light_rect, pick)              # [N,5]
     # rect sample: uniform point on the rect (RTROYL `random` for xz-rect)
     px = rect[:, 0] + r_a * (rect[:, 1] - rect[:, 0])
     pz = rect[:, 2] + r_b * (rect[:, 3] - rect[:, 2])
@@ -107,10 +106,10 @@ def lights_sample_u(r_pick, r_a, r_b, r_s1, r_s2, scene, origin):
     rect_dir = vm.unit(target - origin, eps=1e-6)
 
     # sphere sample: random-to-sphere (util.scm:46-54) in an ONB toward centre
-    center = scene.light_center[pick]
-    radius = scene.light_radius[pick]
+    center = vm.take(scene.light_center, pick)
+    radius = vm.take(scene.light_radius, pick)
     oc = center - origin
-    dist_sq = torch.clamp(vm.sq_len(oc), min=1e-12)
+    dist_sq = vm.maximum(vm.sq_len(oc), 1e-12)
     u, v, w = onb.from_w(oc)
     local_dir = sampling.to_sphere_u(r_s1, r_s2, radius, dist_sq)
     sph_dir = vm.unit(onb.local(u, v, w, local_dir))

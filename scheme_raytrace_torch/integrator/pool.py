@@ -179,12 +179,12 @@ def _step(scene, cam, config, st: PoolState, sample_base, n_pix, n_work,
     if config.russian_roulette:
         u_rr = rng.hash_uniforms(config.seed, abs_item, st.depth, 1, dtype,
                                  group_base=rng.GROUP_RR)[:, 0]
-        p_cont = torch.clamp(torch.amax(throughput, dim=-1), 0.05, 1.0)
+        p_cont = vm.clip(torch.amax(throughput, dim=-1), 0.05, 1.0)
         do_rr = scattering & (st.depth >= config.rr_start_depth)
         scattering = scattering & (~do_rr | (u_rr < p_cont))
         throughput = torch.where(
             do_rr[:, None],
-            throughput / torch.clamp(p_cont, min=0.05)[:, None], throughput)
+            throughput / vm.maximum(p_cont, 0.05)[:, None], throughput)
 
     # --- flush finished paths into the framebuffer -------------------------
     terminated = st.alive & ~scattering

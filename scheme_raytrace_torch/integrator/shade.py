@@ -7,10 +7,10 @@ fix).  All branches are computed masked and select-combined; `shade_sorted`
 (RenderConfig.material_sort) ranks the lanes by material type first and
 is bit-identical, since `shade` is elementwise over lanes.
 
-Randomness arrives as an explicit [N, N_U] uniform matrix, the counter
-hash keyed per (work item, bounce) (core/rng.hash_uniforms); the key-based
-`shade_uniforms` of the JAX module belongs to the differentiable wavefront
-path.
+Randomness arrives as an explicit [N, N_U] uniform matrix: the counter
+hash keyed per (work item, bounce) on the pools (core/rng.hash_uniforms),
+threefry keyed per (pass, bounce) on the differentiable wavefront
+(`shade_uniforms`).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import rng
 from ..core import vecmath as vm
 from ..ops import sampling, texture
 from ..scene import objects as ob
@@ -68,7 +69,7 @@ def shade(u, scene, config, d, rec):
         lam_dir, pdf = pdfs.mixture_sample_and_value_u(u, scene, normal,
                                                        rec.p)
         s_pdf = pdfs.cosine_value(normal, lam_dir)     # material.scm:33-36
-        ratio = s_pdf / torch.clamp(pdf, min=1e-12)
+        ratio = s_pdf / vm.maximum(pdf, 1e-12)
         lam_mult = albedo * ratio[:, None]
         lam_ok = pdf > 0.0
     else:
@@ -85,12 +86,12 @@ def shade(u, scene, config, d, rec):
 
     # --- metal (material.scm:45-57) ----------------------------------------
     refl = vm.reflect(d, normal)
-    fuzzed = refl + scene.mat_fuzz[mat][:, None] * ball
+    fuzzed = refl + vm.take(scene.mat_fuzz, mat)[:, None] * ball
     metal_ok = vm.dot(fuzzed, normal) > 0.0
     metal_dir = vm.unit(fuzzed, eps=1e-12)
 
     # --- dielectric (material.scm:76-101) -----------------------------------
-    ref_idx = scene.mat_ref[mat]
+    ref_idx = vm.take(scene.mat_ref, mat)
     dd = vm.dot(d, normal)
     exiting = dd > 0.0
     outward_n = vm.where3(exiting, -normal, normal)
@@ -135,3 +136,9 @@ def shade_sorted(u, scene, config, d, rec):
 def _map_rec(rec, fn):
     """`rec` with `fn` applied to every field (the JAX tree.map)."""
     return type(rec)(*(fn(x) for x in rec))
+
+
+def shade_uniforms(key, n_rays, dtype):
+    """Key-derived [N, N_U] uniform matrix (the differentiable wavefront's
+    stream); a batch of keys [..., 2] gives [..., N, N_U]."""
+    return rng.uniform(key, (n_rays, N_U), dtype)

@@ -39,8 +39,8 @@ def dist_func(center, pos):
         any_in = torch.any(inside, dim=-1)
         k = torch.argmax(inside.to(torch.int32), dim=-1)      # unique when any
         dk = torch.take_along_dim(diff, k[..., None, None], dim=-2)[..., 0, :]
-        d2k = torch.clamp(
-            torch.take_along_dim(d2, k[..., None], dim=-1)[..., 0], min=tiny)
+        d2k = vm.maximum(
+            torch.take_along_dim(d2, k[..., None], dim=-1)[..., 0], tiny)
         scale = r2 / d2k                                      # geometry.scm:615
         p_inv = dk * scale[..., None] + sph[k]                # geometry.scm:616-618
         p = torch.where(any_in[..., None], p_inv, p)

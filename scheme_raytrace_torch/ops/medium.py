@@ -47,11 +47,11 @@ def intersect(o, d, time, scene, t_min, t_max, xi):
     exit_ = torch.where(is_box, box_ex, -b + sq)
     ok = torch.where(is_box, box_ok, sph_ok) & scene.med_valid[None]
 
-    t1 = torch.clamp(torch.clamp(entry, min=t_min), min=0.0)  # geometry.scm:556,560
+    t1 = vm.maximum(vm.maximum(entry, t_min), 0.0)           # geometry.scm:556,560
     t2 = torch.minimum(exit_, t_max[:, None])                # geometry.scm:557
     ok = ok & (t1 < t2)
 
-    xi = torch.clamp(xi, min=torch.finfo(o.dtype).tiny)      # log(0) guard
+    xi = vm.maximum(xi, torch.finfo(o.dtype).tiny)           # log(0) guard
     hit_dist = scene.med_neg_inv_d[None] * torch.log(xi)     # geometry.scm:562-564
     ok = ok & (hit_dist < (t2 - t1))
     t = torch.where(ok, t1 + hit_dist, math.inf)

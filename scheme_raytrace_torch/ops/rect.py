@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from ..core import vecmath as vm
+
 # The JAX package's TPU split, kept so both packages take the same branch.
 LOOP_MAX = 48
 
@@ -41,13 +43,15 @@ def _finish(scene, hit, best_t, j, pa, pb, t_max, dtype):
     material and the in-plane uv."""
     tb = torch.where(hit, best_t, t_max)
     n_sel, _, _ = selectors(scene.rect_axis[j], dtype)
-    n_obj = n_sel * scene.rect_flip[j][:, None]
+    n_obj = n_sel * vm.take(scene.rect_flip, j)[:, None]
     if scene.has_rect_xform:
-        normal = torch.einsum("nij,nj->ni", scene.rect_rot[j], n_obj)
+        normal = torch.einsum("nij,nj->ni", vm.take(scene.rect_rot, j),
+                              n_obj)
     else:
         normal = n_obj
-    u = (pa - scene.rect_a0[j]) / (scene.rect_a1[j] - scene.rect_a0[j])
-    v = (pb - scene.rect_b0[j]) / (scene.rect_b1[j] - scene.rect_b0[j])
+    a0, b0 = vm.take(scene.rect_a0, j), vm.take(scene.rect_b0, j)
+    u = (pa - a0) / (vm.take(scene.rect_a1, j) - a0)
+    v = (pb - b0) / (vm.take(scene.rect_b1, j) - b0)
     return hit, tb, normal, scene.rect_mat[j], u, v
 
 

@@ -27,7 +27,7 @@ def in_unit_sphere_u(r1, r2, r3):
     # cbrt: torch has none, and pow's vectorised and scalar CPU paths
     # differ in the last bit (see core/vecmath.schlick); exp and log agree
     r = torch.exp(torch.log(r3) / 3.0)
-    s = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    s = torch.sqrt(vm.maximum(1.0 - z * z, 0.0))
     return r[..., None] * vm.vec3(s * torch.cos(phi), s * torch.sin(phi), z)
 
 
@@ -43,7 +43,7 @@ def cosine_direction_u(r1, r2):
     B4 fixed)."""
     phi = _TWO_PI * r1
     sr2 = torch.sqrt(r2)
-    z = torch.sqrt(torch.clamp(1.0 - r2, min=0.0))
+    z = torch.sqrt(vm.maximum(1.0 - r2, 0.0))
     return vm.vec3(torch.cos(phi) * sr2, torch.sin(phi) * sr2, z)
 
 
@@ -51,7 +51,7 @@ def hemisphere_direction_u(r1, r2):
     """Uniform hemisphere direction about +z (util.scm:25-35, analytic)."""
     z = r1                                          # cos(theta) ~ U[0,1]
     phi = _TWO_PI * r2
-    s = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    s = torch.sqrt(vm.maximum(1.0 - z * z, 0.0))
     return vm.vec3(s * torch.cos(phi), s * torch.sin(phi), z)
 
 

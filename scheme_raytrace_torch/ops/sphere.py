@@ -31,7 +31,7 @@ def sphere_uv(n_unit):
     """Canonical Shirley sphere UV from the outward unit normal (B1 fixed)."""
     y = n_unit[..., 1]
     phi = torch.atan2(n_unit[..., 2], n_unit[..., 0])
-    theta = torch.atan2(y, torch.sqrt(torch.clamp(1.0 - y * y, min=1e-12)))
+    theta = torch.atan2(y, torch.sqrt(vm.maximum(1.0 - y * y, 1e-12)))
     u = 1.0 - (phi + _PI) / (2.0 * _PI)
     v = (theta + _PI / 2.0) / _PI
     return u, v
@@ -67,7 +67,7 @@ def _finish(o, d, time, scene, hit, best_t, j, t_max):
     """The hit record of winner j: t, normal (p - c)/r, material, uv."""
     tb = torch.where(hit, best_t, t_max)
     cj = _center_at(scene, j, time)
-    rj = scene.sph_r[j]
+    rj = vm.take(scene.sph_r, j)
     p = o + tb[:, None] * d
     normal = (p - cj) / rj[:, None]                  # sign(r) flips (hollow)
     u, v = sphere_uv(normal * torch.sign(rj)[:, None])
@@ -125,11 +125,12 @@ def _intersect_sweep(o, d, time, scene, t_min, t_max):
 
 def _center_at(scene, j, time):
     """Centre of sphere j [N] at ray time [N] (geometry.scm:188-193)."""
-    c0, c1 = scene.sph_c0[j], scene.sph_c1[j]
+    c0, c1 = vm.take(scene.sph_c0, j), vm.take(scene.sph_c1, j)
     if not scene.has_moving:
         return c0
-    span = scene.sph_t1[j] - scene.sph_t0[j]
-    frac = (time - scene.sph_t0[j]) / torch.where(span == 0.0, 1.0, span)
+    t0 = vm.take(scene.sph_t0, j)
+    span = vm.take(scene.sph_t1, j) - t0
+    frac = (time - t0) / torch.where(span == 0.0, 1.0, span)
     return c0 + frac[:, None] * (c1 - c0)
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import vecmath as vm
 from ..scene import build as sb
 from ..scene import perlin
 
@@ -18,7 +19,7 @@ def value(scene, tex_id, u, v, p):
     """Evaluate textures: tex_id [N] i32, u/v [N], p [N,3] -> color [N,3]."""
     tex_id = tex_id.long()
     ttype = scene.tex_type[tex_id]                       # [N]
-    out = scene.tex_color[tex_id]                        # constant (texture.scm:12-14)
+    out = vm.take(scene.tex_color, tex_id)               # constant (texture.scm:12-14)
 
     if scene.has_checker_tex:
         # texture.scm:16-23 — sign of sin(10x)sin(10y)sin(10z)
@@ -27,10 +28,10 @@ def value(scene, tex_id, u, v, p):
         child = torch.where(sines < 0.0, scene.tex_child1[tex_id],
                             scene.tex_child0[tex_id])
         out = torch.where((ttype == sb.TEX_CHECKER)[..., None],
-                          scene.tex_color[child.long()], out)
+                          vm.take(scene.tex_color, child.long()), out)
 
     if scene.has_perlin_tex:
-        scale = scene.tex_scale[tex_id]
+        scale = vm.take(scene.tex_scale, tex_id)
         # texture.scm:25-28 — raw noise (range ~[-1,1], reproduced as-is)
         gray_noise = perlin.noise(scene.perlin_seed, p * scale[..., None])
         # texture.scm:30-34 — marble: 0.5*(1+sin(sc*z + 10*turb(p)))
@@ -49,7 +50,9 @@ def value(scene, tex_id, u, v, p):
         j = torch.clamp(torch.clamp((1.0 - v) * ny - 0.001, min=0.0),
                         max=ny - 1.0).long()
         img = scene.tex_image[tex_id].long()
-        texel = scene.images[img, j, i]                  # [N,3]
+        _, h, w, _ = scene.images.shape
+        texel = vm.take(scene.images.reshape(-1, 3),      # [N,3]
+                        (img * h + j) * w + i)
         out = torch.where((ttype == sb.TEX_IMAGE)[..., None], texel, out)
 
     return out

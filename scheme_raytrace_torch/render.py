@@ -1,13 +1,18 @@
-"""Rendering: pool render -> progressive accumulation -> display transform.
+"""Rendering: pixel grid -> ray pool -> accumulation -> display transform.
 
 The port of scheme_raytrace_tpu/render.py.  The progressive accumulator is
 an explicit, persistable `RenderState` (raw radiance sum + sample count).
-Display transform min(1, sqrt(mean)) then floor(255.99*c)
-(main.scm:461-465); PPM rows are written y-flipped (main.scm:445).
+Forward renders run the regeneration pool (integrator/pool.py); the
+differentiable render (`config.differentiable`) runs sample passes through
+the wavefront scan (integrator/wavefront.py), each pass keyed by
+fold_in(root_key(seed), pass index) as in JAX.  Pixel estimator: jittered
+u=(x+xi)/W, v=(y+xi)/H (main.scm:456-457); display transform
+min(1, sqrt(mean)) then floor(255.99*c) (main.scm:461-465); PPM rows are
+written y-flipped (main.scm:445).
 
-Only the forward pool render is ported: `config.differentiable=True`
-(the fixed-length wavefront scan) raises NotImplementedError until
-ROADMAP A.12.
+Unlike JAX's per-pass scan, `render` traces up to WAVE_RAYS rays of
+several passes as one wavefront: each pass draws from its own key alone,
+and the frames are added in pass order, so the sum is the sequential one's.
 """
 
 from __future__ import annotations
@@ -18,8 +23,14 @@ import numpy as np
 import torch
 
 from . import config as cfg_mod
-from .camera import Camera
+from .camera import Camera, get_rays
+from .core import rng
 from .integrator.pool import render_pool_auto
+from .integrator.wavefront import trace_rays_full
+
+# Rays of one differentiable wavefront: smaller frames trace up to this
+# many rays' worth of passes at once (the pool's forward width).
+WAVE_RAYS = 64 * 1024
 
 
 @dataclasses.dataclass
@@ -39,16 +50,74 @@ def init_state(config: cfg_mod.RenderConfig, dtype=None,
         torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _pixel_uv(config, key, dtype):
+    """Jittered (u, v) for every pixel of one pass (main.scm:456-457); a
+    batch of K pass keys gives [K, n_pixels] each."""
+    idx = torch.arange(config.n_pixels, device=key.device)
+    ys = torch.div(idx, config.nx, rounding_mode="floor")
+    xs = idx % config.nx
+    xi = rng.uniform(key, (config.n_pixels, 2), dtype)
+    u = (xs.to(dtype) + xi[..., 0]) / config.nx
+    v = (ys.to(dtype) + xi[..., 1]) / config.ny
+    return u, v
+
+
+def _trace_passes(scene, cam, config, key, dtype, on_bounce=None):
+    """The wavefront of the passes keyed `key` ([2], or [K, 2] for K
+    passes): the final RayState over their K * n_pixels rays, pass-major."""
+    k_jit, k_lens, k_trace = rng.split(key, 3).unbind(-2)
+    u, v = _pixel_uv(config, k_jit, dtype)
+    o, d, time = get_rays(cam, u, v, k_lens)
+    return trace_rays_full(scene, o.reshape(-1, 3), d.reshape(-1, 3),
+                           time.reshape(-1), k_trace, config, on_bounce)
+
+
+def render_pass(scene, cam: Camera, config: cfg_mod.RenderConfig,
+                state: RenderState, pass_idx) -> RenderState:
+    """One full-frame sample pass: every pixel gets one jittered ray tree
+    (the wavefront's while mode, or its scan if config.differentiable)."""
+    key = rng.fold_in(rng.root_key(config.seed, state.raw_sum.device),
+                      pass_idx)
+    radiance = _trace_passes(scene, cam, config, key,
+                             state.raw_sum.dtype).radiance
+    frame = radiance.reshape(config.ny, config.nx, 3)
+    return RenderState(state.raw_sum + frame, state.sample_count + 1)
+
+
+def render_passes(scene, cam: Camera, config: cfg_mod.RenderConfig,
+                  state: RenderState, on_bounce=None):
+    """config.spp differentiable passes from `state` (the wavefront scan):
+    returns (state, segments).  Passes go up to WAVE_RAYS rays at a time,
+    each keyed by its index as render_pass keys it; their frames add in
+    pass order."""
+    cfg = config.replace(differentiable=True)
+    dev = state.raw_sum.device
+    per = max(1, min(config.spp, WAVE_RAYS // config.n_pixels))
+    raw, count = state.raw_sum, state.sample_count
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    done = 0
+    while done < config.spp:
+        k = min(per, config.spp - done)
+        idx = count + torch.arange(k, device=dev)
+        key = rng.fold_in(rng.root_key(config.seed, dev), idx)
+        out = _trace_passes(scene, cam, cfg, key, raw.dtype, on_bounce)
+        for frame in out.radiance.reshape(k, config.ny, config.nx,
+                                          3).unbind(0):
+            raw = raw + frame
+        count = count + k
+        segments = segments + out.segments
+        done += k
+    return RenderState(raw, count), segments
+
+
 def render_with_stats(scene, cam: Camera, config: cfg_mod.RenderConfig,
                       state: RenderState):
-    """config.spp passes from `state`: returns (state, segments, iters).
+    """config.spp passes from `state` through the regeneration pool,
+    whatever config.differentiable says (as the JAX package's): returns
+    (state, segments, iters).
 
     segments is the exact number of path segments traced (0-d int64
     tensor on the state's device); iters the pool iterations (int)."""
-    if config.differentiable:
-        raise NotImplementedError(
-            "config.differentiable=True: the reverse-mode wavefront path is "
-            "not ported yet (ROADMAP A.12)")
     raw, segments, iters = render_pool_auto(
         scene, cam, config,
         state.raw_sum.reshape(config.n_pixels, 3), state.sample_count)
@@ -59,7 +128,10 @@ def render_with_stats(scene, cam: Camera, config: cfg_mod.RenderConfig,
 
 def render(scene, cam: Camera, config: cfg_mod.RenderConfig,
            state: RenderState) -> RenderState:
-    """config.spp sample passes from `state` through the regeneration pool."""
+    """config.spp sample passes from `state`: through the regeneration pool,
+    or the wavefront scan if config.differentiable (reverse mode)."""
+    if config.differentiable:
+        return render_passes(scene, cam, config, state)[0]
     return render_with_stats(scene, cam, config, state)[0]
 
 

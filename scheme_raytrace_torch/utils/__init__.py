@@ -1,1 +1,1 @@
-"""Support code: the CUDA kernel build."""
+"""Support code: the CUDA kernel build and the render checks."""

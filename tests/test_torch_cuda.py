@@ -19,7 +19,9 @@ against the one-thread search (w = 1), on the tie plans of chip_smoke.py
 among others, K4 at every width also against 32 K3 launches; and the
 general pool on the card (no kernel): its flush bitwise the lane-order sum,
 its float64 renders equal to the CPU's (BVH, russian roulette, material
-sort), the sorted shading bitwise the masked one, a 4,901-sphere scene.
+sort), the sorted shading bitwise the masked one, a 4,901-sphere scene;
+and the differentiable wavefront on the card (no kernel): threefry bitwise
+the CPU's, and float64 render_pass and gradients equal to the CPU's.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -1558,3 +1560,40 @@ def test_general_pool_over_4096_prims_on_the_card(cuda):
     assert bounce.LAUNCHES == before
     assert torch.isfinite(imgs[0]).all() and imgs[0].max() > 0
     assert (imgs[0] - imgs[1]).abs().mean() < 2e-3
+
+
+# --- the differentiable wavefront on the card (plain PyTorch, no kernel) ----
+
+def test_threefry_on_the_card_equals_the_cpu(cuda):
+    """threefry keys, splits and draws on the card bit for bit the CPU's
+    (which tests/test_torch_wavefront.py holds to jax.random)."""
+    for seed in (0, 7):
+        k_c, k_g = rng.root_key(seed, "cpu"), rng.root_key(seed, cuda)
+        for dtype in (torch.float32, torch.float64):
+            a = rng.uniform(rng.split(rng.fold_in(k_c, 3), 3), (257, 12),
+                            dtype)
+            b = rng.uniform(rng.split(rng.fold_in(k_g, 3), 3), (257, 12),
+                            dtype)
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_smoke"])
+def test_wavefront_on_the_card_equals_the_cpu_f64(cuda, name):
+    """render_pass (while mode) and the scan's gradients in float64: the
+    card against the CPU, the image within 1e-9 with the same segments, the
+    gradients of every leaf and camera field within 1e-9 of the floor."""
+    import chip_smoke
+    spec = getattr(scenes, name)()
+    cfg = RenderConfig(nx=8, ny=8, spp=1, max_depth=6, light_sampling=True,
+                       dtype="f64")
+    out = {}
+    for where in (cuda, "cpu"):
+        scene, cam = chip_smoke.spec_scene(spec, torch.float64, where)
+        st = chip_smoke.wave_pass(scene, cam, cfg)
+        _, grads, _ = chip_smoke.wave_grads(
+            scene, cam, cfg.replace(max_depth=2, differentiable=True))
+        out[str(where)] = st.radiance.cpu(), int(st.segments), grads
+    (g, gs, gg), (c, cs, cg) = out[str(cuda)], out["cpu"]
+    assert gs == cs and torch.allclose(g, c, rtol=1e-9, atol=1e-9)
+    rel, top = chip_smoke.rel_to_floor(gg, cg)
+    assert top > 0.0 and max(rel.values()) < 1e-9, rel

@@ -120,10 +120,18 @@ def test_resumed_render_continues_the_stream():
 
 
 def test_differentiable_config_not_ported():
+    """The differentiable config, once refused, renders through the
+    wavefront scan: its pass is the while mode's render_pass bit for bit
+    (tests/test_torch_wavefront.py holds both against JAX)."""
     scene, cam = _cornell()
     cfg = TConfig(nx=8, ny=8, spp=1, differentiable=True)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        t_render.render(scene, cam, cfg, t_render.init_state(cfg, device="cpu"))
+    st = t_render.render(scene, cam, cfg,
+                         t_render.init_state(cfg, device="cpu"))
+    want = t_render.render_pass(scene, cam, cfg.replace(differentiable=False),
+                                t_render.init_state(cfg, device="cpu"), 0)
+    assert int(st.sample_count) == 1
+    assert torch.equal(st.raw_sum, want.raw_sum)
+    assert torch.isfinite(st.raw_sum).all() and st.raw_sum.max() > 0.0
 
 
 def test_display_ppm_and_state_round_trip(tmp_path):

@@ -9,9 +9,9 @@ work pools, the op and loop probes, the sphere scenes up to the RTOW
 final scene (227 spheres) forward and fwd+bwd, and the textured and smoke
 scenes (hash-Perlin noise and marble, image texels, constant media) forward
 and fwd+bwd, the bezier scenes and the klein scenes forward and fwd+bwd,
-the general pool (BVH, russian roulette, material sort, 4,901 prims), and
-the differentiable wavefront (render_pass and its gradients), in
-phases; any
+the general pool (BVH, russian roulette, material sort, 4,901 prims), the
+differentiable wavefront (render_pass and its gradients), the sharded
+paths of parallel/ and the command line, in phases; any
 failure raises and the exit code is non-zero.  `--phases` takes a
 comma-separated selection of the phase names in PHASES (the default is every
 phase); the device and build phases always run, a phase that needs another's
@@ -179,6 +179,26 @@ kernel table:
      params -= 1e-6 grad, then steps at depths 2 and 4 profiled for the
      launches a bounce and the busy share), with segments, bounces and peak
      memory, and no kernel of K1-K6 launched.
+ 39. parallel/ over torch.distributed (parallel): NCCL takes one rank a
+     card, so on one card the collectives run at world 1 over NCCL.
+     render_pool_sharded and render_pool_balanced at Cornell 512x512 spp16
+     depth 100 give render_pool_auto's image and segments bitwise; the
+     bodies of 4 virtual shards (the row-band pool at each band's first
+     pixel, the balanced pool at each offset), run one after another
+     through K1 and assembled by hand, give it too; train_step_fused at
+     512x512 spp8 (K1 and K2) drains and gives render_diff_fused's step's
+     new parameters bitwise, timed in turns with it, and the gradient
+     all-reduce is timed by CUDA events; render_sharded and one
+     train_step (the wavefront, no kernel) at 128x128 spp1 depth 100 give
+     the unsharded wavefront's image and step on the shard's keys bitwise;
+ 40. the command line (cli): `python -m scheme_raytrace_torch render
+     --scene cornell --light-sampling --nx 512 --ny 512 --spp 16 --chunk
+     4` in a process of its own, its PPM bitwise render.write_ppm of the
+     same four chunks rendered here, its saved state resumed here for a
+     fifth chunk bitwise; `scenes` lists scenes.SCENES; `probe 100 100
+     --light-sampling` prints finite numbers; `view` on port 0 for 3
+     passes serves a PNG whose pixels are to_u8 of the published mean and
+     answers a click probe.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -519,6 +539,8 @@ VARIANTS = {
     "general-sort": [],
     "wave-check": [],
     "wave-full": [],
+    "parallel": [((K1, K2), scenes.cornell_box)],
+    "cli": [((K1,), scenes.cornell_box)],
 }
 
 
@@ -1828,13 +1850,12 @@ def same_chunk(got, want):
             for g, w in zip(got, want)]
 
 
-def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS,
-             plain_events=False):
+def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
     """One K4 chunk bitwise against CHUNK_T K3 launches, K4 against
-    chunk_plain, and times.  `plain_events`: the plain chunk is timed by a
-    CUDA event pair around one call (its host syncs included) instead of
-    the profiler, whose per-event cost is minutes for the klein march's
-    hundreds of thousands of launches; its launches are then not
+    chunk_plain, and times.  The plain chunk is timed by a CUDA event pair
+    around one call (its host syncs and launch gaps included), not by the
+    profiler, whose reading costs 0.11 ms an event: 34 s for textured's
+    309,782 launches, minutes for the klein march's; its launches are not
     counted."""
     plan, pk, q, sb = setup
     T = persist.CHUNK_T
@@ -1893,23 +1914,20 @@ def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS,
         per_t[t_len] = kernel_ms(lambda: persist.chunk_cuda(
             plan, pk, sb, state, T=t_len, **q), 10)
     k_ms = per_t[T]
-    plain = lambda: persist.chunk_plain(plan, pk, sb, state, T=T, **q)
-    if plain_events:                  # the chunk_plain calls above warmed it
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        plain()
-        e1.record()
-        e1.synchronize()
-        p_ms, p_launches = e0.elapsed_time(e1), float("nan")
-    else:
-        p_ms, p_launches = device_ms(plain, 1)
+    # the chunk_plain calls above warmed it
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    persist.chunk_plain(plan, pk, sb, state, T=T, **q)
+    e1.record()
+    e1.synchronize()
+    p_ms = e0.elapsed_time(e1)
     k3_ms = kernel_ms(lambda: bounce.step_packed_cuda(plan, pk, sb, state,
                                                       **q))
     log(f"[{tag}] device time per chunk: "
         + ", ".join(f"T={t} {ms:.4f} ms ({ms / t * 1e3:.2f} us/iteration)"
                     for t, ms in per_t.items())
         + f"; one K3 launch {k3_ms * 1e3:.2f} us; plain chunk_plain T={T} "
-        f"{p_ms:.3f} ms ({p_launches:.0f} launches)")
+        f"{p_ms:.3f} ms (CUDA events around one call)")
     b_ms, b_by = packed_bound(plan, q, state, T, got[2], tex_ops)
     log(f"[{tag}] K4 bound for this chunk of T={T}: {b_ms * 1e3:.2f} us "
         f"({b_by})")
@@ -2396,7 +2414,7 @@ def phase_packed_klein(dev):
             M, q["n_work"], plan.max_depth, dev, scene), atol)
         k4 = check_k4(f"persist-{name}", setup, klein_packed_state(
             M, q["n_work"], plan.max_depth, dev, scene, seed=1), atol,
-            chunk_ts=(), plain_events=True)
+            chunk_ts=())
         out[name] = (k3, k4)
     return out
 
@@ -3228,6 +3246,376 @@ def phase_wave_full(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# parallel: parallel/ over torch.distributed on one card.  NCCL takes one
+# rank a card, so the collectives run at world 1 over NCCL: each gives back
+# its input, and every sharded entry point must equal its unsharded twin bit
+# for bit.  What world 1 cannot reach (a band's first pixel past 0, an
+# interleave's stride past 1) runs as the bodies of a virtual 4 shards, one
+# after another on the card, assembled by hand.  One card measures no
+# scaling over ranks.
+# ---------------------------------------------------------------------------
+
+PAR_FWD = FULL                     # Cornell 512^2 spp16 depth 100, light
+PAR_BWD = FULL_BWD                 # Cornell 512^2 spp8 depth 100, light
+PAR_SHARDS = 4                     # the virtual shards of the bodies
+PAR_WAVE = RenderConfig(nx=128, ny=128, spp=1, max_depth=100, seed=0,
+                        light_sampling=True)
+PAR_LR = 1e-6
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_pool(tag, got, want):
+    """(raw, segments, iters) of a sharded render against the unsharded
+    one: image and segments bit for bit; iterations logged."""
+    raw, segs, iters = got
+    same = (torch.equal(raw.reshape(-1, 3), want[0].reshape(-1, 3))
+            and int(segs) == int(want[1]))
+    log(f"[parallel] {tag}: image and segments bitwise the unsharded "
+        f"render's: {same} (segments {int(segs)} / {int(want[1])}, "
+        f"iterations {iters} / {want[2]})")
+    if not same:
+        raise AssertionError(f"[parallel] {tag} differs from the unsharded "
+                             f"render")
+
+
+def par_pools(mesh, scene, cam):
+    """The two sharded forward pools against render_pool_auto, and the
+    bodies of PAR_SHARDS virtual shards assembled by hand."""
+    from scheme_raytrace_torch.parallel import (render_pool_balanced,
+                                                render_pool_sharded)
+    cfg, dev = PAR_FWD, scene.device
+    zeros = lambda n: torch.zeros(n, 3, device=dev)
+    want = pool.render_pool_auto(scene, cam, cfg, zeros(cfg.n_pixels), 0)
+    reset_counts()                            # the main path's counts start
+    got = {"sharded": render_pool_sharded(scene, cam, cfg, mesh),
+           "balanced": render_pool_balanced(scene, cam, cfg, mesh)}
+    counts = launch_counts()
+    for name, out in got.items():
+        same_pool(f"render_pool_{name}, world 1", out, want)
+    log(f"[parallel] the two sharded renders' kernel launches: {counts}")
+    if counts["LAUNCHES"] != 2 * want[2]:
+        raise AssertionError("[parallel] the sharded pools did not launch "
+                             "bounce_step once an iteration")
+    runs = {"render_pool_auto": lambda: pool.render_pool_auto(
+                scene, cam, cfg, zeros(cfg.n_pixels), 0),
+            "render_pool_sharded": lambda: render_pool_sharded(
+                scene, cam, cfg, mesh),
+            "render_pool_balanced": lambda: render_pool_balanced(
+                scene, cam, cfg, mesh)}
+    times = {name: [] for name in runs}
+    for _ in range(N_TIMED):
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            int(fn()[1])
+            times[name].append(time.perf_counter() - t0)
+    log(f"[parallel] {smi_line()}: {cfg.nx}x{cfg.ny} spp{cfg.spp} depth"
+        f"{cfg.max_depth} f32, in turns: " + "; ".join(
+            f"{name} {spread(t)}" for name, t in times.items()))
+    lp = cfg.n_pixels // PAR_SHARDS
+    bands = [pool_fused.render_pool_fused(scene, cam, cfg, zeros(lp), 0,
+                                          pix0=s * lp)
+             for s in range(PAR_SHARDS)]
+    combs = [pool_fused.render_pool_fused(scene, cam, cfg,
+                                          zeros(cfg.n_pixels), 0,
+                                          item_stride=PAR_SHARDS,
+                                          item_offset=s)
+             for s in range(PAR_SHARDS)]
+    for name, parts, raw in (
+            ("row bands", bands, torch.cat([b[0] for b in bands])),
+            ("interleaved", combs, sum(c[0] for c in combs))):
+        segs = [int(p[1]) for p in parts]
+        log(f"[parallel] {PAR_SHARDS} {name}' bodies: segments {segs} "
+            f"(max / min {max(segs) / min(segs):.3f}), iterations "
+            f"{[p[2] for p in parts]}")
+        same_pool(f"{PAR_SHARDS} {name} assembled", (raw, sum(segs), max(
+            p[2] for p in parts)), want)
+    return counts["LAUNCHES"]
+
+
+def par_fused_step(mesh, scene, cam):
+    """train_step_fused at 512^2 spp8 against render_diff_fused's step on
+    the same trip count: leftover 0, new parameters bit for bit; a warm-up
+    and N_TIMED steps of each in turns; the all-reduce of the gradient
+    bucket by CUDA events."""
+    import torch.distributed as dist
+    from scheme_raytrace_torch.parallel import (calibrate_iters_sharded,
+                                                train_step_fused)
+    cfg = PAR_BWD
+    n_iters = calibrate_iters_sharded(scene, cam, cfg, mesh, slack=1.1)
+    params, rest = build.partition(scene)
+    target = torch.zeros(cfg.ny, cfg.nx, 3, device=scene.device)
+
+    def unsharded():
+        loss_fn = lambda raw: torch.sum(
+            ((raw / cfg.spp).reshape(cfg.ny, cfg.nx, 3) - target) ** 2) / (
+                cfg.ny * cfg.nx * 3)
+        _, loss, _, leftover, grads = fwd_bwd(scene, cam, cfg, n_iters,
+                                              params, rest, loss_fn)
+        return ({k: v.detach() - PAR_LR * grads[k]
+                 for k, v in params.items()}, loss, leftover)
+
+    sharded = lambda: train_step_fused(params, rest, cam, cfg, target, mesh,
+                                       n_iters, lr=PAR_LR)
+    reset_counts()                            # the main path's counts start
+    new, loss, leftover = sharded()
+    float(loss)
+    counts = launch_counts()
+    ref, ref_loss, ref_left = unsharded()
+    same = all(torch.equal(new[k], ref[k]) for k in ref)
+    log(f"[parallel] train_step_fused {cfg.nx}x{cfg.ny} spp{cfg.spp} depth"
+        f"{cfg.max_depth} f32, world 1 {dist.get_backend(mesh.group)}: "
+        f"n_iters {n_iters}, leftover {int(leftover)} (unsharded "
+        f"{int(ref_left)}), loss {float(loss):.6e} / {float(ref_loss):.6e}; "
+        f"new parameters bitwise the unsharded step's: {same}; launches "
+        f"forward {counts['LAUNCHES']} backward {counts['BWD_LAUNCHES']}")
+    if int(leftover) != 0 or not same or float(loss) != float(ref_loss):
+        raise AssertionError("[parallel] train_step_fused differs from the "
+                             "unsharded step or did not drain")
+    block = -(-n_iters // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
+    if not counts["LAUNCHES"] == counts["BWD_LAUNCHES"] == block:
+        raise AssertionError(f"[parallel] launches {counts} != {block}")
+    times = {"sharded": [], "unsharded": []}
+    for _ in range(N_TIMED):
+        for name, fn in (("sharded", sharded), ("unsharded", unsharded)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(fn()[1])
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    bucket = torch.cat([v.reshape(-1) for v in params.values()])
+    ar_ms = kernel_ms(lambda: dist.all_reduce(bucket, group=mesh.group))
+    log(f"[parallel] {smi_line()}: train_step_fused {spread(times['sharded'])}"
+        f"; render_diff_fused step {spread(times['unsharded'])} (in turns); "
+        f"the gradient all-reduce of {bucket.numel()} floats "
+        f"({bucket.numel() * 4 + 4} B with the loss) {ar_ms * 1e3:.2f} us "
+        f"by CUDA events")
+    return dict(launches=counts["LAUNCHES"], bwd_launches=counts[
+        "BWD_LAUNCHES"], times=times, allreduce_ms=ar_ms)
+
+
+def par_wave(mesh, scene, cam):
+    """render_sharded and one train_step (the wavefront, no kernel) against
+    the unsharded wavefront on the shard's keys (rows = ny, shard 0):
+    bitwise."""
+    from scheme_raytrace_torch.parallel import render as prender
+    cfg = PAR_WAVE
+    reset_counts()
+    t0 = time.perf_counter()
+    img = prender.render_sharded(scene, cam, cfg, mesh)
+    float(img[0, 0, 0])
+    t_render = time.perf_counter() - t0
+    want = prender._mean_image_local(scene, cam, cfg, cfg.ny,
+                                     cfg.torch_dtype, 0)
+    params, rest = build.partition(scene)
+    target = torch.zeros_like(want)
+    t0 = time.perf_counter()
+    new, loss = prender.train_step(params, rest, cam, cfg, target, mesh,
+                                   lr=PAR_LR)
+    float(loss)
+    t_step = time.perf_counter() - t0
+    counts = launch_counts()
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    dcfg = cfg.replace(differentiable=True)
+    mean = prender._mean_image_local(build.combine(leaves, rest), cam, dcfg,
+                                     cfg.ny, cfg.torch_dtype, 0)
+    ref_loss = torch.sum((mean - target) ** 2) / (cfg.ny * cfg.nx * 3)
+    grads = torch.autograd.grad(ref_loss, list(leaves.values()),
+                                allow_unused=True)
+    ref_loss = ref_loss.detach()
+    ref = {k: v.detach() - PAR_LR * (torch.zeros_like(v) if g is None else g)
+           for (k, v), g in zip(leaves.items(), grads)}
+    same_img = torch.equal(img, want)
+    same_step = (all(torch.equal(new[k], ref[k]) for k in ref)
+                 and float(loss) == float(ref_loss))
+    log(f"[parallel] {smi_line()}: render_sharded {cfg.nx}x{cfg.ny} spp"
+        f"{cfg.spp} depth{cfg.max_depth} f32 {t_render * 1e3:.1f} ms, "
+        f"bitwise the unsharded wavefront's: {same_img}; train_step "
+        f"{t_step * 1e3:.1f} ms, new parameters bitwise: {same_step}; "
+        f"kernel launches {counts}")
+    if not same_img or not same_step or any(counts.values()):
+        raise AssertionError("[parallel] the sharded wavefront differs or "
+                             "launched a kernel")
+    if not bool(torch.isfinite(img).all()) or float(img.max()) <= 0.0:
+        raise AssertionError("[parallel] render_sharded is not finite or "
+                             "black")
+
+
+def phase_parallel(dev):
+    import torch.distributed as dist
+    from scheme_raytrace_torch.parallel import distributed as pdist
+    from scheme_raytrace_torch.parallel import make_mesh
+    pdist.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                     device=dev)
+    try:
+        mesh = make_mesh()
+        log(f"[parallel] world {mesh.size}, backend "
+            f"{dist.get_backend(mesh.group)}, rank {mesh.rank} on "
+            f"{mesh.device}: NCCL takes one rank a card, so on one card the "
+            f"collectives run at world 1 (no scaling over ranks measured)")
+        scene, cam = cornell(torch.float32, dev)
+        fwd = par_pools(mesh, scene, cam)
+        step = par_fused_step(mesh, scene, cam)
+        par_wave(mesh, scene, cam)
+    finally:
+        dist.destroy_process_group()
+    return dict(launches=fwd + step["launches"],
+                bwd_launches=step["bwd_launches"], step=step)
+
+
+# ---------------------------------------------------------------------------
+# cli: python -m scheme_raytrace_torch on the card.  `render` runs as a user
+# runs it, in a process of its own; `scenes`, `probe`, the resume and `view`
+# run in this process through the same parser.
+# ---------------------------------------------------------------------------
+
+CLI_RENDER = ["--scene", "cornell", "--light-sampling", "--nx", "512",
+              "--ny", "512", "--chunk", "4"]
+CLI_PROBE = ["probe", "100", "100", "--light-sampling"]
+CLI_VIEW = ["view", "--scene", "cornell", "--light-sampling", "--port", "0",
+            "--spp", "3"]
+
+
+def png_rgb(data):
+    """The RGB8 pixels of the viewer's unfiltered PNG."""
+    import zlib
+    w, h = (int.from_bytes(data[i:i + 4], "big") for i in (16, 20))
+    at, idat = 8, b""
+    while at < len(data):
+        n = int.from_bytes(data[at:at + 4], "big")
+        if data[at + 4:at + 8] == b"IDAT":
+            idat += data[at + 8:at + 8 + n]
+        at += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def chunks_in_process(built, n, state=None):
+    """n chunks of the CLI's build (cli._build: scene, camera and chunk
+    config) through render_with_stats, as the CLI chains them."""
+    _, scene, cam, cfg = built
+    state = state or render.init_state(cfg, device=scene.device)
+    for _ in range(n):
+        state, _, _ = render.render_with_stats(scene, cam, cfg, state)
+    return state
+
+
+def ppm_of(state, path):
+    done = int(state.sample_count)
+    render.write_ppm(path, state.raw_sum.cpu().numpy() / max(done, 1))
+    with open(path) as f:
+        return f.read()
+
+
+def cli_out(argv):
+    """Standard output of the CLI's main(argv) in this process."""
+    import contextlib
+    import io
+    from scheme_raytrace_torch.__main__ import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    return buf.getvalue()
+
+
+def cli_view(dev):
+    """`view` on port 0 for 3 passes: the served PNG is to_u8
+    of the published mean (display rows), a click probe answers."""
+    import urllib.request
+    from scheme_raytrace_torch import __main__ as cli
+    from scheme_raytrace_torch.viewer import Viewer
+    args = cli.parser().parse_args(CLI_VIEW)
+    _, scene, cam, cfg = cli._build(args)
+    v = Viewer(scene, cam, cfg, scene_name=args.scene,
+               spp_target=args.spp, out=os.path.join(ROOT, "build",
+                                                     "view.ppm"),
+               host=args.host, port=args.port, chunk=args.chunk)
+    v.start_server()
+    base = f"http://{args.host}:{v.port}"
+    get = lambda p: urllib.request.urlopen(base + p, timeout=60).read()
+    try:
+        t0 = time.perf_counter()
+        state = v.render_loop()
+        wall = time.perf_counter() - t0
+        status = json.loads(get("/status"))
+        frame = png_rgb(get("/frame.png"))
+        mean = v._mean
+        probe = json.loads(get("/probe?x=100&y=100"))
+    finally:
+        v.stop()
+    same = np.array_equal(frame, render.to_u8(mean)[::-1])
+    log(f"[cli] view {cfg.nx}x{cfg.ny} depth{cfg.max_depth} on port "
+        f"{v.port}: {status['samples']} passes in {wall * 1e3:.1f} ms "
+        f"({smi_line()}), {status['rays_per_s']:.4e} rays/s the last; the "
+        f"PNG is to_u8 of the published mean: {same}; probe (100, 100): "
+        f"{probe}")
+    if (not same or status["samples"] != args.spp
+            or int(state.sample_count) != args.spp
+            or not np.allclose(probe["mean_radiance"],
+                               mean[probe["y"], probe["x"]])):
+        raise AssertionError("[cli] the viewer's page disagrees with its "
+                             "render")
+
+
+def phase_cli(dev):
+    """`render` in a process of its own against the same four chunks in
+    this one (PPM bitwise); its saved state resumed for one more chunk
+    (bitwise the in-process fifth chunk); `scenes`, `probe`, `view`."""
+    out_dir = os.path.join(ROOT, "build", "cli")
+    os.makedirs(out_dir, exist_ok=True)
+    ppm, st = (os.path.join(out_dir, n) for n in ("render.ppm", "state.npz"))
+    argv = ["render", *CLI_RENDER, "--spp", "16", "--out", ppm,
+            "--save-state", st]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "scheme_raytrace_torch",
+                          *argv], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    log(f"[cli] python -m scheme_raytrace_torch {' '.join(argv[:-4])}: exit "
+        f"{run.returncode} in {wall:.1f} s ({smi_line()}), process start "
+        f"included:\n" + run.stdout.strip() + ("\n" + run.stderr[-2000:]
+                                               if run.returncode else ""))
+    if (run.returncode != 0
+            or f"device={torch.device(dev).type}" not in run.stdout):
+        raise AssertionError("[cli] render failed or did not run on the card")
+    from scheme_raytrace_torch import __main__ as cli
+    built = cli._build(cli.parser().parse_args(argv))
+    state = chunks_in_process(built, 4)
+    same = ppm_of(state, ppm + ".want") == open(ppm).read()
+    log(f"[cli] its PPM equals render.write_ppm of the same four chunks "
+        f"rendered in this process: {same}")
+    reset_counts()                            # the main path's counts start
+    out = cli_out(["render", *CLI_RENDER, "--spp", "20", "--resume", st,
+                   "--out", ppm + ".resumed"])
+    launches = bounce.LAUNCHES
+    resumed = ppm_of(chunks_in_process(built, 1, state),
+                     ppm + ".want5") == open(ppm + ".resumed").read()
+    log(f"[cli] --resume of its state for one more chunk ({launches} "
+        f"bounce_step launches) equals the fifth chunk in this process: "
+        f"{resumed}:\n{out.strip()}")
+    listed = cli_out(["scenes"]).split()
+    probe = cli_out(CLI_PROBE)
+    nums = [float(x) for line in probe.splitlines() if "mean" in line
+            for x in line.replace("(", " ").replace(")", " ").replace(
+                ",", " ").split() if x[0].isdigit() or x[0] == "-"]
+    log(f"[cli] scenes: {listed}\n{probe.strip()}")
+    if (not same or not resumed or launches == 0
+            or listed != list(scenes.SCENES) or len(nums) != 4
+            or not np.isfinite(nums).all()):
+        raise AssertionError("[cli] a subcommand disagrees with its "
+                             "in-process render")
+    cli_view(dev)
+    return dict(launches=launches)
+
+
 # The scenes of the kernel-tile phase: the eight scenes of the full-size
 # paths and the two tie plans, each with its kernel phase's lanes.
 PATH_SCENES = ("cornell", "rtow", "textured", "cornell_smoke", "bezier",
@@ -3671,6 +4059,8 @@ PHASES = {
     "general-sort": lambda dev, r: phase_general_sort(dev),
     "wave-check": lambda dev, r: phase_wave_check(dev),
     "wave-full": lambda dev, r: phase_wave_full(dev),
+    "parallel": lambda dev, r: phase_parallel(dev),
+    "cli": lambda dev, r: phase_cli(dev),
 }
 # A phase that reads another's result brings it along.
 NEEDS = {"pools-full": ("full",)}
@@ -3719,11 +4109,13 @@ def kernel_table(r):
     later = {**{k: v[:3] for k, v in tex_full.items()},
              **{k: v[:3] for k, v in bez_full.items()},
              **{k: v[:3] for k, v in kl_full.items()}}
+    par, cli = r["parallel"], r["cli"]
     k1_launches = (full["launches"] + full_bwd["launches"]
                    + pools["strided"]["launches"] + sph_full["launches"]
                    + sph_bwd["launches"]
                    + sum(f["launches"] + b["launches"]
-                         for f, _, b in later.values()))
+                         for f, _, b in later.values())
+                   + par["launches"] + cli["launches"])
     log(f"[paths] bounce_step launches: Cornell forward render "
         f"{full['launches']}, fwd+bwd step {full_bwd['launches']}, strided "
         f"pool {pools['strided']['launches']}, RTOW forward render "
@@ -3734,6 +4126,10 @@ def kernel_table(r):
         f"{pools['packed']['launches']}; bounce_persist launches: Cornell "
         f"persistent pool {pools['persistent']['launches']}, RTOW persistent "
         f"pool {sph_persist['launches']}; probes {probes['launches']}")
+    log(f"[paths] bounce_step launches: the sharded pools and "
+        f"train_step_fused (world 1) {par['launches']}, the CLI's resumed "
+        f"chunk {cli['launches']}; bounce_step_bwd launches: "
+        f"train_step_fused {par['bwd_launches']}")
     for name, (f, pers, b) in later.items():
         log(f"[paths] {name}: bounce_step launches: forward render "
             f"{f['launches']}, fwd+bwd step {b['launches']}; bounce_step_bwd "
@@ -3774,7 +4170,8 @@ def kernel_table(r):
         "source": src + "bounce_step_bwd.cu",
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1687",
         "launches": (full_bwd["bwd_launches"] + sph_bwd["bwd_launches"]
-                     + sum(b["bwd_launches"] for _, _, b in later.values())),
+                     + sum(b["bwd_launches"] for _, _, b in later.values())
+                     + par["bwd_launches"]),
         **on(pick(kern_bwd, "f32-cornell-light")),
         "max_abs_err": max(k["max_abs_err"] for k in f32_bwd),
         "library_ms": None,

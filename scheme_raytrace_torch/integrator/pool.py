@@ -119,17 +119,22 @@ def _band_rows(ny, nx):
 
 
 def render_pool_auto(scene, cam, config, raw0, sample_base, pix0=0,
-                     total_pix=None):
+                     total_pix=None, bands=True):
     """Render config.spp passes into raw0 ([n_pix, 3] radiance sums);
     return (raw, segments, iters).  The fused pool takes what
-    `bounce.supported` covers, the general pool the rest."""
+    `bounce.supported` covers, the general pool the rest.
+
+    bands=False renders a whole frame in one drain however large it is: a
+    shard of parallel.pool never bands, as JAX's never does under
+    `vary_axes`, so its iteration count is the JAX shard's."""
     if bounce.supported(scene, config):
         fn = pool_fused.render_pool_fused
     else:
         fn = render_pool
 
     n_pix = raw0.shape[0]
-    whole_frame = (pix0 == 0 and (total_pix is None or total_pix == n_pix)
+    whole_frame = (bands and pix0 == 0
+                   and (total_pix is None or total_pix == n_pix)
                    and n_pix == config.n_pixels)
     if whole_frame and n_pix > BAND_PIX:
         band_pix = _band_rows(config.ny, config.nx) * config.nx

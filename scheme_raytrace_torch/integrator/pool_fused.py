@@ -43,8 +43,17 @@ from . import bounce
 FLUSH_EVERY = 8     # bounce iterations between drain checks (host syncs)
 
 
+def _pixel_of(item, n_pix, stride, offset):
+    """Local frame pixel of a work item: the item itself by default; with
+    stride = n and offset = shard, local item k is pixel k * n + shard, the
+    interleave of parallel.pool's balanced mode.  The modulo only keeps
+    dead padding lanes (item >= n_work) inside the frame."""
+    return (item * stride + offset) % n_pix
+
+
 def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
-                      total_pix=None, static_iters=None):
+                      total_pix=None, static_iters=None, item_stride=1,
+                      item_offset=0):
     """Trace config.spp passes over raw0's pixels; return (raw, segments,
     iters), or (raw, segments, leftover) with `static_iters`.
 
@@ -58,6 +67,9 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
     FLUSH_EVERY iterations at the reverse-mode pool size, out of place and
     with no host sync; leftover (0-d int64 tensor) counts the lanes still
     alive plus the pixels never issued, and must be 0 for a whole image.
+    item_stride, item_offset: render only the pixels k * item_stride +
+    item_offset of raw0 (the interleaved shard of parallel.pool's balanced
+    mode); the others keep raw0's values.
     """
     n_pix = raw0.shape[0]
     total_pix = config.n_pixels if total_pix is None else total_pix
@@ -72,7 +84,8 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
 
     pool_cap = max(128, config.resolve_pool_rays(reverse=reverse)
                    // 128 * 128)
-    n_work = n_pix
+    assert n_pix % item_stride == 0, (n_pix, item_stride)
+    n_work = n_pix // item_stride              # local pixels
     m = max(128, min(pool_cap, (n_work + 127) // 128 * 128))
     pk = bounce.pack(scene, cam, plan, dtype)
 
@@ -83,7 +96,7 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
     fresh = alive.clone()
     pass_idx = torch.zeros(m, **i64)
     depth = torch.zeros(m, dtype=torch.int32, device=dev)
-    pixg = pix0 + item % n_pix                 # frame pixel of each lane
+    pixg = pix0 + _pixel_of(item, n_pix, item_stride, item_offset)
     px = (pixg % config.nx).to(dtype)
     py = torch.div(pixg, config.nx, rounding_mode="floor").to(dtype)
     z = torch.zeros(m, dtype=dtype, device=dev)
@@ -128,7 +141,7 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
             pass_idx = torch.where(more, pass_idx + 1,
                                    torch.where(has_work, 0, pass_idx))
             fresh = more | has_work
-            pixg = pix0 + item % n_pix
+            pixg = pix0 + _pixel_of(item, n_pix, item_stride, item_offset)
             px = torch.where(fresh, (pixg % config.nx).to(dtype), px)
             py = torch.where(fresh, torch.div(pixg, config.nx,
                                               rounding_mode="floor").to(dtype),

@@ -169,6 +169,16 @@ def scene_from_arrays(arrays: dict, meta: dict, device=None,
     return Scene(**data, **{f: meta[f] for f in _META_FIELDS})
 
 
+def params_from_arrays(arrays: dict, device=None,
+                       dtype=torch.float32) -> dict:
+    """A `partition` params dict from numpy arrays of the same names (e.g. a
+    JAX package params dict's `{k: np.asarray(v)}`), each leaf `dtype` on
+    `device` (None: the card)."""
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+            for k, v in arrays.items()}
+
+
 class _Registry:
     """Deduplicating id assignment for materials/textures during compile."""
 

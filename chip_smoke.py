@@ -11,7 +11,8 @@ scenes (hash-Perlin noise and marble, image texels, constant media) forward
 and fwd+bwd, the bezier scenes and the klein scenes forward and fwd+bwd,
 the general pool (BVH, russian roulette, material sort, 4,901 prims), the
 differentiable wavefront (render_pass and its gradients), the sharded
-paths of parallel/ and the command line, in phases; any
+paths of parallel/, the command line, and the entry point and the
+instruments of tools/, in phases; any
 failure raises and the exit code is non-zero.  `--phases` takes a
 comma-separated selection of the phase names in PHASES (the default is every
 phase); the device and build phases always run, a phase that needs another's
@@ -199,6 +200,21 @@ kernel table:
      --light-sampling` prints finite numbers; `view` on port 0 for 3
      passes serves a PNG whose pixels are to_u8 of the published mean and
      answers a click probe.
+ 41. entry.py and the instruments of scheme_raytrace_torch/tools on the
+     card (tools), each at the JAX tool's defaults with its seconds and its
+     K1 / K2 launches: entry()'s render_pass (64x64 spp1 depth 8, finite)
+     and dryrun_multichip(1) (NCCL world 1: render_sharded, train_step,
+     train_step_fused drained); bench_scenes on Cornell (K1); bench_diff
+     (256^2 spp4, 5 chained steps, K1 and K2); check_vjp_grads (the loss
+     and every leaf's gradient through K2 against the plain step's VJP on
+     the card: float32 within tests/test_parity.py's scale and bound,
+     float64 within 1e-9); profile_diff_step's kernel / glue / full loops
+     at 512^2 spp8; profile_hotpath's six stages and profile_scatter's
+     flushes (CUDA events beside the host's enqueue time);
+     diag_fwdbwd_variance at 5 reps; bench_bvh_crossover at N = 256,
+     1,024, 4,096 (cut from 16,384 too); bench_material_sort;
+     bench_shard_overhead; bench_scaling (world 1 and the cards, one here,
+     each in processes of their own).
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -232,6 +248,8 @@ from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
 from scheme_raytrace_torch.scene import build, compile_scene
 from scheme_raytrace_torch.scene import objects as ob
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
+from scheme_raytrace_torch.tools.bench_bvh_crossover import (grid_scene,
+                                                             grid_spec)
 from scheme_raytrace_torch.utils import cuda_build
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -541,6 +559,8 @@ VARIANTS = {
     "wave-full": [],
     "parallel": [((K1, K2), scenes.cornell_box)],
     "cli": [((K1,), scenes.cornell_box)],
+    "tools": [((K1, K2), scenes.cornell_box),
+              ((K1,), lambda: grid_spec(256))],
 }
 
 
@@ -2534,7 +2554,7 @@ GEN_RTOW = RenderConfig(nx=512, ny=512, spp=1, max_depth=100, seed=0,
 # 3. a scene over 4,096 prims: 70 x 70 spheres and the ground (4,901), brute
 #    and SAH, at 512^2 (cut from spp8 to spp1).
 GEN_GRID = RenderConfig(nx=512, ny=512, spp=1, max_depth=100, seed=0)
-GRID_SIDE = 70
+GRID_N = 70 * 70              # bench_bvh_crossover.grid_scene's n
 # 4. Cornell, light sampled, russian roulette from depth 4, 512^2 spp16.
 GEN_RR = RenderConfig(nx=512, ny=512, spp=16, max_depth=100, seed=0,
                       light_sampling=True, russian_roulette=True,
@@ -2547,24 +2567,6 @@ N_TIMED_GENERAL = 3
 # The card against the CPU, both float64 and plain PyTorch, per run's scene
 # and options at 24^2 spp2: the same segments, the image within 1e-9.
 GEN_SMALL = dict(nx=24, ny=24, spp=2, max_depth=100, seed=0, dtype="f64")
-
-
-def grid_spec(n=GRID_SIDE * GRID_SIDE):
-    """tools/bench_bvh_crossover.py:26-41's grid_scene(n), from this
-    package's objects: sqrt(n) x sqrt(n) lambertian spheres of radius 0.2
-    and the ground sphere, under the gradient sky."""
-    side = int(round(n ** 0.5))
-    rng = np.random.default_rng(7)
-    objs = [ob.Sphere((0, -1000.0, 0), 1000.0,
-                      ob.Lambertian((0.5, 0.5, 0.5)))]
-    for i in range(side):
-        for j in range(side):
-            c = (i - side / 2 + 0.5, 0.2, j - side / 2 + 0.5)
-            objs.append(ob.Sphere(c, 0.2, ob.Lambertian(
-                tuple(rng.uniform(0.1, 0.9, 3)))))
-    cam_kwargs = dict(lookfrom=(side * 0.9, side * 0.35, side * 0.9),
-                      lookat=(0.0, 0.0, 0.0), vfov=30.0)
-    return scenes.SceneSpec(objs, cam_kwargs, "gradient")
 
 
 def general_render(scene, cam, cfg, chunks=1):
@@ -2706,7 +2708,7 @@ def check_general_small(dev):
     general pool on the card against the same pool on the CPU (plain
     PyTorch both), segments and iterations exact and the image within
     1e-9; the material-sorted render bitwise the masked one on the card."""
-    rtow, grid = scenes.random_scene(seed=0), grid_spec()
+    rtow, grid = scenes.random_scene(seed=0), grid_spec(GRID_N)
     cases = (("rtow-sah", rtow, "sah", dict(traversal="bvh")),
              ("rtow-median", rtow, "median", dict(traversal="bvh")),
              ("grid-brute", grid, None, {}),
@@ -2803,11 +2805,10 @@ def phase_general_grid(dev):
     general pool and the SAH BVH, compared as
     tests/test_bvh.py::test_grid_scene_image_identical_brute_vs_bvh does
     (mean |difference| < 2e-3, under 2% of pixels off by > 0.05)."""
-    spec = grid_spec()
     out = {}
     for name, bvh, cfg in (("brute", None, GEN_GRID),
                            ("sah", "sah", GEN_GRID.replace(traversal="bvh"))):
-        scene, cam = spec_scene(spec, torch.float32, dev, bvh)
+        scene, cam = grid_scene(GRID_N, bvh, device=dev)
         out[name] = run_general(f"general-grid-{name}",
                                 f"grid of {scene.sph_r.shape[0]} spheres, "
                                 f"{name}", scene, cam, cfg)
@@ -3264,13 +3265,6 @@ PAR_WAVE = RenderConfig(nx=128, ny=128, spp=1, max_depth=100, seed=0,
 PAR_LR = 1e-6
 
 
-def free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def same_pool(tag, got, want):
     """(raw, segments, iters) of a sharded render against the unsharded
     one: image and segments bit for bit; iterations logged."""
@@ -3452,11 +3446,7 @@ def par_wave(mesh, scene, cam):
 def phase_parallel(dev):
     import torch.distributed as dist
     from scheme_raytrace_torch.parallel import distributed as pdist
-    from scheme_raytrace_torch.parallel import make_mesh
-    pdist.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
-                     device=dev)
-    try:
-        mesh = make_mesh()
+    with pdist.single_process(dev) as mesh:
         log(f"[parallel] world {mesh.size}, backend "
             f"{dist.get_backend(mesh.group)}, rank {mesh.rank} on "
             f"{mesh.device}: NCCL takes one rank a card, so on one card the "
@@ -3465,8 +3455,6 @@ def phase_parallel(dev):
         fwd = par_pools(mesh, scene, cam)
         step = par_fused_step(mesh, scene, cam)
         par_wave(mesh, scene, cam)
-    finally:
-        dist.destroy_process_group()
     return dict(launches=fwd + step["launches"],
                 bwd_launches=step["bwd_launches"], step=step)
 
@@ -3614,6 +3602,92 @@ def phase_cli(dev):
                              "in-process render")
     cli_view(dev)
     return dict(launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# tools: entry.py and the instruments of scheme_raytrace_torch/tools on the
+# card, each through the functions a user's command runs, at the JAX tools'
+# defaults; each prints its own lines.  Their assertions (drained steps,
+# shapes, finite losses, check_vjp_grads' bound) fail the phase.
+# ---------------------------------------------------------------------------
+
+TOOLS_CROSSOVER = (256, 1024, 4096)   # cut from (..., 16384): PERF.md
+
+
+def phase_tools(dev):
+    """entry(), dryrun_multichip(1) and the tools, one after another, each
+    with its seconds and its K1 / K2 launches (the counts set to 0 just
+    before the first and read just after the last)."""
+    from scheme_raytrace_torch import entry
+    from scheme_raytrace_torch.tools import (
+        bench_bvh_crossover, bench_diff, bench_material_sort, bench_scaling,
+        bench_scenes, bench_shard_overhead, check_vjp_grads,
+        diag_fwdbwd_variance, profile_diff_step, profile_hotpath,
+        profile_scatter)
+
+    def flagship():
+        fn, args = entry.entry()
+        st = fn(*args)
+        ok = (tuple(st.raw_sum.shape) == (64, 64, 3)
+              and bool(torch.isfinite(st.raw_sum).all())
+              and float(st.raw_sum.max()) > 0.0
+              and int(st.sample_count) == 1)
+        log(f"[tools] entry(): render_pass 64x64 spp1 depth8 on "
+            f"{st.raw_sum.device}: frame mean {float(st.raw_sum.mean()):.4f}"
+            f", finite, sample_count {int(st.sample_count)}: {ok}")
+        if not ok:
+            raise AssertionError("[tools] entry()'s pass is not a finite "
+                                 "64x64 frame")
+
+    def scenes_cornell():
+        r = bench_scenes.bench_one("cornell")
+        if r["impl"] != "cuda":
+            raise AssertionError(f"[tools] bench_scenes ran {r['impl']}")
+        return r
+
+    def crossover():
+        rows = bench_bvh_crossover.run(TOOLS_CROSSOVER)
+        # n spheres and the ground: K1 up to MAX_FUSED_PRIMS prims
+        if any({"brute", "bvh"} - set(r) or r["impl"] != (
+                "cuda" if n + 1 <= bounce.MAX_FUSED_PRIMS else "general")
+               for n, r in rows.items()):
+            raise AssertionError(f"[tools] bench_bvh_crossover: {rows}")
+        return rows
+
+    runs = (("entry", flagship),
+            ("dryrun_multichip", lambda: entry.dryrun_multichip(1)),
+            ("bench_scenes", scenes_cornell),
+            ("bench_diff", bench_diff.run),
+            ("check_vjp_grads", check_vjp_grads.run),
+            ("profile_diff_step", profile_diff_step.run),
+            ("profile_hotpath", profile_hotpath.run),
+            ("profile_scatter", profile_scatter.run),
+            ("diag_fwdbwd_variance", lambda: diag_fwdbwd_variance.run(5)),
+            ("bench_bvh_crossover", crossover),
+            ("bench_material_sort", bench_material_sort.run),
+            ("bench_shard_overhead", bench_shard_overhead.run),
+            ("bench_scaling", bench_scaling.run))
+    out = {}
+    reset_counts()                            # the tools' counts start
+    for name, fn in runs:
+        before = launch_counts()
+        t0 = time.perf_counter()
+        log(f"[tools] --- {name}")
+        result = fn()
+        counts = launch_counts()
+        k1 = counts["LAUNCHES"] - before["LAUNCHES"]
+        k2 = counts["BWD_LAUNCHES"] - before["BWD_LAUNCHES"]
+        log(f"[tools] {name}: {time.perf_counter() - t0:.1f} s, "
+            f"bounce_step launches {k1}, bounce_step_bwd launches {k2}")
+        out[name] = dict(result=result, launches=k1, bwd_launches=k2)
+    counts = launch_counts()
+    log(f"[tools] {smi_line()}: the tools launched bounce_step "
+        f"{counts['LAUNCHES']} and bounce_step_bwd {counts['BWD_LAUNCHES']}"
+        f" times; {counts}")
+    if counts["LAUNCHES"] == 0 or counts["BWD_LAUNCHES"] == 0:
+        raise AssertionError("[tools] K1 or K2 was never launched")
+    return dict(launches=counts["LAUNCHES"],
+                bwd_launches=counts["BWD_LAUNCHES"], runs=out)
 
 
 # The scenes of the kernel-tile phase: the eight scenes of the full-size
@@ -4061,6 +4135,7 @@ PHASES = {
     "wave-full": lambda dev, r: phase_wave_full(dev),
     "parallel": lambda dev, r: phase_parallel(dev),
     "cli": lambda dev, r: phase_cli(dev),
+    "tools": lambda dev, r: phase_tools(dev),
 }
 # A phase that reads another's result brings it along.
 NEEDS = {"pools-full": ("full",)}
@@ -4109,13 +4184,13 @@ def kernel_table(r):
     later = {**{k: v[:3] for k, v in tex_full.items()},
              **{k: v[:3] for k, v in bez_full.items()},
              **{k: v[:3] for k, v in kl_full.items()}}
-    par, cli = r["parallel"], r["cli"]
+    par, cli, tools = r["parallel"], r["cli"], r["tools"]
     k1_launches = (full["launches"] + full_bwd["launches"]
                    + pools["strided"]["launches"] + sph_full["launches"]
                    + sph_bwd["launches"]
                    + sum(f["launches"] + b["launches"]
                          for f, _, b in later.values())
-                   + par["launches"] + cli["launches"])
+                   + par["launches"] + cli["launches"] + tools["launches"])
     log(f"[paths] bounce_step launches: Cornell forward render "
         f"{full['launches']}, fwd+bwd step {full_bwd['launches']}, strided "
         f"pool {pools['strided']['launches']}, RTOW forward render "
@@ -4130,6 +4205,10 @@ def kernel_table(r):
         f"train_step_fused (world 1) {par['launches']}, the CLI's resumed "
         f"chunk {cli['launches']}; bounce_step_bwd launches: "
         f"train_step_fused {par['bwd_launches']}")
+    log("[paths] the tools phase: " + ", ".join(
+        f"{name} {t['launches']} / {t['bwd_launches']}"
+        for name, t in tools["runs"].items())
+        + " (bounce_step / bounce_step_bwd launches)")
     for name, (f, pers, b) in later.items():
         log(f"[paths] {name}: bounce_step launches: forward render "
             f"{f['launches']}, fwd+bwd step {b['launches']}; bounce_step_bwd "
@@ -4171,7 +4250,7 @@ def kernel_table(r):
         "replaces": "scheme_raytrace_tpu/integrator/bounce.py:1687",
         "launches": (full_bwd["bwd_launches"] + sph_bwd["bwd_launches"]
                      + sum(b["bwd_launches"] for _, _, b in later.values())
-                     + par["bwd_launches"]),
+                     + par["bwd_launches"] + tools["bwd_launches"]),
         **on(pick(kern_bwd, "f32-cornell-light")),
         "max_abs_err": max(k["max_abs_err"] for k in f32_bwd),
         "library_ms": None,

@@ -42,6 +42,13 @@ from . import bounce
 
 FLUSH_EVERY = 8     # bounce iterations between drain checks (host syncs)
 
+# The step the most recent render_pool_fused call ran, by direction:
+# {"forward": "cuda"|"plain", "reverse": "cuda"|"plain"} (the JAX module's
+# pallas / jnp record): "cuda" for the kernels K1 (and K2 in reverse),
+# "plain" for the plain PyTorch `bounce.step`.  It records what ran and
+# selects nothing.
+LAST_STEP_IMPL: dict = {}
+
 
 def _pixel_of(item, n_pix, stride, offset):
     """Local frame pixel of a work item: the item itself by default; with
@@ -49,6 +56,15 @@ def _pixel_of(item, n_pix, stride, offset):
     interleave of parallel.pool's balanced mode.  The modulo only keeps
     dead padding lanes (item >= n_work) inside the frame."""
     return (item * stride + offset) % n_pix
+
+
+def pool_step(device, reverse=False):
+    """The bounce step the pool runs on `device`: on the card the kernel K1
+    (`bounce.step_cuda`; in reverse `step_cuda_vjp`, K1 forward and K2
+    backward), on the CPU the plain `bounce.step`."""
+    if device.type == "cuda":
+        return bounce.step_cuda_vjp if reverse else bounce.step_cuda
+    return bounce.step
 
 
 def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
@@ -77,10 +93,9 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
     plan = bounce.pool_plan(scene, config)
     dev, dtype = raw0.device, raw0.dtype
     reverse = static_iters is not None
-    if dev.type == "cuda":
-        step = bounce.step_cuda_vjp if reverse else bounce.step_cuda
-    else:
-        step = bounce.step
+    step = pool_step(dev, reverse)
+    LAST_STEP_IMPL["reverse" if reverse else "forward"] = (
+        "plain" if step is bounce.step else "cuda")
 
     pool_cap = max(128, config.resolve_pool_rays(reverse=reverse)
                    // 128 * 128)

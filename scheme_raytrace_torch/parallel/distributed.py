@@ -5,11 +5,14 @@ with jax.distributed and one controller; torch runs one process a device
 (parallel/mesh.py), so every process calls `initialize` before building a
 mesh, and the collectives below combine the shards.  `spawn` starts n gloo
 processes on the CPU, the port's counterpart of the JAX tests' virtual CPU
-mesh: its children import torch and this package only.
+mesh (or n NCCL processes, a card each): its children import torch and
+this package only.  `single_process` is a world of one rank in this
+process, the way one card runs the sharded entry points.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import tempfile
@@ -88,11 +91,14 @@ def _to_numpy(x):
     return x
 
 
-def _child(fn, store, n, rank, args, results):
+def _child(fn, store, n, rank, args, results, device):
     try:
-        # n processes share the host's cores
-        torch.set_num_threads(1)
-        initialize(store, n, rank, device="cpu")
+        if device == "cpu":
+            # n processes share the host's cores
+            torch.set_num_threads(1)
+        else:
+            device = torch.device("cuda", rank)     # one card a rank
+        initialize(store, n, rank, device=device)
         from .mesh import make_mesh
         try:
             out = _to_numpy(fn(make_mesh(), *args))
@@ -104,20 +110,29 @@ def _child(fn, store, n, rank, args, results):
         raise
 
 
-def spawn(fn, n: int, *args, timeout: float = 600.0) -> list:
+def spawn(fn, n: int, *args, timeout: float = 600.0,
+          device: str = "cpu") -> list:
     """Run fn(mesh, *args) in n new processes joined in a gloo group on the
-    CPU (a `file://` store in a temporary directory); return their results
+    CPU (a `file://` store in a temporary directory), or with
+    device="cuda" in an NCCL group, rank r on card r; return their results
     in rank order, tensors as numpy arrays.  fn is pickled by its import
     path: a module-level function of a module the children can import.
     Raises if a rank raises or dies, or after `timeout` seconds; every
     child is ended before it returns."""
+    if device not in ("cpu", "cuda"):
+        raise ValueError(f"spawn: device must be 'cpu' or 'cuda', got "
+                         f"{device!r}")
+    if device == "cuda" and n > torch.cuda.device_count():
+        raise RuntimeError(f"spawn: {n} ranks on the cards, but "
+                           f"{torch.cuda.device_count()} CUDA devices")
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         store = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_child,
-                             args=(fn, store, n, r, args, results))
+                             args=(fn, store, n, r, args, results,
+                                   device))
                  for r in range(n)]
         for p in procs:
             p.start()
@@ -148,3 +163,26 @@ def spawn(fn, n: int, *args, timeout: float = 600.0) -> list:
                     p.kill()
                     p.join()
     return [out[r] for r in range(n)]
+
+
+def free_port() -> int:
+    """A TCP port of this host that is free now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def single_process(device=None):
+    """A world of one rank in this process, on `device` (None: the card;
+    NCCL there, gloo for "cpu"), at a free localhost port: yields its mesh
+    and destroys the group on the way out.  On one card this is how the
+    sharded entry points run (NCCL takes one rank a card)."""
+    from .mesh import make_mesh
+    initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+               device=device)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()

@@ -1545,7 +1545,7 @@ def test_general_pool_over_4096_prims_on_the_card(cuda):
     card (the general pool's [N, S] sweep, and its SAH BVH) with no kernel
     launch, and both images agree."""
     import chip_smoke
-    spec = chip_smoke.grid_spec()
+    spec = chip_smoke.grid_spec(chip_smoke.GRID_N)
     cfg = RenderConfig(nx=32, ny=32, spp=1, max_depth=100)
     imgs = []
     before = bounce.LAUNCHES

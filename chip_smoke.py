@@ -11,8 +11,8 @@ scenes (hash-Perlin noise and marble, image texels, constant media) forward
 and fwd+bwd, the bezier scenes and the klein scenes forward and fwd+bwd,
 the general pool (BVH, russian roulette, material sort, 4,901 prims), the
 differentiable wavefront (render_pass and its gradients), the sharded
-paths of parallel/, the command line, and the entry point and the
-instruments of tools/, in phases; any
+paths of parallel/, the command line, the entry point and the
+instruments of tools/, and the headline bench, in phases; any
 failure raises and the exit code is non-zero.  `--phases` takes a
 comma-separated selection of the phase names in PHASES (the default is every
 phase); the device and build phases always run, a phase that needs another's
@@ -151,7 +151,7 @@ kernel table:
      bitwise the masked one;
  32-36. the general pool's five runs, float32 at 65,536 lanes and depth
      100, each a warm-up (one of its pool iterations profiled for launches
-     and busy share) and three timed renders from zeros, bitwise equal, with
+     and busy share) and two timed renders from zeros, bitwise equal, with
      segments, iterations and peak memory, and no kernel launched:
      `render --scene random --bvh sah` at the CLI's 200x200 (one chunk of 4
      passes; general-cli); the RTOW scene at 512^2 spp1 through the SAH and
@@ -211,10 +211,20 @@ kernel table:
      float64 within 1e-9); profile_diff_step's kernel / glue / full loops
      at 512^2 spp8; profile_hotpath's six stages and profile_scatter's
      flushes (CUDA events beside the host's enqueue time);
-     diag_fwdbwd_variance at 5 reps; bench_bvh_crossover at N = 256,
-     1,024, 4,096 (cut from 16,384 too); bench_material_sort;
+     diag_fwdbwd_variance at 5 reps; bench_bvh_crossover at N = 256 and
+     1,024 (cut from 4,096 and 16,384 too); bench_material_sort;
      bench_shard_overhead; bench_scaling (world 1 and the cards, one here,
      each in processes of their own).
+ 42. the headline bench (bench): `python -m scheme_raytrace_torch.bench`,
+     the root bench.py's twin, in a process of its own as a user runs it
+     (Cornell 512x512 spp16 forward, spp8 fwd+bwd and 1024x1024 spp16
+     forward, each a warm-up and 5 timed runs): exit 0, its last line
+     with bench.py's keys and "card", both steps "cuda", every rate
+     positive, its warm-up 512^2 render's segments and iterations those
+     of phase 7 (or the recorded 11,646,756 in 224), each measurement's
+     spread logged; then one 1024^2 render here, its 4 row bands under
+     torch.profiler (K1's launches, the busy share, the peak memory) and
+     rendered again one at a time, each bitwise its rows of the frame.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -225,11 +235,13 @@ phase logs what it took (`[time]`).  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ast
 import concurrent.futures
 import dataclasses
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -561,6 +573,7 @@ VARIANTS = {
     "cli": [((K1,), scenes.cornell_box)],
     "tools": [((K1, K2), scenes.cornell_box),
               ((K1,), lambda: grid_spec(256))],
+    "bench": [((K1, K2), scenes.cornell_box)],
 }
 
 
@@ -2563,7 +2576,10 @@ GEN_RR = RenderConfig(nx=512, ny=512, spp=16, max_depth=100, seed=0,
 #    shading.
 GEN_SORT = RenderConfig(nx=200, ny=200, spp=16, max_depth=100, seed=0,
                         material_sort=True)
-N_TIMED_GENERAL = 3
+# Timed renders of each general run after its warm-up: cut from 3 to 2 (the
+# general renders take 2-10 s each) to keep the whole script well inside its
+# time limit with the bench phase.
+N_TIMED_GENERAL = 2
 # The card against the CPU, both float64 and plain PyTorch, per run's scene
 # and options at 24^2 spp2: the same segments, the image within 1e-9.
 GEN_SMALL = dict(nx=24, ny=24, spp=2, max_depth=100, seed=0, dtype="f64")
@@ -3611,7 +3627,10 @@ def phase_cli(dev):
 # shapes, finite losses, check_vjp_grads' bound) fail the phase.
 # ---------------------------------------------------------------------------
 
-TOOLS_CROSSOVER = (256, 1024, 4096)   # cut from (..., 16384): PERF.md
+# cut from (..., 4096, 16384): PERF.md.  4,096 spheres (4,097 prims, the
+# general pool's route) took 35-48 s of the phase, most of it the SAH walk;
+# the general-grid phase drives that route over 4,901 prims.
+TOOLS_CROSSOVER = (256, 1024)
 
 
 def phase_tools(dev):
@@ -3688,6 +3707,148 @@ def phase_tools(dev):
         raise AssertionError("[tools] K1 or K2 was never launched")
     return dict(launches=counts["LAUNCHES"],
                 bwd_launches=counts["BWD_LAUNCHES"], runs=out)
+
+
+# ---------------------------------------------------------------------------
+# bench: the headline bench's twin (scheme_raytrace_torch/bench.py) in a
+# process of its own, as a user runs it, then one render of its 1024^2
+# frame in this process: the row bands under the profiler and by hand.
+# ---------------------------------------------------------------------------
+
+BENCH_1024 = FULL.replace(nx=1024, ny=1024)   # 4 row bands of 256 rows
+RECORDED_FULL = (11646756, 224)     # PERF.md's Cornell 512^2 warm-up render
+BENCH_METRIC = "rays/s (path segments, Cornell 512x512 light-sampled)"
+
+
+def bench_keys():
+    """The keys of the dict the root bench.py prints (read from its source,
+    which is not imported), then "card"."""
+    tree = ast.parse(open(os.path.join(ROOT, "bench.py")).read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "dumps" and node.args
+                and isinstance(node.args[0], ast.Dict)):
+            return [k.value for k in node.args[0].keys] + ["card"]
+    raise AssertionError("[bench] bench.py prints no dict")
+
+
+def bench_line(err, label):
+    """The times (s), segments and iterations of a `bench[label]:` line."""
+    line = next(ln for ln in err.splitlines()
+                if ln.startswith(f"bench[{label}]:"))
+    times = [float(t) / 1e3 for t in
+             re.search(r"times_ms=\[([^\]]*)\]", line)[1].split(",")]
+    head, _, tail = line.partition("warm-up")
+    nums = {k: int(v) for k, v in
+            re.findall(r"\b(segs|iters|n_iters)=(\d+)", head)}
+    warm = re.search(r"segs=(\d+) iters=(\d+)", tail)
+    return dict(times=times, warm=warm and (int(warm[1]), int(warm[2])),
+                **nums)
+
+
+def bench_child():
+    """`python -m scheme_raytrace_torch.bench` in a process of its own: its
+    exit code, its last line's keys and values, its three measurements'
+    spreads; returns its JSON line and its log's numbers by label."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "scheme_raytrace_torch.bench"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    log(f"[bench] python -m scheme_raytrace_torch.bench: exit "
+        f"{run.returncode} in {wall:.1f} s ({smi_line()}), process start "
+        f"and kernel loads included:\n" + run.stderr.strip() + "\n"
+        + run.stdout.strip())
+    if run.returncode != 0:
+        raise AssertionError("[bench] the bench failed")
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    lines = {label: bench_line(run.stderr, label)
+             for label in ("fwd", "fwd+bwd", "fwd-1024")}
+    for label, ln in lines.items():
+        t = ln["times"]
+        log(f"[bench] {label}: {len(t)} timed runs, {spread(t)}, spread "
+            f"(max - min) / min {(max(t) - min(t)) / min(t):.1%}; segments "
+            f"{ln['segs']}")
+    rates = ("value", "fwd_bwd_rays_per_s", "fwd_1024_rays_per_s")
+    bad = [k for k in rates if not (out[k] or 0) > 0]
+    if (list(out) != bench_keys() or bad or out["metric"] != BENCH_METRIC
+            or (out["step_impl"], out["fwd_bwd_step_impl"])
+            != ("cuda", "cuda")
+            or out["n_chips"] != torch.cuda.device_count()
+            or out["card"] != smi_line()):
+        raise AssertionError(f"[bench] its line is not bench.py's on the "
+                             f"card (keys {list(out)}, rates not positive "
+                             f"{bad}): {out}")
+    return out, lines
+
+
+def phase_bench(dev, full):
+    """The bench's twin as a user runs it (its warm-up 512^2 render equal to
+    the `full` phase's, or to the recorded count without it), then one
+    1024^2 spp16 render through render_with_stats under the profiler (the
+    counts set to 0 just before and read just after): K1's launches, the
+    busy share and the peak memory; its 4 bands rendered again one by one
+    through the FIFO pool, each bitwise its rows of the frame."""
+    out, lines = bench_child()
+    want = ((full["first"]["segments"], full["first"]["iters"]) if full
+            else RECORDED_FULL)
+    warm = lines["fwd"]["warm"]
+    log(f"[bench] its 512^2 warm-up render: {warm[0]} segments in {warm[1]} "
+        f"iterations; the {'full phase' if full else 'recorded count'}: "
+        f"{want[0]} in {want[1]}")
+    if warm != want:
+        raise AssertionError("[bench] the warm-up render's count differs")
+
+    scene, cam = cornell(torch.float32, dev)
+    cfg = BENCH_1024
+    n_pix = cfg.n_pixels
+    band_pix = pool._band_rows(cfg.ny, cfg.nx) * cfg.nx
+    n_bands = n_pix // band_pix
+    got = []
+    reset_counts()                            # the main path's count starts
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold is not the render's
+    held = torch.cuda.memory_allocated()
+    # a warm-up render, then one under the profiler (the card alone)
+    wall_ms, table = device_kernels(lambda: got.append(
+        render.render_with_stats(scene, cam, cfg, render.init_state(cfg))),
+        host_ops=False)
+    launches = bounce.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() - held
+    st, segs, iters = got[-1]
+    segs = int(segs)
+    busy = log_profile("bench", wall_ms, table, ours=("bounce_step",))
+    k1 = sum(k for name, (_, k) in table.items() if "bounce_step" in name)
+    raw = st.raw_sum.reshape(-1, 3)
+    bands = []
+    for b in range(n_bands):
+        sl = slice(b * band_pix, (b + 1) * band_pix)
+        r_b, s_b, i_b = pool_fused.render_pool_fused(
+            scene, cam, cfg, torch.zeros(band_pix, 3, device=dev), 0,
+            pix0=b * band_pix, total_pix=n_pix)
+        bands.append(dict(iters=i_b, segments=int(s_b),
+                          same=torch.equal(r_b, raw[sl]),
+                          ok=bool(torch.isfinite(raw[sl]).all())
+                          and float(raw[sl].max()) > 0.0))
+    log(f"[bench] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} "
+        f"({smi_line()}): {n_bands} bands of {band_pix} pixels; {segs} "
+        f"segments in {iters} iterations; {launches} bounce_step launches "
+        f"over the warm-up and the profiled render ({k1:.0f} in the "
+        f"profiled one by the profiler); {wall_ms:.1f} ms under the "
+        f"profiler, busy {'not measured' if busy is None else f'{busy:.1%}'}"
+        f"; peak memory {peak / 2 ** 30:.3f} GiB above the "
+        f"{held / 2 ** 30:.3f} GiB held before; the bands by hand: iterations {[b['iters'] for b in bands]}, segments "
+        f"{[b['segments'] for b in bands]}, bitwise the frame's rows "
+        f"{[b['same'] for b in bands]}, finite and not black "
+        f"{[b['ok'] for b in bands]}")
+    if (n_bands != 4 or launches != 2 * iters or round(k1) != iters
+            or not all(b["same"] and b["ok"] for b in bands)
+            or sum(b["iters"] for b in bands) != iters
+            or sum(b["segments"] for b in bands) != segs):
+        raise AssertionError("[bench] the 1024^2 render's bands disagree")
+    return dict(line=out, lines=lines, launches=launches, segments=segs,
+                iters=iters, busy=busy, peak=peak)
 
 
 # The scenes of the kernel-tile phase: the eight scenes of the full-size
@@ -4136,6 +4297,7 @@ PHASES = {
     "parallel": lambda dev, r: phase_parallel(dev),
     "cli": lambda dev, r: phase_cli(dev),
     "tools": lambda dev, r: phase_tools(dev),
+    "bench": lambda dev, r: phase_bench(dev, r.get("full")),
 }
 # A phase that reads another's result brings it along.
 NEEDS = {"pools-full": ("full",)}
@@ -4184,13 +4346,15 @@ def kernel_table(r):
     later = {**{k: v[:3] for k, v in tex_full.items()},
              **{k: v[:3] for k, v in bez_full.items()},
              **{k: v[:3] for k, v in kl_full.items()}}
-    par, cli, tools = r["parallel"], r["cli"], r["tools"]
+    par, cli, tools, bench = (r["parallel"], r["cli"], r["tools"],
+                              r["bench"])
     k1_launches = (full["launches"] + full_bwd["launches"]
                    + pools["strided"]["launches"] + sph_full["launches"]
                    + sph_bwd["launches"]
                    + sum(f["launches"] + b["launches"]
                          for f, _, b in later.values())
-                   + par["launches"] + cli["launches"] + tools["launches"])
+                   + par["launches"] + cli["launches"] + tools["launches"]
+                   + bench["launches"])
     log(f"[paths] bounce_step launches: Cornell forward render "
         f"{full['launches']}, fwd+bwd step {full_bwd['launches']}, strided "
         f"pool {pools['strided']['launches']}, RTOW forward render "
@@ -4203,8 +4367,10 @@ def kernel_table(r):
         f"pool {sph_persist['launches']}; probes {probes['launches']}")
     log(f"[paths] bounce_step launches: the sharded pools and "
         f"train_step_fused (world 1) {par['launches']}, the CLI's resumed "
-        f"chunk {cli['launches']}; bounce_step_bwd launches: "
-        f"train_step_fused {par['bwd_launches']}")
+        f"chunk {cli['launches']}, the bench's 1024^2 render (4 bands; "
+        f"its warm-up and its profiled run) {bench['launches']}; "
+        f"bounce_step_bwd launches: train_step_fused "
+        f"{par['bwd_launches']}")
     log("[paths] the tools phase: " + ", ".join(
         f"{name} {t['launches']} / {t['bwd_launches']}"
         for name, t in tools["runs"].items())

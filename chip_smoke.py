@@ -54,7 +54,10 @@ kernel table:
      render_pool_strided (K1), render_pool_packed (K3) and
      render_pool_persistent (K4), timed as phase 7 times the FIFO pool,
      each with phase 7's exact segment count and its image to rtol 1e-5,
-     and one render of each under torch.profiler;
+     and one render of each under torch.profiler; then (`pools-200`) the
+     persistent pool's image against the FIFO pool's at the default frame,
+     200x200 spp16, where g = gcd(m, n_pix) = 64 < m and the flush adds a
+     chunk's rows by ranked rounds;
  12. probes: the op probe (K5) and the nine loop probes and the two
      extension loop forms (K6: the bezier probe's and the klein march's)
      against their plain versions;
@@ -151,7 +154,7 @@ kernel table:
      bitwise the masked one;
  32-36. the general pool's five runs, float32 at 65,536 lanes and depth
      100, each a warm-up (one of its pool iterations profiled for launches
-     and busy share) and two timed renders from zeros, bitwise equal, with
+     and busy share) and one timed render from zeros, bitwise the warm-up, with
      segments, iterations and peak memory, and no kernel launched:
      `render --scene random --bvh sah` at the CLI's 200x200 (one chunk of 4
      passes; general-cli); the RTOW scene at 512^2 spp1 through the SAH and
@@ -240,6 +243,7 @@ import concurrent.futures
 import dataclasses
 import inspect
 import json
+import math
 import os
 import re
 import statistics
@@ -385,6 +389,7 @@ K1, K2, K3, K4 = ("bounce_step", "bounce_step_bwd", "bounce_packed",
                   "bounce_persist")
 PROBES = ("probe_ops", "probe_loops")
 CHUNK_TS = (8, 16, 32, 64)    # K4 chunk lengths timed (CHUNK_T stays 32)
+KLEIN_TIME_T = 8    # the klein scenes' K4 and plain chunk timed at 8 steps
 # K5: outputs of the int path exact, the transcendental ones within 2e-6
 # relative (nvcc's sinf/cosf/powf against PyTorch's, a few ulp apart)
 PROBE_RTOL = 2e-6
@@ -514,6 +519,7 @@ VARIANTS = {
     "packed-kernel": [((K3,), scenes.cornell_box)],
     "persist-kernel": [((K3, K4), scenes.cornell_box)],
     "pools-full": [((K1, K3, K4), scenes.cornell_box)],
+    "pools-200": [((K1, K4), scenes.cornell_box)],
     "probes": [(PROBES, None)],
     "kernel-spheres": [((K1,), scenes.test_scene), ((K1,), moving_spec),
                        ((K1,), rtow_spec)],
@@ -1433,6 +1439,7 @@ def phase_diff_spheres(dev):
 
 
 N_TIMED = 3         # chained timed renders or steps after the warm-up
+N_TIMED_WAVE = 2    # the wavefront's training steps (8-18 s each)
 
 
 def run_full(tag, what, scene, cam, cfg, n_timed=N_TIMED):
@@ -1883,15 +1890,19 @@ def same_chunk(got, want):
             for g, w in zip(got, want)]
 
 
-def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
+def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS,
+             time_t=None):
     """One K4 chunk bitwise against CHUNK_T K3 launches, K4 against
     chunk_plain, and times.  The plain chunk is timed by a CUDA event pair
     around one call (its host syncs and launch gaps included), not by the
     profiler, whose reading costs 0.11 ms an event: 34 s for textured's
     309,782 launches, minutes for the klein march's; its launches are not
-    counted."""
+    counted.  The returned times and bound are of a chunk of `time_t`
+    iterations (CHUNK_T unless given): the klein's plain chunk of 32 takes
+    over 30 s, so the klein scenes time chunks of KLEIN_TIME_T."""
     plan, pk, q, sb = setup
     T = persist.CHUNK_T
+    time_t = T if time_t is None else time_t
     got = persist.chunk_cuda(plan, pk, sb, state, T=T, **q)
     want, tex_ops = k3_chunk(plan, pk, sb, state, q, T)
     torch.cuda.synchronize()
@@ -1943,14 +1954,14 @@ def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
         raise AssertionError(f"[{tag}] {n_bad} lanes disagree")
     # device time per chunk at several chunk lengths (CHUNK_T stays 32)
     per_t = {}
-    for t_len in sorted(set(chunk_ts) | {T}):
+    for t_len in sorted(set(chunk_ts) | {time_t}):
         per_t[t_len] = kernel_ms(lambda: persist.chunk_cuda(
             plan, pk, sb, state, T=t_len, **q), 10)
-    k_ms = per_t[T]
+    k_ms = per_t[time_t]
     # the chunk_plain calls above warmed it
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
-    persist.chunk_plain(plan, pk, sb, state, T=T, **q)
+    persist.chunk_plain(plan, pk, sb, state, T=time_t, **q)
     e1.record()
     e1.synchronize()
     p_ms = e0.elapsed_time(e1)
@@ -1959,13 +1970,17 @@ def check_k4(tag, setup, state, atol=F32_TOL["atol"], chunk_ts=CHUNK_TS):
     log(f"[{tag}] device time per chunk: "
         + ", ".join(f"T={t} {ms:.4f} ms ({ms / t * 1e3:.2f} us/iteration)"
                     for t, ms in per_t.items())
-        + f"; one K3 launch {k3_ms * 1e3:.2f} us; plain chunk_plain T={T} "
-        f"{p_ms:.3f} ms (CUDA events around one call)")
-    b_ms, b_by = packed_bound(plan, q, state, T, got[2], tex_ops)
-    log(f"[{tag}] K4 bound for this chunk of T={T}: {b_ms * 1e3:.2f} us "
+        + f"; one K3 launch {k3_ms * 1e3:.2f} us; plain chunk_plain "
+        f"T={time_t} {p_ms:.3f} ms (CUDA events around one call)")
+    segs = got[2]
+    if time_t != T:
+        segs = persist.chunk_cuda(plan, pk, sb, state, T=time_t, **q)[2]
+        tex_ops = k3_chunk(plan, pk, sb, state, q, time_t)[1]
+    b_ms, b_by = packed_bound(plan, q, state, time_t, segs, tex_ops)
+    log(f"[{tag}] K4 bound for this chunk of T={time_t}: {b_ms * 1e3:.2f} us "
         f"({b_by})")
     return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, per_t=per_t,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, T=time_t)
 
 
 def phase_persist_kernel(dev):
@@ -2104,6 +2119,60 @@ def phase_pools_full(dev, full):
     """The three strided pools on the 512^2 spp16 Cornell box."""
     scene, cam = cornell(torch.float32, dev)
     return run_pools("pools-full", POOLS, scene, cam, FULL, full, dev)
+
+
+POOLS_200 = RenderConfig(nx=200, ny=200, spp=16, max_depth=100, seed=0,
+                         light_sampling=True)
+
+
+def phase_pools_200(dev):
+    """The persistent pool's image against the FIFO pool's at the default
+    frame, Cornell 200^2 spp16: m = 65,536 lanes and g = gcd(m, n_pix) = 64,
+    so up to m / g = 1,024 lanes of a row finish one pixel and the flush
+    adds by ranked rounds (pool_strided.Framebuffer), where at 512^2 it
+    adds one index_add a row.  One render each from zeros, the counts set
+    to 0 just before each and read just after."""
+    scene, cam = cornell(torch.float32, dev)
+    cfg = POOLS_200
+    raw0 = torch.zeros(cfg.n_pixels, 3, device=dev)
+    out = {}
+    for name, fn, count in (
+            ("FIFO", pool.render_pool_auto, "LAUNCHES"),
+            ("persistent", persist.render_pool_persistent,
+             "PERSIST_LAUNCHES")):
+        reset_counts()
+        t0 = time.perf_counter()
+        raw, segs, iters = fn(scene, cam, cfg, raw0, 0)
+        float(raw[0, 0])
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        out[name] = dict(image=raw, segments=int(segs), iters=iters)
+        log(f"[pools-200] {name}: {int(segs)} segments in {iters} iterations, "
+            f"{secs * 1e3:.1f} ms (first render, builds cached); launches "
+            f"{launches}")
+        expect = iters // (persist.CHUNK_T if name == "persistent" else 1)
+        if launches != {count: expect}:
+            raise AssertionError(f"[pools-200] {name}: launches {launches}, "
+                                 f"expected {count} = {expect}")
+    ref, got = out["FIFO"]["image"], out["persistent"]["image"]
+    m = pool_strided.pool_size(cfg, cfg.n_pixels * cfg.spp)
+    fb = pool_strided.Framebuffer(raw0, m, cfg.spp)
+    err = (got - ref).abs()
+    lim = 1e-5 * float(ref.abs().max()) + 1e-5 * ref.abs()
+    n_out = int((err > lim).sum())
+    log(f"[pools-200] m={m}, g={math.gcd(m, cfg.n_pixels)}: the flush's "
+        f"{fb.rounds(persist.CHUNK_T)} ranked rounds a chunk of "
+        f"{persist.CHUNK_T} rows; persistent image against FIFO: max abs err "
+        f"{float(err.max()):.3e}, entries outside rtol 1e-5 / atol 1e-5 "
+        f"max|ref|: {n_out}")
+    if out["FIFO"]["segments"] != out["persistent"]["segments"]:
+        raise AssertionError("[pools-200] the persistent pool's segments are "
+                             "not the FIFO pool's")
+    if n_out or not torch.isfinite(got).all() or float(ref.max()) <= 0:
+        raise AssertionError("[pools-200] the persistent image is off the "
+                             "FIFO pool's")
+    return {k: dict(segments=v["segments"], iters=v["iters"])
+            for k, v in out.items()}
 
 
 def phase_full_spheres(dev):
@@ -2447,7 +2516,7 @@ def phase_packed_klein(dev):
             M, q["n_work"], plan.max_depth, dev, scene), atol)
         k4 = check_k4(f"persist-{name}", setup, klein_packed_state(
             M, q["n_work"], plan.max_depth, dev, scene, seed=1), atol,
-            chunk_ts=())
+            chunk_ts=(), time_t=KLEIN_TIME_T)
         out[name] = (k3, k4)
     return out
 
@@ -2579,7 +2648,7 @@ GEN_SORT = RenderConfig(nx=200, ny=200, spp=16, max_depth=100, seed=0,
 # Timed renders of each general run after its warm-up: cut from 3 to 2 (the
 # general renders take 2-10 s each) to keep the whole script well inside its
 # time limit with the bench phase.
-N_TIMED_GENERAL = 2
+N_TIMED_GENERAL = 1
 # The card against the CPU, both float64 and plain PyTorch, per run's scene
 # and options at 24^2 spp2: the same segments, the image within 1e-9.
 GEN_SMALL = dict(nx=24, ny=24, spp=2, max_depth=100, seed=0, dtype="f64")
@@ -3200,7 +3269,7 @@ def wave_render(scene, cam, cfg):
 def wave_step(scene, cam, cfg):
     """The differentiable training step: the scan's render of cfg, loss
     sum(mean^2)/numel, every float leaf's and camera field's gradient; a
-    warm-up, then N_TIMED steps chained by params -= 1e-6 grad.  Then
+    warm-up, then N_TIMED_WAVE steps chained by params -= 1e-6 grad.  Then
     steps at depths 2 and 4 under the profiler: launches a bounce (their
     difference over 2 bounces) and the busy share."""
     loss_fn = lambda mean: (mean ** 2).sum() / mean.numel()
@@ -3215,7 +3284,7 @@ def wave_step(scene, cam, cfg):
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(N_TIMED):
+    for _ in range(N_TIMED_WAVE):
         params, rest = build.partition(scene)
         scene = build.combine({k: v - 1e-6 * grads[k].to(v)
                                for k, v in params.items()}, rest)
@@ -3716,6 +3785,7 @@ def phase_tools(dev):
 # ---------------------------------------------------------------------------
 
 BENCH_1024 = FULL.replace(nx=1024, ny=1024)   # 4 row bands of 256 rows
+PROFILE_TRIES = 3   # profiles of the 1024^2 render until one has every launch
 RECORDED_FULL = (11646756, 224)     # PERF.md's Cornell 512^2 warm-up render
 BENCH_METRIC = "rays/s (path segments, Cornell 512x512 light-sampled)"
 
@@ -3787,8 +3857,9 @@ def phase_bench(dev, full):
     """The bench's twin as a user runs it (its warm-up 512^2 render equal to
     the `full` phase's, or to the recorded count without it), then one
     1024^2 spp16 render through render_with_stats under the profiler (the
-    counts set to 0 just before and read just after): K1's launches, the
-    busy share and the peak memory; its 4 bands rendered again one by one
+    counts set to 0 just before and read just after; profiled again, up to
+    PROFILE_TRIES times, while the trace lacks some of K1's launches): K1's
+    launches, the busy share and the peak memory; its 4 bands rendered again one by one
     through the FIFO pool, each bitwise its rows of the frame."""
     out, lines = bench_child()
     want = ((full["first"]["segments"], full["first"]["iters"]) if full
@@ -3805,21 +3876,31 @@ def phase_bench(dev, full):
     n_pix = cfg.n_pixels
     band_pix = pool._band_rows(cfg.ny, cfg.nx) * cfg.nx
     n_bands = n_pix // band_pix
-    got = []
-    reset_counts()                            # the main path's count starts
-    torch.cuda.reset_peak_memory_stats()
     # what earlier phases still hold is not the render's
     held = torch.cuda.memory_allocated()
-    # a warm-up render, then one under the profiler (the card alone)
-    wall_ms, table = device_kernels(lambda: got.append(
-        render.render_with_stats(scene, cam, cfg, render.init_state(cfg))),
-        host_ops=False)
-    launches = bounce.LAUNCHES
-    peak = torch.cuda.max_memory_allocated() - held
-    st, segs, iters = got[-1]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        got = []
+        reset_counts()                        # the main path's count starts
+        torch.cuda.reset_peak_memory_stats()
+        # a warm-up render, then one under the profiler (the card alone)
+        wall_ms, table = device_kernels(lambda: got.append(
+            render.render_with_stats(scene, cam, cfg, render.init_state(cfg))),
+            host_ops=False)
+        launches = bounce.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() - held
+        st, segs, iters = got[-1]
+        k1 = sum(k for name, (_, k) in table.items() if "bounce_step" in name)
+        if round(k1) == iters:
+            break
+        # the profiler's trace of ~54,000 kernels now and then lacks a few
+        # iterations' device events (948 and 944 of 952 K1 launches in two
+        # whole runs of this script on an H100): that trace cannot give the
+        # count or the busy share, so the render is profiled again
+        log(f"[bench] profile {attempt}: the profiler recorded {k1:.0f} of "
+            f"{iters} K1 launches (the wrapper counted {launches} over the "
+            f"warm-up and this render): a trace short of device events")
     segs = int(segs)
     busy = log_profile("bench", wall_ms, table, ours=("bounce_step",))
-    k1 = sum(k for name, (_, k) in table.items() if "bounce_step" in name)
     raw = st.raw_sum.reshape(-1, 3)
     bands = []
     for b in range(n_bands):
@@ -4262,6 +4343,7 @@ PHASES = {
     "packed-kernel": lambda dev, r: phase_packed_kernel(dev),
     "persist-kernel": lambda dev, r: phase_persist_kernel(dev),
     "pools-full": lambda dev, r: phase_pools_full(dev, r["full"]),
+    "pools-200": lambda dev, r: phase_pools_200(dev),
     "probes": lambda dev, r: phase_probes(dev),
     "kernel-spheres": lambda dev, r: phase_kernel_spheres(dev),
     "kernel-bwd-spheres": lambda dev, r: phase_kernel_bwd_spheres(dev),

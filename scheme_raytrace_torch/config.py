@@ -72,7 +72,8 @@ class RenderConfig:
     # "brute" masked sweep or "bvh" traversal (general pool; needs a scene
     # compiled with bvh=, else it brute-forces)
     traversal: str = "brute"
-    # Reverse-mode path (fixed-length scan); not ported yet
+    # Reverse-mode path: the wavefront's fixed-length scan
+    # (integrator/wavefront.py, render.render / render_pass)
     differentiable: bool = False
     # Regeneration-pool size cap (lanes in flight).  None = AUTO.  The auto
     # values are still the JAX package's TPU sweep optima (64k forward, 24k

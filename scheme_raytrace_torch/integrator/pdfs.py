@@ -4,8 +4,9 @@ The port of the uniform-draw forms of scheme_raytrace_tpu/integrator/
 pdfs.py: the cosine PDF, the hittable PDFs of xz-rect and sphere lights
 (pdf.scm's missing g:pdf-value / g:random, bug B5, with the standard RTROYL
 formulas) and the 50/50 mixture.  Several lights follow the hittable-list
-PDF: `value` averages over lights, `sample` picks one uniformly.  The
-key-based samplers belong to the differentiable wavefront path.
+PDF: `value` averages over lights, `sample` picks one uniformly.  Each
+sampler also has the reference's key-based form, which draws its columns
+from a threefry key (core/rng.uniform, bitwise jax.random.uniform).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import math
 
 import torch
 
+from ..core import rng
 from ..core import vecmath as vm
 from ..ops import onb, sampling
 from ..scene import build as sb
@@ -32,6 +34,11 @@ def cosine_sample_u(r1, r2, n):
     u, v, w = onb.from_w(n)
     local_dir = sampling.cosine_direction_u(r1, r2)
     return vm.unit(onb.local(u, v, w, local_dir))
+
+
+def cosine_sample(key, n):
+    r = rng.uniform(key, n.shape[:-1] + (2,), n.dtype)
+    return cosine_sample_u(r[..., 0], r[..., 1], n)
 
 
 def _rect_value_one(rect, origin, direction):
@@ -117,6 +124,12 @@ def lights_sample_u(r_pick, r_a, r_b, r_s1, r_s2, scene, origin):
     return vm.where3(kind == sb.LIGHT_XZ_RECT, rect_dir, sph_dir)
 
 
+def lights_sample(key, scene, origin):
+    r = rng.uniform(key, (origin.shape[0], 5), origin.dtype)
+    return lights_sample_u(r[:, 0], r[:, 1], r[:, 2], r[:, 3], r[:, 4],
+                           scene, origin)
+
+
 def mixture_sample_and_value_u(u, scene, n, p):
     """make-mixture-pdf (pdf.scm:34-41): 50/50 cosine-about-n / lights.
 
@@ -131,3 +144,8 @@ def mixture_sample_and_value_u(u, scene, n, p):
     pdf = (0.5 * cosine_value(n, direction)
            + 0.5 * lights_value(scene, p, direction))
     return direction, pdf
+
+
+def mixture_sample_and_value(key, scene, n, p):
+    u = rng.uniform(key, (n.shape[0], 8), n.dtype)
+    return mixture_sample_and_value_u(u, scene, n, p)

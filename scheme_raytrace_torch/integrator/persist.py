@@ -143,14 +143,13 @@ def render_pool_persistent(scene, cam, config, raw0, sample_base, pix0=0,
     sb = torch.as_tensor(sample_base, device=dev).to(torch.int32).reshape(1)
 
     state = bounce.initial_packed_state(m, dev)
-    fb = Framebuffer(raw0, m)
+    fb = Framebuffer(raw0, m, config.spp)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     iters = 0
     while True:
         state, flush, segs = chunk(plan, pk, sb, state, m, n_work, n_pix,
                                    pix0, total_pix, T)
-        fb.add((flush[t, 0].view(torch.int32), flush[t, 1:])
-               for t in range(T))
+        fb.add(flush[:, 0].view(torch.int32), flush[:, 1:])
         segments = segments + segs.sum()
         iters += T
         if not bool((state.view(torch.int32)[0] < n_work).any()):

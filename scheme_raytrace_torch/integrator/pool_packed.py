@@ -45,11 +45,11 @@ def render_pool_packed(scene, cam, config, raw0, sample_base, pix0=0,
     sb = torch.as_tensor(sample_base, device=dev).to(torch.int32).reshape(1)
 
     state = bounce.initial_packed_state(m, dev)
-    fb = Framebuffer(raw0, m)
+    fb = Framebuffer(raw0, m, config.spp)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     iters = 0
     while True:
-        rows = []
+        pixs, vals = [], []
         for _ in range(FLUSH_EVERY):
             segments = segments + (state.view(torch.int32)[0]
                                    < n_work).sum()
@@ -57,8 +57,9 @@ def render_pool_packed(scene, cam, config, raw0, sample_base, pix0=0,
                          total_pix)
             item = state.view(torch.int32)[0].to(torch.int64)
             done = torch.where(state[1] != 0.0, (item - m) % n_pix, -1)
-            rows.append((done, state[10:13]))
+            pixs.append(done)
+            vals.append(state[10:13])
             iters += 1
-        fb.add(rows)
+        fb.add(torch.stack(pixs), torch.stack(vals))
         if not bool((state.view(torch.int32)[0] < n_work).any()):
             return fb.image(), segments, iters

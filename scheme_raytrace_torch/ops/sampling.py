@@ -1,11 +1,13 @@
-"""Batched random samplers (util.scm:9-54): the uniform-draw cores.
+"""Batched random samplers (util.scm:9-54).
 
-The port of the `*_u` functions of scheme_raytrace_tpu/ops/sampling.py:
-each maps explicit U[0,1) draws to a sample (exact analytic inverse-CDF
-forms of the reference's rejection loops, with `random-cosine-direction`'s
-x2 bug fixed to the standard sqrt(r2) form).  The draws come from the
-counter hash (core/rng.py); the key-based wrappers of the JAX module belong
-to the differentiable wavefront path and are not ported yet.
+The port of scheme_raytrace_tpu/ops/sampling.py.  Each sampler has two
+forms: a `*_u` core that maps explicit U[0,1) draws to a sample (exact
+analytic inverse-CDF forms of the reference's rejection loops, with
+`random-cosine-direction`'s x2 bug fixed to the standard sqrt(r2) form),
+fed by the counter hash (core/rng.py) in the pools and kernels, and a
+key-based wrapper with the original signature, which draws from a
+threefry key (core/rng.uniform, bitwise jax.random.uniform) on the key's
+device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 
 import torch
 
+from ..core import rng
 from ..core import vecmath as vm
 
 _TWO_PI = 2.0 * math.pi
@@ -73,3 +76,38 @@ def to_sphere_u(r1, r2, radius, distance_sq):
     z_ok = zin > 0.0
     s = torch.where(z_ok, torch.sqrt(torch.where(z_ok, zin, 1.0)), 0.0)
     return vm.vec3(torch.cos(phi) * s, torch.sin(phi) * s, z)
+
+
+# ---------------------------------------------------------------------------
+# key-based wrappers (original signatures)
+# ---------------------------------------------------------------------------
+
+def _draws(key, n, shape, dtype):
+    """n draws of `shape` from one `uniform(key, shape + (n,))` call, as
+    jax.random.uniform gives them."""
+    u = rng.uniform(key, tuple(shape) + (n,), dtype)
+    return tuple(u[..., i] for i in range(n))
+
+
+def in_unit_sphere(key, shape, dtype=torch.float32):
+    return in_unit_sphere_u(*_draws(key, 3, shape, dtype))
+
+
+def in_unit_disk(key, shape, dtype=torch.float32):
+    return in_unit_disk_u(*_draws(key, 2, shape, dtype))
+
+
+def cosine_direction(key, shape, dtype=torch.float32):
+    return cosine_direction_u(*_draws(key, 2, shape, dtype))
+
+
+def hemisphere_direction(key, shape, dtype=torch.float32):
+    return hemisphere_direction_u(*_draws(key, 2, shape, dtype))
+
+
+def to_sphere(key, radius, distance_sq, shape, dtype=torch.float32):
+    r1, r2 = _draws(key, 2, shape, dtype)
+    # numbers as well as tensors, as the reference takes them
+    radius, distance_sq = (torch.as_tensor(x, dtype=dtype, device=r1.device)
+                           for x in (radius, distance_sq))
+    return to_sphere_u(r1, r2, radius, distance_sq)

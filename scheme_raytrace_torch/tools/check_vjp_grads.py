@@ -24,6 +24,14 @@ of any leaf; its bound: config 4's f32_grad_rtol, BOUND), and the same
 comparison in float64, where rounding no longer hides an adjoint's fault,
 holds every leaf under its own largest |plain gradient| within BOUND_F64.
 
+Then it reads both float32 routes against the float64 kernel route (which
+agrees with float64 plain to within BOUND_F64): for every leaf, the
+largest difference of each f32 gradient from the f64 one over the f64
+leaf's largest |gradient|, and their ratio, kernel over plain.  Where the
+kernel's f32 error is the plain step's, the kernel adds no error of its
+own and the f32 routes' disagreement is two roundings of one cancelling
+sum.  A reading only: no bound is asserted on it.
+
     python -m scheme_raytrace_torch.tools.check_vjp_grads [--cpu]
 """
 
@@ -72,7 +80,7 @@ def grads_for(mode, scene, cam, config, n_iters):
 def compare(scene, cam, config):
     """Both routes on one trip count; print the JAX tool's lines and
     return (loss rel, {leaf: rel}, {leaf: floored rel}, the kernel route's
-    step)."""
+    step, the kernel route's gradients, the plain route's)."""
     n_iters = diff_fused.calibrate_iters(scene, cam, config)
     l_a, g_a, impl = grads_for("auto", scene, cam, config, n_iters)
     l_j, g_j, plain = grads_for("plain", scene, cam, config, n_iters)
@@ -94,21 +102,49 @@ def compare(scene, cam, config):
               flush=True)
     print(f"[{config.dtype}] worst rel", max(rel.values()), "floored",
           max(floored.values()), flush=True)
-    return loss_rel, rel, floored, impl
+    return loss_rel, rel, floored, impl, g_a, g_j
+
+
+def _rel_to(g, ref):
+    """Largest |g - ref| over ref's largest |value| (floored at 1e-8)."""
+    scale = max(np.abs(ref).max(initial=0.0), 1e-8)
+    return float(np.abs(g - ref).max(initial=0.0) / scale)
+
+
+def anchored(f32, f64):
+    """Print and return {leaf: (kernel f32 rel, plain f32 rel, ratio)}, each
+    f32 route's gradients against the f64 kernel route's; f32 and f64 are
+    (kernel route, plain route) gradient dicts."""
+    out = {}
+    for k, ref in f64[0].items():
+        a, b = _rel_to(f32[0][k], ref), _rel_to(f32[1][k], ref)
+        ratio = a / b if b > 0 else (1.0 if a == 0 else float("inf"))
+        out[k] = (a, b, ratio)
+        print(f"{k:16s} max|g_f64|={np.abs(ref).max(initial=0.0):.3e}  "
+              f"f32 kernel={a:.2e}  f32 plain={b:.2e}  "
+              f"kernel/plain={ratio:.2f}", flush=True)
+    worst = max(out, key=lambda k: out[k][2])
+    print(f"[f32 vs f64] worst kernel {max(v[0] for v in out.values()):.2e} "
+          f"plain {max(v[1] for v in out.values()):.2e}; kernel/plain at "
+          f"most {out[worst][2]:.2f} ({worst})", flush=True)
+    return out
 
 
 def run(size=64, spp=2, max_depth=24, m=4096, device=None):
-    """Print the JAX tool's lines for float32 and float64; return
-    dict(impl, f32=..., f64=...), each (loss rel, worst, worst floored);
-    raise if a bound is missed."""
-    out = {}
+    """Print the JAX tool's lines for float32 and float64, then the f32
+    routes against f64; return dict(impl, f32=..., f64=..., anchored=...),
+    f32 and f64 each (loss rel, worst, worst floored), anchored as
+    `anchored` returns it; raise if a bound is missed."""
+    out, grads = {}, {}
     for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
         scene, cam = cornell(device, dtype)
         config = RenderConfig(nx=size, ny=size, spp=spp, max_depth=max_depth,
                               light_sampling=True, seed=0, pool_rays=m,
                               dtype=name)
-        loss_rel, rel, floored, impl = compare(scene, cam, config)
+        loss_rel, rel, floored, impl, *grads[name] = compare(scene, cam,
+                                                             config)
         out[name] = (loss_rel, max(rel.values()), max(floored.values()))
+    out["anchored"] = anchored(grads["f32"], grads["f64"])
     assert out["f32"][2] < BOUND, out["f32"]
     assert out["f64"][1] < BOUND_F64, out["f64"]
     print(f"OK: {impl} step's grads match plain-step grads (f32 floored "

@@ -3,11 +3,13 @@
 `parallel.distributed.spawn` pickles `run_entry_points` by its import path,
 so every child imports this module: it imports torch and the port only,
 never JAX or a test module, and each rank reports whether JAX was loaded.
+Each rank takes its share of its worker's cores (tests/torch_threads.py).
 """
 
 import sys
 
 import torch
+import torch_threads
 
 from scheme_raytrace_torch.camera import camera_from_arrays
 from scheme_raytrace_torch.config import RenderConfig
@@ -69,6 +71,7 @@ def run_entry_points(mesh, cases):
     """Every case of `cases` (name -> inputs as numpy arrays and a config)
     through its entry point of scheme_raytrace_torch.parallel on this
     rank; returns {name: result} with the rank and whether JAX is loaded."""
+    torch_threads.cap(mesh.size)
     out = {name: _run(mesh, case) for name, case in cases.items()}
     out["rank"], out["size"] = mesh.rank, mesh.size
     out["jax_loaded"] = "jax" in sys.modules or any(

@@ -21,6 +21,8 @@ does not run); the log lines and bench.py's keys are read by chip_smoke.py's
 `bench_line` and `bench_keys`, as its `bench` phase reads them on the card.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import importlib.util
 import json
 import os

@@ -44,6 +44,8 @@ The kernels run these scenes only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 import os
 

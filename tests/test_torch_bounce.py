@@ -8,6 +8,8 @@ is held against the plain step on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import pathlib
 import re
 

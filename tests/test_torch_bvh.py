@@ -16,6 +16,8 @@ package and against its own brute sweeps (CPU).
     value.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import contextlib
 
 import jax

@@ -16,6 +16,8 @@ The JAX runs take tests/test_cli.py's resume configuration, so its
 compiled renders are shared through the persistent cache.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import re
 
 import numpy as np

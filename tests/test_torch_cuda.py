@@ -29,6 +29,8 @@ The file imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -o addopts=""
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import ctypes
 import dataclasses
 import os

@@ -8,6 +8,8 @@ of a pixel edge; such points' pixels are left out of the comparison and
 counted (none, on these curves: the points are bitwise JAX's).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -16,6 +16,8 @@ The bounce_step_bwd kernel itself runs only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import jax

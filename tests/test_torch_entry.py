@@ -18,6 +18,8 @@
     ranks than cards.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import contextlib
 import os
 import re

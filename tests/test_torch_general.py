@@ -24,6 +24,8 @@ carried over as arrays) and configs go through JAX and the port:
   * `render_pool_auto`'s routing and its row bands over the general pool.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import contextlib
 
 import jax

@@ -5,6 +5,8 @@ The port (scheme_raytrace_torch) is held against the JAX package
 packages; arrays cross between them as numpy.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 import math
 import subprocess

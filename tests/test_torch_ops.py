@@ -18,6 +18,8 @@ scalar CPU `pow` differ in the last bit, which would make a lane's value
 depend on its position in the batch).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import contextlib
 
 import jax

@@ -20,6 +20,8 @@ without a card, nothing compiled and no kernel run:
     of live lanes of each iteration: the written spec of the count.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import pathlib
 import re
 

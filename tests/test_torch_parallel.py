@@ -30,6 +30,8 @@ imbalanced scene at spp 8 (spp <= 8 keeps JAX's flush window at the port's
 8 iterations, so iteration counts compare).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import contextlib
 import functools
 

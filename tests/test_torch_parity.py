@@ -18,6 +18,8 @@
     the bounce on an injected NaN albedo.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import contextlib
 import dataclasses
 import os

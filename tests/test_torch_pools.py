@@ -34,6 +34,8 @@ The kernels themselves (K1, K3, K4) run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,6 +24,8 @@ The CUDA kernels run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import importlib.util
 import pathlib
 

@@ -5,6 +5,8 @@ exact same segment count; in f32 it meets the config-4 golden bounds of
 tests/test_parity.py (MAE < 5e-3, < 1% of pixels off by more than 0.05).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import os
 
 import jax

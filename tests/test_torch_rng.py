@@ -5,6 +5,8 @@ cover scalars, CAMERA_DEPTH and per-lane arrays; column groups cover the
 shade group and GROUP_MEDIUM.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,8 @@ hold it against the JAX package in f64 at constructed ties:
     is held against the plain VJP on the same lane (tests/test_torch_cuda.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import types
 
 import jax

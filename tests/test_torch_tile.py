@@ -21,6 +21,8 @@ here, without a card:
     The model is the written spec of the tile's combine.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 import inspect
 import pathlib

@@ -11,11 +11,19 @@
   * each tool's main function at a tiny size (16^2, spp1, depth 2,
     m = 256) prints lines of the JAX tool's form, and its assertions hold
     (drained steps, finite numbers, identical fixed-params losses);
+    `check_vjp_grads` also prints each leaf's f32 gradients of both routes
+    against the f64 kernel route, finite, and equal on the CPU, where both
+    routes are the plain step; `bench_flush` (no JAX twin) at 16^2 spp2,
+    where m = 512 and g = 256, prints its JSON line with equal segments in
+    the three pools, its flush counts whole blocks, and its counting
+    wrappers are removed afterwards;
   * `pool_fused.LAST_STEP_IMPL` reads "plain" after CPU renders, forward
     and reverse, and `check_vjp_grads.plain_step` restores the pool's card
     steps;
   * `--cpu` names the CPU; without it and with no card a tool raises.
 """
+
+import torch_threads  # noqa: F401  (first: caps torch's threads)
 
 import importlib.util
 import json
@@ -30,9 +38,11 @@ from scheme_raytrace_tpu.scene import build as j_build
 from scheme_raytrace_torch import render as t_render
 from scheme_raytrace_torch.camera import CAMERA_FIELDS
 from scheme_raytrace_torch.config import RenderConfig as TConfig
-from scheme_raytrace_torch.integrator import bounce, diff_fused, pool_fused
+from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
+                                              pool_fused, pool_strided)
 from scheme_raytrace_torch.tools import (bench_bvh_crossover, bench_diff,
-                                         bench_material_sort, bench_scaling,
+                                         bench_flush, bench_material_sort,
+                                         bench_scaling,
                                          bench_scenes, bench_shard_overhead,
                                          check_vjp_grads, common,
                                          diag_fwdbwd_variance, make_goldens,
@@ -122,6 +132,10 @@ TINY = {
             + [rf"\w+\s+max\|g_plain\|={NUM}  rel_diff={NUM}  "
                rf"\(floored {NUM}\)"] * 35
             + [rf"\[{dt}\] worst rel {NUM} floored {NUM}"])]
+        + [rf"\w+\s+max\|g_f64\|={NUM}  f32 kernel={NUM}  f32 plain={NUM}  "
+           rf"kernel/plain={NUM}"] * 35
+        + [rf"\[f32 vs f64\] worst kernel {NUM} plain {NUM}; kernel/plain "
+           rf"at most {NUM} \(\w+\)"]
         + [rf"OK: plain step's grads match plain-step grads \(f32 floored "
            rf"{NUM} < 0.1, f64 {NUM} < 1e-09\)"]),
     "profile_diff_step": (
@@ -165,6 +179,9 @@ TINY = {
         lambda: bench_scaling.run(CPU, n_dev=2, size=16, spp=1,
                                   pool_rays=256),
         [r"\{.*\}"]),
+    "bench_flush": (
+        lambda: bench_flush.run(16, 2, 1, CPU),
+        [r"\{.*\}"]),
 }
 
 
@@ -177,6 +194,32 @@ def test_tool_prints_the_jax_lines(name, capsys):
     assert len(lines) == len(patterns), lines
     for line, pat in zip(lines, patterns):
         assert re.fullmatch(pat, line), (pat, line)
+    if name == "check_vjp_grads":
+        # the f64-anchored readings: finite, and on the CPU both f32 routes
+        # are the plain step, so their errors are one
+        read = [re.search(rf"=({NUM})  f32 kernel=({NUM})  f32 plain=({NUM})"
+                          rf"  kernel/plain=({NUM})", ln).groups()
+                for ln in lines if "f32 kernel=" in ln]
+        assert len(read) == 35
+        vals = np.array(read, dtype=float)
+        assert np.isfinite(vals).all()
+        np.testing.assert_array_equal(vals[:, 1], vals[:, 2])
+        assert (vals[:, 3] == 1.0).all() and vals[:, 1].max() > 0
+    if name == "bench_flush":
+        # 16^2 spp2: m = 512, g = 256, so the ranked flush; the counting
+        # wrappers are gone afterwards
+        out = json.loads(lines[0])
+        assert (out["m"], out["g"]) == (512, 256)
+        assert list(out["pools"]) == ["fifo", "strided", "persistent"]
+        segs = {p["segments"] for p in out["pools"].values()}
+        assert len(segs) == 1 and segs.pop() > 0
+        for pool_name, rows in (("strided", pool_strided.FLUSH_EVERY),
+                                ("persistent", persist.CHUNK_T)):
+            f = out["pools"][pool_name]["flush"]
+            assert f["rows"] == f["calls"] * rows > 0
+            assert f["kernels"] is None and f["host_ms"] > 0
+            assert out["pools"][pool_name]["image_outside_1e-5"] == 0
+        assert pool_strided.Framebuffer.add.__name__ == "add"
     if name in ("bench_shard_overhead", "bench_scaling"):
         out = json.loads(lines[0])
         if name == "bench_shard_overhead":

@@ -8,6 +8,8 @@ package's (CPU).
     published mean, rows flipped to display order) and the click probe.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import json
 import os
 import urllib.error

@@ -22,6 +22,8 @@
     values and gradients.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import contextlib
 import dataclasses
 

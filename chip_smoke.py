@@ -60,7 +60,11 @@ kernel table:
      chunk's rows by ranked rounds;
  12. probes: the op probe (K5) and the nine loop probes and the two
      extension loop forms (K6: the bezier probe's and the klein march's)
-     against their plain versions;
+     against their plain versions, K6 one case a launch and every case in
+     one launch (its `main`'s path); timed in turns, K5 against an empty
+     kernel and a copy on its grid (the card's launch floor, and that of a
+     launch that moves K5's bytes), K6's one launch against its eleven
+     single-case launches, and each case alone;
  13. the kernels on the sphere scenes: K1 against the plain step (65,536
      lanes) and K2 against the plain VJP (24,576 lanes) on test_scene under
      the gradient sky, a moving-sphere scene and the RTOW final scene
@@ -4232,7 +4236,11 @@ def log_tile_sweep(sweep):
 
 def phase_probes(dev):
     """K5 and K6: the probes' own entry points with the counts reset just
-    before (the path), then each kernel against its plain version."""
+    before (the path: K5 one launch, K6 every case in one launch), then each
+    kernel against its plain version; K6's one launch against its eleven
+    single-case launches and each case alone, K5 against the card's launch
+    floor (an empty kernel on K5's grid) and the floor of a launch that
+    moves its bytes (a copy on its grid), timed in turns."""
     probe_ops.LAUNCHES = probe_loops.LAUNCHES = 0
     ops_line = probe_ops.main()
     loops_ok, ext_ok = probe_loops.main()
@@ -4244,7 +4252,7 @@ def phase_probes(dev):
             or not ops_line.startswith("ok: True")):
         raise AssertionError("[probes] a probe's main failed")
     n_cases = len(probe_loops.ALL_CASES)
-    if launches != dict(probe_ops=1, probe_loops=n_cases):
+    if launches != dict(probe_ops=1, probe_loops=1):
         raise AssertionError(f"[probes] kernel launches {launches}")
     pack, item = probe_ops.inputs(dev)
     r = np.random.default_rng(0)
@@ -4272,26 +4280,77 @@ def phase_probes(dev):
         if not (exact and ext_exact) or max(rel, ext_rel) > PROBE_RTOL:
             raise AssertionError("[probes] K5 against its plain version")
     x = probe_loops.inputs(device=dev)
-    for name, plain in probe_loops.ALL_CASES.items():
+    rows = probe_loops.loops_cuda_all(x)
+    for row, (name, plain) in zip(rows, probe_loops.ALL_CASES.items()):
         if not torch.equal(probe_loops.loops_cuda(name, x), plain(x)):
             raise AssertionError(f"[probes] K6 case {name} differs from its "
                                  f"plain version")
+        if not (torch.equal(row, plain(x))
+                and torch.equal(row, probe_loops.loops_cuda(name, x))):
+            raise AssertionError(f"[probes] K6's one launch: row {name} "
+                                 f"differs from its plain version or its "
+                                 f"single-case launch")
     hit = float((probe_loops.ext_bezier_seeds(x) < 100.0).float().mean())
     kl_hit = float((probe_loops.ext_klein_march(x) < 100.0).float().mean())
     log(f"[probes] K6: all {len(probe_loops.CASES)} cases and the extension "
         f"{list(probe_loops.EXT_CASES)} bitwise equal to their plain "
-        f"versions; the bezier loop form hits on {hit:.1%} of the elements, "
-        f"the klein loop form on {kl_hit:.1%}")
-    k5_ms = kernel_ms(lambda: probe_ops.probe_cuda(pack, item))
+        f"versions, one case a launch and all {n_cases} in one launch (each "
+        f"row also bitwise its single-case launch); the bezier loop form "
+        f"hits on {hit:.1%} of the elements, the klein loop form on "
+        f"{kl_hit:.1%}")
+    # in turns: K5, the empty launch, the copy, the copy, the empty launch,
+    # K5; the eleven launches, the one launch, the one launch, the eleven
+    k5 = lambda: probe_ops.probe_cuda(pack, item)
+    empty = lambda: probe_ops.empty_cuda(pack, item)
+    copy = lambda: probe_ops.copy_cuda(pack, item)
+    k5_turns = [kernel_ms(f) for f in (k5, empty, copy, copy, empty, k5)]
+    eleven = lambda: [probe_loops.loops_cuda(n, x)
+                      for n in probe_loops.ALL_CASES]
+    one = lambda: probe_loops.loops_cuda_all(x)
+    k6_turns = [kernel_ms(f, n) for f, n in ((eleven, 5), (one, 20),
+                                             (one, 20), (eleven, 5))]
+    k5_ms, floor_ms = min(k5_turns[0], k5_turns[5]), min(k5_turns[1],
+                                                         k5_turns[4])
+    copy_ms = min(k5_turns[2:4])
+    k6_ms, k6_eleven = min(k6_turns[1:3]), min(k6_turns[0], k6_turns[3])
+    case_ms = {n: kernel_ms(lambda n=n: probe_loops.loops_cuda(n, x), 10)
+               for n in probe_loops.ALL_CASES}
+    floor_case = max(case_ms, key=case_ms.get)
+    # the dependent chain alone: FORI_CARRY5 on one block of 128 elements,
+    # less the launch floor
+    x1 = x[:1].contiguous()
+    chain_ms = kernel_ms(lambda: probe_loops.loops_cuda("fori_carry5", x1),
+                         10) - floor_ms
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        timeout=30).stdout.split()[0])
     k5_plain, k5_pl = device_ms(lambda: probe_ops.probe_plain(pack, item), 5)
-    k6_ms = kernel_ms(lambda: [probe_loops.loops_cuda(n, x)
-                               for n in probe_loops.ALL_CASES], 5)
     k6_plain, k6_pl = device_ms(lambda: [f(x) for f in
                                          probe_loops.ALL_CASES.values()], 1)
-    log(f"[probes] device time: K5 {k5_ms * 1e3:.2f} us per launch, plain "
-        f"{k5_plain * 1e3:.2f} us ({k5_pl:.0f} launches); K6 "
-        f"{k6_ms:.4f} ms for the {n_cases} cases (one launch each), plain "
+    at_floor = k5_ms - floor_ms <= max(0.1 * floor_ms, 0.3e-3)
+    log("[probes] device time, in turns (us): " + ", ".join(
+        f"{name} {t * 1e3:.3f}" for name, t in zip(
+            ("K5", "empty", "copy", "copy", "empty", "K5"), k5_turns))
+        + f": K5 {k5_ms * 1e3:.3f} us against the launch floor "
+        f"{floor_ms * 1e3:.3f} us, {'at' if at_floor else 'above'} it "
+        f"(within 10% or 0.3 us); the floor of a launch that moves K5's "
+        f"bytes {copy_ms * 1e3:.3f} us, K5 {(k5_ms - copy_ms) * 1e3:.3f} us "
+        f"above it; plain {k5_plain * 1e3:.2f} us ({k5_pl:.0f} launches)")
+    log(f"[probes] device time, in turns (us): K6 eleven launches "
+        f"{k6_turns[0] * 1e3:.2f}, one launch {k6_turns[1] * 1e3:.2f}, one "
+        f"launch {k6_turns[2] * 1e3:.2f}, eleven launches "
+        f"{k6_turns[3] * 1e3:.2f}: the one launch {k6_ms * 1e3:.2f} us, "
+        f"{k6_eleven / k6_ms:.2f} times faster than the eleven; plain "
         f"{k6_plain:.2f} ms ({k6_pl:.0f} launches)")
+    log("[probes] K6 each case alone (us): " + ", ".join(
+        f"{n} {t * 1e3:.2f}" for n, t in case_ms.items())
+        + f"; the floor is set by {floor_case}")
+    log(f"[probes] K6 dependent chain: fori_carry5 on one block of 128 "
+        f"elements {(chain_ms + floor_ms) * 1e3:.2f} us, less the launch "
+        f"floor {chain_ms * 1e3:.2f} us for its 1,000 iterations: "
+        f"{chain_ms * 1e3:.2f} ns, {chain_ms * mhz:.1f} cycles at the SM "
+        f"clock read after it ({mhz:.0f} MHz), an iteration")
     # K5: 16 floats and 1,024 ints in, 6 x 1,024 floats out; per item three
     # PCG rounds' share, a div/mod, a floor and seven transcendentals, about
     # 120 operations.
@@ -4319,14 +4378,21 @@ def phase_probes(dev):
     probe_loops.ext_klein_march(x, kl)
     k6_b = bound(n_cases * 2 * x.numel() * 4, per_elt * x.numel()
                  + 12 * kl["steps"] + 8 * kl["inversions"])
-    log(f"[probes] bounds: K5 {k5_b[0] * 1e6:.2f} ns ({k5_b[1]}), K6 "
-        f"{k6_b[0] * 1e3:.2f} us ({k6_b[1]}; the early-exit loop ran {trips} "
-        f"iterations)")
+    log(f"[probes] bounds: K5 {k5_b[0] * 1e6:.2f} ns ({k5_b[1]}; "
+        f"{k5_b[0] / k5_ms:.2%} of K5's time, the launch floor "
+        f"{floor_ms / k5_b[0]:.0f} times it), K6 {k6_b[0] * 1e3:.2f} us "
+        f"({k6_b[1]}; {k6_b[0] / k6_ms:.1%} of the one launch, "
+        f"{k6_b[0] / k6_eleven:.1%} of the eleven; twice it with no FMA; "
+        f"the early-exit loop ran {trips} iterations)")
     return dict(launches=launches,
                 k5=dict(max_abs_err=ops_err, ms=k5_ms, plain_ms=k5_plain,
-                        bound_ms=k5_b[0], bound_by=k5_b[1]),
+                        bound_ms=k5_b[0], bound_by=k5_b[1],
+                        launch_floor_ms=floor_ms, copy_floor_ms=copy_ms,
+                        at_launch_floor=at_floor),
                 k6=dict(max_abs_err=0.0, ms=k6_ms, plain_ms=k6_plain,
-                        bound_ms=k6_b[0], bound_by=k6_b[1]))
+                        bound_ms=k6_b[0], bound_by=k6_b[1],
+                        eleven_launches_ms=k6_eleven, case_ms=case_ms,
+                        floor_case=floor_case, chain_ms=chain_ms))
 
 
 # The phases after the device and build phases, in the order they run:

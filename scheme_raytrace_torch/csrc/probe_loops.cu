@@ -3,11 +3,11 @@
 // Replaces the Pallas TPU kernel of
 //     tools/repro_mosaic_crash.py (build, the nine case_* bodies)
 // which reproduced the Mosaic compiler crashes of certain loop forms.  Here
-// the same nine forms run in one kernel, one case per launch: a counted
-// loop, nested counted loops, a five-value carry with a mask, the
-// forward-mode tangent of a loop (written by hand: CUDA has no jvp), float
-// and bool carries in nested loops, a bool carried as an int, and an
-// early-exit while loop whose condition is a cross-lane any() (here over
+// the same nine forms run in one kernel, one case per launch or every case in
+// one launch: a counted loop, nested counted loops, a five-value carry with a
+// mask, the forward-mode tangent of a loop (written by hand: CUDA has no
+// jvp), float and bool carries in nested loops, a bool carried as an int, and
+// an early-exit while loop whose condition is a cross-lane any() (here over
 // the block, with __syncthreads_or).  These are the loop shapes of the rect
 // sweep and the light loop.  Two extension cases follow the nine, which the
 // JAX tool does not have: the loop form of the bezier probe (bounce_common.cuh
@@ -19,15 +19,48 @@
 // plain PyTorch twins are scheme_raytrace_torch/tools/probe_loops.py:CASES
 // and EXT_CASES.
 //
-// Design.  One thread per element of the (64, 128) float32 input, 256
-// threads per block.  Every product and sum is rounded on its own
-// (__fmul_rn, __fadd_rn): the masks compare carried values against
-// thresholds (a*a < 4, a2 > 100), and an FMA contracted by nvcc could flip
-// a lane away from the plain version, which rounds each op.  So every case
-// is bitwise equal to its plain version.
+// Design.  One thread per element of the (64, 128) float32 input, in blocks
+// of kLoopThreads = 128 threads.  `which` >= 0 runs one case over the n
+// elements (the yardstick of the one launch, and each case's own time).
+// `which` = -1 runs every case in one launch into an (N_CASES, n) output,
+// rows in the order of the Case enum: the grid is 2-D, blockIdx.y picks the
+// case (through kIssueOrder, the longest chains first, so that their blocks
+// are issued before the short ones) and blockIdx.x the block of elements.
+// At 128 threads a case spans 64 blocks and the launch 704; at most 16 such
+// blocks sit on an SM (2,048 threads), and 704 / 132 SMs is 5.3, so every
+// block is resident in one wave, and each SM holds warps of several cases
+// whose independent chains hide each other's latency.  Launched one case at
+// a time, the cases would run one after another, each on 64 blocks: 68 of
+// the 132 SMs idle, and one case's chains on each of the others.
 //
-// What bounds it.  8,192 elements and up to 1,000 dependent iterations a
-// thread: latency of the dependent chain, a few microseconds.
+// Every product and sum is rounded on its own (__fmul_rn, __fadd_rn): the
+// masks compare carried values against thresholds (a*a < 4, a2 > 100), and
+// an FMA contracted by nvcc could flip a lane away from the plain version,
+// which rounds each op.  So every case is bitwise equal to its plain version,
+// in either launch.
+//
+// The early-exit loop (WHILE_ANY) takes its any() over the block, with
+// __syncthreads_or, which sees only the threads of one case: a block never
+// spans two cases, since blockIdx.y alone picks the case.  The value of an
+// element does not depend on how the any() groups the elements.  An element
+// not yet done keeps its own group's any() true, so it iterates until it is
+// done or k = 100, whatever the others do; a done element is frozen (a stays,
+// done stays 1), so the iterations its group runs after it are no-ops for it.
+// Hence blocks of 128 give what blocks of 256 and the JAX tool's whole-array
+// jnp.any give (tests/test_torch_probes.py holds the three groupings equal on
+// the CPU).
+//
+// What bounds it.  Each case reads its 32 KB input once and writes 32 KB
+// once, with no reuse and no matrix product: shared memory, the tensor cores
+// and TMA have no part here.  The bound of chip_smoke.bound is the float
+// operations over the card's 67 TFLOP/s; but the bitwise rule forbids FMA,
+// so an unfused multiply and add issue as two instructions and the reachable
+// float32 rate is half of that.  Below both lies the kernel's real limit, the
+// longest dependent chain: FORI_CARRY5's 1,000 iterations, each a product,
+// a sum, a compare and a select on the carry `a` (four dependent
+// instructions), which no spread over the SMs shortens.  The one launch
+// lasts about as long as its slowest chain, where eleven launches would add
+// theirs.
 
 #include "bounce_common.cuh"
 
@@ -44,6 +77,16 @@ enum Case {
   KLEIN_MARCH,
   N_CASES
 };
+
+// Threads a block (see Design).
+constexpr int kLoopThreads = 128;
+
+// The case of each row of the one launch's grid (blockIdx.y), the longest
+// dependent chains first: the block scheduler issues the lower rows first.
+__constant__ int kIssueOrder[N_CASES] = {
+    FORI_CARRY5, NESTED_BOOL_CARRY, NESTED_FLOAT_CARRY, NESTED_FORI,
+    KLEIN_MARCH, BEZIER_SEEDS, WHILE_ANY, FORI, JVP_FORI, SINGLE_BOOL_CARRY,
+    BOOL_CARRY_AS_I32};
 
 // The extension's seeds and Newton steps a seed (probe_loops.py BEZ_SEEDS,
 // BEZ_NEWTON).
@@ -200,11 +243,14 @@ __device__ float run_case(int which, float x) {
   return 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLoopThreads)
 probe_loops_kernel(const float* __restrict__ x, float* __restrict__ out,
                    int n, int which) {
+  // which < 0: every case, blockIdx.y picking it and its row of the output
+  const int c = which < 0 ? kIssueOrder[blockIdx.y] : which;
+  float* __restrict__ row = which < 0 ? out + size_t(c) * n : out;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (which == WHILE_ANY) {
+  if (c == WHILE_ANY) {
     // every thread of the block runs the loop: the condition is a
     // block-wide any() of the lanes not yet done
     float a = i < n ? x[i] : 0.0f;
@@ -214,25 +260,28 @@ probe_loops_kernel(const float* __restrict__ x, float* __restrict__ out,
       done |= a2 > 100.0f ? 1 : 0;
       a = done ? a : a2;
     }
-    if (i < n) out[i] = a;
+    if (i < n) row[i] = a;
     return;
   }
-  if (i < n) out[i] = run_case(which, x[i]);
+  if (i < n) row[i] = run_case(c, x[i]);
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes by tools/probe_loops.py:loops_cuda.
-// ptrs: 2 device pointers — the n float32 inputs and the n float32 outputs;
-// `which` is the case's index in CASES, or len(CASES) + its index in
-// EXT_CASES.  Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 = launched), or
+// C interface, loaded with ctypes by tools/probe_loops.py (loops_cuda,
+// loops_cuda_all).  ptrs: 2 device pointers — the n float32 inputs and the
+// outputs.  `which` is a case's index in CASES, or len(CASES) + its index in
+// EXT_CASES, with n float32 outputs; or -1, every case in one launch, with
+// (N_CASES, n) float32 outputs in ALL_CASES' order.  Launches on `stream`
+// without synchronising and returns cudaGetLastError() (0 = launched), or
 // cudaErrorInvalidValue for an unknown case.
 extern "C" int srt_probe_loops(void* const* ptrs, int n, int which,
                                void* stream) {
-  if (which < 0 || which >= N_CASES) return int(cudaErrorInvalidValue);
+  if (which < -1 || which >= N_CASES) return int(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  probe_loops_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+  const dim3 grid((n + kLoopThreads - 1) / kLoopThreads,
+                  which < 0 ? N_CASES : 1);
+  probe_loops_kernel<<<grid, kLoopThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ptrs[0]), static_cast<float*>(ptrs[1]), n,
       which);

@@ -10,10 +10,12 @@ tool does not have: the loop form of the bezier probe (a loop over seeds,
 each a fixed count of guarded, clipped Newton steps, an accept test and a
 running minimum) and that of the klein march (a bounded sphere trace with
 per-lane retirement around an inner inversion loop that a lane leaves when
-its point escapes).  `loops_cuda(name, x)` runs csrc/probe_loops.cu, one case
-per launch, bitwise equal to the plain version (the kernel rounds each
-product and sum on its own).  `main` returns the two groups' results side by
-side, (cases, ext).  On the card:
+its point escapes).  `loops_cuda(name, x)` runs one case through
+csrc/probe_loops.cu, `loops_cuda_all(x)` every case in one launch (a row a
+case, in ALL_CASES' order, as `all_cases_plain(x)` stacks the plain
+versions); both are bitwise equal to the plain versions (the kernel rounds
+each product and sum on its own).  `main` takes the one launch and returns
+the two groups' results side by side, (cases, ext).  On the card:
 
     python -c "from scheme_raytrace_torch.tools import probe_loops; \\
                print(probe_loops.main())"
@@ -104,7 +106,15 @@ def case_bool_carry_as_i32(x):
     return a + e.to(x.dtype)
 
 
-def case_while_any(x):
+def case_while_any(x, group=None):
+    """The early-exit loop under a cross-lane any().  `group` (an int) takes
+    the any() over each run of `group` consecutive elements of the flattened
+    array on its own, as the kernel's blocks do; None, over the whole array,
+    as the JAX tool's jnp.any.  Every grouping gives the same values: an
+    element not yet done keeps its group iterating, a done one is frozen."""
+    if group is not None:
+        return torch.cat([case_while_any(part) for part in
+                          x.reshape(-1).split(group)]).reshape(x.shape)
     a = x
     done = torch.zeros_like(x, dtype=torch.int32)
     k = 0
@@ -228,6 +238,26 @@ def _kernel():
     return fn
 
 
+def _check(x, who):
+    if x.device.type != "cuda":
+        raise ValueError(f"{who} takes CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{who}: a contiguous float32 tensor")
+
+
+def _launch(x, out, which, what):
+    """One launch of the kernel on x's device and current stream; raises if
+    it is refused."""
+    ptrs = (ctypes.c_void_p * 2)(x.data_ptr(), out.data_ptr())
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        err = fn(ptrs, x.numel(), which,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"probe_loops kernel launch failed ({what}): CUDA "
+                           f"error {err}")
+
+
 def loops_cuda(name, x):
     """ALL_CASES[name] through csrc/probe_loops.cu: x a contiguous float32
     tensor on a CUDA device.  Returns a new tensor; raises for an unknown
@@ -236,21 +266,30 @@ def loops_cuda(name, x):
     if name not in ALL_CASES:
         raise KeyError(f"no loop case {name!r}; cases: "
                        f"{', '.join(ALL_CASES)}")
-    if x.device.type != "cuda":
-        raise ValueError(f"loops_cuda takes CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("loops_cuda: a contiguous float32 tensor")
+    _check(x, "loops_cuda")
     out = torch.empty_like(x)
-    ptrs = (ctypes.c_void_p * 2)(x.data_ptr(), out.data_ptr())
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        err = fn(ptrs, x.numel(), list(ALL_CASES).index(name),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"probe_loops kernel launch failed ({name}): CUDA "
-                           f"error {err}")
+    _launch(x, out, list(ALL_CASES).index(name), name)
     LAUNCHES += 1
     return out
+
+
+def loops_cuda_all(x):
+    """Every case of ALL_CASES through csrc/probe_loops.cu in one launch
+    (`which` = -1): x a contiguous float32 tensor on a CUDA device.  Returns
+    a new (len(ALL_CASES), *x.shape) tensor, a row a case in ALL_CASES'
+    order; raises for a refused launch."""
+    global LAUNCHES
+    _check(x, "loops_cuda_all")
+    out = torch.empty((len(ALL_CASES), *x.shape), dtype=x.dtype,
+                      device=x.device)
+    _launch(x, out, -1, "all cases")
+    LAUNCHES += 1
+    return out
+
+
+def all_cases_plain(x):
+    """The plain versions of every case, stacked as loops_cuda_all's rows."""
+    return torch.stack([f(x) for f in ALL_CASES.values()])
 
 
 def loops(name, x):
@@ -260,10 +299,18 @@ def loops(name, x):
             else ALL_CASES[name](x))
 
 
+def loops_all(x):
+    """Every case on the tensor's device: the one launch on a card, the
+    plain versions on the CPU."""
+    return (loops_cuda_all(x) if x.device.type == "cuda"
+            else all_cases_plain(x))
+
+
 def main(device=None):
-    """Every case against its plain version: (the nine cases' results, the
-    extension's)."""
+    """Every case, in one launch on a card, against its plain version: (the
+    nine cases' results, the extension's)."""
     x = inputs(device=device)
-    same = lambda group: {n: bool(torch.equal(loops(n, x), f(x)))
+    rows = dict(zip(ALL_CASES, loops_all(x)))
+    same = lambda group: {n: bool(torch.equal(rows[n], f(x)))
                           for n, f in group.items()}
     return same(CASES), same(EXT_CASES)

@@ -11,7 +11,10 @@ read as uint32 and hashed (a negative Perlin lattice coordinate), log,
 atan2 and rsqrt.  `probe_plain` is the plain PyTorch version (CPU tensors,
 and the oracle on the card); `probe_cuda` launches csrc/probe_ops.cu.  Both
 return (out, ext): the JAX probe's (8, 128) output, case for case, and the
-(5, 8, 128) extension.  On the card:
+(5, 8, 128) extension.  `empty_cuda` and `copy_cuda` launch, through the
+same path, kernels of the same grid with an empty body and with K5's reads
+and writes and no arithmetic: the launch floor, and the floor of a launch
+that moves K5's bytes, which K5 is timed against.  On the card:
 
     python -c "from scheme_raytrace_torch.tools import probe_ops; \\
                print(probe_ops.main())"
@@ -79,14 +82,41 @@ def probe_plain(pack, item):
     return out, ext
 
 
-def _kernel():
+def _kernel(symbol="srt_probe_ops"):
     from ..utils import cuda_build
-    fn = cuda_build.load("probe_ops").srt_probe_ops
+    fn = getattr(cuda_build.load("probe_ops"), symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(symbol, pack, item, who):
+    """Check the inputs, allocate (out, ext) and launch `symbol` of
+    csrc/probe_ops.cu on item's device and current stream; raises if the
+    launch is refused."""
+    dev = item.device
+    if dev.type != "cuda" or pack.device != dev:
+        raise ValueError(f"{who} takes CUDA tensors, got {dev}")
+    if (pack.dtype != torch.float32 or pack.shape != (1, 16)
+            or item.dtype != torch.int32 or not pack.is_contiguous()
+            or not item.is_contiguous()):
+        raise ValueError(f"{who}: a contiguous (1, 16) float32 pack and a "
+                         f"contiguous int32 item array")
+    out = torch.empty(item.shape, dtype=torch.float32, device=dev)
+    ext = torch.empty((len(EXT_ROWS), *item.shape), dtype=torch.float32,
+                      device=dev)
+    ptrs = (ctypes.c_void_p * 4)(pack.data_ptr(), item.data_ptr(),
+                                 out.data_ptr(), ext.data_ptr())
+    fn = _kernel(symbol)
+    with torch.cuda.device(dev):
+        err = fn(ptrs, item.numel(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"probe_ops kernel launch failed ({symbol}): CUDA "
+                           f"error {err}")
+    return out, ext
 
 
 def probe_cuda(pack, item):
@@ -95,27 +125,26 @@ def probe_cuda(pack, item):
     Returns (out, ext), new float32 tensors of item's shape and of
     (len(EXT_ROWS), *item's shape); raises if the launch is refused."""
     global LAUNCHES
-    dev = item.device
-    if dev.type != "cuda" or pack.device != dev:
-        raise ValueError(f"probe_cuda takes CUDA tensors, got {dev}")
-    if (pack.dtype != torch.float32 or pack.shape != (1, 16)
-            or item.dtype != torch.int32 or not pack.is_contiguous()
-            or not item.is_contiguous()):
-        raise ValueError("probe_cuda: a contiguous (1, 16) float32 pack and "
-                         "a contiguous int32 item array")
-    out = torch.empty(item.shape, dtype=torch.float32, device=dev)
-    ext = torch.empty((len(EXT_ROWS), *item.shape), dtype=torch.float32,
-                      device=dev)
-    ptrs = (ctypes.c_void_p * 4)(pack.data_ptr(), item.data_ptr(),
-                                 out.data_ptr(), ext.data_ptr())
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        err = fn(ptrs, item.numel(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"probe_ops kernel launch failed: CUDA error {err}")
+    out_ext = _launch("srt_probe_ops", pack, item, "probe_cuda")
     LAUNCHES += 1
-    return out, ext
+    return out_ext
+
+
+def empty_cuda(pack, item):
+    """The card's launch floor for K5: the same checks, allocations and
+    stream as probe_cuda, and a launch of a kernel with K5's arguments and
+    grid whose body is empty (srt_probe_empty).  Returns the (out, ext) it
+    allocated, unwritten.  Not counted in LAUNCHES: it is a yardstick, not
+    the probe."""
+    return _launch("srt_probe_empty", pack, item, "empty_cuda")
+
+
+def copy_cuda(pack, item):
+    """The floor of a launch that moves K5's bytes: as empty_cuda, with a
+    kernel that reads K5's inputs and writes its outputs and computes
+    nothing between (srt_probe_copy).  Returns (out, ext), not the probe's
+    values.  Not counted in LAUNCHES."""
+    return _launch("srt_probe_copy", pack, item, "copy_cuda")
 
 
 def probe(pack, item):

@@ -489,6 +489,35 @@ def test_probe_loops_cuda_matches_plain(cuda, name):
                        probe_loops.ALL_CASES[name](x))
 
 
+def test_probe_loops_one_launch_matches_plain(cuda):
+    # every case in one launch: a row a case, bitwise its plain version and
+    # its single-case launch
+    x = probe_loops.inputs(seed=2, device=cuda)
+    before = probe_loops.LAUNCHES
+    rows = probe_loops.loops_cuda_all(x)
+    assert probe_loops.LAUNCHES == before + 1
+    assert rows.shape == (len(probe_loops.ALL_CASES), *x.shape)
+    for row, (name, plain) in zip(rows, probe_loops.ALL_CASES.items()):
+        assert torch.equal(row, plain(x)), name
+        assert torch.equal(row, probe_loops.loops_cuda(name, x)), name
+
+
+def test_probe_floors_launch_uncounted(cuda):
+    # the two floors' kernels run through K5's path and are not K5; the copy
+    # writes every output from the items
+    pack, item = probe_ops.inputs(cuda)
+    before = probe_ops.LAUNCHES
+    out, ext = probe_ops.empty_cuda(pack, item)
+    torch.cuda.synchronize()
+    assert out.shape == item.shape
+    assert ext.shape == (len(probe_ops.EXT_ROWS), *item.shape)
+    out, ext = probe_ops.copy_cuda(pack, item)
+    bits = item.view(torch.float32)
+    assert torch.equal(out, bits * pack[0, 3])
+    assert all(torch.equal(row, bits) for row in ext)
+    assert probe_ops.LAUNCHES == before
+
+
 def _packed_call(cuda, which):
     """A call of one of the new kernels' wrappers on valid inputs."""
     if which in ("bounce_packed", "bounce_persist"):

@@ -20,6 +20,13 @@
     march's loop forms, which the JAX tool does not have) are held against
     the same loops in numpy float32, bitwise.
 
+    The one launch of every case (`loops_cuda_all`, `which` = -1) writes a
+    row a case in the order of csrc/probe_loops.cu's Case enum:
+    `all_cases_plain` stacks the plain versions in that order.  Its blocks
+    of 128 threads take the early-exit loop's any() over 128 elements: the
+    plain loop with its any() over groups of 128, of 256 and over the whole
+    array gives the same values bitwise, and equals the JAX case.
+
 The CUDA kernels run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -28,6 +35,7 @@ import torch_threads  # noqa: F401  (first: caps torch's threads)
 
 import importlib.util
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +47,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
 
-TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+TOOLS = ROOT / "tools"
+LOOPS_CU = ROOT / "scheme_raytrace_torch" / "csrc" / "probe_loops.cu"
 
 
 def _tool(name):
@@ -206,4 +216,70 @@ def test_probe_wrappers_take_cuda_tensors_only():
         probe_loops.loops_cuda("fori", probe_loops.inputs(device="cpu"))
     with pytest.raises(KeyError, match="no loop case"):
         probe_loops.loops_cuda("nope", probe_loops.inputs(device="cpu"))
+    assert (probe_ops.LAUNCHES, probe_loops.LAUNCHES) == before
+
+
+def test_all_cases_rows_follow_the_case_enum():
+    # the rows that `which` = -1 writes are the Case enum's order; the one
+    # launch's issue order is a permutation of it
+    src = LOOPS_CU.read_text()
+    enum = re.search(r"enum Case \{(.*?)\};", src, re.S).group(1)
+    enum = re.sub(r"//[^\n]*", "", enum)
+    names = [n.strip() for n in enum.split(",") if n.strip()]
+    assert names[-1] == "N_CASES"
+    assert [n.lower() for n in names[:-1]] == list(probe_loops.ALL_CASES)
+    order = re.search(r"kIssueOrder\[N_CASES\] = \{(.*?)\};", src,
+                      re.S).group(1)
+    assert sorted(n.strip() for n in order.split(",")) == sorted(names[:-1])
+    x = probe_loops.inputs(seed=5, device="cpu")
+    rows = probe_loops.all_cases_plain(x)
+    assert rows.shape == (len(probe_loops.ALL_CASES), *probe_loops.SHAPE)
+    for row, f in zip(rows, probe_loops.ALL_CASES.values()):
+        assert torch.equal(row, f(x))
+    assert torch.equal(probe_loops.loops_all(x), rows)
+
+
+def _while_any_trips(x):
+    """Iterations the early-exit loop runs on x with one any() over all of
+    it."""
+    a, done, k = x, torch.zeros_like(x, dtype=torch.bool), 0
+    while k < 100 and not bool(done.all()):
+        a2 = a * 1.3 + 0.1
+        done = done | (a2 > 100.0)
+        a = torch.where(done, a, a2)
+        k += 1
+    return k
+
+
+@pytest.mark.parametrize("inputs", ["tool", "random"])
+def test_while_any_grouping_gives_the_same_values(repro, inputs):
+    if inputs == "tool":
+        x = probe_loops.inputs(seed=0, device="cpu")
+    else:
+        # half the rows (groups of 128) above the fixed point -1/3: each
+        # such group is done in fewer than 100 iterations, while a mixed
+        # row keeps its group, and the whole array, at 100
+        r = np.random.default_rng(6)
+        x = r.uniform(-3.0, 3.0, probe_loops.SHAPE)
+        x[::2] = r.uniform(-0.3, 60.0, (probe_loops.SHAPE[0] // 2,
+                                        probe_loops.SHAPE[1]))
+        x = torch.as_tensor(x.astype(np.float32))
+        trips = [_while_any_trips(row) for row in x]
+        assert max(trips[::2]) < 100 and min(trips[1::2]) == 100
+        assert len(set(trips[::2])) > 1
+    whole = probe_loops.case_while_any(x)
+    for group in (128, 256):
+        assert torch.equal(probe_loops.case_while_any(x, group), whole)
+    with jax.disable_jit():
+        want = np.asarray(repro.CASES["while_any"](jnp.asarray(x.numpy())))
+    np.testing.assert_array_equal(whole.numpy(), want)
+
+
+def test_one_launch_and_launch_floor_take_cuda_tensors_only():
+    before = probe_ops.LAUNCHES, probe_loops.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        probe_loops.loops_cuda_all(probe_loops.inputs(device="cpu"))
+    for floor in (probe_ops.empty_cuda, probe_ops.copy_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            floor(*probe_ops.inputs("cpu"))
     assert (probe_ops.LAUNCHES, probe_loops.LAUNCHES) == before

@@ -270,7 +270,7 @@ from scheme_raytrace_torch.scene import objects as ob
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
 from scheme_raytrace_torch.tools.bench_bvh_crossover import (grid_scene,
                                                              grid_spec)
-from scheme_raytrace_torch.utils import cuda_build
+from scheme_raytrace_torch.utils import cuda_build, telemetry
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "config4_cornell_light.npz")
@@ -1268,13 +1268,13 @@ def check_golden(tag, scene, cam, cfg, golden):
     """An f32 render against an f64 oracle golden (a file, or the image
     itself) with the bounds of tests/test_parity.py; one kernel launch per
     pool iteration."""
-    start = bounce.LAUNCHES
+    start = launch_counts()["K1"]
     mean, state = render.render_image(scene, cam, cfg)
-    launches = bounce.LAUNCHES - start
-    start = bounce.LAUNCHES
+    launches = launch_counts()["K1"] - start
+    start = launch_counts()["K1"]
     state2, segs, iters = render.render_with_stats(
         scene, cam, cfg, render.init_state(cfg))
-    launches2 = bounce.LAUNCHES - start
+    launches2 = launch_counts()["K1"] - start
     if not (launches == launches2 == iters):
         raise AssertionError(f"[{tag}] launches {launches}/{launches2} != "
                              f"pool iterations {iters}")
@@ -1343,11 +1343,11 @@ def check_diff(tag, scene, cam, cfg):
     n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
     params, rest = build.partition(scene)
     mean = lambda raw: raw.mean()
-    bounce.LAUNCHES = bounce.BWD_LAUNCHES = 0
+    reset_counts()
     raw, _, segs, leftover, grads = fwd_bwd(scene, cam, cfg, n_iters, params,
                                             rest, mean)
     torch.cuda.synchronize()
-    launches, bwd_launches = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    launches, bwd_launches = launch_counts()["K1"], launch_counts()["K2"]
     blocks = -(-n_iters // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
     st, f_segs, _ = render.render_with_stats(
         scene, cam, cfg, render.init_state(cfg))
@@ -1449,8 +1449,8 @@ N_TIMED_WAVE = 2    # the wavefront's training steps (8-18 s each)
 def run_full(tag, what, scene, cam, cfg, n_timed=N_TIMED):
     """The forward main path through render_with_stats (the FIFO pool, K1):
     one warm-up render from zeros, then n_timed chained renders.  Sets
-    bounce.LAUNCHES to 0 just before and reads it just after."""
-    bounce.LAUNCHES = 0                       # the main path's count starts
+    the launch counts just before and reads K1's just after."""
+    reset_counts()                            # the main path's count starts
     total_iters = 0
     t0 = time.perf_counter()
     st, segs, iters = render.render_with_stats(
@@ -1469,7 +1469,7 @@ def run_full(tag, what, scene, cam, cfg, n_timed=N_TIMED):
         float(st.raw_sum[0, 0, 0])
         times.append(time.perf_counter() - t0)
         total_iters += iters
-    launches = bounce.LAUNCHES
+    launches = launch_counts()["K1"]
     segs = int(segs)
     med = statistics.median(times)
     mean = (st.raw_sum / st.sample_count.to(torch.float32)).cpu().numpy()
@@ -1551,7 +1551,7 @@ def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED,
     calib = time.perf_counter() - t0
     params, rest = build.partition(scene)
     loss_fn = lambda raw: (raw ** 2).sum() / raw.numel()
-    bounce.LAUNCHES = bounce.BWD_LAUNCHES = 0  # the main path's count starts
+    reset_counts()             # the main path's count starts
     t0 = time.perf_counter()
     _, loss, segs, leftover, grads = fwd_bwd(scene, cam, cfg, n_iters,
                                              params, rest, loss_fn)
@@ -1566,10 +1566,10 @@ def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED,
     for _ in range(n_timed):
         params = {k: v - 1e-6 * grads[k] for k, v in params.items()}
         if recalibrate:
-            before = bounce.LAUNCHES
+            before = launch_counts()["K1"]
             n_iters = diff_fused.calibrate_iters(build.combine(params, rest),
                                                  cam, cfg, slack=1.1)
-            calib_launches += bounce.LAUNCHES - before
+            calib_launches += launch_counts()["K1"] - before
         blocks += block(n_iters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1580,7 +1580,7 @@ def run_full_bwd(tag, what, scene, cam, cfg, n_timed=N_TIMED,
         times.append(time.perf_counter() - t0)
         if int(leftover) != 0:
             raise AssertionError(f"[{tag}] a timed step did not drain")
-    launches, bwd_launches = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    launches, bwd_launches = launch_counts()["K1"], launch_counts()["K2"]
     peak = torch.cuda.max_memory_allocated()
     segs = int(segs)
     med = statistics.median(times)
@@ -2008,22 +2008,26 @@ def phase_packed_spheres(dev):
     return k3, k4
 
 
-POOLS = (("strided", pool_strided.render_pool_strided, "LAUNCHES"),
-         ("packed", pool_packed.render_pool_packed, "PACKED_LAUNCHES"),
-         ("persistent", persist.render_pool_persistent, "PERSIST_LAUNCHES"))
+POOLS = (("strided", pool_strided.render_pool_strided, "K1"),
+         ("packed", pool_packed.render_pool_packed, "K3"),
+         ("persistent", persist.render_pool_persistent, "K4"))
+
+
+# The process counters of the kernels' launches (utils/telemetry) at the
+# last reset_counts(): launch_counts() reads the launches since.
+_COUNTS_AT = {}
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def launch_counts():
-    """Every kernel wrapper's launch count (K1-K6)."""
-    return dict(LAUNCHES=bounce.LAUNCHES, BWD_LAUNCHES=bounce.BWD_LAUNCHES,
-                PACKED_LAUNCHES=bounce.PACKED_LAUNCHES,
-                PERSIST_LAUNCHES=persist.PERSIST_LAUNCHES,
-                probe_ops=probe_ops.LAUNCHES, probe_loops=probe_loops.LAUNCHES)
+    """Every kernel wrapper's launches (K1-K6) since reset_counts()."""
+    return {k: telemetry.counter(f"launches.{k}") - _COUNTS_AT.get(k, 0)
+            for k in KERNELS}
 
 
 def reset_counts():
-    bounce.LAUNCHES = bounce.BWD_LAUNCHES = bounce.PACKED_LAUNCHES = 0
-    persist.PERSIST_LAUNCHES = probe_ops.LAUNCHES = probe_loops.LAUNCHES = 0
+    _COUNTS_AT.update((k, telemetry.counter(f"launches.{k}"))
+                      for k in KERNELS)
 
 
 def run_pools(tag, pools, scene, cam, cfg, full, dev, n_timed=N_TIMED):
@@ -2141,9 +2145,9 @@ def phase_pools_200(dev):
     raw0 = torch.zeros(cfg.n_pixels, 3, device=dev)
     out = {}
     for name, fn, count in (
-            ("FIFO", pool.render_pool_auto, "LAUNCHES"),
+            ("FIFO", pool.render_pool_auto, "K1"),
             ("persistent", persist.render_pool_persistent,
-             "PERSIST_LAUNCHES")):
+             "K4")):
         reset_counts()
         t0 = time.perf_counter()
         raw, segs, iters = fn(scene, cam, cfg, raw0, 0)
@@ -2872,7 +2876,7 @@ def phase_general_rtow(dev):
     reset_counts()
     st, fsegs, fiters = render.render_with_stats(scene, cam, fused_cfg,
                                                  render.init_state(fused_cfg))
-    if bounce.LAUNCHES != fiters:
+    if launch_counts()["K1"] != fiters:
         raise AssertionError("[general-rtow] the fused render did not run K1")
     fmean = (st.raw_sum / fused_cfg.spp).cpu().numpy()
     diff = np.abs(out["sah"]["mean"] - fmean)
@@ -3383,7 +3387,7 @@ def par_pools(mesh, scene, cam):
     for name, out in got.items():
         same_pool(f"render_pool_{name}, world 1", out, want)
     log(f"[parallel] the two sharded renders' kernel launches: {counts}")
-    if counts["LAUNCHES"] != 2 * want[2]:
+    if counts["K1"] != 2 * want[2]:
         raise AssertionError("[parallel] the sharded pools did not launch "
                              "bounce_step once an iteration")
     runs = {"render_pool_auto": lambda: pool.render_pool_auto(
@@ -3420,7 +3424,7 @@ def par_pools(mesh, scene, cam):
             f"{[p[2] for p in parts]}")
         same_pool(f"{PAR_SHARDS} {name} assembled", (raw, sum(segs), max(
             p[2] for p in parts)), want)
-    return counts["LAUNCHES"]
+    return counts["K1"]
 
 
 def par_fused_step(mesh, scene, cam):
@@ -3458,12 +3462,12 @@ def par_fused_step(mesh, scene, cam):
         f"n_iters {n_iters}, leftover {int(leftover)} (unsharded "
         f"{int(ref_left)}), loss {float(loss):.6e} / {float(ref_loss):.6e}; "
         f"new parameters bitwise the unsharded step's: {same}; launches "
-        f"forward {counts['LAUNCHES']} backward {counts['BWD_LAUNCHES']}")
+        f"forward {counts['K1']} backward {counts['K2']}")
     if int(leftover) != 0 or not same or float(loss) != float(ref_loss):
         raise AssertionError("[parallel] train_step_fused differs from the "
                              "unsharded step or did not drain")
     block = -(-n_iters // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
-    if not counts["LAUNCHES"] == counts["BWD_LAUNCHES"] == block:
+    if not counts["K1"] == counts["K2"] == block:
         raise AssertionError(f"[parallel] launches {counts} != {block}")
     times = {"sharded": [], "unsharded": []}
     for _ in range(N_TIMED):
@@ -3480,8 +3484,8 @@ def par_fused_step(mesh, scene, cam):
         f"the gradient all-reduce of {bucket.numel()} floats "
         f"({bucket.numel() * 4 + 4} B with the loss) {ar_ms * 1e3:.2f} us "
         f"by CUDA events")
-    return dict(launches=counts["LAUNCHES"], bwd_launches=counts[
-        "BWD_LAUNCHES"], times=times, allreduce_ms=ar_ms)
+    return dict(launches=counts["K1"], bwd_launches=counts[
+        "K2"], times=times, allreduce_ms=ar_ms)
 
 
 def par_wave(mesh, scene, cam):
@@ -3672,7 +3676,7 @@ def phase_cli(dev):
     reset_counts()                            # the main path's counts start
     out = cli_out(["render", *CLI_RENDER, "--spp", "20", "--resume", st,
                    "--out", ppm + ".resumed"])
-    launches = bounce.LAUNCHES
+    launches = launch_counts()["K1"]
     resumed = ppm_of(chunks_in_process(built, 1, state),
                      ppm + ".want5") == open(ppm + ".resumed").read()
     log(f"[cli] --resume of its state for one more chunk ({launches} "
@@ -3767,19 +3771,19 @@ def phase_tools(dev):
         log(f"[tools] --- {name}")
         result = fn()
         counts = launch_counts()
-        k1 = counts["LAUNCHES"] - before["LAUNCHES"]
-        k2 = counts["BWD_LAUNCHES"] - before["BWD_LAUNCHES"]
+        k1 = counts["K1"] - before["K1"]
+        k2 = counts["K2"] - before["K2"]
         log(f"[tools] {name}: {time.perf_counter() - t0:.1f} s, "
             f"bounce_step launches {k1}, bounce_step_bwd launches {k2}")
         out[name] = dict(result=result, launches=k1, bwd_launches=k2)
     counts = launch_counts()
     log(f"[tools] {smi_line()}: the tools launched bounce_step "
-        f"{counts['LAUNCHES']} and bounce_step_bwd {counts['BWD_LAUNCHES']}"
+        f"{counts['K1']} and bounce_step_bwd {counts['K2']}"
         f" times; {counts}")
-    if counts["LAUNCHES"] == 0 or counts["BWD_LAUNCHES"] == 0:
+    if counts["K1"] == 0 or counts["K2"] == 0:
         raise AssertionError("[tools] K1 or K2 was never launched")
-    return dict(launches=counts["LAUNCHES"],
-                bwd_launches=counts["BWD_LAUNCHES"], runs=out)
+    return dict(launches=counts["K1"],
+                bwd_launches=counts["K2"], runs=out)
 
 
 # ---------------------------------------------------------------------------
@@ -3890,7 +3894,7 @@ def phase_bench(dev, full):
         wall_ms, table = device_kernels(lambda: got.append(
             render.render_with_stats(scene, cam, cfg, render.init_state(cfg))),
             host_ops=False)
-        launches = bounce.LAUNCHES
+        launches = launch_counts()["K1"]
         peak = torch.cuda.max_memory_allocated() - held
         st, segs, iters = got[-1]
         k1 = sum(k for name, (_, k) in table.items() if "bounce_step" in name)
@@ -4241,11 +4245,11 @@ def phase_probes(dev):
     single-case launches and each case alone, K5 against the card's launch
     floor (an empty kernel on K5's grid) and the floor of a launch that
     moves its bytes (a copy on its grid), timed in turns."""
-    probe_ops.LAUNCHES = probe_loops.LAUNCHES = 0
+    reset_counts()
     ops_line = probe_ops.main()
     loops_ok, ext_ok = probe_loops.main()
-    launches = dict(probe_ops=probe_ops.LAUNCHES,
-                    probe_loops=probe_loops.LAUNCHES)
+    launches = dict(probe_ops=launch_counts()["K5"],
+                    probe_loops=launch_counts()["K6"])
     log(f"[probes] probe_ops.main(): {ops_line}; probe_loops.main(): "
         f"{loops_ok}, extension {ext_ok}; launches {launches}")
     if (not all(loops_ok.values()) or not all(ext_ok.values())

@@ -1,0 +1,18 @@
+"""How full the reverse pool ran in the traced whole steps, in %: the
+program's counters `pool.segments` (path segments traced) over
+`pool.lane_slots` (iterations, the calibrated trip count's slack
+included, times lanes).  None where the program has no such counter, or
+its traced steps are not the window's."""
+
+
+def read(ctx):
+    try:
+        from scheme_raytrace_torch.utils import telemetry
+    except ImportError:
+        return None
+    snap = telemetry.snapshot()
+    c = snap["counters"]
+    if not ctx["step"] or snap["units"] != ctx["units"] \
+            or not c.get("pool.lane_slots"):
+        return None
+    return 100.0 * c["pool.segments"] / c["pool.lane_slots"]

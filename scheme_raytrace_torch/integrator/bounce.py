@@ -42,6 +42,7 @@ from ..core import vecmath as vm
 from ..scene import build as sb
 from ..scene import objects as ob
 from ..scene import perlin as perlin_mod
+from ..utils import telemetry
 
 _PI = math.pi
 _TWO_PI = 2.0 * _PI
@@ -1349,11 +1350,6 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
 # The CUDA kernel (csrc/bounce_step.cu): the port of the Pallas `as_pallas`
 # ---------------------------------------------------------------------------
 
-# Launches of the bounce_step kernel in this process; the wrapper adds one
-# per launch and nothing else touches it except callers that reset it.
-LAUNCHES = 0
-
-
 def kernel_features(plan: BouncePlan) -> tuple:
     """The feature set of the plan's kernel variants: the groups of
     csrc/bounce_common.cuh's compile-time flags that the plan has (spheres,
@@ -1511,9 +1507,9 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     float lanes in float32 or float64, gitem and depth int32, fresh and
     alive bool, all lanes [M].  Outputs are new tensors (torch.empty);
     the inputs are left unchanged.  Launches on the current stream without
-    synchronising and raises if the launch is refused.
+    synchronising and raises if the launch is refused; a launch adds one
+    to the process counter `launches.K1` (utils/telemetry).
     """
-    global LAUNCHES
     check_kernel_plan(plan)
     dev = px.device
     if dev.type != "cuda":
@@ -1547,7 +1543,7 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"bounce_step kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    telemetry.count("launches.K1")
     return ((outs[0], outs[1], outs[2]), (outs[3], outs[4], outs[5]), outs[6],
             (outs[7], outs[8], outs[9]), (outs[10], outs[11], outs[12]),
             scattering)
@@ -1556,11 +1552,6 @@ def step_cuda(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
 # ---------------------------------------------------------------------------
 # Reverse mode: the port of `as_pallas_vjp` (K1 forward, K2 backward)
 # ---------------------------------------------------------------------------
-
-# Launches of the bounce_step_bwd kernel in this process, counted like
-# LAUNCHES.
-BWD_LAUNCHES = 0
-
 
 def flat_lanes(o, d, time, rad, tp):
     """(o, d, time, rad, tp) -> the 13 lane tensors, in the kernels' order."""
@@ -1641,51 +1632,57 @@ def step_cuda_bwd(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     width takes none.  For a plan with image textures pk is
     `pack`'s (pk, atlas) pair and dpk the pair (dpk, datlas): a partials row
     is then P slots followed by the atlas's img_rows * 128 texels, which take
-    the albedo cotangent of the lanes that read them, summed the same way."""
-    global BWD_LAUNCHES
-    check_kernel_plan(plan)
-    dev = px.device
-    if dev.type != "cuda":
-        raise ValueError(f"step_cuda_bwd takes CUDA tensors, got {dev}")
-    w = check_tile(tile_width(plan, bwd=True) if tile is None else tile)
-    dt = px.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"step_cuda_bwd: float32 or float64 lanes, got {dt}")
-    m = px.shape[0]
-    lanes = flat_lanes(o, d, time, rad, tp)
-    cts = flat_lanes(ct_o, ct_d, ct_time, ct_rad, ct_tp)
-    names = ("ox", "oy", "oz", "dx", "dy", "dz", "time", "rx", "ry", "rz",
-             "tx", "ty", "tz")
-    fn = "step_cuda_bwd"
-    for name, x in (("px", px), ("py", py), *zip(names, lanes),
-                    *zip(["ct_" + n for n in names], cts)):
-        _check_lane(name, x, dt, m, dev, fn)
-    for name, x in (("gitem", gitem), ("depth", depth)):
-        _check_lane(name, x, torch.int32, m, dev, fn)
-    for name, x in (("fresh", fresh), ("alive", alive)):
-        _check_lane(name, x, torch.bool, m, dev, fn)
-    pk, atlas = _check_pk(plan, pk, dt, dev, fn)
+    the albedo cotangent of the lanes that read them, summed the same way.
 
-    partials = bwd_partials(plan, m, w, dt, dev)
-    outs = [torch.empty_like(px) for _ in range(13)]
-    # the order of srt_bounce_step_bwd's pointer array: pk, 19 lanes in,
-    # 13 cotangents, the partials, 13 lane cotangents out, the atlas
-    tensors = (pk, gitem, px, py, fresh, alive, depth, *lanes, *cts,
-               partials, *outs, atlas)
-    ptrs = (ctypes.c_void_p * len(tensors))(*[tensor_ptr(t) for t in tensors])
-    kernel = _kernel_bwd(plan)
-    with torch.cuda.device(dev):
-        err = kernel(int(dt == torch.float64), ptrs, m, plan.size, w,
-                     *scene_args(plan),
-                     torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"bounce_step_bwd kernel launch failed: CUDA error {err}")
-    BWD_LAUNCHES += 1
-    dpk = partials.sum(dim=0)
-    if atlas is not None:
-        dpk = (dpk[:plan.size], dpk[plan.size:].reshape(atlas.shape))
-    return (dpk, *split_lanes(outs))
+    A launch adds one to the process counter `launches.K2`
+    (utils/telemetry); the call is the traced span `k2.launch`, which for
+    CUDA tensors autograd opens on its own thread."""
+    with telemetry.span("k2.launch"):
+        check_kernel_plan(plan)
+        dev = px.device
+        if dev.type != "cuda":
+            raise ValueError(f"step_cuda_bwd takes CUDA tensors, got {dev}")
+        w = check_tile(tile_width(plan, bwd=True) if tile is None else tile)
+        dt = px.dtype
+        if dt not in (torch.float32, torch.float64):
+            raise TypeError(
+                f"step_cuda_bwd: float32 or float64 lanes, got {dt}")
+        m = px.shape[0]
+        lanes = flat_lanes(o, d, time, rad, tp)
+        cts = flat_lanes(ct_o, ct_d, ct_time, ct_rad, ct_tp)
+        names = ("ox", "oy", "oz", "dx", "dy", "dz", "time", "rx", "ry",
+                 "rz", "tx", "ty", "tz")
+        fn = "step_cuda_bwd"
+        for name, x in (("px", px), ("py", py), *zip(names, lanes),
+                        *zip(["ct_" + n for n in names], cts)):
+            _check_lane(name, x, dt, m, dev, fn)
+        for name, x in (("gitem", gitem), ("depth", depth)):
+            _check_lane(name, x, torch.int32, m, dev, fn)
+        for name, x in (("fresh", fresh), ("alive", alive)):
+            _check_lane(name, x, torch.bool, m, dev, fn)
+        pk, atlas = _check_pk(plan, pk, dt, dev, fn)
+
+        partials = bwd_partials(plan, m, w, dt, dev)
+        outs = [torch.empty_like(px) for _ in range(13)]
+        # the order of srt_bounce_step_bwd's pointer array: pk, 19 lanes in,
+        # 13 cotangents, the partials, 13 lane cotangents out, the atlas
+        tensors = (pk, gitem, px, py, fresh, alive, depth, *lanes, *cts,
+                   partials, *outs, atlas)
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[tensor_ptr(t) for t in tensors])
+        kernel = _kernel_bwd(plan)
+        with torch.cuda.device(dev):
+            err = kernel(int(dt == torch.float64), ptrs, m, plan.size, w,
+                         *scene_args(plan),
+                         torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(
+                f"bounce_step_bwd kernel launch failed: CUDA error {err}")
+        telemetry.count("launches.K2")
+        dpk = partials.sum(dim=0)
+        if atlas is not None:
+            dpk = (dpk[:plan.size], dpk[plan.size:].reshape(atlas.shape))
+        return (dpk, *split_lanes(outs))
 
 
 class BounceStep(torch.autograd.Function):
@@ -1754,11 +1751,6 @@ def step_cuda_vjp(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
 # hold int32 bits, read with .view(torch.int32) and never touched by float
 # arithmetic.
 N_PACKED = 16
-
-# Launches of the bounce_packed kernel in this process, counted like
-# LAUNCHES.
-PACKED_LAUNCHES = 0
-
 
 def wrap_i32(x):
     """int64 tensor -> int32 with two's-complement wraparound."""
@@ -1871,8 +1863,8 @@ def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,
     int or an integer tensor (a CUDA tensor is read by the kernel, with no
     host sync).  Returns the new
     state as a new tensor; launches on the current stream without
-    synchronising and raises if the launch is refused."""
-    global PACKED_LAUNCHES
+    synchronising and raises if the launch is refused; a launch adds one
+    to the process counter `launches.K3` (utils/telemetry)."""
     fn = "step_packed_cuda"
     w = check_tile(tile_width(plan) if tile is None else tile)
     pk, atlas, base = check_packed(fn, plan, pk, sample_base, state, m)
@@ -1889,5 +1881,5 @@ def step_packed_cuda(plan: BouncePlan, pk, sample_base, state, m, n_work,
     if err:
         raise RuntimeError(f"bounce_packed kernel launch failed: CUDA error "
                            f"{err}")
-    PACKED_LAUNCHES += 1
+    telemetry.count("launches.K3")
     return out

@@ -23,17 +23,13 @@ import ctypes
 
 import torch
 
+from ..utils import telemetry
 from . import bounce
 from .pool_strided import Framebuffer, pool_size
 
 CHUNK_T = 32      # bounce iterations per launch (the reference's value)
 N_STATE = bounce.N_PACKED   # packed state rows: item, fresh, depth, o, d,
                             # time, rad, tp
-
-# Launches of the bounce_persist kernel in this process, counted like
-# bounce.LAUNCHES.
-PERSIST_LAUNCHES = 0
-
 
 def chunk_plain(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
                 total_pix, T=CHUNK_T):
@@ -96,8 +92,8 @@ def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
     Takes what `bounce.step_packed_cuda` takes, on one CUDA device, and
     T >= 1.  Returns (state, flush, segs) as new tensors; launches on the
     current stream without synchronising and raises if the launch is
-    refused."""
-    global PERSIST_LAUNCHES
+    refused; a launch adds one to the process counter `launches.K4`
+    (utils/telemetry)."""
     fn = "chunk_cuda"
     w = bounce.check_tile(tile_width(plan) if tile is None else tile)
     pk, atlas, sb = bounce.check_packed(fn, plan, pk, sample_base, state, m)
@@ -119,7 +115,7 @@ def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
     if err:
         raise RuntimeError(f"bounce_persist kernel launch failed: CUDA error "
                            f"{err}")
-    PERSIST_LAUNCHES += 1
+    telemetry.count("launches.K4")
     return out, flush, segs
 
 

@@ -32,12 +32,21 @@ fixed-length scan.  Every update there is out of place, so nothing autograd
 saves is changed later; on the card the step is `bounce.step_cuda_vjp`
 (the K1 forward and K2 backward kernels), on the CPU the plain `step`
 under torch autograd.
+
+While a torch profiler records, the pool is traced (utils/telemetry): the
+span `pool` around a call, `pool.iter` around an iteration, inside it
+`pool.launch` around the step and `pool.fold`, `pool.reissue`,
+`pool.reissue.lanes` and `pool.reissue.state` around the glue (each short
+enough for a trace's idle gaps to be named after it), and
+`pool.drain_check` around the host sync; the counters `pool.segments` and `pool.lane_slots` (iterations times
+lanes) give the pool's occupancy.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import telemetry
 from . import bounce
 
 FLUSH_EVERY = 8     # bounce iterations between drain checks (host syncs)
@@ -87,6 +96,13 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
     item_offset of raw0 (the interleaved shard of parallel.pool's balanced
     mode); the others keep raw0's values.
     """
+    with telemetry.span("pool"):
+        return _render(scene, cam, config, raw0, sample_base, pix0, total_pix,
+                       static_iters, item_stride, item_offset)
+
+
+def _render(scene, cam, config, raw0, sample_base, pix0, total_pix,
+            static_iters, item_stride, item_offset):
     n_pix = raw0.shape[0]
     total_pix = config.n_pixels if total_pix is None else total_pix
     spp = config.spp
@@ -128,52 +144,72 @@ def render_pool_fused(scene, cam, config, raw0, sample_base, pix0=0,
     iters = 0
     while True:
         for _ in range(FLUSH_EVERY):
-            gitem = bounce.wrap_i32((base + pass_idx) * total_pix + pixg)
-            o, d, time, rad, tp, scattering = step(
-                plan, pk, gitem, px, py, fresh, alive, depth,
-                o, d, time, rad, tp)
+            with telemetry.span("pool.iter"):
+                gitem = bounce.wrap_i32((base + pass_idx) * total_pix + pixg)
+                with telemetry.span("pool.launch"):
+                    o, d, time, rad, tp, scattering = step(
+                        plan, pk, gitem, px, py, fresh, alive, depth,
+                        o, d, time, rad, tp)
 
-            # --- fold the finished path into its pixel's sum ----------------
-            path_done = alive & ~scattering
-            folded = torch.where(path_done[:, None], torch.stack(rad, 1), 0.0)
-            pixel_done = path_done & (pass_idx >= spp - 1)
-            more = path_done & ~pixel_done           # next pass, same pixel
-            dest = torch.where(pixel_done, pixg - pix0, spill)
-            if reverse:
-                acc = acc + folded
-                raw = raw.index_add(0, dest, acc)
-                acc = torch.where(pixel_done[:, None], 0.0, acc)
-            else:
-                acc += folded
-                raw.index_add_(0, dest, acc)
-                acc.masked_fill_(pixel_done[:, None], 0.0)
+                # --- fold the finished path into its pixel's sum ------------
+                with telemetry.span("pool.fold"):
+                    path_done = alive & ~scattering
+                    folded = torch.where(path_done[:, None],
+                                         torch.stack(rad, 1), 0.0)
+                    pixel_done = path_done & (pass_idx >= spp - 1)
+                    more = path_done & ~pixel_done   # next pass, same pixel
+                    dest = torch.where(pixel_done, pixg - pix0, spill)
+                    if reverse:
+                        acc = acc + folded
+                        raw = raw.index_add(0, dest, acc)
+                        acc = torch.where(pixel_done[:, None], 0.0, acc)
+                    else:
+                        acc += folded
+                        raw.index_add_(0, dest, acc)
+                        acc.masked_fill_(pixel_done[:, None], 0.0)
 
-            # --- re-issue freed lanes the next pixels ----------------------
-            done_i = pixel_done.to(torch.int64)
-            new_local = next_w + torch.cumsum(done_i, 0) - done_i
-            has_work = pixel_done & (new_local < n_work)
-            item = torch.where(has_work, new_local, item)
-            pass_idx = torch.where(more, pass_idx + 1,
-                                   torch.where(has_work, 0, pass_idx))
-            fresh = more | has_work
-            pixg = pix0 + _pixel_of(item, n_pix, item_stride, item_offset)
-            px = torch.where(fresh, (pixg % config.nx).to(dtype), px)
-            py = torch.where(fresh, torch.div(pixg, config.nx,
-                                              rounding_mode="floor").to(dtype),
-                             py)
-            depth = torch.where(scattering, depth + 1,
-                                torch.where(fresh, 0, depth))
-            if reverse:
-                segments = segments + alive.sum()
-            else:
-                segments += alive.sum()
-            alive = scattering | fresh
-            next_w = torch.clamp(next_w + done_i.sum(), max=n_work)
-            iters += 1
+                # --- re-issue freed lanes the next pixels ------------------
+                with telemetry.span("pool.reissue"):
+                    done_i = pixel_done.to(torch.int64)
+                    new_local = next_w + torch.cumsum(done_i, 0) - done_i
+                    has_work = pixel_done & (new_local < n_work)
+                    item = torch.where(has_work, new_local, item)
+                    pass_idx = torch.where(more, pass_idx + 1,
+                                           torch.where(has_work, 0, pass_idx))
+                    fresh = more | has_work
+                with telemetry.span("pool.reissue.lanes"):
+                    pixg = pix0 + _pixel_of(item, n_pix, item_stride,
+                                            item_offset)
+                    px = torch.where(fresh, (pixg % config.nx).to(dtype), px)
+                    py = torch.where(fresh, torch.div(
+                        pixg, config.nx, rounding_mode="floor").to(dtype), py)
+                with telemetry.span("pool.reissue.state"):
+                    depth = torch.where(scattering, depth + 1,
+                                        torch.where(fresh, 0, depth))
+                    if reverse:
+                        segments = segments + alive.sum()
+                    else:
+                        segments += alive.sum()
+                    alive = scattering | fresh
+                    next_w = torch.clamp(next_w + done_i.sum(), max=n_work)
+                iters += 1
         if reverse:
             if iters >= static_iters:
                 leftover = alive.sum() + (n_work - next_w)
+                _count(segments, iters, m)
                 return raw[:n_pix], segments, leftover
-        elif not bool(alive.any()):
-            break
+        else:
+            with telemetry.span("pool.drain_check"):
+                drained = not bool(alive.any())
+            if drained:
+                break
+    _count(segments, iters, m)
     return raw[:n_pix], segments, iters
+
+
+def _count(segments, iters, m):
+    """The traced counters of one pool call: its exact segments (a 0-d
+    device tensor, read at snapshot time) and its lane slots, iterations
+    times lanes: their ratio is the pool's occupancy."""
+    telemetry.add("pool.segments", segments)
+    telemetry.add("pool.lane_slots", iters * m)

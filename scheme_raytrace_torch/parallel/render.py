@@ -25,6 +25,7 @@ from ..core import rng
 from ..integrator import pool_fused
 from ..integrator.wavefront import trace_rays
 from ..scene import build as sb
+from ..utils import telemetry
 from . import distributed as pdist
 
 
@@ -92,13 +93,15 @@ def _sgd(params, leaves, loss, mesh, lr):
     in one flat buffer, summed over the ranks; then params -= lr * grad.
     Returns (new_params, global loss)."""
     names = list(leaves)
-    grads = torch.autograd.grad(loss, [leaves[k] for k in names],
-                                allow_unused=True)
+    with telemetry.span("train.autograd"):
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                    allow_unused=True)
     grads = [torch.zeros_like(leaves[k]) if g is None else g
              for k, g in zip(names, grads)]
-    flat = pdist.all_sum(torch.cat([loss.detach().reshape(1)]
-                                   + [g.reshape(-1) for g in grads]),
-                         mesh.group)
+    with telemetry.span("train.allreduce"):
+        flat = pdist.all_sum(torch.cat([loss.detach().reshape(1)]
+                                       + [g.reshape(-1) for g in grads]),
+                             mesh.group)
     new_params, at = {}, 1
     for k in names:
         p = params[k]
@@ -127,6 +130,13 @@ def train_step_fused(params, rest_scene, cam: Camera,
     Returns (new_params, loss, leftover); `leftover` MUST be checked: a
     nonzero value means n_iters did not drain some rank's queue and the
     image and gradient miss that work (integrator/diff_fused)."""
+    with telemetry.span("train.step", unit=True):
+        return _train_step_fused(params, rest_scene, cam, config, target,
+                                 mesh, n_iters, lr)
+
+
+def _train_step_fused(params, rest_scene, cam, config, target, mesh,
+                      n_iters, lr):
     rows = _check_rows(config, mesh)
     local_pix = rows * config.nx
     pix0 = mesh.rank * local_pix
@@ -141,7 +151,8 @@ def train_step_fused(params, rest_scene, cam: Camera,
     tgt = target[mesh.rank * rows:(mesh.rank + 1) * rows]
     loss = torch.sum((img - tgt) ** 2) / (config.ny * config.nx * 3)
     new_params, loss = _sgd(params, leaves, loss, mesh, lr)
-    leftover = pdist.all_sum(leftover.reshape(1), mesh.group)[0]
+    with telemetry.span("train.allreduce"):
+        leftover = pdist.all_sum(leftover.reshape(1), mesh.group)[0]
     return new_params, loss, leftover
 
 

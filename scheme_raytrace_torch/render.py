@@ -27,6 +27,7 @@ from .camera import Camera, get_rays
 from .core import rng
 from .integrator.pool import render_pool_auto
 from .integrator.wavefront import trace_rays_full
+from .utils import telemetry
 
 # Rays of one differentiable wavefront: smaller frames trace up to this
 # many rays' worth of passes at once (the pool's forward width).
@@ -118,9 +119,10 @@ def render_with_stats(scene, cam: Camera, config: cfg_mod.RenderConfig,
 
     segments is the exact number of path segments traced (0-d int64
     tensor on the state's device); iters the pool iterations (int)."""
-    raw, segments, iters = render_pool_auto(
-        scene, cam, config,
-        state.raw_sum.reshape(config.n_pixels, 3), state.sample_count)
+    with telemetry.span("frame", unit=True):
+        raw, segments, iters = render_pool_auto(
+            scene, cam, config,
+            state.raw_sum.reshape(config.n_pixels, 3), state.sample_count)
     new_state = RenderState(raw.reshape(config.ny, config.nx, 3),
                             state.sample_count + config.spp)
     return new_state, segments, iters

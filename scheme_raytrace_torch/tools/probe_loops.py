@@ -28,12 +28,9 @@ import ctypes
 import torch
 
 from ..config import resolve_device
+from ..utils import telemetry
 
 SHAPE = (64, 128)
-
-# Launches of the probe_loops kernel in this process.
-LAUNCHES = 0
-
 
 def case_fori(x):
     a = x
@@ -261,15 +258,15 @@ def _launch(x, out, which, what):
 def loops_cuda(name, x):
     """ALL_CASES[name] through csrc/probe_loops.cu: x a contiguous float32
     tensor on a CUDA device.  Returns a new tensor; raises for an unknown
-    case or a refused launch."""
-    global LAUNCHES
+    case or a refused launch.  A launch adds one to the process counter
+    `launches.K6` (utils/telemetry)."""
     if name not in ALL_CASES:
         raise KeyError(f"no loop case {name!r}; cases: "
                        f"{', '.join(ALL_CASES)}")
     _check(x, "loops_cuda")
     out = torch.empty_like(x)
     _launch(x, out, list(ALL_CASES).index(name), name)
-    LAUNCHES += 1
+    telemetry.count("launches.K6")
     return out
 
 
@@ -278,12 +275,11 @@ def loops_cuda_all(x):
     (`which` = -1): x a contiguous float32 tensor on a CUDA device.  Returns
     a new (len(ALL_CASES), *x.shape) tensor, a row a case in ALL_CASES'
     order; raises for a refused launch."""
-    global LAUNCHES
     _check(x, "loops_cuda_all")
     out = torch.empty((len(ALL_CASES), *x.shape), dtype=x.dtype,
                       device=x.device)
     _launch(x, out, -1, "all cases")
-    LAUNCHES += 1
+    telemetry.count("launches.K6")
     return out
 
 

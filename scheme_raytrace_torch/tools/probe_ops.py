@@ -28,6 +28,7 @@ import torch
 
 from ..config import resolve_device
 from ..core import rng
+from ..utils import telemetry
 
 NPX = 200 * 200
 NX = 200
@@ -35,10 +36,6 @@ NX = 200
 # The extension's rows.  The first two come from the int path and are exact;
 # the others are the card's logf, atan2f and rsqrtf against PyTorch's.
 EXT_ROWS = ("floor", "hash_of_negative", "log", "atan2", "rsqrt")
-
-# Launches of the probe_ops kernel in this process.
-LAUNCHES = 0
-
 
 def inputs(device=None):
     """The JAX probe's inputs: pack = arange(16), items = arange(1024), on
@@ -123,10 +120,10 @@ def probe_cuda(pack, item):
     """`probe_plain` through csrc/probe_ops.cu: pack a contiguous (1, 16)
     float32 and item a contiguous int32 tensor, on one CUDA device.
     Returns (out, ext), new float32 tensors of item's shape and of
-    (len(EXT_ROWS), *item's shape); raises if the launch is refused."""
-    global LAUNCHES
+    (len(EXT_ROWS), *item's shape); raises if the launch is refused.  A
+    launch adds one to the process counter `launches.K5` (utils/telemetry)."""
     out_ext = _launch("srt_probe_ops", pack, item, "probe_cuda")
-    LAUNCHES += 1
+    telemetry.count("launches.K5")
     return out_ext
 
 
@@ -134,8 +131,8 @@ def empty_cuda(pack, item):
     """The card's launch floor for K5: the same checks, allocations and
     stream as probe_cuda, and a launch of a kernel with K5's arguments and
     grid whose body is empty (srt_probe_empty).  Returns the (out, ext) it
-    allocated, unwritten.  Not counted in LAUNCHES: it is a yardstick, not
-    the probe."""
+    allocated, unwritten.  Not counted in `launches.K5`: it is a yardstick,
+    not the probe."""
     return _launch("srt_probe_empty", pack, item, "empty_cuda")
 
 
@@ -143,7 +140,7 @@ def copy_cuda(pack, item):
     """The floor of a launch that moves K5's bytes: as empty_cuda, with a
     kernel that reads K5's inputs and writes its outputs and computes
     nothing between (srt_probe_copy).  Returns (out, ext), not the probe's
-    values.  Not counted in LAUNCHES."""
+    values.  Not counted in `launches.K5`."""
     return _launch("srt_probe_copy", pack, item, "copy_cuda")
 
 

@@ -21,7 +21,11 @@ use from the sources in csrc/ and nothing else.  Libraries go to
 (the feature macros among them) and the nvcc version, so an edit rebuilds
 and an unchanged tree reuses its libraries.  nvcc's output (with ptxas's
 register and spill counts) and the build's seconds are kept beside each
-library as <lib>.log.
+library as <lib>.log.  The process counters of utils/telemetry add up the
+first load of each variant: `kernels.load_s` (the whole of it: the nvcc
+version query, the hash of the sources, the build if any and the dlopen)
+and `kernels.build_s` (nvcc's seconds, 0 where the library was on disk);
+their difference is the loading that every run pays.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import re
 import subprocess
 import tempfile
 import time
+
+from . import telemetry
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
@@ -122,6 +128,7 @@ def load(name: str, features=()) -> ctypes.CDLL:
     key = variant_name(name, features)
     if key in LOADED:
         return LOADED[key]["lib"]
+    t_load = time.perf_counter()
     nvcc = _nvcc()
     version = subprocess.run([nvcc, "--version"], check=True,
                              capture_output=True, text=True).stdout
@@ -164,4 +171,7 @@ def load(name: str, features=()) -> ctypes.CDLL:
     LOADED[key] = dict(
         lib=lib, path=str(lib_path), built=built, seconds=seconds,
         log=log_path.read_text() if log_path.exists() else "")
+    telemetry.count("kernels.load_s", time.perf_counter() - t_load)
+    if built:
+        telemetry.count("kernels.build_s", seconds)
     return lib

@@ -30,6 +30,13 @@ from scheme_raytrace_torch.integrator import bounce as tb
 from scheme_raytrace_torch.integrator import pool as t_pool
 from scheme_raytrace_torch.scene import build as t_build
 from scheme_raytrace_torch.scene import objects as t_ob
+from scheme_raytrace_torch.utils import telemetry
+
+
+def launches(kernel):
+    """The process's launches of one kernel so far (utils/telemetry)."""
+    return telemetry.counter(f"launches.{kernel}")
+
 
 CSRC = pathlib.Path(tb.__file__).resolve().parent.parent / "csrc"
 LAYOUT = re.compile(r"^(H|R|S|L|M|K|B)_[A-Z0-9]+$|_SIZE$")
@@ -273,7 +280,7 @@ def test_step_covers_media_perlin_and_image_plans(name):
 def test_step_cuda_takes_cuda_tensors_only():
     plan, t_plan, pk = _cornell_plan_pk("f32", True)
     ins = _torch_args(_lane_inputs(128, 16, 16, 8), torch.float32)
-    before = tb.LAUNCHES
+    before = launches("K1")
     with pytest.raises(ValueError, match="CUDA"):
         tb.step_cuda(t_plan, torch.tensor(pk), *ins)
-    assert tb.LAUNCHES == before
+    assert launches("K1") == before

@@ -21,7 +21,9 @@ general pool on the card (no kernel): its flush bitwise the lane-order sum,
 its float64 renders equal to the CPU's (BVH, russian roulette, material
 sort), the sorted shading bitwise the masked one, a 4,901-sphere scene;
 and the differentiable wavefront on the card (no kernel): threefry bitwise
-the CPU's, and float64 render_pass and gradients equal to the CPU's.
+the CPU's, and float64 render_pass and gradients equal to the CPU's; and the
+port's telemetry on the card: K2's span traced on autograd's thread, and
+the kernels' loads counted.
 
 Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -48,7 +50,13 @@ from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
 from scheme_raytrace_torch.scene import build, compile_scene
 from scheme_raytrace_torch.scene import objects as ob
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
-from scheme_raytrace_torch.utils import cuda_build
+from scheme_raytrace_torch.utils import cuda_build, telemetry
+
+
+def launches(kernel):
+    """The process's launches of one kernel so far (utils/telemetry)."""
+    return telemetry.counter(f"launches.{kernel}")
+
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "config4_cornell_light.npz")
@@ -132,10 +140,10 @@ def test_step_cuda_matches_plain_step(cuda, dtype, light_sampling):
     pk = bounce.pack(scene, cam, plan, dtype)
     ins = _lane_inputs(m, cfg.nx, cfg.ny, cfg.max_depth, dtype, cuda)
     want = _flat(bounce.step(plan, pk, *ins))
-    before = bounce.LAUNCHES
+    before = launches("K1")
     got = bounce.step_cuda(plan, pk, *ins)
     torch.cuda.synchronize()
-    assert bounce.LAUNCHES == before + 1
+    assert launches("K1") == before + 1
     got = _flat(got)
     if dtype == torch.float64:
         rtol, atol, max_off = 1e-9, 1e-9, 0
@@ -167,10 +175,10 @@ def test_cuda_render_matches_config4_golden(cuda):
     scene, cam = _cornell(torch.float32, cuda)
     cfg = RenderConfig(nx=64, ny=64, spp=8, max_depth=100, seed=0,
                        light_sampling=True)
-    before = bounce.LAUNCHES
+    before = launches("K1")
     state, segs, iters = render.render_with_stats(
         scene, cam, cfg, render.init_state(cfg, device=cuda))
-    assert bounce.LAUNCHES - before == iters
+    assert launches("K1") - before == iters
     ref = np.load(GOLDEN)["image"]
     img = (state.raw_sum / cfg.spp).cpu().numpy().astype(np.float64)
     assert np.isfinite(img).all()
@@ -216,10 +224,10 @@ def test_step_cuda_bwd_matches_step_vjp(cuda, dtype, case):
            for x in r.normal(size=(13, m))]
     cts = bounce.split_lanes(cts)
     want_pk, want = _vjp_lanes(bounce.step_vjp(plan, pk, *ins, *cts))
-    before = bounce.BWD_LAUNCHES
+    before = launches("K2")
     got_pk, got = _vjp_lanes(bounce.step_cuda_bwd(plan, pk, *ins, *cts))
     torch.cuda.synchronize()
-    assert bounce.BWD_LAUNCHES == before + 1
+    assert launches("K2") == before + 1
     assert torch.isfinite(got).all() and torch.isfinite(got_pk).all()
     err, pk_err = (got - want).abs(), (got_pk - want_pk).abs()
     if dtype == torch.float64:
@@ -240,7 +248,7 @@ def test_step_cuda_bwd_rejects_bad_inputs(cuda):
     pk = bounce.pack(scene, cam, plan, torch.float32)
     ins = _lane_inputs(256, 8, 8, 8, torch.float32, cuda)
     cts = [torch.ones(256, device=cuda) for _ in range(13)]
-    before = bounce.BWD_LAUNCHES
+    before = launches("K2")
     bad = list(cts)
     bad[7] = cts[7].double()                           # mixed precision
     with pytest.raises(ValueError, match="ct_rx"):
@@ -251,7 +259,7 @@ def test_step_cuda_bwd_rejects_bad_inputs(cuda):
         bounce.step_cuda_bwd(plan, pk, *ins, *bounce.split_lanes(bad))
     with pytest.raises(ValueError, match="pk"):
         bounce.step_cuda_bwd(plan, pk[:-1], *ins, *bounce.split_lanes(cts))
-    assert bounce.BWD_LAUNCHES == before
+    assert launches("K2") == before
 
 
 def test_diff_render_on_card_equals_forward(cuda):
@@ -261,14 +269,14 @@ def test_diff_render_on_card_equals_forward(cuda):
     n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
     params, rest = build.partition(scene)
     params = {k: v.clone().requires_grad_() for k, v in params.items()}
-    fwd, bwd = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    fwd, bwd = launches("K1"), launches("K2")
     raw, segs, leftover = diff_fused.render_diff_fused(
         build.combine(params, rest), cam, cfg, n_iters)
     grads = torch.autograd.grad(raw.mean(), list(params.values()),
                                 allow_unused=True)
     torch.cuda.synchronize()
     assert int(leftover) == 0
-    assert bounce.LAUNCHES - fwd == bounce.BWD_LAUNCHES - bwd > 0
+    assert launches("K1") - fwd == launches("K2") - bwd > 0
     state, f_segs, _ = render.render_with_stats(
         scene, cam, cfg, render.init_state(cfg, device=cuda))
     assert int(segs) == int(f_segs)
@@ -276,6 +284,58 @@ def test_diff_render_on_card_equals_forward(cuda):
     grads = [g for g in grads if g is not None]
     assert all(torch.isfinite(g).all() for g in grads)
     assert any(g.abs().max() > 0 for g in grads)
+
+
+def test_diff_render_on_card_traces_k2_on_autograds_thread(cuda):
+    # autograd runs BounceStep's backward on its device thread with the
+    # profiler's state carried over: `k2.launch` is traced once a K2 launch
+    # and the pool's `pool.iter` once a K1 launch
+    from torch.profiler import ProfilerActivity, profile
+    scene, cam = _cornell(torch.float32, cuda)
+    cfg = RenderConfig(nx=16, ny=16, spp=1, max_depth=12, seed=0,
+                       light_sampling=True)
+    n_iters = diff_fused.calibrate_iters(scene, cam, cfg)
+    params, rest = build.partition(scene)
+    params = {k: v.clone().requires_grad_() for k, v in params.items()}
+    telemetry.reset()
+    fwd, bwd = launches("K1"), launches("K2")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        raw, segs, leftover = diff_fused.render_diff_fused(
+            build.combine(params, rest), cam, cfg, n_iters)
+        torch.autograd.grad(raw.mean(), list(params.values()),
+                            allow_unused=True)
+        torch.cuda.synchronize()
+    snap = telemetry.snapshot()
+    telemetry.reset()
+    assert int(leftover) == 0
+    assert snap["spans"]["k2.launch"]["n"] == launches("K2") - bwd > 0
+    assert snap["spans"]["pool.iter"]["n"] == launches("K1") - fwd
+    assert snap["counters"]["pool.segments"] == int(segs)
+
+
+def test_kernel_loads_are_counted(cuda, monkeypatch, tmp_path):
+    # a variant's first load in a process adds its seconds to the process
+    # counter kernels.load_s; a library already on disk is not built again,
+    # and a build adds nvcc's seconds (LOADED's) to kernels.build_s too
+    name = cuda_build.variant_name("probe_ops")
+    cuda_build.load("probe_ops")
+
+    def load():
+        monkeypatch.delitem(cuda_build.LOADED, name)
+        before = {k: telemetry.counter(f"kernels.{k}")
+                  for k in ("load_s", "build_s")}
+        cuda_build.load("probe_ops")
+        return {k: telemetry.counter(f"kernels.{k}") - v
+                for k, v in before.items()}
+
+    warm = load()
+    assert not cuda_build.LOADED[name]["built"]
+    assert warm["load_s"] > 0 and warm["build_s"] == 0
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    cold = load()
+    assert cuda_build.LOADED[name]["built"]
+    assert cold["build_s"] == cuda_build.LOADED[name]["seconds"] > 0
+    assert cold["load_s"] > cold["build_s"]
 
 
 def test_strided_static_form_on_card_equals_drain(cuda):
@@ -290,14 +350,14 @@ def test_strided_static_form_on_card_equals_drain(cuda):
                                                            raw0, 0)
     params, rest = build.partition(scene)
     params = {k: v.clone().requires_grad_() for k, v in params.items()}
-    fwd, bwd = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    fwd, bwd = launches("K1"), launches("K2")
     raw, segs, leftover = pool_strided.render_pool_strided(
         build.combine(params, rest), cam, cfg, raw0, 0, static_iters=iters)
     grads = torch.autograd.grad(raw.mean(), list(params.values()),
                                 allow_unused=True)
     torch.cuda.synchronize()
     assert int(leftover) == 0 and int(segs) == int(w_segs)
-    assert bounce.LAUNCHES - fwd == bounce.BWD_LAUNCHES - bwd == iters
+    assert launches("K1") - fwd == launches("K2") - bwd == iters
     assert torch.equal(raw.detach(), want)
     grads = [g for g in grads if g is not None]
     assert all(torch.isfinite(g).all() for g in grads)
@@ -414,12 +474,12 @@ def test_step_packed_cuda_matches_step_packed(cuda):
     state = packed_state(q["m"], q["n_work"], plan.max_depth, cuda)
     sb = torch.tensor([5], dtype=torch.int32, device=cuda)
     want = bounce.step_packed(plan, pk, sb, state, **q)
-    before = bounce.PACKED_LAUNCHES
+    before = launches("K3")
     w = bounce.tile_width(plan)             # the plan's width: 2 on Cornell
     got = bounce.step_packed_cuda(plan, pk, sb, state, **q, tile=w)
     again = bounce.step_packed_cuda(plan, pk, sb, state, **q)
     torch.cuda.synchronize()
-    assert bounce.PACKED_LAUNCHES == before + 2
+    assert launches("K3") == before + 2
     assert torch.equal(got, again)
     g_i, w_i = got.view(torch.int32), want.view(torch.int32)
     off = ((g_i[0] != w_i[0]) | (got[1] != want[1]) | (g_i[2] != w_i[2])
@@ -437,10 +497,10 @@ def test_chunk_cuda_equals_packed_launches(cuda):
     state = packed_state(q["m"], q["n_work"], plan.max_depth, cuda, seed=1)
     sb = torch.tensor([3], dtype=torch.int32, device=cuda)
     T = persist.CHUNK_T
-    before = persist.PERSIST_LAUNCHES
+    before = launches("K4")
     got_state, got_flush, got_segs = persist.chunk_cuda(
         plan, pk, sb, state, T=T, **q, tile=persist.tile_width(plan))
-    assert persist.PERSIST_LAUNCHES == before + 1
+    assert launches("K4") == before + 1
     st = state
     flush = torch.empty_like(got_flush)
     segs = torch.empty_like(got_segs)
@@ -493,9 +553,9 @@ def test_probe_loops_one_launch_matches_plain(cuda):
     # every case in one launch: a row a case, bitwise its plain version and
     # its single-case launch
     x = probe_loops.inputs(seed=2, device=cuda)
-    before = probe_loops.LAUNCHES
+    before = launches("K6")
     rows = probe_loops.loops_cuda_all(x)
-    assert probe_loops.LAUNCHES == before + 1
+    assert launches("K6") == before + 1
     assert rows.shape == (len(probe_loops.ALL_CASES), *x.shape)
     for row, (name, plain) in zip(rows, probe_loops.ALL_CASES.items()):
         assert torch.equal(row, plain(x)), name
@@ -506,7 +566,7 @@ def test_probe_floors_launch_uncounted(cuda):
     # the two floors' kernels run through K5's path and are not K5; the copy
     # writes every output from the items
     pack, item = probe_ops.inputs(cuda)
-    before = probe_ops.LAUNCHES
+    before = launches("K5")
     out, ext = probe_ops.empty_cuda(pack, item)
     torch.cuda.synchronize()
     assert out.shape == item.shape
@@ -515,7 +575,7 @@ def test_probe_floors_launch_uncounted(cuda):
     bits = item.view(torch.float32)
     assert torch.equal(out, bits * pack[0, 3])
     assert all(torch.equal(row, bits) for row in ext)
-    assert probe_ops.LAUNCHES == before
+    assert launches("K5") == before
 
 
 def _packed_call(cuda, which):
@@ -534,10 +594,10 @@ def _packed_call(cuda, which):
 
 
 NEW_KERNELS = {  # library -> (wrapper module, its loader, its launch count)
-    "bounce_packed": (bounce, "_kernel_packed", "PACKED_LAUNCHES"),
-    "bounce_persist": (persist, "_kernel", "PERSIST_LAUNCHES"),
-    "probe_ops": (probe_ops, "_kernel", "LAUNCHES"),
-    "probe_loops": (probe_loops, "_kernel", "LAUNCHES"),
+    "bounce_packed": (bounce, "_kernel_packed", "K3"),
+    "bounce_persist": (persist, "_kernel", "K4"),
+    "probe_ops": (probe_ops, "_kernel", "K5"),
+    "probe_loops": (probe_loops, "_kernel", "K6"),
 }
 
 
@@ -555,10 +615,10 @@ def test_new_kernel_build_failure_raises(cuda, which, tmp_path,
                         raising=False)
     mod, _, count = NEW_KERNELS[which]
     call = _packed_call(cuda, which)
-    before = getattr(mod, count)
+    before = launches(count)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         call()
-    assert getattr(mod, count) == before
+    assert launches(count) == before
 
 
 @pytest.mark.parametrize("which", sorted(NEW_KERNELS))
@@ -568,10 +628,10 @@ def test_new_kernel_launch_failure_raises(cuda, which, monkeypatch):
     mod, loader, count = NEW_KERNELS[which]
     monkeypatch.setattr(mod, loader, lambda *plan: (lambda *args: 98))
     call = _packed_call(cuda, which)
-    before = getattr(mod, count)
+    before = launches(count)
     with pytest.raises(RuntimeError, match="launch failed"):
         call()
-    assert getattr(mod, count) == before
+    assert launches(count) == before
 
 
 # --- the sphere scenes (K1-K4; chip_smoke.py's phases 13-14) -------------
@@ -737,9 +797,9 @@ def test_cuda_render_matches_sphere_goldens(cuda, golden, scene_fn, spp):
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
     cfg = RenderConfig(nx=64, ny=64, spp=spp, max_depth=100, seed=0)
-    before = bounce.LAUNCHES
+    before = launches("K1")
     mean, state = render.render_image(scene, cam, cfg)
-    assert mean.device.type == "cuda" and bounce.LAUNCHES > before
+    assert mean.device.type == "cuda" and launches("K1") > before
     ref = np.load(os.path.join(os.path.dirname(GOLDEN),
                                golden + ".npz"))["image"]
     img = mean.cpu().numpy().astype(np.float64)
@@ -893,9 +953,9 @@ def test_cuda_render_matches_config3_golden(cuda):
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
     cfg = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
-    before = bounce.LAUNCHES
+    before = launches("K1")
     mean, state = render.render_image(scene, cam, cfg)
-    assert mean.device.type == "cuda" and bounce.LAUNCHES > before
+    assert mean.device.type == "cuda" and launches("K1") > before
     ref = np.load(os.path.join(os.path.dirname(GOLDEN),
                                "config3_textured.npz"))["image"]
     img = mean.cpu().numpy().astype(np.float64)
@@ -926,10 +986,10 @@ def test_cuda_diff_render_on_the_texture_scenes(cuda, name):
                                     allow_unused=True)
         return raw.detach(), int(leftover), dict(zip(leaves, grads))
 
-    fwd, bwd = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    fwd, bwd = launches("K1"), launches("K2")
     raw, leftover, grads = step()
     assert leftover == 0
-    assert bounce.LAUNCHES - fwd == bounce.BWD_LAUNCHES - bwd > 0
+    assert launches("K1") - fwd == launches("K2") - bwd > 0
     st, _, _ = render.render_with_stats(scene, cam, cfg,
                                         render.init_state(cfg))
     assert torch.equal(raw, st.raw_sum.reshape(-1, 3))
@@ -1149,9 +1209,9 @@ def test_cuda_render_matches_bezier_goldens(cuda, golden, scene_fn):
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
     cfg = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
-    before = bounce.LAUNCHES
+    before = launches("K1")
     mean, state = render.render_image(scene, cam, cfg)
-    assert mean.device.type == "cuda" and bounce.LAUNCHES > before
+    assert mean.device.type == "cuda" and launches("K1") > before
     ref = np.load(os.path.join(os.path.dirname(GOLDEN),
                                golden + ".npz"))["image"]
     img = mean.cpu().numpy().astype(np.float64)
@@ -1180,10 +1240,10 @@ def test_cuda_diff_render_on_the_bezier_scene(cuda):
                                     allow_unused=True)
         return raw.detach(), int(leftover), dict(zip(leaves, grads))
 
-    fwd, bwd = bounce.LAUNCHES, bounce.BWD_LAUNCHES
+    fwd, bwd = launches("K1"), launches("K2")
     raw, leftover, grads = step()
     assert leftover == 0
-    assert bounce.LAUNCHES - fwd == bounce.BWD_LAUNCHES - bwd > 0
+    assert launches("K1") - fwd == launches("K2") - bwd > 0
     st, _, _ = render.render_with_stats(scene, cam, cfg,
                                         render.init_state(cfg))
     assert torch.equal(raw, st.raw_sum.reshape(-1, 3))
@@ -1429,12 +1489,12 @@ def test_tile_width_outside_the_kernels_raises(cuda):
     import chip_smoke
     plan, pk, inputs = chip_smoke.tile_case("cornell", torch.float32, cuda)
     ins = inputs(256, 0)
-    before = bounce.LAUNCHES
+    before = launches("K1")
     with pytest.raises(ValueError, match="tile width"):
         bounce.step_cuda(plan, pk, *ins, tile=3)
     with pytest.raises(ValueError, match="tile width"):
         bounce.step_cuda(plan, pk, *ins, tile=16)
-    assert bounce.LAUNCHES == before
+    assert launches("K1") == before
 
 
 # --- the tile in the packed kernels (K3, K4; chip_smoke.py's kernel-tile) --
@@ -1480,13 +1540,13 @@ def test_packed_tile_width_outside_the_kernels_raises(cuda):
     (plan, pk, q, sb), state_of = chip_smoke.packed_tile_case(
         "cornell", cuda, m=256)
     st = state_of(0)
-    before = (bounce.PACKED_LAUNCHES, persist.PERSIST_LAUNCHES)
+    before = (launches("K3"), launches("K4"))
     for tile in (3, 16):
         with pytest.raises(ValueError, match="tile width"):
             bounce.step_packed_cuda(plan, pk, sb, st, **q, tile=tile)
         with pytest.raises(ValueError, match="tile width"):
             persist.chunk_cuda(plan, pk, sb, st, T=2, **q, tile=tile)
-    assert (bounce.PACKED_LAUNCHES, persist.PERSIST_LAUNCHES) == before
+    assert (launches("K3"), launches("K4")) == before
 
 
 def test_packed_kernels_refuse_a_tile_width(cuda):
@@ -1541,8 +1601,8 @@ def test_general_pool_on_the_card_equals_the_cpu_f64(cuda, case):
               sort=dict(material_sort=True))[opt]
     cfg = RenderConfig(nx=16, ny=16, spp=2, max_depth=100, dtype="f64", **kw)
     out = []
-    before = (bounce.LAUNCHES, bounce.PACKED_LAUNCHES,
-              persist.PERSIST_LAUNCHES)
+    before = (launches("K1"), launches("K3"),
+              launches("K4"))
     for dev in (cuda, "cpu"):
         scene = compile_scene(spec.objects, sky=spec.sky, bvh=bvh,
                               dtype=torch.float64, device=dev)
@@ -1551,8 +1611,8 @@ def test_general_pool_on_the_card_equals_the_cpu_f64(cuda, case):
             scene, cam, cfg, torch.zeros(256, 3, dtype=torch.float64,
                                          device=dev), 0)
         out.append((raw.cpu(), int(segs), iters))
-    assert (bounce.LAUNCHES, bounce.PACKED_LAUNCHES,
-            persist.PERSIST_LAUNCHES) == before
+    assert (launches("K1"), launches("K3"),
+            launches("K4")) == before
     assert out[0][1:] == out[1][1:]
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-9, atol=1e-9)
 
@@ -1579,7 +1639,7 @@ def test_general_pool_over_4096_prims_on_the_card(cuda):
     spec = chip_smoke.grid_spec(chip_smoke.GRID_N)
     cfg = RenderConfig(nx=32, ny=32, spp=1, max_depth=100)
     imgs = []
-    before = bounce.LAUNCHES
+    before = launches("K1")
     for bvh in (None, "sah"):
         scene = compile_scene(spec.objects, sky=spec.sky, bvh=bvh,
                               device=cuda)
@@ -1588,7 +1648,7 @@ def test_general_pool_over_4096_prims_on_the_card(cuda):
             scene, spec.camera(aspect=1.0, device=cuda),
             cfg.replace(traversal="bvh" if bvh else "brute"))
         imgs.append(mean)
-    assert bounce.LAUNCHES == before
+    assert launches("K1") == before
     assert torch.isfinite(imgs[0]).all() and imgs[0].max() > 0
     assert (imgs[0] - imgs[1]).abs().mean() < 2e-3
 

@@ -38,6 +38,13 @@ from scheme_raytrace_torch.config import RenderConfig as TConfig
 from scheme_raytrace_torch.integrator import bounce as tb
 from scheme_raytrace_torch.integrator import diff_fused as t_diff
 from scheme_raytrace_torch.scene import build as t_build
+from scheme_raytrace_torch.utils import telemetry
+
+
+def launches(kernel):
+    """The process's launches of one kernel so far (utils/telemetry)."""
+    return telemetry.counter(f"launches.{kernel}")
+
 
 CFG = dict(nx=16, ny=16, spp=3, max_depth=12, light_sampling=True,
            pool_rays=256, dtype="f64")
@@ -273,10 +280,10 @@ def test_step_cuda_bwd_takes_cuda_tensors_only():
     cfg = TConfig(nx=16, ny=16, spp=1, max_depth=8, light_sampling=True)
     plan = tb.make_plan(scene, cfg)
     ints, lanes, cts = _lanes_and_cts(128, 16, 16, 8, seed=6)
-    before = tb.BWD_LAUNCHES
+    before = launches("K2")
     with pytest.raises(ValueError, match="CUDA"):
         tb.step_cuda_bwd(plan, tb.pack(scene, cam, plan, torch.float64),
                          *(torch.as_tensor(x) for x in ints),
                          *_split([torch.as_tensor(x) for x in lanes]),
                          *_split([torch.as_tensor(x) for x in cts]))
-    assert tb.BWD_LAUNCHES == before
+    assert launches("K2") == before

@@ -34,6 +34,13 @@ from scheme_raytrace_torch import scenes
 from scheme_raytrace_torch.config import RenderConfig
 from scheme_raytrace_torch.integrator import bounce, persist
 from scheme_raytrace_torch.scene import compile_scene
+from scheme_raytrace_torch.utils import telemetry
+
+
+def launches(kernel):
+    """The process's launches of one kernel so far (utils/telemetry)."""
+    return telemetry.counter(f"launches.{kernel}")
+
 
 CSRC = pathlib.Path(bounce.__file__).resolve().parent.parent / "csrc"
 
@@ -166,10 +173,10 @@ def test_packed_wrappers_refuse_a_tile_width_first(fn, tile):
     # the width is checked before the device (these tensors lie on the CPU)
     # and before anything is allocated or launched
     plan, pk, st, q = _packed_args()
-    before = (bounce.PACKED_LAUNCHES, persist.PERSIST_LAUNCHES)
+    before = (launches("K3"), launches("K4"))
     with pytest.raises(ValueError, match="tile width"):
         CALLS[fn](plan, pk, st, q, tile)
-    assert (bounce.PACKED_LAUNCHES, persist.PERSIST_LAUNCHES) == before
+    assert (launches("K3"), launches("K4")) == before
 
 
 @pytest.mark.parametrize("fn", sorted(CALLS))

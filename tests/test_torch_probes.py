@@ -46,6 +46,13 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
+from scheme_raytrace_torch.utils import telemetry
+
+
+def launches(kernel):
+    """The process's launches of one kernel so far (utils/telemetry)."""
+    return telemetry.counter(f"launches.{kernel}")
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOOLS = ROOT / "tools"
@@ -209,14 +216,14 @@ def test_probe_loops_klein_march_matches_numpy():
 
 
 def test_probe_wrappers_take_cuda_tensors_only():
-    before = probe_ops.LAUNCHES, probe_loops.LAUNCHES
+    before = launches("K5"), launches("K6")
     with pytest.raises(ValueError, match="CUDA"):
         probe_ops.probe_cuda(*probe_ops.inputs("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
         probe_loops.loops_cuda("fori", probe_loops.inputs(device="cpu"))
     with pytest.raises(KeyError, match="no loop case"):
         probe_loops.loops_cuda("nope", probe_loops.inputs(device="cpu"))
-    assert (probe_ops.LAUNCHES, probe_loops.LAUNCHES) == before
+    assert (launches("K5"), launches("K6")) == before
 
 
 def test_all_cases_rows_follow_the_case_enum():
@@ -276,10 +283,10 @@ def test_while_any_grouping_gives_the_same_values(repro, inputs):
 
 
 def test_one_launch_and_launch_floor_take_cuda_tensors_only():
-    before = probe_ops.LAUNCHES, probe_loops.LAUNCHES
+    before = launches("K5"), launches("K6")
     with pytest.raises(ValueError, match="CUDA"):
         probe_loops.loops_cuda_all(probe_loops.inputs(device="cpu"))
     for floor in (probe_ops.empty_cuda, probe_ops.copy_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             floor(*probe_ops.inputs("cpu"))
-    assert (probe_ops.LAUNCHES, probe_loops.LAUNCHES) == before
+    assert (launches("K5"), launches("K6")) == before

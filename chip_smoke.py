@@ -34,14 +34,17 @@ kernel table:
      the kernels' coverage scene, in float32 and float64, with times;
   5. forward render against the reference: render_image at 64x64 spp8
      depth 100 against tests/goldens/config4_cornell_light.npz (the f64
-     oracle), and one kernel launch per pool iteration;
+     oracle), and one launch of the routed kernel per pool iteration or
+     chunk (the card's f32 frames go to the persistent pool, K4);
   6. differentiable render against its references at the same size: a
-     drained queue, the image equal to the forward render's bitwise,
+     drained queue, the image equal to the FIFO pool's forward render's
+     bitwise,
      deterministic gradients, one backward launch per forward launch, and
      in float64 the AD gradient against central finite differences;
-  7. full-size forward: 512x512 spp16 depth 100, one warm-up then three
-     chained timed renders (rays/s counted as exact path segments), and one
-     render under torch.profiler for the device-time breakdown;
+  7. full-size forward: 512x512 spp16 depth 100 through the FIFO pool (K1),
+     one warm-up then three chained timed renders (rays/s counted as exact
+     path segments), and one routed render under torch.profiler for the
+     device-time breakdown;
   8. full-size fwd+bwd: 512x512 spp8 depth 100, one warm-up then three
      chained training steps (params -= 1e-6 grad), peak memory, and one
      step under torch.profiler;
@@ -77,8 +80,8 @@ kernel table:
      differentiable render of three_spheres against its forward render
      (bitwise) and, in float64, against finite differences;
  15. the sphere slice at full width: the RTOW final scene at 512x512 spp8
-     depth 100, forward through render_with_stats (FIFO pool, K1) and the
-     persistent pool (K4) with equal segments, and the fwd+bwd step through
+     depth 100, forward through the FIFO pool (K1) and the persistent pool
+     (K4, the routed frame) with equal segments, and the fwd+bwd step through
      render_diff_fused (K1 and K2), timed and profiled as phases 7-8 and 11;
  16. the kernels on the textured and smoke scenes: K1 against the plain step
      and K2 against the plain VJP (the image texels' cotangent included) on
@@ -189,8 +192,10 @@ kernel table:
      memory, and no kernel of K1-K6 launched.
  39. parallel/ over torch.distributed (parallel): NCCL takes one rank a
      card, so on one card the collectives run at world 1 over NCCL.
-     render_pool_sharded and render_pool_balanced at Cornell 512x512 spp16
-     depth 100 give render_pool_auto's image and segments bitwise; the
+     render_pool_sharded (routed: the persistent pool) and
+     render_pool_balanced (the FIFO pool) at Cornell 512x512 spp16 depth 100
+     give render_pool_auto's and render_pool_fused's image and segments
+     bitwise; the
      bodies of 4 virtual shards (the row-band pool at each band's first
      pixel, the balanced pool at each offset), run one after another
      through K1 and assembled by hand, give it too; train_step_fused at
@@ -211,7 +216,7 @@ kernel table:
      card (tools), each at the JAX tool's defaults with its seconds and its
      K1 / K2 launches: entry()'s render_pass (64x64 spp1 depth 8, finite)
      and dryrun_multichip(1) (NCCL world 1: render_sharded, train_step,
-     train_step_fused drained); bench_scenes on Cornell (K1); bench_diff
+     train_step_fused drained); bench_scenes on Cornell (K4); bench_diff
      (256^2 spp4, 5 chained steps, K1 and K2); check_vjp_grads (the loss
      and every leaf's gradient through K2 against the plain step's VJP on
      the card: float32 within tests/test_parity.py's scale and bound,
@@ -226,12 +231,13 @@ kernel table:
      the root bench.py's twin, in a process of its own as a user runs it
      (Cornell 512x512 spp16 forward, spp8 fwd+bwd and 1024x1024 spp16
      forward, each a warm-up and 5 timed runs): exit 0, its last line
-     with bench.py's keys and "card", both steps "cuda", every rate
-     positive, its warm-up 512^2 render's segments and iterations those
-     of phase 7 (or the recorded 11,646,756 in 224), each measurement's
-     spread logged; then one 1024^2 render here, its 4 row bands under
-     torch.profiler (K1's launches, the busy share, the peak memory) and
-     rendered again one at a time, each bitwise its rows of the frame.
+     with bench.py's keys and "card", the steps "persistent" (forward) and
+     "cuda" (reverse), every rate positive, its warm-up 512^2 render's
+     segments those of phase 7 (or the recorded 11,646,756), each
+     measurement's spread logged; then one 1024^2 render here, its 4 row
+     bands under torch.profiler (the routed kernel's launches, the busy
+     share, the peak memory) and rendered again one at a time through the
+     routed pool, each bitwise its rows of the frame.
 
 Every kernel's bound is printed beside its time: the larger of its bytes
 over 3.35 TB/s and a floor of its float operations over 67 TFLOP/s.  The
@@ -515,10 +521,10 @@ VARIANTS = {
     "kernel": [((K1,), scenes.cornell_box)],
     "kernel-bwd": [((K1, K2), scenes.cornell_box),
                    ((K1, K2), scenes.cornell_materials)],
-    "golden": [((K1,), scenes.cornell_box)],
+    "golden": [((K1, K4), scenes.cornell_box)],
     "diff": [((K1, K2), scenes.cornell_box)],
     "full": [((K1,), scenes.cornell_box)],
-    "profile": [((K1,), scenes.cornell_box)],
+    "profile": [((K1, K4), scenes.cornell_box)],
     "full-bwd": [((K1, K2), scenes.cornell_box)],
     "packed-kernel": [((K3,), scenes.cornell_box)],
     "persist-kernel": [((K3, K4), scenes.cornell_box)],
@@ -530,7 +536,8 @@ VARIANTS = {
     "kernel-bwd-spheres": [((K1, K2), scenes.test_scene),
                            ((K1, K2), moving_spec), ((K1, K2), rtow_spec)],
     "packed-spheres": [((K3, K4), rtow_spec)],
-    "golden-spheres": [((K1,), scenes.three_spheres), ((K1,), rtow_spec)],
+    "golden-spheres": [((K1, K4), scenes.three_spheres),
+                       ((K1, K4), rtow_spec)],
     "diff-spheres": [((K1, K2), scenes.three_spheres)],
     "full-spheres": [((K1, K2, K4), rtow_spec)],
     "kernel-textures": [((K1, K2), scenes.textured_scene),
@@ -538,7 +545,7 @@ VARIANTS = {
                         ((K1, K2), scenes.cornell_smoke)],
     "packed-textures": [((K3, K4), scenes.textured_scene),
                         ((K3, K4), scenes.cornell_smoke)],
-    "golden-textures": [((K1,), scenes.textured_scene)],
+    "golden-textures": [((K1, K4), scenes.textured_scene)],
     "diff-textures": [((K1, K2), scenes.textured_scene),
                       ((K1, K2), scenes.cornell_smoke)],
     "full-textures": [((K1, K2, K4), scenes.textured_scene),
@@ -548,8 +555,8 @@ VARIANTS = {
                       ((K1, K2), scenes.points_chain_scene)],
     "packed-bezier": [((K3, K4), scenes.test_bezier),
                       ((K3, K4), scenes.cornell_bezier)],
-    "golden-bezier": [((K1,), scenes.test_bezier),
-                      ((K1,), scenes.cornell_bezier)],
+    "golden-bezier": [((K1, K4), scenes.test_bezier),
+                      ((K1, K4), scenes.cornell_bezier)],
     "diff-bezier": [((K1, K2), scenes.test_bezier),
                     ((K1, K2), grad_bezier_spec)],
     "full-bezier": [((K1, K2, K4), scenes.test_bezier),
@@ -558,7 +565,7 @@ VARIANTS = {
                      ((K1, K2), scenes.cornell_klein)],
     "packed-klein": [((K3, K4), scenes.klein_scene),
                      ((K3, K4), scenes.cornell_klein)],
-    "golden-klein": [((K1,), scenes.cornell_klein)],
+    "golden-klein": [((K1, K4), scenes.cornell_klein)],
     "diff-klein": [((K1, K2), scenes.cornell_klein)],
     "full-klein": [((K1, K2, K4), scenes.klein_scene),
                    ((K1, K2, K4), scenes.cornell_klein)],
@@ -573,17 +580,17 @@ VARIANTS = {
         scenes.klein_scene, scenes.cornell_klein)],
     "general-check": [],
     "general-cli": [],
-    "general-rtow": [((K1,), rtow_spec)],
+    "general-rtow": [((K1, K4), rtow_spec)],
     "general-grid": [],
-    "general-rr": [((K1,), scenes.cornell_box)],
+    "general-rr": [((K1, K4), scenes.cornell_box)],
     "general-sort": [],
     "wave-check": [],
     "wave-full": [],
-    "parallel": [((K1, K2), scenes.cornell_box)],
-    "cli": [((K1,), scenes.cornell_box)],
-    "tools": [((K1, K2), scenes.cornell_box),
-              ((K1,), lambda: grid_spec(256))],
-    "bench": [((K1, K2), scenes.cornell_box)],
+    "parallel": [((K1, K2, K4), scenes.cornell_box)],
+    "cli": [((K1, K4), scenes.cornell_box)],
+    "tools": [((K1, K2, K4), scenes.cornell_box),
+              ((K1, K4), lambda: grid_spec(256))],
+    "bench": [((K1, K2, K4), scenes.cornell_box)],
 }
 
 
@@ -731,7 +738,8 @@ def median_ms(fn, n=20):
 def device_kernels(fn, n=1, host_ops=True):
     """Run fn() n times under torch.profiler; return the wall ms per run and
     {kernel name: (device us per run, launches per run)} from the device
-    events alone (op rows on the host side are not counted).  Without
+    events alone (op rows on the host side and the device copies of the
+    port's telemetry spans, user annotations, are not counted).  Without
     `host_ops` the profiler traces the card only: the same device events,
     and half the time to read them (0.11 against 0.22 ms an event on a plain
     step's 9,637 launches), which counts for the plain versions' hundreds of
@@ -751,7 +759,8 @@ def device_kernels(fn, n=1, host_ops=True):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     table = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             us, k = table.get(e.name, (0.0, 0))
             table[e.name] = (us + e.time_range.elapsed_us() / n, k + 1 / n)
     return wall_ms, table
@@ -1266,18 +1275,19 @@ def phase_kernel_bwd_spheres(dev):
 
 def check_golden(tag, scene, cam, cfg, golden):
     """An f32 render against an f64 oracle golden (a file, or the image
-    itself) with the bounds of tests/test_parity.py; one kernel launch per
-    pool iteration."""
-    start = launch_counts()["K1"]
+    itself) with the bounds of tests/test_parity.py; one launch of the
+    routed kernel (routed_kernel) per pool iteration or chunk."""
+    kernel, per = routed_kernel(scene, cfg)
+    start = launch_counts()[kernel]
     mean, state = render.render_image(scene, cam, cfg)
-    launches = launch_counts()["K1"] - start
-    start = launch_counts()["K1"]
+    launches = launch_counts()[kernel] - start
+    start = launch_counts()[kernel]
     state2, segs, iters = render.render_with_stats(
         scene, cam, cfg, render.init_state(cfg))
-    launches2 = launch_counts()["K1"] - start
-    if not (launches == launches2 == iters):
-        raise AssertionError(f"[{tag}] launches {launches}/{launches2} != "
-                             f"pool iterations {iters}")
+    launches2 = launch_counts()[kernel] - start
+    if not (launches * per == launches2 * per == iters):
+        raise AssertionError(f"[{tag}] {kernel} launches {launches}/"
+                             f"{launches2} x {per} != pool iterations {iters}")
     if not torch.equal(state.raw_sum, state2.raw_sum):
         raise AssertionError(f"[{tag}] two identical renders differ")
     ref = np.load(golden)["image"] if isinstance(golden, str) else golden
@@ -1288,7 +1298,8 @@ def check_golden(tag, scene, cam, cfg, golden):
     mae, outliers = diff.mean(), (diff.max(axis=-1) > 0.05).mean()
     log(f"[{tag}] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth}: "
         f"segments {int(segs)} iters {iters} "
-        f"launches {launches}; MAE {mae:.3e} (< 5e-3), pixels off by > 0.05: "
+        f"{kernel} launches {launches}; MAE {mae:.3e} (< 5e-3), pixels off "
+        f"by > 0.05: "
         f"{outliers:.4%} (< 1%)")
     if not (mae < 5e-3 and outliers < 0.01):
         raise AssertionError(f"[{tag}] image outside the golden's bounds")
@@ -1349,8 +1360,7 @@ def check_diff(tag, scene, cam, cfg):
     torch.cuda.synchronize()
     launches, bwd_launches = launch_counts()["K1"], launch_counts()["K2"]
     blocks = -(-n_iters // pool_fused.FLUSH_EVERY) * pool_fused.FLUSH_EVERY
-    st, f_segs, _ = render.render_with_stats(
-        scene, cam, cfg, render.init_state(cfg))
+    st, f_segs, _ = fifo_frame(scene, cam, cfg, render.init_state(cfg))
     same_image = torch.equal(raw, st.raw_sum.reshape(-1, 3))
     _, _, _, _, grads2 = fwd_bwd(scene, cam, cfg, n_iters, params, rest, mean)
     same_grads = all(torch.equal(grads[k], grads2[k]) for k in grads)
@@ -1447,14 +1457,14 @@ N_TIMED_WAVE = 2    # the wavefront's training steps (8-18 s each)
 
 
 def run_full(tag, what, scene, cam, cfg, n_timed=N_TIMED):
-    """The forward main path through render_with_stats (the FIFO pool, K1):
-    one warm-up render from zeros, then n_timed chained renders.  Sets
+    """The forward render through the FIFO pool (K1, fifo_frame; the card's
+    f32 frames route to the persistent pool, which run_pools times beside
+    it): one warm-up render from zeros, then n_timed chained renders.  Sets
     the launch counts just before and reads K1's just after."""
-    reset_counts()                            # the main path's count starts
+    reset_counts()                            # the FIFO pool's count starts
     total_iters = 0
     t0 = time.perf_counter()
-    st, segs, iters = render.render_with_stats(
-        scene, cam, cfg, render.init_state(cfg))
+    st, segs, iters = fifo_frame(scene, cam, cfg, render.init_state(cfg))
     float(st.raw_sum[0, 0, 0])
     warm = time.perf_counter() - t0
     total_iters += iters
@@ -1465,7 +1475,7 @@ def run_full(tag, what, scene, cam, cfg, n_timed=N_TIMED):
     times = []
     for _ in range(n_timed):
         t0 = time.perf_counter()
-        st, segs, iters = render.render_with_stats(scene, cam, cfg, st)
+        st, segs, iters = fifo_frame(scene, cam, cfg, st)
         float(st.raw_sum[0, 0, 0])
         times.append(time.perf_counter() - t0)
         total_iters += iters
@@ -1522,12 +1532,14 @@ def log_profile(tag, wall_ms, table, ours=()):
 
 
 def profile_render(tag, scene, cam, cfg):
-    """One forward render under torch.profiler: device time by kernel and
-    the card's busy share of the render's wall time."""
+    """One forward render through render_with_stats (the routed pool) under
+    torch.profiler: device time by kernel and the card's busy share of the
+    render's wall time."""
     st = render.init_state(cfg)
     wall_ms, table = device_kernels(
         lambda: render.render_with_stats(scene, cam, cfg, st))
-    return log_profile(tag, wall_ms, table, ours=("bounce_step",))
+    return log_profile(tag, wall_ms, table,
+                       ours=("bounce_step", "bounce_persist"))
 
 
 def phase_profile(dev):
@@ -2030,6 +2042,25 @@ def reset_counts():
                       for k in KERNELS)
 
 
+def routed_kernel(scene, cfg):
+    """The kernel a frame launches through render_with_stats and the pool
+    iterations a launch: K4 and CHUNK_T where pool.routes_to_persistent
+    sends the frame to the persistent pool, else K1 and 1 (the FIFO pool)."""
+    if pool.routes_to_persistent(scene.device, cfg.torch_dtype, scene, cfg):
+        return "K4", persist.CHUNK_T
+    return "K1", 1
+
+
+def fifo_frame(scene, cam, cfg, st):
+    """render.render_with_stats through the FIFO pool (K1) whatever the
+    route: the pool the strided pools and the reverse step are held to, on
+    frames of one drain (up to pool.BAND_PIX pixels)."""
+    raw, segs, iters = pool_fused.render_pool_fused(
+        scene, cam, cfg, st.raw_sum.reshape(-1, 3), st.sample_count)
+    return (render.RenderState(raw.reshape(cfg.ny, cfg.nx, 3),
+                               st.sample_count + cfg.spp), segs, iters)
+
+
 def run_pools(tag, pools, scene, cam, cfg, full, dev, n_timed=N_TIMED):
     """Strided pools at full size, each through its entry point with the
     counts reset just before: one warm-up render from zeros, then n_timed
@@ -2145,7 +2176,7 @@ def phase_pools_200(dev):
     raw0 = torch.zeros(cfg.n_pixels, 3, device=dev)
     out = {}
     for name, fn, count in (
-            ("FIFO", pool.render_pool_auto, "K1"),
+            ("FIFO", pool_fused.render_pool_fused, "K1"),
             ("persistent", persist.render_pool_persistent,
              "K4")):
         reset_counts()
@@ -2186,8 +2217,8 @@ def phase_pools_200(dev):
 def phase_full_spheres(dev):
     """The sphere slice at full width: the RTOW final scene (227 spheres,
     most of them moving) at 512^2 spp8 depth 100, forward through
-    render_with_stats (the FIFO pool, K1) and through the persistent pool
-    (K4) with equal segment counts, and the fwd+bwd step through
+    the FIFO pool (K1) and through the persistent pool (K4, the routed
+    frame) with equal segment counts, and the fwd+bwd step through
     render_diff_fused (K1 and K2)."""
     scene, cam = spec_scene(scenes.random_scene(seed=0), torch.float32, dev)
     full = run_full("full-spheres", "RTOW final scene, 227 spheres", scene,
@@ -2300,7 +2331,7 @@ def phase_diff_textures(dev):
 def phase_full_textures(dev):
     """The textured and smoke scenes at full width: textured_scene and
     cornell_smoke (light sampled) at 512^2 spp8 depth 100, forward through
-    render_with_stats (the FIFO pool, K1) and the persistent pool (K4) with
+    the FIFO pool (K1) and the persistent pool (K4, the routed frame) with
     equal segments, and the fwd+bwd step through render_diff_fused (K1 and
     K2)."""
     out = {}
@@ -2427,8 +2458,8 @@ def phase_diff_bezier(dev):
 
 def phase_full_bezier(dev):
     """The bezier scenes at full width: test_bezier and cornell_bezier (light
-    sampled) at 512^2 spp8 depth 100, forward through render_with_stats (the
-    FIFO pool, K1) and the persistent pool (K4) with equal segments and a
+    sampled) at 512^2 spp8 depth 100, forward through the FIFO pool
+    (K1) and the persistent pool (K4, the routed frame) with equal segments and a
     bitwise-equal image, and the fwd+bwd step through render_diff_fused (K1
     and K2); five timed runs each, and one run of each with the kernels'
     launches timed by CUDA events."""
@@ -2443,7 +2474,7 @@ def phase_full_bezier(dev):
         st0 = render.init_state(cfg)
         ev_fifo = log_kernel_events(
             tag, "FIFO render",
-            lambda: render.render_with_stats(scene, cam, cfg, st0))
+            lambda: fifo_frame(scene, cam, cfg, st0))
         profile_render(tag, scene, cam, cfg)
         pools = run_pools(tag, POOLS[2:], scene, cam, cfg, full, dev,
                           n_timed=n)
@@ -2576,8 +2607,8 @@ def phase_diff_klein(dev):
 
 def phase_full_klein(dev):
     """The klein scenes at full width: klein_scene and cornell_klein (light
-    sampled) at 512^2 spp8 depth 100, forward through render_with_stats (the
-    FIFO pool, K1) and the persistent pool (K4) with equal segments and a
+    sampled) at 512^2 spp8 depth 100, forward through the FIFO pool
+    (K1) and the persistent pool (K4, the routed frame) with equal segments and a
     bitwise-equal image, and the fwd+bwd step through render_diff_fused (K1
     and K2); five timed runs each, and one run of each with the kernels'
     launches timed by CUDA events."""
@@ -2590,7 +2621,7 @@ def phase_full_klein(dev):
         st0 = render.init_state(cfg)
         ev_fifo = log_kernel_events(
             tag, "FIFO render",
-            lambda: render.render_with_stats(scene, cam, cfg, st0))
+            lambda: fifo_frame(scene, cam, cfg, st0))
         profile_render(tag, scene, cam, cfg)
         pools = run_pools(tag, POOLS[2:], scene, cam, cfg, full, dev,
                           n_timed=n)
@@ -2876,14 +2907,17 @@ def phase_general_rtow(dev):
     reset_counts()
     st, fsegs, fiters = render.render_with_stats(scene, cam, fused_cfg,
                                                  render.init_state(fused_cfg))
-    if launch_counts()["K1"] != fiters:
-        raise AssertionError("[general-rtow] the fused render did not run K1")
+    kernel, per = routed_kernel(scene, fused_cfg)
+    if launch_counts()[kernel] * per != fiters:
+        raise AssertionError(f"[general-rtow] the fused render did not run "
+                             f"{kernel}")
     fmean = (st.raw_sum / fused_cfg.spp).cpu().numpy()
     diff = np.abs(out["sah"]["mean"] - fmean)
     mae, outliers = diff.mean(), (diff.max(axis=-1) > 0.05).mean()
     gsegs, fsegs = out["sah"]["segments"], int(fsegs)
-    log(f"[general-rtow] general (SAH) against the fused FIFO render "
-        f"({fiters} K1 launches): MAE {mae:.3e} (< 5e-3), pixels off by > "
+    log(f"[general-rtow] general (SAH) against the fused render "
+        f"({fiters} iterations, {kernel}): MAE {mae:.3e} (< 5e-3), pixels "
+        f"off by > "
         f"0.05: {outliers:.4%} (< 1%); segments {gsegs} / {fsegs} "
         f"(|difference| {abs(gsegs - fsegs)} <= {0.01 * gsegs + 50:.0f})")
     if not (mae < 5e-3 and outliers < 0.01
@@ -3373,23 +3407,32 @@ def same_pool(tag, got, want):
 
 
 def par_pools(mesh, scene, cam):
-    """The two sharded forward pools against render_pool_auto, and the
-    bodies of PAR_SHARDS virtual shards assembled by hand."""
+    """The two sharded forward pools against the unsharded frame of their
+    pool: render_pool_sharded (routed as render_pool_auto routes the frame,
+    on the card in f32 to the persistent pool, K4) against
+    render_pool_auto, render_pool_balanced (the FIFO pool, K1) against
+    render_pool_fused; and the bodies of PAR_SHARDS virtual shards of the
+    FIFO pool assembled by hand."""
     from scheme_raytrace_torch.parallel import (render_pool_balanced,
                                                 render_pool_sharded)
     cfg, dev = PAR_FWD, scene.device
     zeros = lambda n: torch.zeros(n, 3, device=dev)
-    want = pool.render_pool_auto(scene, cam, cfg, zeros(cfg.n_pixels), 0)
+    routed = pool.render_pool_auto(scene, cam, cfg, zeros(cfg.n_pixels), 0)
+    want = pool_fused.render_pool_fused(scene, cam, cfg, zeros(cfg.n_pixels),
+                                        0)
+    kernel, per = routed_kernel(scene, cfg)
     reset_counts()                            # the main path's counts start
     got = {"sharded": render_pool_sharded(scene, cam, cfg, mesh),
            "balanced": render_pool_balanced(scene, cam, cfg, mesh)}
     counts = launch_counts()
-    for name, out in got.items():
-        same_pool(f"render_pool_{name}, world 1", out, want)
+    same_pool("render_pool_sharded, world 1", got["sharded"], routed)
+    same_pool("render_pool_balanced, world 1", got["balanced"], want)
     log(f"[parallel] the two sharded renders' kernel launches: {counts}")
-    if counts["K1"] != 2 * want[2]:
-        raise AssertionError("[parallel] the sharded pools did not launch "
-                             "bounce_step once an iteration")
+    expect = {"K1": want[2]}                  # the balanced pool's
+    expect[kernel] = expect.get(kernel, 0) + routed[2] // per
+    if {k: v for k, v in counts.items() if v} != expect:
+        raise AssertionError(f"[parallel] the sharded pools' launches "
+                             f"{counts}, expected {expect}")
     runs = {"render_pool_auto": lambda: pool.render_pool_auto(
                 scene, cam, cfg, zeros(cfg.n_pixels), 0),
             "render_pool_sharded": lambda: render_pool_sharded(
@@ -3424,7 +3467,7 @@ def par_pools(mesh, scene, cam):
             f"{[p[2] for p in parts]}")
         same_pool(f"{PAR_SHARDS} {name} assembled", (raw, sum(segs), max(
             p[2] for p in parts)), want)
-    return counts["K1"]
+    return counts["K1"], counts["K4"]
 
 
 def par_fused_step(mesh, scene, cam):
@@ -3545,10 +3588,10 @@ def phase_parallel(dev):
             f"{mesh.device}: NCCL takes one rank a card, so on one card the "
             f"collectives run at world 1 (no scaling over ranks measured)")
         scene, cam = cornell(torch.float32, dev)
-        fwd = par_pools(mesh, scene, cam)
+        fwd, fwd_k4 = par_pools(mesh, scene, cam)
         step = par_fused_step(mesh, scene, cam)
         par_wave(mesh, scene, cam)
-    return dict(launches=fwd + step["launches"],
+    return dict(launches=fwd + step["launches"], persist_launches=fwd_k4,
                 bwd_launches=step["bwd_launches"], step=step)
 
 
@@ -3676,11 +3719,12 @@ def phase_cli(dev):
     reset_counts()                            # the main path's counts start
     out = cli_out(["render", *CLI_RENDER, "--spp", "20", "--resume", st,
                    "--out", ppm + ".resumed"])
-    launches = launch_counts()["K1"]
+    kernel, _ = routed_kernel(built[1], built[3])
+    launches = launch_counts()[kernel]
     resumed = ppm_of(chunks_in_process(built, 1, state),
                      ppm + ".want5") == open(ppm + ".resumed").read()
     log(f"[cli] --resume of its state for one more chunk ({launches} "
-        f"bounce_step launches) equals the fifth chunk in this process: "
+        f"{kernel} launches) equals the fifth chunk in this process: "
         f"{resumed}:\n{out.strip()}")
     listed = cli_out(["scenes"]).split()
     probe = cli_out(CLI_PROBE)
@@ -3694,7 +3738,8 @@ def phase_cli(dev):
         raise AssertionError("[cli] a subcommand disagrees with its "
                              "in-process render")
     cli_view(dev)
-    return dict(launches=launches)
+    return dict(launches=launches if kernel == "K1" else 0,
+                persist_launches=launches if kernel == "K4" else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -3737,15 +3782,17 @@ def phase_tools(dev):
 
     def scenes_cornell():
         r = bench_scenes.bench_one("cornell")
-        if r["impl"] != "cuda":
+        if r["impl"] != "persistent":             # the routed frame: K4
             raise AssertionError(f"[tools] bench_scenes ran {r['impl']}")
         return r
 
     def crossover():
         rows = bench_bvh_crossover.run(TOOLS_CROSSOVER)
-        # n spheres and the ground: K1 up to MAX_FUSED_PRIMS prims
+        # n spheres and the ground: the routed frame's K4 up to
+        # MAX_FUSED_PRIMS prims
         if any({"brute", "bvh"} - set(r) or r["impl"] != (
-                "cuda" if n + 1 <= bounce.MAX_FUSED_PRIMS else "general")
+                "persistent" if n + 1 <= bounce.MAX_FUSED_PRIMS
+                else "general")
                for n, r in rows.items()):
             raise AssertionError(f"[tools] bench_bvh_crossover: {rows}")
         return rows
@@ -3852,7 +3899,7 @@ def bench_child():
     bad = [k for k in rates if not (out[k] or 0) > 0]
     if (list(out) != bench_keys() or bad or out["metric"] != BENCH_METRIC
             or (out["step_impl"], out["fwd_bwd_step_impl"])
-            != ("cuda", "cuda")
+            != ("persistent", "cuda")
             or out["n_chips"] != torch.cuda.device_count()
             or out["card"] != smi_line()):
         raise AssertionError(f"[bench] its line is not bench.py's on the "
@@ -3862,25 +3909,30 @@ def bench_child():
 
 
 def phase_bench(dev, full):
-    """The bench's twin as a user runs it (its warm-up 512^2 render equal to
-    the `full` phase's, or to the recorded count without it), then one
-    1024^2 spp16 render through render_with_stats under the profiler (the
-    counts set to 0 just before and read just after; profiled again, up to
-    PROFILE_TRIES times, while the trace lacks some of K1's launches): K1's
-    launches, the busy share and the peak memory; its 4 bands rendered again one by one
-    through the FIFO pool, each bitwise its rows of the frame."""
+    """The bench's twin as a user runs it (its warm-up 512^2 render's
+    segments equal to the `full` phase's FIFO render's, or to the recorded
+    count without it: the routed persistent pool traces the same paths in
+    another number of iterations), then one 1024^2 spp16 render through
+    render_with_stats under the profiler (the counts set to 0 just before
+    and read just after; profiled again, up to PROFILE_TRIES times, while
+    the trace lacks some of the routed kernel's launches): its launches,
+    the busy share and the peak memory; its 4 bands rendered again one by
+    one through the routed pool, each bitwise its rows of the frame."""
     out, lines = bench_child()
-    want = ((full["first"]["segments"], full["first"]["iters"]) if full
-            else RECORDED_FULL)
+    want = (full["first"]["segments"] if full else RECORDED_FULL[0])
     warm = lines["fwd"]["warm"]
     log(f"[bench] its 512^2 warm-up render: {warm[0]} segments in {warm[1]} "
         f"iterations; the {'full phase' if full else 'recorded count'}: "
-        f"{want[0]} in {want[1]}")
-    if warm != want:
+        f"{want} segments")
+    if warm[0] != want:
         raise AssertionError("[bench] the warm-up render's count differs")
 
     scene, cam = cornell(torch.float32, dev)
     cfg = BENCH_1024
+    kernel, per = routed_kernel(scene, cfg)
+    name = {"K1": K1, "K4": K4}[kernel]
+    band_fn = {"K1": pool_fused.render_pool_fused,
+               "K4": persist.render_pool_persistent}[kernel]
     n_pix = cfg.n_pixels
     band_pix = pool._band_rows(cfg.ny, cfg.nx) * cfg.nx
     n_bands = n_pix // band_pix
@@ -3894,26 +3946,27 @@ def phase_bench(dev, full):
         wall_ms, table = device_kernels(lambda: got.append(
             render.render_with_stats(scene, cam, cfg, render.init_state(cfg))),
             host_ops=False)
-        launches = launch_counts()["K1"]
+        launches = launch_counts()[kernel]
         peak = torch.cuda.max_memory_allocated() - held
         st, segs, iters = got[-1]
-        k1 = sum(k for name, (_, k) in table.items() if "bounce_step" in name)
-        if round(k1) == iters:
+        seen = sum(k for n, (_, k) in table.items() if name in n)
+        if round(seen) * per == iters:
             break
         # the profiler's trace of ~54,000 kernels now and then lacks a few
         # iterations' device events (948 and 944 of 952 K1 launches in two
         # whole runs of this script on an H100): that trace cannot give the
         # count or the busy share, so the render is profiled again
-        log(f"[bench] profile {attempt}: the profiler recorded {k1:.0f} of "
-            f"{iters} K1 launches (the wrapper counted {launches} over the "
-            f"warm-up and this render): a trace short of device events")
+        log(f"[bench] profile {attempt}: the profiler recorded {seen:.0f} of "
+            f"{iters // per} {kernel} launches (the wrapper counted "
+            f"{launches} over the warm-up and this render): a trace short of "
+            f"device events")
     segs = int(segs)
-    busy = log_profile("bench", wall_ms, table, ours=("bounce_step",))
+    busy = log_profile("bench", wall_ms, table, ours=(name,))
     raw = st.raw_sum.reshape(-1, 3)
     bands = []
     for b in range(n_bands):
         sl = slice(b * band_pix, (b + 1) * band_pix)
-        r_b, s_b, i_b = pool_fused.render_pool_fused(
+        r_b, s_b, i_b = band_fn(
             scene, cam, cfg, torch.zeros(band_pix, 3, device=dev), 0,
             pix0=b * band_pix, total_pix=n_pix)
         bands.append(dict(iters=i_b, segments=int(s_b),
@@ -3922,22 +3975,26 @@ def phase_bench(dev, full):
                           and float(raw[sl].max()) > 0.0))
     log(f"[bench] {cfg.nx}x{cfg.ny} spp{cfg.spp} depth{cfg.max_depth} "
         f"({smi_line()}): {n_bands} bands of {band_pix} pixels; {segs} "
-        f"segments in {iters} iterations; {launches} bounce_step launches "
-        f"over the warm-up and the profiled render ({k1:.0f} in the "
+        f"segments in {iters} iterations; {launches} {name} launches "
+        f"over the warm-up and the profiled render ({seen:.0f} in the "
         f"profiled one by the profiler); {wall_ms:.1f} ms under the "
         f"profiler, busy {'not measured' if busy is None else f'{busy:.1%}'}"
         f"; peak memory {peak / 2 ** 30:.3f} GiB above the "
-        f"{held / 2 ** 30:.3f} GiB held before; the bands by hand: iterations {[b['iters'] for b in bands]}, segments "
+        f"{held / 2 ** 30:.3f} GiB held before; the bands by hand: "
+        f"iterations {[b['iters'] for b in bands]}, segments "
         f"{[b['segments'] for b in bands]}, bitwise the frame's rows "
         f"{[b['same'] for b in bands]}, finite and not black "
         f"{[b['ok'] for b in bands]}")
-    if (n_bands != 4 or launches != 2 * iters or round(k1) != iters
+    if (n_bands != 4 or launches * per != 2 * iters
+            or round(seen) * per != iters
             or not all(b["same"] and b["ok"] for b in bands)
             or sum(b["iters"] for b in bands) != iters
             or sum(b["segments"] for b in bands) != segs):
         raise AssertionError("[bench] the 1024^2 render's bands disagree")
-    return dict(line=out, lines=lines, launches=launches, segments=segs,
-                iters=iters, busy=busy, peak=peak)
+    return dict(line=out, lines=lines,
+                launches=launches if kernel == "K1" else 0,
+                persist_launches=launches if kernel == "K4" else 0,
+                segments=segs, iters=iters, busy=busy, peak=peak)
 
 
 # The scenes of the kernel-tile phase: the eight scenes of the full-size
@@ -4517,10 +4574,12 @@ def kernel_table(r):
         f"{pools['packed']['launches']}; bounce_persist launches: Cornell "
         f"persistent pool {pools['persistent']['launches']}, RTOW persistent "
         f"pool {sph_persist['launches']}; probes {probes['launches']}")
-    log(f"[paths] bounce_step launches: the sharded pools and "
-        f"train_step_fused (world 1) {par['launches']}, the CLI's resumed "
-        f"chunk {cli['launches']}, the bench's 1024^2 render (4 bands; "
-        f"its warm-up and its profiled run) {bench['launches']}; "
+    log(f"[paths] bounce_step / bounce_persist launches: the sharded pools "
+        f"and train_step_fused (world 1) {par['launches']} / "
+        f"{par['persist_launches']}, the CLI's resumed chunk "
+        f"{cli['launches']} / {cli['persist_launches']}, the bench's 1024^2 "
+        f"render (4 bands; its warm-up and its profiled run) "
+        f"{bench['launches']} / {bench['persist_launches']}; "
         f"bounce_step_bwd launches: train_step_fused "
         f"{par['bwd_launches']}")
     log("[paths] the tools phase: " + ", ".join(
@@ -4605,7 +4664,9 @@ def kernel_table(r):
         "replaces": "scheme_raytrace_tpu/integrator/persist.py:114",
         "launches": (pools["persistent"]["launches"]
                      + sph_persist["launches"]
-                     + sum(pers["launches"] for _, pers, _ in later.values())),
+                     + sum(pers["launches"] for _, pers, _ in later.values())
+                     + par["persist_launches"] + cli["persist_launches"]
+                     + bench["persist_launches"]),
         **on(chunk),
         "library_ms": None,
         "rtow_227_spheres": on(chunk_sph),

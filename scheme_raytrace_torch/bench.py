@@ -10,8 +10,9 @@ prints ONE JSON line with bench.py's keys ("metric", "value", "unit",
 bounce), exactly, by the pool's segment counter.  Three measurements, each
 a warm-up and 5 timed runs with a value fetched inside every window:
 
-  * the forward render, 512^2 spp16 depth 100, through the FIFO pool (the
-    bounce kernel K1), the renders chained through their state;
+  * the forward render, 512^2 spp16 depth 100, through `render_pool_auto`
+    (on the card the persistent pool, K4; on the CPU the FIFO pool), the
+    renders chained through their state;
   * the training step at spp8: `render_diff_fused` (K1 forward, the
     backward kernel K2), the loss sum(raw^2)/numel and every leaf's
     gradient, the parameters chained by p - 1e-6 g between steps;
@@ -188,7 +189,7 @@ def main(argv=None):
     if on_card:
         big_rays_s, _ = _measure_forward(
             scene, cam, config.replace(nx=1024, ny=1024), label="fwd-1024")
-        if (step_impl, bwd_impl) != ("cuda", "cuda"):
+        if (step_impl, bwd_impl) != ("persistent", "cuda"):
             raise RuntimeError(f"the card ran the {step_impl} / {bwd_impl} "
                                f"step, not the kernels")
 

@@ -14,22 +14,37 @@ the flush rows into the framebuffer (pool_strided.Framebuffer: ordered,
 race-free, bitwise reproducible) and checks the drain once per chunk.
 
 float32 only, as the reference.  Returns (raw, segments, iters), where
-iters counts T per chunk, as the reference does.
+iters counts T per chunk, as the reference does.  `pool.render_pool_auto`
+routes the card's float32 forward frames here.
+
+While a torch profiler records, the pool is traced (utils/telemetry) as
+the FIFO pool is: the span `pool` around a call, `pool.chunk` around a
+chunk, inside it `pool.launch` around the chunk's launch, `pool.flush`
+around the framebuffer adds (one span a FLUSH_SPAN_ROWS rows, each short
+enough for a trace's idle gaps to be named after it) and the segment sum,
+and `pool.drain_check` around the host sync; the counters `pool.segments`
+and `pool.lane_slots` (iterations times lanes) give the pool's occupancy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ..utils import telemetry
-from . import bounce
+from . import bounce, pool_fused
 from .pool_strided import Framebuffer, pool_size
 
 CHUNK_T = 32      # bounce iterations per launch (the reference's value)
 N_STATE = bounce.N_PACKED   # packed state rows: item, fresh, depth, o, d,
                             # time, rad, tp
+ITEM_LIMIT = 2**31 - 1      # the kernel's work items are int32
+# Flush rows a `pool.flush` span holds where each row is one add (g = m):
+# on the card a row is about 25 host events, and rtbench/trace.py names an
+# idle gap after a span only within 64 host events of its start.
+FLUSH_SPAN_ROWS = 2
 
 def chunk_plain(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
                 total_pix, T=CHUNK_T):
@@ -127,6 +142,12 @@ def render_pool_persistent(scene, cam, config, raw0, sample_base, pix0=0,
     if raw0.dtype != torch.float32:
         raise TypeError("the persistent pool stores its state as float32; "
                         f"raw0 is {raw0.dtype}")
+    with telemetry.span("pool"):
+        return _render(scene, cam, config, raw0, sample_base, pix0,
+                       total_pix)
+
+
+def _render(scene, cam, config, raw0, sample_base, pix0, total_pix):
     n_pix = raw0.shape[0]
     total_pix = config.n_pixels if total_pix is None else total_pix
     n_work = n_pix * config.spp
@@ -134,19 +155,43 @@ def render_pool_persistent(scene, cam, config, raw0, sample_base, pix0=0,
     T = CHUNK_T
     dev = raw0.device
     chunk = chunk_cuda if dev.type == "cuda" else chunk_plain
+    pool_fused.LAST_STEP_IMPL["forward"] = (
+        "persistent" if chunk is chunk_cuda else "plain")
     plan = bounce.pool_plan(scene, config)
     pk = bounce.pack(scene, cam, plan, torch.float32)
     sb = torch.as_tensor(sample_base, device=dev).to(torch.int32).reshape(1)
 
     state = bounce.initial_packed_state(m, dev)
     fb = Framebuffer(raw0, m, config.spp)
+    # rows a `pool.flush` span holds: one add a row where g = gcd(m, n_pix)
+    # = m, else the chunk's ranked rounds (pool_strided.Framebuffer)
+    span_rows = FLUSH_SPAN_ROWS if math.gcd(m, n_pix) == m else T
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     iters = 0
-    while True:
-        state, flush, segs = chunk(plan, pk, sb, state, m, n_work, n_pix,
-                                   pix0, total_pix, T)
-        fb.add(flush[:, 0].view(torch.int32), flush[:, 1:])
-        segments = segments + segs.sum()
-        iters += T
-        if not bool((state.view(torch.int32)[0] < n_work).any()):
-            return fb.image(), segments, iters
+    drained = False
+    while not drained:
+        with telemetry.span("pool.chunk"):
+            with telemetry.span("pool.launch"):
+                state, flush, segs = chunk(plan, pk, sb, state, m, n_work,
+                                           n_pix, pix0, total_pix, T)
+            segments = _flush(fb, flush, segments, segs, span_rows)
+            iters += T
+            with telemetry.span("pool.drain_check"):
+                drained = not bool((state.view(torch.int32)[0]
+                                    < n_work).any())
+    telemetry.add("pool.segments", segments)
+    telemetry.add("pool.lane_slots", iters * m)
+    return fb.image(), segments, iters
+
+
+def _flush(fb, flush, segments, segs, span_rows):
+    """Add a chunk's flush rows into the framebuffer in order, a traced
+    `pool.flush` span over each `span_rows` of them, and its live lanes
+    into the segment count (in the first span); returns the new count."""
+    pix, vals = flush[:, 0].view(torch.int32), flush[:, 1:]
+    for r in range(0, pix.shape[0], span_rows):
+        with telemetry.span("pool.flush"):
+            if r == 0:
+                segments = segments + segs.sum()
+            fb.add(pix[r:r + span_rows], vals[r:r + span_rows])
+    return segments

@@ -1,13 +1,18 @@
 """Regeneration pool: the general masked-sweep path, and the dispatch.
 
 The port of scheme_raytrace_tpu/integrator/pool.py.  `render_pool_auto`
-routes as the JAX package does: a (scene, config) that `bounce.supported`
-covers goes to the fused pool (`pool_fused.render_pool_fused`, kernel K1
-on the card), everything else — BVH traversal, russian roulette, material
-sort, more than MAX_FUSED_PRIMS prims, big image atlases — to the general
-pool `render_pool` below; frames larger than BAND_PIX render as sequential
-row-band drains of either.  Band-major issue order is bit-identical to
-frame-major, since the RNG is keyed by global (pass, pixel) ids.
+routes a (scene, config) that `bounce.supported` covers to a fused pool:
+on the card in float32 the persistent pool (`persist.render_pool_persistent`,
+kernel K4, CHUNK_T iterations a launch; `routes_to_persistent`), else the
+FIFO pool (`pool_fused.render_pool_fused`, kernel K1 on the card, the plain
+step on the CPU), as the JAX package does.  Everything else — BVH
+traversal, russian roulette, material sort, more than MAX_FUSED_PRIMS
+prims, big image atlases — goes to the general pool `render_pool` below;
+frames larger than BAND_PIX render as sequential row-band drains of any of
+them.  Band-major issue order is bit-identical to frame-major, since the
+RNG is keyed by global (pass, pixel) ids.  The persistent pool traces the
+FIFO pool's paths (the same exact segments); only the order of a pixel's
+adds differs, so its image equals the FIFO pool's to rtol 1e-5 in float32.
 
 `render_pool` holds M rays; the moment a ray terminates its radiance is
 added into the framebuffer and the lane is re-issued the next (pass,
@@ -35,7 +40,8 @@ from .. import config as cfg
 from ..camera import get_rays_u
 from ..core import rng
 from ..core import vecmath as vm
-from . import bounce, pool_fused, shade
+from ..utils import telemetry
+from . import bounce, persist, pool_fused, shade
 from .hit import scene_hit
 
 # Pixels per row band: the JAX package's TPU value (its flush scatter slowed
@@ -118,16 +124,40 @@ def _band_rows(ny, nx):
     return ny
 
 
+def routes_to_persistent(device, dtype, scene, config) -> bool:
+    """True where `render_pool_auto` sends a forward frame to the persistent
+    pool: tensors on a CUDA device, float32 (the pool stores its state as
+    float32), a (scene, config) that `bounce.supported` covers (K4 is built
+    per feature set from `bounce.kernel_features`, as K1 is, so it has a
+    variant for every such plan), and work items that fit K4's int32 queue
+    (a lane's item runs up to n_pix * spp - 1 + m).  The CPU, float64 and
+    the rest keep the FIFO pool or the general pool."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and bounce.supported(scene, config)
+            and config.n_pixels * config.spp
+            + max(128, config.resolve_pool_rays()) <= persist.ITEM_LIMIT)
+
+
 def render_pool_auto(scene, cam, config, raw0, sample_base, pix0=0,
                      total_pix=None, bands=True):
     """Render config.spp passes into raw0 ([n_pix, 3] radiance sums);
-    return (raw, segments, iters).  The fused pool takes what
-    `bounce.supported` covers, the general pool the rest.
+    return (raw, segments, iters).  The persistent pool takes what
+    `routes_to_persistent` admits (its iters count CHUNK_T a launch), the
+    FIFO pool the rest of what `bounce.supported` covers, the general pool
+    the rest.
 
     bands=False renders a whole frame in one drain however large it is: a
     shard of parallel.pool never bands, as JAX's never does under
-    `vary_axes`, so its iteration count is the JAX shard's."""
-    if bounce.supported(scene, config):
+    `vary_axes`, so its iteration count is the JAX shard's.
+
+    While a profiler records, the traced counters `pool.calls` (every
+    call) and `pool.calls.persistent` (the calls routed to the persistent
+    pool) say how often the route engages."""
+    telemetry.add("pool.calls", 1)
+    if routes_to_persistent(raw0.device, raw0.dtype, scene, config):
+        telemetry.add("pool.calls.persistent", 1)
+        fn = persist.render_pool_persistent
+    elif bounce.supported(scene, config):
         fn = pool_fused.render_pool_fused
     else:
         fn = render_pool

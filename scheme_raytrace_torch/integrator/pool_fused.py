@@ -51,11 +51,13 @@ from . import bounce
 
 FLUSH_EVERY = 8     # bounce iterations between drain checks (host syncs)
 
-# The step the most recent render_pool_fused call ran, by direction:
-# {"forward": "cuda"|"plain", "reverse": "cuda"|"plain"} (the JAX module's
-# pallas / jnp record): "cuda" for the kernels K1 (and K2 in reverse),
-# "plain" for the plain PyTorch `bounce.step`.  It records what ran and
-# selects nothing.
+# The step the most recent fused pool call ran, by direction:
+# {"forward": "cuda"|"persistent"|"plain", "reverse": "cuda"|"plain"} (the
+# JAX module's pallas / jnp record): "cuda" for the kernels K1 (and K2 in
+# reverse) of this pool, "persistent" for K4 through
+# persist.render_pool_persistent (the card's routed forward frame), "plain"
+# for the plain PyTorch step of either.  It records what ran and selects
+# nothing.
 LAST_STEP_IMPL: dict = {}
 
 

@@ -75,17 +75,27 @@ def render_sharded(scene, cam: Camera, config: cfg_mod.RenderConfig, mesh):
 def calibrate_iters_sharded(scene, cam: Camera,
                             config: cfg_mod.RenderConfig, mesh,
                             slack: float = 1.25) -> int:
-    """Static trip count for `train_step_fused`: one sharded forward pool
-    render at the REVERSE-mode pool size measures the maximum drain count
-    over the ranks (each runs the same fixed count, so the slowest sizes
-    it), times `slack` (integrator/diff_fused.calibrate_iters)."""
-    from .pool import render_pool_sharded
-
+    """Static trip count for `train_step_fused`: a forward render of each
+    rank's band of rows (the rows, pix0 and total_pix that
+    `render_pool_sharded` gives it) through the FIFO pool at the
+    REVERSE-mode pool size measures the maximum drain count over the ranks
+    (each runs the same fixed count, so the slowest sizes it), times
+    `slack` (integrator/diff_fused.calibrate_iters).  It names the FIFO
+    pool, whose reverse form the step runs, wherever `render_pool_auto`
+    would route the frame."""
+    rows = _check_rows(config, mesh)
+    local_pix = rows * config.nx
     config = config.replace(
         pool_rays=config.resolve_pool_rays(reverse=True))
+    raw0 = torch.zeros((local_pix, 3), dtype=config.torch_dtype,
+                       device=scene.device)
     with torch.no_grad():
-        _, _, iters = render_pool_sharded(scene, cam, config, mesh)
-    return int(-(-int(iters) * slack // 1))
+        _, _, iters = pool_fused.render_pool_fused(
+            scene, cam, config, raw0, 0, pix0=mesh.rank * local_pix,
+            total_pix=config.n_pixels)
+    iters = pdist.all_max(torch.tensor([iters], dtype=torch.int64,
+                                       device=scene.device), mesh.group)
+    return int(-(-int(iters[0]) * slack // 1))
 
 
 def _sgd(params, leaves, loss, mesh, lr):

@@ -1,14 +1,15 @@
 """BVH-against-brute crossover on the card.
 
 The port of tools/bench_bvh_crossover.py: forward rays/s on N-sphere
-grids (N = 256 / 1k / 4k / 16k) for the fused pool's brute sweep (the
-bounce_step kernel K1 while the N spheres and the ground fit
+grids (N = 256 / 1k / 4k / 16k) for the fused pool's brute sweep (on the
+card the persistent pool's kernel K4 while the N spheres and the ground fit
 bounce.MAX_FUSED_PRIMS; from N = 4,096 on, 4,097 prims, the route is the
 general pool's brute sweep, as in JAX, and the line names it) and for
 the general pool's flat threaded SAH-BVH walk (plain PyTorch), each a
 warm-up and three chained renders timed up to a fetched value, at 256^2
 spp4 depth 8 (32^2 on the CPU).  It records where the card would route;
-the routing (`render_pool_auto`) stays the JAX package's.
+the choice between the fused and the general pool (`render_pool_auto`)
+stays the JAX package's.
 
     python -m scheme_raytrace_torch.tools.bench_bvh_crossover [N ...] [--cpu]
 """

@@ -2,13 +2,13 @@
 
 Cornell with light sampling at 200 x 200 spp16 depth 100 (config.py's
 default frame; m = 65,536 lanes, g = gcd(m, n_pix) = 64), forward, f32,
-through the FIFO pool (`render_pool_auto`), the strided pool and the
-persistent pool: a warm-up render from zeros, then N chained renders, each
-timed with a value fetched inside its window, and each image held to the
-FIFO pool's (the same segments; rtol = atol = 1e-5 of its largest value,
-the strided pools' rule).  Then one more render of each strided pool with
-its flush counted: every `pool_strided.Framebuffer.add` call, its staged
-rows, its host time and, on the card, its kernels, read
+through the FIFO pool (`pool_fused.render_pool_fused`), the strided pool
+and the persistent pool: a warm-up render from zeros, then N chained
+renders, each timed with a value fetched inside its window, and each image
+held to the FIFO pool's (the same segments; rtol = atol = 1e-5 of its
+largest value, the strided pools' rule).  Then one more render of each
+strided pool with its flush counted: every `pool_strided.Framebuffer.add`
+call, its staged rows, its host time and, on the card, its kernels, read
 by torch.profiler (device events) around that call alone.
 
 It prints one JSON line: the card, the frame, m and g, and per pool the
@@ -32,10 +32,10 @@ import time
 import torch
 
 from ..config import RenderConfig, resolve_device
-from ..integrator import persist, pool, pool_strided
+from ..integrator import persist, pool_fused, pool_strided
 from .common import cornell, device_from, device_name, sync
 
-POOLS = {"fifo": pool.render_pool_auto,
+POOLS = {"fifo": pool_fused.render_pool_fused,
          "strided": pool_strided.render_pool_strided,
          "persistent": persist.render_pool_persistent}
 

@@ -1,8 +1,8 @@
 """Scaling efficiency: the sharded pool's rays/s at world 1 and world N.
 
 The port of tools/bench_scaling.py: the Cornell light-sampled workload
-through render_pool_sharded (the FIFO pool, K1 on the card) on one rank
-and on N ranks, efficiency = (rays/s at N) / (N * rays/s at 1).  On the
+through render_pool_sharded (the persistent pool, K4, on the card) on one
+rank and on N ranks, efficiency = (rays/s at N) / (N * rays/s at 1).  On the
 card N is the number of cards, a rank a card over NCCL (one card: N = 1,
 and the line says the efficiency is trivially 1.0); with --cpu N gloo
 processes on the CPU (8, the counterpart of JAX's 8-virtual-device mesh).

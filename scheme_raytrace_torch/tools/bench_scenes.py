@@ -1,11 +1,12 @@
 """Per-scene forward rays/s on the card (fused-path coverage).
 
 The port of tools/bench_scenes.py.  Each scene renders through
-`render.render_with_stats` (the pool `render_pool_auto` routes it to: the
-FIFO pool, whose step on the card is the bounce_step kernel K1, or the
+`render.render_with_stats` (the pool `render_pool_auto` routes it to: on
+the card the persistent pool, kernel K4, on the CPU the FIFO pool, or the
 general pool), one warm-up and three chained renders, each timed up to a
 fetched value; the line names the step that ran
-(`pool_fused.LAST_STEP_IMPL`: "cuda" or "plain", or "general-pool").
+(`pool_fused.LAST_STEP_IMPL`: "persistent", "cuda" or "plain", or
+"general-pool").
 
     python -m scheme_raytrace_torch.tools.bench_scenes [scene ...] [--cpu]
 """

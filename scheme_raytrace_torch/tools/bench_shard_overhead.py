@@ -32,7 +32,7 @@ import torch
 
 from .. import render as R
 from ..config import RenderConfig
-from ..integrator import diff_fused
+from ..integrator import diff_fused, pool, pool_strided
 from ..parallel import (calibrate_iters_sharded, render_pool_sharded,
                         train_step_fused)
 from ..parallel import distributed as pdist
@@ -123,10 +123,14 @@ def _run_tail(scene, cam, config, out):
         c = config.replace(ny=config.ny // ndev)
         stn, seg, iters = R.render_with_stats(
             scene, cam, c, R.init_state(c, device=scene.device))
-        # the FIFO pool's lane count for this frame (one pixel a lane:
-        # pool_fused.render_pool_fused)
-        cap = max(128, c.resolve_pool_rays() // 128 * 128)
-        m = max(128, min(cap, (c.n_pixels + 127) // 128 * 128))
+        if pool.routes_to_persistent(scene.device, c.torch_dtype, scene, c):
+            # the persistent pool's lanes: one work item (pass, pixel) each
+            m = pool_strided.pool_size(c, c.n_pixels * c.spp)
+        else:
+            # the FIFO pool's lane count for this frame (one pixel a lane:
+            # pool_fused.render_pool_fused)
+            cap = max(128, c.resolve_pool_rays() // 128 * 128)
+            m = max(128, min(cap, (c.n_pixels + 127) // 128 * 128))
         occ[ndev] = int(seg) / (int(iters) * m)
     out["drain_tail_occupancy"] = {str(k): round(v, 4)
                                    for k, v in occ.items()}

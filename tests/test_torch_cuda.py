@@ -2,9 +2,10 @@
 (K1 against the plain step, K2 against the plain VJP, also at a tie, K3
 against `step_packed`, K4 bitwise against T launches of K3, the K5 and K6
 probes against theirs), a build or launch failure of each new kernel
-raising, the CUDA render against the config-4 golden, and the
-differentiable renders on the card (the FIFO and the strided pool's)
-against their forward renders; then the same kernels on the sphere scenes
+raising, the CUDA render against the config-4 golden (routed to the
+persistent pool: K4, no K1), the routed frame against the FIFO pool on a
+scene of each feature set, and the differentiable renders on the card (the
+FIFO and the strided pool's) against their forward renders; then the same kernels on the sphere scenes
 (static, moving, the 227-sphere RTOW final scene with P = 4,794), the sphere
 goldens, and the card as the entry points' default device; then on the
 textured and smoke scenes (hash-Perlin noise and marble, image texels with
@@ -46,7 +47,7 @@ from scheme_raytrace_torch import render, scenes
 from scheme_raytrace_torch.config import RenderConfig
 from scheme_raytrace_torch.core import rng
 from scheme_raytrace_torch.integrator import (bounce, diff_fused, persist,
-                                              pool_strided)
+                                              pool, pool_fused, pool_strided)
 from scheme_raytrace_torch.scene import build, compile_scene
 from scheme_raytrace_torch.scene import objects as ob
 from scheme_raytrace_torch.tools import probe_loops, probe_ops
@@ -175,16 +176,51 @@ def test_cuda_render_matches_config4_golden(cuda):
     scene, cam = _cornell(torch.float32, cuda)
     cfg = RenderConfig(nx=64, ny=64, spp=8, max_depth=100, seed=0,
                        light_sampling=True)
-    before = launches("K1")
+    before = launches("K1"), launches("K4")
     state, segs, iters = render.render_with_stats(
         scene, cam, cfg, render.init_state(cfg, device=cuda))
-    assert launches("K1") - before == iters
+    # the frame routes to the persistent pool: one K4 launch a chunk
+    assert launches("K1") == before[0]
+    assert (launches("K4") - before[1]) * persist.CHUNK_T == iters > 0
     ref = np.load(GOLDEN)["image"]
     img = (state.raw_sum / cfg.spp).cpu().numpy().astype(np.float64)
     assert np.isfinite(img).all()
     diff = np.abs(img - ref)
     assert diff.mean() < 5e-3, diff.mean()
     assert (diff.max(axis=-1) > 0.05).mean() < 0.01
+
+
+# a scene of each feature set K4 is built for (bounce.kernel_features)
+ROUTED_SCENES = ["cornell", "three_spheres", "random", "textured",
+                 "simple_light", "cornell_smoke", "bezier", "cornell_bezier",
+                 "klein", "cornell_klein"]
+
+
+@pytest.mark.parametrize("name", ROUTED_SCENES)
+def test_routed_frame_equals_the_fifo_pool(cuda, name):
+    """render_with_stats on the card in float32 runs the persistent pool
+    (K4, no K1) and traces the FIFO pool's paths: the same exact segments,
+    the image within rtol 1e-5 (only the order of a pixel's adds
+    differs)."""
+    spec = scenes.SCENES[name]()
+    scene = compile_scene(spec.objects, sky=spec.sky, device=cuda)
+    cam = spec.camera(aspect=1.0, device=cuda)
+    cfg = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0,
+                       light_sampling=scene.n_lights > 0)
+    assert pool.routes_to_persistent(cuda, torch.float32, scene, cfg)
+    before = launches("K1"), launches("K4")
+    state, segs, iters = render.render_with_stats(
+        scene, cam, cfg, render.init_state(cfg, device=cuda))
+    torch.cuda.synchronize()
+    assert launches("K1") == before[0]
+    assert (launches("K4") - before[1]) * persist.CHUNK_T == iters > 0
+    raw0 = torch.zeros(cfg.n_pixels, 3, device=cuda)
+    want, w_segs, _ = pool_fused.render_pool_fused(scene, cam, cfg, raw0, 0)
+    got = state.raw_sum.reshape(-1, 3)
+    assert int(segs) == int(w_segs) > 0
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 def _vjp_lanes(grads):
@@ -277,10 +313,12 @@ def test_diff_render_on_card_equals_forward(cuda):
     torch.cuda.synchronize()
     assert int(leftover) == 0
     assert launches("K1") - fwd == launches("K2") - bwd > 0
-    state, f_segs, _ = render.render_with_stats(
-        scene, cam, cfg, render.init_state(cfg, device=cuda))
+    # the FIFO pool's forward (the pool whose reverse form ran), not the
+    # routed frame's persistent pool, adds a pixel's passes in this order
+    f_raw, f_segs, _ = pool_fused.render_pool_fused(
+        scene, cam, cfg, torch.zeros(cfg.n_pixels, 3, device=cuda), 0)
     assert int(segs) == int(f_segs)
-    assert torch.equal(raw.detach(), state.raw_sum.reshape(-1, 3))
+    assert torch.equal(raw.detach(), f_raw)
     grads = [g for g in grads if g is not None]
     assert all(torch.isfinite(g).all() for g in grads)
     assert any(g.abs().max() > 0 for g in grads)
@@ -797,9 +835,9 @@ def test_cuda_render_matches_sphere_goldens(cuda, golden, scene_fn, spp):
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
     cfg = RenderConfig(nx=64, ny=64, spp=spp, max_depth=100, seed=0)
-    before = launches("K1")
+    before = launches("K4")
     mean, state = render.render_image(scene, cam, cfg)
-    assert mean.device.type == "cuda" and launches("K1") > before
+    assert mean.device.type == "cuda" and launches("K4") > before
     ref = np.load(os.path.join(os.path.dirname(GOLDEN),
                                golden + ".npz"))["image"]
     img = mean.cpu().numpy().astype(np.float64)
@@ -953,9 +991,9 @@ def test_cuda_render_matches_config3_golden(cuda):
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
     cfg = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
-    before = launches("K1")
+    before = launches("K4")
     mean, state = render.render_image(scene, cam, cfg)
-    assert mean.device.type == "cuda" and launches("K1") > before
+    assert mean.device.type == "cuda" and launches("K4") > before
     ref = np.load(os.path.join(os.path.dirname(GOLDEN),
                                "config3_textured.npz"))["image"]
     img = mean.cpu().numpy().astype(np.float64)
@@ -990,9 +1028,9 @@ def test_cuda_diff_render_on_the_texture_scenes(cuda, name):
     raw, leftover, grads = step()
     assert leftover == 0
     assert launches("K1") - fwd == launches("K2") - bwd > 0
-    st, _, _ = render.render_with_stats(scene, cam, cfg,
-                                        render.init_state(cfg))
-    assert torch.equal(raw, st.raw_sum.reshape(-1, 3))
+    f_raw, _, _ = pool_fused.render_pool_fused(
+        scene, cam, cfg, torch.zeros(cfg.n_pixels, 3, device=raw.device), 0)
+    assert torch.equal(raw, f_raw)       # the FIFO pool's forward, bitwise
     _, _, grads2 = step()
     moved = (("images", "tex_scale") if name == "textured"
              else ("med_neg_inv_d", "med_pmin", "med_pmax"))
@@ -1209,9 +1247,9 @@ def test_cuda_render_matches_bezier_goldens(cuda, golden, scene_fn):
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
     cfg = RenderConfig(nx=64, ny=64, spp=4, max_depth=100, seed=0)
-    before = launches("K1")
+    before = launches("K4")
     mean, state = render.render_image(scene, cam, cfg)
-    assert mean.device.type == "cuda" and launches("K1") > before
+    assert mean.device.type == "cuda" and launches("K4") > before
     ref = np.load(os.path.join(os.path.dirname(GOLDEN),
                                golden + ".npz"))["image"]
     img = mean.cpu().numpy().astype(np.float64)
@@ -1244,9 +1282,9 @@ def test_cuda_diff_render_on_the_bezier_scene(cuda):
     raw, leftover, grads = step()
     assert leftover == 0
     assert launches("K1") - fwd == launches("K2") - bwd > 0
-    st, _, _ = render.render_with_stats(scene, cam, cfg,
-                                        render.init_state(cfg))
-    assert torch.equal(raw, st.raw_sum.reshape(-1, 3))
+    f_raw, _, _ = pool_fused.render_pool_fused(
+        scene, cam, cfg, torch.zeros(cfg.n_pixels, 3, device=raw.device), 0)
+    assert torch.equal(raw, f_raw)       # the FIFO pool's forward, bitwise
     _, _, grads2 = step()
     assert float(grads["bez_cp"].abs().max()) > 0
     assert grads["bez_w"] is None or not bool(grads["bez_w"].any())

@@ -103,7 +103,8 @@ def test_traced_frames_spans_and_counters(cornell):
     assert snap["spans"]["pool.launch"]["n"] == iters
     assert snap["spans"]["pool.drain_check"]["n"] == iters // 8
     assert snap["counters"] == {"pool.segments": sum(s for _, s in runs),
-                                "pool.lane_slots": iters * m}
+                                "pool.lane_slots": iters * m,
+                                "pool.calls": 2}    # none routed on the CPU
     assert snap["units"] == 2 == snap["spans"]["frame"]["n"]
     _check_spans(snap)
     # a child's time is not its parent's own

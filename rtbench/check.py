@@ -23,7 +23,14 @@ parameters the program gave that step.
     norm(reference's)| over the larger of the reference leaf's norm and the
     median leaf's; the worst leaf;
   * `stepN_gap`: the same for p_N - p0 after the N checked steps;
-  * `window_step_gap`: the same for the window's step;
+  * `window_median_gap`: the window's step, by its median leaf: of the
+    leaves that move, the one whose reference update has the median norm
+    (the upper of two), |norm(program's) - norm(reference's)| over the
+    reference's.  Not the worst leaf: where a step's gradient is mostly
+    sampling noise, a small leaf (the spheres' centres, at a twentieth of
+    the median leaf) rests on a few grazing paths, which float32 rounding
+    hands to one side and not the other, and the float64 reference sides
+    with neither (PERF.md);
   * `undrained`: those steps whose pool did not drain (limit 0).
 Leaves whose reference gradient (of that step) is under a thousandth of
 the median leaf's (the median over leaves with a gradient) move by
@@ -73,6 +80,19 @@ def update_gap(p0, p1, r0, r1, keep):
     return worst
 
 
+def median_leaf_gap(p0, p1, r0, r1, keep):
+    """|norm(p1 - p0) - norm(r1 - r0)| over norm(r1 - r0) of the leaf in
+    `keep` whose reference update has the median norm (the upper of two)."""
+    prog, ref = _norms(p0, p1), _norms(r0, r1)
+    if any(k not in ref and prog[k] != 0.0 for k in prog):
+        return math.inf
+    if not keep:
+        return 0.0
+    k = sorted(keep, key=lambda k: ref[k])[len(keep) // 2]
+    gap = abs(prog.get(k, 0.0) - ref[k])
+    return gap / ref[k] if ref[k] > 0 else (0.0 if gap == 0 else math.inf)
+
+
 def moving(grads):
     """The leaves whose gradient is at least FLOOR of the median leaf's."""
     g = {k: float(v.double().norm()) for k, v in grads.items()}
@@ -104,30 +124,36 @@ def step_numbers(prog, ref, ref_win):
             "seg_gap": max(_rel(a, b) for a, b in segs),
             "step1_gap": update_gap(h[0], h[1], rh[0], rh[1], keep),
             f"step{n}_gap": update_gap(h[0], h[n], rh[0], rh[n], keep),
-            "window_step_gap": update_gap(win["before"], win["after"],
-                                          wh[0], wh[1], moving(wg)),
+            "window_median_gap": median_leaf_gap(win["before"], win["after"],
+                                                 wh[0], wh[1], moving(wg)),
             "undrained": float(sum(x != 0 for x in
                                    [*prog["leftovers"], win["leftover"]]))}
 
 
 def numbers(cfg, tr, prog, device, dtype=torch.float32):
-    """The compared numbers of one run's output `prog` (the loop's
-    "program" dict); the reference runs on `device` in `dtype`."""
+    """(the compared numbers, the reference's work) of one run's output
+    `prog` (the loop's "program" dict); the reference runs on `device` in
+    `dtype`.  The work: its path segments and its klein march's lane-steps,
+    inversions and accepted hits, over the frame or steps it traced."""
     nx, ny, spp = tr["nx"], tr["ny"], tr["spp"]
+    work = dict(steps=0, inversions=0, hits=0)
     if "window" in prog:
         args = (prog["config"], nx, ny, spp)
         ref = reference.train_steps(*args, prog["seeds"], prog["target"],
-                                    tr["lr"], dtype=dtype, device=device)
+                                    tr["lr"], dtype=dtype, device=device,
+                                    work=work)
         win = prog["window"]
         ref_win = reference.train_steps(*args, [win["seed"]], prog["target"],
                                         tr["lr"], dtype=dtype, device=device,
-                                        start=win["before"])
-        return step_numbers(prog, ref, ref_win)
+                                        start=win["before"], work=work)
+        work["segments"] = sum(ref[3]) + sum(ref_win[3])
+        return step_numbers(prog, ref, ref_win), work
     ref, ref_segs = reference.render_frame(
         cfg, nx, ny, spp, prog["seed"], prog["sample_base"], dtype=dtype,
-        device=device)
+        device=device, work=work)
+    work["segments"] = ref_segs
     return frame_numbers(prog["before"], prog["after"], prog["segments"],
-                         ref.cpu(), ref_segs)
+                         ref.cpu(), ref_segs), work
 
 
 def correct(nums, limits):

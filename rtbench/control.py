@@ -46,7 +46,7 @@ def frame_readings(cfg, tr, seed, device, dtype):
 def step_readings(cfg, tr, seed, device, dtype):
     nx, ny, spp, lr = tr["nx"], tr["ny"], tr["spp"], tr["lr"]
     target = run.make_target(cfg, tr, seed, device)
-    start = run.start_config(cfg, tr, seed)
+    start = run.start_config(cfg, tr, tr["job_seed"])     # the cell's job
     n = tr["checked_steps"]
     seeds = [run.step_seed(seed, k) for k in range(n)]
     w_seed = run.step_seed(seed, n)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 
 import numpy as np
+import torch
 
 from scheme_raytrace_torch import render as R
 from scheme_raytrace_torch.camera import make_camera
@@ -44,24 +45,37 @@ def _materials(cfg):
     return out
 
 
+def _rect(o, m):
+    r = o["rect"]
+    return _RECTS[r["plane"]](*r["a"], *r["b"], r["k"], m)
+
+
+_OBJECTS = {
+    "rect": _rect,
+    "box": lambda o, m: ob.Box(tuple(o["box"]["min"]),
+                               tuple(o["box"]["max"]), m),
+    "sphere": lambda o, m: ob.Sphere(tuple(o["sphere"]["center"]),
+                                     o["sphere"]["radius"], m),
+    "bezier": lambda o, m: ob.Bezier(
+        np.asarray(o["bezier"]["points"], np.float64), o["bezier"]["width"],
+        m),
+    "klein": lambda o, m: ob.Klein(tuple(o["klein"]["center"]), m),
+}
+_WRAPPERS = {"material", "rotate_y", "translate", "flip_normals"}
+
+
 def scene_objects(cfg):
     """The configuration's objects as the port's hittables (one material
-    object a name, so the port's compiler shares it)."""
+    object a name, so the port's compiler shares it).  Each object names
+    one kind of _OBJECTS; any other raises."""
     mats = _materials(cfg)
     objs = []
     for o in cfg["objects"]:
-        m = mats[o["material"]]
-        if "rect" in o:
-            r = o["rect"]
-            h = _RECTS[r["plane"]](*r["a"], *r["b"], r["k"], m)
-        elif "box" in o:
-            h = ob.Box(tuple(o["box"]["min"]), tuple(o["box"]["max"]), m)
-        elif "sphere" in o:
-            h = ob.Sphere(tuple(o["sphere"]["center"]),
-                          o["sphere"]["radius"], m)
-        else:
-            h = ob.Bezier(np.asarray(o["bezier"]["points"], np.float64),
-                          o["bezier"]["width"], m)
+        kinds = set(o) - _WRAPPERS
+        if len(kinds) != 1 or not kinds <= set(_OBJECTS):
+            raise ValueError(f"an object is one of {sorted(_OBJECTS)}: "
+                             f"{o!r}")
+        h = _OBJECTS[kinds.pop()](o, mats[o["material"]])
         if "rotate_y" in o:
             h = ob.RotateY(h, o["rotate_y"])
         if "translate" in o:
@@ -73,10 +87,14 @@ def scene_objects(cfg):
 
 
 def build(cfg, nx, ny, spp, seed, device):
-    """(scene, camera, RenderConfig) of a configuration on `device`."""
+    """(scene, camera, RenderConfig) of a configuration on `device`, the
+    scene and the camera in the configuration's float type."""
     rc = cfg["render"]
-    scene = compile_scene(scene_objects(cfg), sky=cfg["sky"], device=device)
-    cam = make_camera(**cfg["camera"], aspect=nx / ny, device=device)
+    dtype = torch.float64 if rc["dtype"] == "f64" else torch.float32
+    scene = compile_scene(scene_objects(cfg), sky=cfg["sky"], dtype=dtype,
+                          device=device)
+    cam = make_camera(**cfg["camera"], aspect=nx / ny, dtype=dtype,
+                      device=device)
     config = RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=rc["max_depth"],
                           seed=seed, light_sampling=rc["light_sampling"],
                           dtype=rc["dtype"], bezier_seeds=rc["bezier_seeds"],

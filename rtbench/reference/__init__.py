@@ -10,6 +10,9 @@ blocks of pixels so that a full frame fits beside nothing else on the card:
   * `train_steps`: steps of gradient descent on an image loss, each the
     loss, every parameter's gradient, the update p - lr * g and the step's
     exact path segments.
+
+Both add the kleins' march work (lane-steps, inversions, accepted hits)
+into `work`, a dict, where the caller gives one.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ def _pixel_sums(rad, spp):
 
 
 def render_frame(cfg, nx, ny, spp, seed, sample_base=0, dtype=torch.float32,
-                 device="cpu", lanes_per_block=1 << 22):
+                 device="cpu", lanes_per_block=1 << 22, work=None):
     """(radiance sums [ny * nx, 3] of `spp` passes, path segments) of the
     frame whose first pass is `sample_base`, in `dtype` on `device`."""
     rc = cfg["render"]
@@ -60,7 +63,7 @@ def render_frame(cfg, nx, ny, spp, seed, sample_base=0, dtype=torch.float32,
     block = max(1, lanes_per_block // spp)
     out, segs = [], 0
     with torch.no_grad():
-        P = Prims(sc, dtype)
+        P = Prims(sc, dtype, work)
         for p0 in range(0, n_pix, block):
             pix = torch.arange(p0, min(p0 + block, n_pix), device=device)
             item, px, py = _lanes(nx, ny, spp, sample_base, pix, dtype)
@@ -71,7 +74,8 @@ def render_frame(cfg, nx, ny, spp, seed, sample_base=0, dtype=torch.float32,
 
 
 def train_steps(cfg, nx, ny, spp, seeds, target, lr, dtype=torch.float32,
-                device="cpu", lanes_per_block=1 << 21, keep=None, start=None):
+                device="cpu", lanes_per_block=1 << 21, keep=None, start=None,
+                work=None):
     """len(seeds) steps of p <- p - lr * grad(loss), step k rendering with
     seeds[k], from the configuration's parameters, or from `start` (a dict
     of them by name: a step replayed from given parameters); the loss is
@@ -100,7 +104,7 @@ def train_steps(cfg, nx, ny, spp, seeds, target, lr, dtype=torch.float32,
         grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
         total, segs = 0.0, 0
         for p0 in range(0, n_pix, block):
-            P = Prims(sc, dtype)
+            P = Prims(sc, dtype, work)
             pix = torch.arange(p0, min(p0 + block, n_pix), device=device)
             item, px, py = _lanes(nx, ny, spp, 0, pix, dtype)
             rad, seg = trace(P, rc, seed, basis, nx, ny, item, px, py)

@@ -2,11 +2,12 @@
 
 The configuration file (rtbench/configs/<name>.json) describes the scene as
 the reference scene library does: materials by name, and a list of rects,
-boxes (six rects, optionally rotated about +y, then translated), spheres
-and cubic Bezier ribbons.  `compile_scene` flattens it into named arrays:
-the float arrays are the differentiable parameters a training step updates,
-under the names the renderer's own scene compiler gives them (`rect_k`,
-`rect_rot`, `tex_color`, `sky_a`, ...), so that a step's update can be
+boxes (six rects, optionally rotated about +y, then translated), spheres,
+cubic Bezier ribbons and Kleinian limit-set fractals (a centre each).
+`compile_scene` flattens it into named arrays: the float arrays are the
+differentiable parameters a training step updates, under the names the
+renderer's own scene compiler gives them (`rect_k`, `rect_rot`,
+`kl_center`, `tex_color`, `sky_a`, ...), so that a step's update can be
 compared leaf by leaf.  The reference derives everything from the JSON
 here; it takes no array from the program under test.
 
@@ -29,7 +30,7 @@ TEX_CONSTANT, TEX_CHECKER = 0, 1             # and texture ids
 # the float arrays a training step updates, and the id tables beside them
 LEAVES = ("rect_k", "rect_a0", "rect_a1", "rect_b0", "rect_b1", "rect_flip",
           "rect_rot", "rect_trans", "sph_c0", "sph_r", "bez_cp", "bez_w",
-          "tex_color", "sky_a", "sky_b", "light_rect")
+          "kl_center", "tex_color", "sky_a", "sky_b", "light_rect")
 
 
 @dataclasses.dataclass
@@ -39,6 +40,7 @@ class RefScene:
     rect_mat: np.ndarray
     sph_mat: np.ndarray
     bez_mat: np.ndarray
+    kl_mat: np.ndarray
     mat_type: np.ndarray
     mat_tex: np.ndarray
     tex_type: np.ndarray
@@ -58,6 +60,10 @@ class RefScene:
     @property
     def n_beziers(self):
         return len(self.bez_mat)
+
+    @property
+    def n_kleins(self):
+        return len(self.kl_mat)
 
 
 def rot_y(deg: float) -> np.ndarray:
@@ -98,7 +104,7 @@ def compile_scene(cfg: dict, dtype=torch.float32, device="cpu") -> RefScene:
             mat_names.append(name)
         return mat_names.index(name)
 
-    rects, spheres, beziers, lights = [], [], [], []
+    rects, spheres, beziers, kleins, lights = [], [], [], [], []
     for obj in cfg["objects"]:
         mid = material(obj["material"])
         if "rect" in obj or "box" in obj:
@@ -124,6 +130,10 @@ def compile_scene(cfg: dict, dtype=torch.float32, device="cpu") -> RefScene:
         elif "bezier" in obj:
             b = obj["bezier"]
             beziers.append((b["points"], b["width"], mid))
+        elif "klein" in obj:
+            if "rotate_y" in obj or "translate" in obj:
+                raise ValueError("a klein takes no transform: move its centre")
+            kleins.append((obj["klein"]["center"], mid))
         else:
             raise ValueError(f"unknown object {obj!r}")
 
@@ -183,6 +193,8 @@ def compile_scene(cfg: dict, dtype=torch.float32, device="cpu") -> RefScene:
     if beziers:
         leaves.update(bez_cp=f([b[0] for b in beziers]),
                       bez_w=f([b[1] for b in beziers]))
+    if kleins:
+        leaves["kl_center"] = f([k[0] for k in kleins])
     leaves["tex_color"] = f(tex_color)
     if cfg.get("sky", "black") == "gradient":
         leaves.update(sky_a=f((1.0, 1.0, 1.0)), sky_b=f((0.5, 0.7, 1.0)))
@@ -195,6 +207,7 @@ def compile_scene(cfg: dict, dtype=torch.float32, device="cpu") -> RefScene:
         leaves=leaves,
         rect_axis=i32([r[0] for r in rects]), rect_mat=i32([r[5] for r in rects]),
         sph_mat=i32([s[2] for s in spheres]), bez_mat=i32([b[2] for b in beziers]),
+        kl_mat=i32([k[1] for k in kleins]),
         mat_type=i32(mat_type), mat_tex=i32(mat_tex), tex_type=i32(tex_type),
         tex_child0=i32(child0), tex_child1=i32(child1), n_lights=len(lights),
         camera=dict(cfg["camera"]))

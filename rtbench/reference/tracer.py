@@ -5,15 +5,42 @@ global work item (sample_base + pass) * total_pix + pixel, wrapped to
 int32, and draws its numbers from the PCG4D stream (rng.py) at that item
 and its depth, so the reference traces the very paths the renderer is
 asked for, and a pixel's passes add in pass order from 0.0.  One bounce:
-the closest hit over the rects, then the spheres, then the ribbons (the
-first of equal distances wins); the gradient sky on a miss; the front face
-of a light emits; a Lambertian surface scatters by the cosine density, or
-with light sampling by the even mixture of it and the lights' solid-angle
-density (Shirley, "Ray Tracing: The Rest of Your Life", ch. 9-12); a path
-ends on a miss, a light, or at `max_depth` scatters.  A ribbon is hit where
+the closest hit over the rects, then the spheres, then the kleins, then
+the ribbons (the first of equal distances wins); the gradient sky on a
+miss; the front face of a light emits; a Lambertian surface scatters by
+the cosine density, or with light sampling by the even mixture of it and
+the lights' solid-angle density (Shirley, "Ray Tracing: The Rest of Your
+Life", ch. 9-12); a path ends on a miss, a light, or at `max_depth`
+scatters.  A ribbon is hit where
 the curve's ray-space distance has a root of g'(s) = 0 within half its
 width (Newton from `bezier_seeds` fixed seeds, `bezier_newton` steps); the
 gradient of a hit's distance is the implicit function's at the root.
+
+A klein (the Kleinian limit set, geometry.scm:580-664) is sphere-traced:
+from the ray's origin, at most 100 steps, each advancing by the distance
+estimate (DE) at the current point: up to 10 inversions of the point in
+the first of six spheres of radius 300 that holds it, then
+DE = 0.7 (|p| - 125) / |dr| (:590-624); the hit is the advanced length
+where the DE was under 0.001 and that length lies past t_min and short of
+the closest hit so far (:635-661, the object list passing its closest
+distance on as t_max).  Where this departs from geometry.scm, and why:
+  * the normal is the unit exact gradient of the DE (autograd of the DE
+    below), not central differences of step 0.01 (:626-632): a
+    differentiable normal, as the program and the JAX package have;
+  * the hit's t is differentiated as one Newton step of DE(o + t d) - 0.001
+    from the accepted length, whose derivative at a root is the implicit
+    function's; its value is the accepted length;
+  * a ray that never enters the ball of radius 726 about the centre on
+    (t_min, t_max) is not marched, and a lane stops once its point lies
+    outside that ball and moves away from the centre: every point with a
+    DE under 0.001 lies inside |p - c| < 424.26 + 300 = 724.26, and
+    outside it the DE is 0.7 (|p - c| - 125) > 0, so such a ray never
+    accepts (exact);
+  * the inversion loop ends once no lane's point lies in a sphere: such a
+    point never changes again (exact).
+No other retirement: a lane whose point sits inside the solid at a length
+under t_min, or has passed t_max, marches on to the step cap as in
+geometry.scm.
 
 Plain PyTorch, any device and float type, differentiable in the scene's
 float arrays (RefScene.leaves).  Lanes that end drop out of the wavefront.
@@ -122,9 +149,10 @@ def camera_rays(basis, nx, ny, uc, px, py):
 class Prims:
     """Per-primitive world-space fields derived from the scene's leaves
     (differentiably): rect planes, sphere centres, ribbon control points,
-    and every primitive's albedo pair from its material's texture."""
+    klein centres, and every primitive's albedo pair from its material's
+    texture."""
 
-    def __init__(self, sc, dtype):
+    def __init__(self, sc, dtype, work=None):
         L = {k: v.to(dtype) for k, v in sc.leaves.items()}
         self.L, self.sc = L, sc
         dev = L["tex_color"].device
@@ -163,6 +191,13 @@ class Prims:
         if sc.n_beziers:
             self.b_cp, self.b_w = L["bez_cp"], L["bez_w"]
             self.b_mat = torch.as_tensor(sc.bez_mat, device=dev)
+        if sc.n_kleins:
+            self.k_c = L["kl_center"]
+            self.k_mat = torch.as_tensor(sc.kl_mat, device=dev)
+        # the kleins' march work (klein_march): lane-steps, inversions and
+        # accepted hits, added into the caller's dict if it gives one
+        self.klein_work = dict(steps=0, inversions=0, hits=0) \
+            if work is None else work
 
 
 def _rects(P, o, d, best):
@@ -288,6 +323,130 @@ def _beziers(P, cfg, o, d, best):
     return best
 
 
+# --- the Kleinian limit set (geometry.scm:580-664) -------------------------
+
+KLEIN_SPHERES = ((300.0, 300.0, 0.0), (300.0, -300.0, 0.0),
+                 (-300.0, 300.0, 0.0), (-300.0, -300.0, 0.0),
+                 (0.0, 0.0, 424.26), (0.0, 0.0, -424.26))   # :590-598
+KLEIN_SPHERE_R, KLEIN_R, KLEIN_DE_SCALE = 300.0, 125.0, 0.7  # :590, :600, :607
+KLEIN_ITERATIONS, KLEIN_MAX_STEPS = 10, 100                  # :610, :635
+KLEIN_EPS = 0.001                                            # :656
+KLEIN_BALL_R = 726.0       # past 424.26 + 300: no point there has DE < eps
+
+
+def klein_de(q, work=None):
+    """The distance estimate at klein-local points q ([N, 3], q = p - c):
+    up to KLEIN_ITERATIONS times, the point inverted in the first sphere
+    (in KLEIN_SPHERES' order) whose interior holds it, p <- (p - s) r^2 /
+    |p - s|^2 + s, and dr scaled by the same r^2 / |p - s|^2; then
+    0.7 (|p| - 125) / |dr|.  Differentiable in q (the sphere is picked
+    without gradient, and the inversion in it computed again with it);
+    `work` counts the inversions."""
+    sph = q.new_tensor(KLEIN_SPHERES)                      # [6, 3]
+    r2 = KLEIN_SPHERE_R * KLEIN_SPHERE_R
+    p, dr = q, torch.ones_like(q[:, 0])
+    inside_any = torch.ones_like(dr, dtype=torch.bool)
+    for _ in range(KLEIN_ITERATIONS):
+        with torch.no_grad():
+            diff = p.detach()[:, None, :] - sph            # [N, 6, 3]
+            d2 = dot3(diff.unbind(-1), diff.unbind(-1))    # [N, 6]
+            inside = (d2 < r2) & inside_any[:, None]
+            inside_any = inside.any(1)
+            if work is not None:
+                work["inversions"] += int(inside_any.sum())
+            if not bool(inside_any.any()):
+                break
+            s = sph[inside.to(torch.int8).argmax(1)]       # the first one
+        dk = p - s
+        d2k = dot3(dk.unbind(1), dk.unbind(1))
+        # a true division: a Python number over a tensor is its reciprocal
+        # times the number in torch, another rounding
+        scale = d2k.new_tensor(r2) / torch.where(inside_any, d2k, 1.0)
+        p = torch.where(inside_any[:, None], dk * scale[:, None] + s, p)
+        dr = torch.where(inside_any, dr * scale, dr)
+    x, y, z = p.unbind(1)
+    return KLEIN_DE_SCALE * (torch.sqrt(x * x + y * y + z * z) - KLEIN_R) \
+        / torch.abs(dr)
+
+
+def klein_march(c, o, d, t_max, work):
+    """(hit, length) of the sphere trace of the klein centred at c ([3])
+    along rays o + t d ([N] each; d unit), accepting short of t_max ([N]);
+    no gradient.  Runs only the lanes still marching; `work` counts their
+    steps, inversions and accepts."""
+    n = o[0].shape[0]
+    oc = tuple(o[i] - c[i] for i in range(3))
+    b = dot3(oc, d)
+    disc = b * b - (dot3(oc, oc) - KLEIN_BALL_R * KLEIN_BALL_R)
+    sq = torch.sqrt(vmax(disc, 0.0))
+    enters = (disc > 0.0) & (-b + sq > T_MIN) & (-b - sq < t_max)
+    live = enters.nonzero()[:, 0]
+    length = torch.zeros_like(o[0])
+    hit = torch.zeros(n, dtype=torch.bool, device=o[0].device)
+    for _ in range(KLEIN_MAX_STEPS):
+        if live.numel() == 0:
+            break
+        work["steps"] += live.numel()
+        lo, ld, at = [x[live] for x in o], [x[live] for x in d], length[live]
+        pos = torch.stack([lo[i] + ld[i] * at - c[i] for i in range(3)], 1)
+        dist = klein_de(pos, work)
+        new = at + dist
+        accept = (dist < KLEIN_EPS) & (new > T_MIN) & (new < t_max[live])
+        work["hits"] += int(accept.sum())
+        length[live] = new
+        hit[live] = accept
+        q = tuple(lo[i] + ld[i] * new - c[i] for i in range(3))
+        away = (dot3(q, ld) > 0.0) & (dot3(q, q)
+                                      > KLEIN_BALL_R * KLEIN_BALL_R)
+        live = live[~(accept | away)]
+    return hit, length
+
+
+def _klein_t_normal(c, o, d, t_raw, idx):
+    """The hit distance and unit normal of lanes idx, accepted at t_raw:
+    t = t_raw - (s - s.detach()), s = (DE - eps) / (grad DE . d) at the
+    point o + t_raw d (one Newton step, its value dropped), and the normal
+    grad DE / |grad DE|, the gradient by autograd of klein_de (with its
+    own graph where the caller's gradients are on)."""
+    outer = torch.is_grad_enabled()
+    oi, di = [x[idx] for x in o], [x[idx] for x in d]
+    tr = t_raw[idx]
+    with torch.enable_grad():
+        q = torch.stack([oi[i] + di[i] * tr - c[i] for i in range(3)], 1)
+        if not q.requires_grad:
+            q = q.detach().requires_grad_()
+        de = klein_de(q)
+        (g,) = torch.autograd.grad(de.sum(), q, create_graph=outer)
+    gd = dot3(g.unbind(1), di)
+    gd = torch.where(torch.abs(gd) > 1e-6, gd,
+                     torch.where(gd >= 0.0, 1e-6, -1e-6).to(gd.dtype))
+    s = (de - KLEIN_EPS) / gd
+    t = tr - (s - s.detach())
+    wn = unit3(g.unbind(1))
+    if not outer:
+        t, wn = t.detach(), tuple(x.detach() for x in wn)
+    return t, wn
+
+
+def _kleins(P, o, d, best):
+    n = o[0].shape[0]
+    for j in range(P.sc.n_kleins):
+        c = P.k_c[j]
+        with torch.no_grad():
+            hit, t_raw = klein_march(c.detach(), [x.detach() for x in o],
+                                     [x.detach() for x in d],
+                                     best["t"].detach(), P.klein_work)
+        idx = hit.nonzero()[:, 0]
+        if idx.numel() == 0:
+            continue
+        ts, ns = _klein_t_normal(c, o, d, t_raw, idx)
+        z = torch.zeros_like(o[0])
+        t = torch.full_like(o[0], BIG).index_put((idx,), ts)
+        wn = tuple(z.index_put((idx,), x) for x in ns)
+        best = _merge(P, best, hit, t, wn, P.k_mat[j].expand(n))
+    return best
+
+
 def _merge(P, best, closer, t, wn, mat):
     out = dict(best)
     out["hit"] = best["hit"] | closer
@@ -359,6 +518,8 @@ def bounce(P, cfg, seed, gitem, depth, o, d, rad, tp):
         best = _rects(P, o, d, best)
     if P.sc.n_spheres:
         best = _spheres(P, o, d, best)
+    if P.sc.n_kleins:
+        best = _kleins(P, o, d, best)
     if P.sc.n_beziers:
         best = _beziers(P, cfg, o, d, best)
     hit, mat = best["hit"], best["mat"]

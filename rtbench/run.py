@@ -109,13 +109,23 @@ def p90(values):
     return v[max(0, math.ceil(0.9 * len(v)) - 1)]
 
 
-def scene_counts(cfg):
+def scene_counts(cfg, work=None):
+    """The scene's primitive counts for the roofline and, where it has
+    kleins, the reference's klein march work a segment (`work`: from
+    check.numbers, over the frame or steps it traced)."""
     sc = ref_scene(cfg)
     rc = cfg["render"]
-    return dict(n_rects=sc.n_rects, n_spheres=sc.n_spheres,
-                n_beziers=sc.n_beziers,
-                n_lights=sc.n_lights if rc["light_sampling"] else 0,
-                bez_seeds=rc["bezier_seeds"], bez_newton=rc["bezier_newton"])
+    out = dict(n_rects=sc.n_rects, n_spheres=sc.n_spheres,
+               n_beziers=sc.n_beziers,
+               n_lights=sc.n_lights if rc["light_sampling"] else 0,
+               bez_seeds=rc["bezier_seeds"], bez_newton=rc["bezier_newton"],
+               n_kleins=sc.n_kleins)
+    if sc.n_kleins:
+        seg = max(work["segments"], 1)
+        out.update(klein_steps=work["steps"] / seg,
+                   klein_inversions=work["inversions"] / seg,
+                   klein_hits=work["hits"] / seg)
+    return out
 
 
 def step_seed(seed, k):
@@ -127,14 +137,19 @@ def start_config(cfg, tr, seed):
     """The configuration a training run starts from: the published one
     with its parameters perturbed from the seed (tr["perturb"]): each
     channel of every albedo and emission scaled by a factor within
-    1 -+ `albedo` / `emission`, and each coordinate of every Bezier control
-    point moved by up to -+ `bezier_points`."""
+    1 -+ `albedo` / `emission`, each coordinate of every Bezier control
+    point moved by up to -+ `bezier_points` and, where the mix gives
+    `klein_center`, each coordinate of every klein's centre by up to -+
+    that."""
     pert = tr["perturb"]
     r = random.Random(seed)
     out = copy.deepcopy(cfg)
 
     def scale(rgb, a):
         return [c * r.uniform(1.0 - a, 1.0 + a) for c in rgb]
+
+    def move(xyz, a):
+        return [x + r.uniform(-a, a) for x in xyz]
 
     for m in out["materials"].values():
         if "diffuse_light" in m:
@@ -145,11 +160,15 @@ def start_config(cfg, tr, seed):
                                               pert["albedo"])
         else:
             m["lambertian"] = scale(m["lambertian"], pert["albedo"])
-    b = pert["bezier_points"]
     for o in out["objects"]:
         if "bezier" in o:
-            o["bezier"]["points"] = [[x + r.uniform(-b, b) for x in pt]
+            o["bezier"]["points"] = [move(pt, pert["bezier_points"])
                                      for pt in o["bezier"]["points"]]
+    if "klein_center" in pert:
+        for o in out["objects"]:
+            if "klein" in o:
+                o["klein"]["center"] = move(o["klein"]["center"],
+                                            pert["klein_center"])
     return out
 
 
@@ -242,15 +261,20 @@ def _peak(device, alloc):
 
 def run_steps(cfg, tr, seed, seconds, trace, device, t0=None, fault=None):
     """Training steps through train_step_fused on a mesh of one rank, from
-    the seeded start configuration towards the published scene's frame."""
+    the start configuration towards the published scene's frame.  One
+    fitting job a cell: the start configuration, and the render seed of
+    the build and of the trip count's calibration, come from the mix's
+    `job_seed`; the target, every step's render seed and the window step
+    checked come from the run's seed."""
     from . import program
     nx, ny, spp, lr = tr["nx"], tr["ny"], tr["spp"], tr["lr"]
     target = make_target(cfg, tr, seed, device)
     if device.type == "cuda":            # the peak is the program's
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-    start = start_config(cfg, tr, seed)
-    scene, cam, config = program.build(start, nx, ny, spp, step_seed(seed, 0),
+    job = tr["job_seed"]
+    start = start_config(cfg, tr, job)
+    scene, cam, config = program.build(start, nx, ny, spp, step_seed(job, 0),
                                        device)
     if fault is not None:
         program = fault(program)
@@ -317,7 +341,7 @@ def run_steps(cfg, tr, seed, seconds, trace, device, t0=None, fault=None):
                   segments=int(chosen["segments"]))
     out = dict(
         e2e={"train_rays_per_s": total / window_s, "setup_s": setup_s},
-        attempted=len(times), failed=failed,
+        attempted=len(times), failed=failed, n_iters=n_iters,
         memory=_peak(device, alloc), window_s=window_s,
         traces=[win.summary] if win is not None else [],
         traced=dict(units=tr["trace_units"],
@@ -355,17 +379,18 @@ def run_cell(bench, cell, seed, seconds, trace, device, t0=None, fault=None,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    numbers = check.numbers(cfg, tr, out["program"], device)
+    numbers, ref_work = check.numbers(cfg, tr, out["program"], device)
+    units = ("steps, trip count %d" % out["n_iters"] if tr["loop"] == "steps"
+             else "frames")
     print(f"rtbench: {cell['name']} seed {seed}: set-up "
           f"{out['e2e']['setup_s']:.3f} s, window {out['window_s']:.3f} s "
-          f"({out['attempted']} {'steps' if tr['loop'] == 'steps' else 'frames'}"
-          f"), reference {time.perf_counter() - t_ref:.3f} s",
-          file=sys.stderr, flush=True)
+          f"({out['attempted']} {units}), reference "
+          f"{time.perf_counter() - t_ref:.3f} s", file=sys.stderr, flush=True)
     line = {"correct": check.correct(numbers, limits),
             "attempted": out["attempted"], "failed": out["failed"]}
     if trace:
         ctx = dict(loop=tr["loop"], ranks=out["traces"], **out["traced"],
-                   scene=scene_counts(cfg))
+                   scene=scene_counts(cfg, ref_work))
         metrics = {}
         for m in per:
             v = reader(m["name"])(ctx) if out["traces"] else None

@@ -1188,6 +1188,16 @@ __device__ __noinline__ T klein_dist_grad(V3<T> c, V3<T> p, V3<T>& g) {
   return mul_(T(kKleinDeScale), lr) / adr;
 }
 
+// What a lane's klein marches did in one bounce, for the persistent
+// kernel's traced counters (integrator/persist.py; bounce.py
+// KLEIN_COUNTERS, which the plain `_klein_march` counts alike): the marches
+// that passed the precull, their DE evaluations (steps), and the marches
+// still going at the kKleinSteps cap.  K1 and K2 pass no record, and the
+// compiler drops the counting.
+struct KleinWork {
+  int marches = 0, steps = 0, capped = 0;
+};
+
 // The sphere trace of the klein at block b along (o, d) (bounce.py
 // _klein_march): false when the ray misses; on a hit, t is where the DE
 // fell under eps inside (t_min, t_max).  t_max is the closest hit so far,
@@ -1196,11 +1206,13 @@ __device__ __noinline__ T klein_dist_grad(V3<T> c, V3<T> p, V3<T>& g) {
 // backward-stuck (DE <= 0 at a parameter <= t_min), past t_max, or receding
 // outside the recede ball.  The receding and outside tests read the next
 // step's offset P = o + len d - c, rounded as the DE reads it, so it is
-// computed once and handed on.
+// computed once and handed on.  A march adds its work to *kw where kw is
+// not null.
 template <typename T>
 __device__ __forceinline__ bool klein_march(const T* __restrict__ pk, int b,
                                             V3<T> o, V3<T> d, T t_min,
-                                            T t_max, T& t) {
+                                            T t_max, T& t,
+                                            KleinWork* kw = nullptr) {
   const V3<T> c = ld3(pk, b + K_C);
   const V3<T> oc = {sub_(o.x, c.x), sub_(o.y, c.y), sub_(o.z, c.z)};
   const T bq = dot_rn(oc, d);
@@ -1209,12 +1221,14 @@ __device__ __forceinline__ bool klein_march(const T* __restrict__ pk, int b,
   const T sq = Math<T>::sqrt(disc < T(0) ? T(0) : disc);
   if (disc <= T(0) || add_(-bq, sq) <= t_min || sub_(-bq, sq) >= t_max)
     return false;
+  if (kw) ++kw->marches;
   T len = T(0);
   V3<T> P = {sub_(add_(o.x, mul_(d.x, len)), c.x),
              sub_(add_(o.y, mul_(d.y, len)), c.y),
              sub_(add_(o.z, mul_(d.z, len)), c.z)};
   for (int k = 0; k < kKleinSteps; ++k) {
     const T dist = klein_de<T>(P);
+    if (kw) ++kw->steps;
     const T new_len = add_(len, dist);
     if (dist < T(kKleinEps) && new_len > t_min && new_len < t_max) {
       t = new_len;
@@ -1229,6 +1243,7 @@ __device__ __forceinline__ bool klein_march(const T* __restrict__ pk, int b,
     const bool outside = dot_rn(P, P) > T(kKleinRecede2);
     if (stuck || len >= t_max || (receding && outside)) return false;
   }
+  if (kw) ++kw->capped;
   return false;
 }
 
@@ -1245,16 +1260,17 @@ __device__ __forceinline__ V3<T> klein_normal(const T* __restrict__ pk, int b,
 // The kleins, after the spheres, in pack order, each march bounded by the
 // closest hit so far: a hit always beats best_t, so the strict `<` of the
 // merge holds.  Returns the winning klein's pk offset, or -1 when none is hit
-// before best_t.
+// before best_t; the marches add their work to *kw where kw is not null.
 template <typename T>
 __device__ __forceinline__ int closest_klein(const T* __restrict__ pk,
                                              const Statics& s, V3<T> o,
-                                             V3<T> d, T t_min, T& best_t) {
+                                             V3<T> d, T t_min, T& best_t,
+                                             KleinWork* kw = nullptr) {
   int best_b = -1;
   for (int k = 0; k < s.n_kleins; ++k) {
     const int b = s.kl_base + k * KL_SIZE;
     T t;
-    if (klein_march<T>(pk, b, o, d, t_min, best_t, t) &&
+    if (klein_march<T>(pk, b, o, d, t_min, best_t, t, kw) &&
         ld(pk, b + K_VALID) > T(0.5)) {
       best_t = t;
       best_b = b;
@@ -1278,14 +1294,15 @@ struct HitExtra {
 // ribbon's seeds are split over the lane's tile, which leaves each sweep's
 // winner on every thread of it; the klein march (bounded by the winner so
 // far) and the media (which read best_t) run on every thread, on the same
-// values.
+// values.  The klein marches add their work to *kw where kw is not null.
 template <typename T>
 __device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
                                            const Statics& s, uint32_t item,
                                            int depth, bool alive, V3<T> o,
                                            V3<T> d, T time, T t_min, T t_max,
                                            T& best_t, int& kind,
-                                           HitExtra<T>& ex, const Tile& tl) {
+                                           HitExtra<T>& ex, const Tile& tl,
+                                           KleinWork* kw = nullptr) {
   int best_b = closest_rect<T>(pk, s, o, d, t_min, t_max, best_t, tl);
   kind = kRect;
   if constexpr (kSpheres) {
@@ -1298,7 +1315,7 @@ __device__ __forceinline__ int closest_hit(const T* __restrict__ pk,
   }
   if constexpr (kKleins) {
     if (alive) {
-      const int kl_b = closest_klein<T>(pk, s, o, d, t_min, best_t);
+      const int kl_b = closest_klein<T>(pk, s, o, d, t_min, best_t, kw);
       if (kl_b >= 0) {
         kind = kKlein;
         best_b = kl_b;
@@ -1588,7 +1605,8 @@ __device__ __forceinline__ T schlick_prob(T ref_idx, T cosine, bool refr_ok) {
 // place; returns `scattering`.  Lanes that cannot scatter (dead, missed, at
 // the bounce cap) skip the shading, and only the winning material's rule
 // runs, with only the PCG4D column groups that rule draws from.  Every
-// thread of the lane's tile `tl` runs it and ends with the same values.
+// thread of the lane's tile `tl` runs it and ends with the same values.  The
+// klein marches add their work to *kw where kw is not null.
 template <typename T>
 __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
                                             const T* __restrict__ atlas,
@@ -1597,7 +1615,8 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
                                             T py, bool fresh, bool alive,
                                             int depth, V3<T>& o, V3<T>& d,
                                             T& time, V3<T>& rad, V3<T>& tp,
-                                            const Tile& tl) {
+                                            const Tile& tl,
+                                            KleinWork* kw = nullptr) {
   // --- regenerate fresh lanes (camera rays; main.scm:452-469) ------------
   if (fresh) {
     camera_ray<T>(pk, s, item, px, py, o, d, time);
@@ -1611,7 +1630,7 @@ __device__ __forceinline__ bool bounce_lane(const T* __restrict__ pk,
   int kind;
   HitExtra<T> ex;
   const int best_b = closest_hit<T>(pk, s, item, depth, alive, o, d, time,
-                                    t_min, t_max, best_t, kind, ex, tl);
+                                    t_min, t_max, best_t, kind, ex, tl, kw);
   const bool hit = best_b >= 0;
   const T t_eff = hit ? best_t : T(0);          // miss: p = o
   const V3<T> p = ray_at(o, t_eff, d);
@@ -1737,6 +1756,7 @@ struct Queue {
 // alive; `terminated` and `pix` (item % n_pix) describe the finished path.
 // Every thread of the lane's tile `tl` runs it on the same v (a copy each)
 // and ends with the same v; the caller stores from the first thread only.
+// The klein marches add their work to *kw where kw is not null.
 __device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
                                             const float* __restrict__ atlas,
                                             const Statics& s, float t_min,
@@ -1744,7 +1764,8 @@ __device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
                                             int32_t sample_base,
                                             float v[N_PACKED],
                                             bool& terminated, int& pix,
-                                            const Tile& tl) {
+                                            const Tile& tl,
+                                            KleinWork* kw = nullptr) {
   const int32_t item = __float_as_int(v[0]);
   const bool fresh = v[1] != 0.0f;
   const int32_t depth = __float_as_int(v[2]);
@@ -1764,7 +1785,7 @@ __device__ __forceinline__ bool packed_step(const float* __restrict__ pk,
     scattering = bounce_lane<float>(pk, atlas, s, t_min, t_max, gitem,
                                     float(gpix % s.nx), float(gpix / s.nx),
                                     fresh, true, depth, o, d, time, rad, tp,
-                                    tl);
+                                    tl, kw);
     v[3] = o.x;  v[4] = o.y;  v[5] = o.z;
     v[6] = d.x;  v[7] = d.y;  v[8] = d.z;
     v[9] = time;

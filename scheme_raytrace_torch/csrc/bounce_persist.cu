@@ -61,6 +61,18 @@
 // less than in K3, where one launch is one iteration: here different warps
 // are at different iterations and already fill the SM between the slowest
 // lanes' chains (RTOW at w = 1: 54 us an iteration against K3's 87 us).
+//
+// The klein marches' work, while a profiler records: persist.py passes a
+// counter buffer then, and a null pointer otherwise.  A klein variant
+// holds the kernel twice, counting (kCount) and not, and launches the
+// counting one only for a buffer, so a frame that is not traced runs the
+// same code as without the counters; a variant without kleins holds the
+// other alone.  Each lane's march reports its marches, DE evaluations and
+// capped marches (KleinWork); at each iteration's ballot, where the warp
+// has reconverged, the warp sums them over its tiles' first threads and
+// takes 32 times the most steps any of its lanes took (the warp's step
+// slots, busy or idle); after the loop its lane 0 adds the four sums into
+// the buffer with 64-bit integer atomics, exact in any order.
 
 #include "bounce_common.cuh"
 
@@ -74,6 +86,9 @@ struct PersistParams {
   float* flush;                 // [T, 4, m]
   int32_t* seg;                 // [T], zeroed by the caller
   const float* atlas;           // image texels; null without images
+  // [4]: klein marches, steps, capped marches, warp step slots; added to;
+  // null: nothing counted
+  unsigned long long* klein;
   int T;
   int w;                        // threads a lane (the tile's width)
   Statics s;
@@ -86,6 +101,7 @@ __device__ __forceinline__ void opaque(float& x) {
   asm volatile("" : "+f"(x));
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
 bounce_persist_kernel(const PersistParams prm) {
   extern __shared__ int32_t live[];   // [T]: the block's live lanes
@@ -96,6 +112,8 @@ bounce_persist_kernel(const PersistParams prm) {
   const bool first = lane && tl.r == 0;
   for (int t = threadIdx.x; t < prm.T; t += blockDim.x) live[t] = 0;
   __syncthreads();
+  KleinWork warp_kw;                // kCount: the warp's sums over the
+  int warp_slots = 0;               // iterations
   const int32_t sample_base = __ldg(prm.sample_base);
   float v[N_PACKED];
 #pragma unroll
@@ -103,13 +121,15 @@ bounce_persist_kernel(const PersistParams prm) {
     v[k] = lane ? prm.st_in[size_t(k) * m + i] : 0.0f;
   for (int t = 0; t < prm.T; ++t) {
     bool alive = false;
+    KleinWork kw;
     if (lane) {
 #pragma unroll
       for (int k = 0; k < N_PACKED; ++k) opaque(v[k]);
       bool terminated;
       int pix;
       alive = packed_step(prm.pk, prm.atlas, prm.s, prm.t_min, prm.t_max, prm.q,
-                          sample_base, v, terminated, pix, tl);
+                          sample_base, v, terminated, pix, tl,
+                          kCount ? &kw : nullptr);
       if (first) {
         float* f = prm.flush + size_t(t) * 4 * m + i;
         f[0] = __int_as_float(terminated ? pix : -1);
@@ -120,6 +140,22 @@ bounce_persist_kernel(const PersistParams prm) {
     }
     const int n = __popc(__ballot_sync(kFullMask, first && alive));
     if ((threadIdx.x & 31) == 0 && n) atomicAdd(live + t, n);
+    if constexpr (kCount) {
+      const KleinWork c = first ? kw : KleinWork{};
+      warp_kw.marches += __reduce_add_sync(kFullMask, c.marches);
+      warp_kw.steps += __reduce_add_sync(kFullMask, c.steps);
+      warp_kw.capped += __reduce_add_sync(kFullMask, c.capped);
+      warp_slots += 32 * __reduce_max_sync(kFullMask, c.steps);
+    }
+  }
+  if constexpr (kCount) {
+    if ((threadIdx.x & 31) == 0 && warp_kw.marches) {
+      atomicAdd(prm.klein, static_cast<unsigned long long>(warp_kw.marches));
+      atomicAdd(prm.klein + 1, static_cast<unsigned long long>(warp_kw.steps));
+      atomicAdd(prm.klein + 2,
+                static_cast<unsigned long long>(warp_kw.capped));
+      atomicAdd(prm.klein + 3, static_cast<unsigned long long>(warp_slots));
+    }
   }
   if (first) {
 #pragma unroll
@@ -133,10 +169,11 @@ bounce_persist_kernel(const PersistParams prm) {
 }  // namespace
 
 // C interface, loaded with ctypes by integrator/persist.py:chunk_cuda.
-// ptrs: 7 device pointers — pk, sample_base ([1] int32), the state in and
+// ptrs: 8 device pointers — pk, sample_base ([1] int32), the state in and
 // the state out ([N_PACKED, m] float32 each), the flush rows ([T, 4, m]
-// float32), the segment counts ([T] int32, zeroed by the caller) and the
-// image texel atlas (null when img_rows is 0).  w: threads a lane, a power
+// float32), the segment counts ([T] int32, zeroed by the caller), the
+// image texel atlas (null when img_rows is 0) and the klein counters ([4]
+// int64, added to; null: nothing counted).  w: threads a lane, a power
 // of two from 1 to kMaxTile.  Launches on `stream` without synchronising,
 // with T * 4 bytes of dynamic shared memory, and returns cudaGetLastError()
 // (0 = launched), or cudaErrorInvalidValue for a plan that this variant's
@@ -155,6 +192,7 @@ extern "C" int srt_bounce_persist(void* const* ptrs, int T, int w, int m,
   prm.flush = static_cast<float*>(ptrs[4]);
   prm.seg = static_cast<int32_t*>(ptrs[5]);
   prm.atlas = static_cast<const float*>(ptrs[6]);
+  prm.klein = static_cast<unsigned long long*>(ptrs[7]);
   prm.T = T;
   prm.w = w;
   prm.s = SRT_STATICS(m);
@@ -162,7 +200,12 @@ extern "C" int srt_bounce_persist(void* const* ptrs, int T, int w, int m,
   prm.q = Queue{m, n_work, n_pix, pix0, total_pix};
   prm.t_min = float(t_min);
   prm.t_max = float(t_max);
-  bounce_persist_kernel<<<lane_blocks(m, w), kThreads, T * sizeof(int32_t),
-                          static_cast<cudaStream_t>(stream)>>>(prm);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (kKleins && prm.klein != nullptr)
+    bounce_persist_kernel<kKleins>
+        <<<lane_blocks(m, w), kThreads, T * sizeof(int32_t), st>>>(prm);
+  else
+    bounce_persist_kernel<false>
+        <<<lane_blocks(m, w), kThreads, T * sizeof(int32_t), st>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }

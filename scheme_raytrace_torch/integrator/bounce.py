@@ -651,6 +651,12 @@ _KLEIN_SPHERES = ((300.0, 300.0, 0.0), (300.0, -300.0, 0.0),
 # receding outside KLEIN_RECEDE_R never comes back.
 KLEIN_PRECULL_R = 726.0
 KLEIN_RECEDE_R = 900.0
+# The traced counters of the klein marches' work (utils/telemetry), on the
+# live lanes: the marches that pass the precull, their DE evaluations
+# (steps), and those still marching at the KLEIN_MAX_STEPS cap.  The
+# persistent kernel (K4) counts them in this order, and a fourth,
+# `klein.warp_steps` (persist.KLEIN_WARP_STEPS).
+KLEIN_COUNTERS = ("klein.marches", "klein.steps", "klein.capped")
 
 
 def _klein_inversion(px, py, pz, active):
@@ -672,13 +678,14 @@ def _klein_inversion(px, py, pz, active):
             s[idx, 0], s[idx, 1], s[idx, 2])
 
 
-def _klein_dist(c, px, py, pz, stats=None):
+def _klein_dist(c, px, py, pz, stats=None, counted=None):
     """The distance estimate (geometry.scm:602-624): up to KLEIN_ITERATIONS
     inversions, a lane leaving the loop when its point escapes every
     inversion sphere (it never changes again).  On the CPU the loop ends
     when no lane is active; on the card, where that test would be a host
     sync each iteration, it runs all of them, with the same values.
-    `stats` (a dict), if given, counts the inversions."""
+    `stats` (a dict), if given, counts the inversions, of the lanes where
+    `counted` (a bool lane tensor) is true when it is given."""
     px, py, pz = px - c[0], py - c[1], pz - c[2]
     r2 = cfg_mod.KLEIN_SPHERE_R * cfg_mod.KLEIN_SPHERE_R
     tiny = torch.finfo(px.dtype).tiny
@@ -687,7 +694,8 @@ def _klein_dist(c, px, py, pz, stats=None):
     for _ in range(cfg_mod.KLEIN_ITERATIONS):
         sel, dx, dy, dz, d2, sx, sy, sz = _klein_inversion(px, py, pz, active)
         if stats is not None:
-            stats["inversions"] += int(sel.sum())
+            stats["inversions"] += int((sel if counted is None
+                                        else sel & counted).sum())
         if not (px.is_cuda or bool(sel.any())):
             break
         scale = px.new_tensor(r2) / _max(d2, tiny)
@@ -759,7 +767,8 @@ def _klein_march(c, o, d, t_min, t_max, stats=None):
     Returns (hit, the parameter where each lane stopped).  `stats` (a dict),
     if given, counts the lanes that march, their steps and inversions, the
     backward-stuck retirements, and the lanes still marching at the
-    KLEIN_MAX_STEPS cap."""
+    KLEIN_MAX_STEPS cap; where it holds `lanes`, a bool lane tensor, only
+    the lanes where it is true count (the kernels march live lanes only)."""
     ox, oy, oz = o[0] - c[0], o[1] - c[1], o[2] - c[2]
     bq = ox * d[0] + oy * d[1] + oz * d[2]
     cq = ox * ox + oy * oy + oz * oz - KLEIN_PRECULL_R * KLEIN_PRECULL_R
@@ -769,23 +778,33 @@ def _klein_march(c, o, d, t_min, t_max, stats=None):
     ray_len = torch.zeros_like(o[0])
     hit = torch.zeros_like(miss)
     live = (~miss).nonzero()[:, 0]
+
+    def tally(key, among=None):
+        """Add to stats[key] the lanes of `live` that count, where `among`
+        (a mask over them) holds."""
+        keep = lanes[live] if among is None else lanes[live] & among
+        stats[key] += int(keep.sum())
+
     if stats is not None:
-        stats["marching"] += live.numel()
+        lanes = stats.get("lanes", torch.ones_like(miss))
+        tally("marching")
     for _ in range(cfg_mod.KLEIN_MAX_STEPS):
         if live.numel() == 0:
             break
+        counted = None
         if stats is not None:
-            stats["steps"] += live.numel()
+            tally("steps")
+            counted = lanes[live]
         lo, ld = [x[live] for x in o], [x[live] for x in d]
         length, tm = ray_len[live], t_max[live]
         dist = _klein_dist(c, lo[0] + ld[0] * length, lo[1] + ld[1] * length,
-                           lo[2] + ld[2] * length, stats)
+                           lo[2] + ld[2] * length, stats, counted)
         new_len = length + dist
         accept = ((dist < cfg_mod.KLEIN_SURF_EPS) & (new_len > t_min)
                   & (new_len < tm))
         stuck = (dist <= 0.0) & (length <= t_min)
         if stats is not None:
-            stats["stuck"] += int((stuck & ~accept).sum())
+            tally("stuck", stuck & ~accept)
         ray_len[live] = new_len
         hit[live] = accept
         px = lo[0] + ld[0] * new_len - c[0]
@@ -797,23 +816,23 @@ def _klein_march(c, o, d, t_min, t_max, stats=None):
         live = live[~(accept | stuck | (new_len >= tm)
                       | (receding & outside))]
     if stats is not None:
-        stats["capped"] += live.numel()
+        tally("capped")
     return hit, ray_len
 
 
-def _klein_hit(pk, b, o, d, t_min, best_t):
+def _klein_hit(pk, b, o, d, t_min, best_t, stats=None):
     """The JAX klein_probe's candidate (ok, t, wn) of the klein at packed
     base b: the march bounded by the closest hit so far runs without
     gradient; the hit's t is attached by the implicit-function correction
     t = t_raw - (corr - corr.detach()), corr = (DE - eps) / (g . d) at the
     root (g . d kept off zero at +-1e-6), and the normal is unit(g), g the
-    DE's exact gradient there."""
+    DE's exact gradient there.  `stats` goes to `_klein_march`."""
     c = _v(pk, b + K_C)
     with torch.no_grad():
         hitk, t_raw = _klein_march(tuple(x.detach() for x in c),
                                    tuple(x.detach() for x in o),
                                    tuple(x.detach() for x in d), t_min,
-                                   best_t.detach())
+                                   best_t.detach(), stats)
     p_raw = tuple(o[i] + t_raw * d[i] for i in range(3))
     dist, g = _klein_dist_grad(c, *p_raw)
     ddt = g[0] * d[0] + g[1] * d[1] + g[2] * d[2]
@@ -825,12 +844,13 @@ def _klein_hit(pk, b, o, d, t_min, best_t):
     return hitk & (pk[b + K_VALID] > 0.5), t, unit3(g)
 
 
-def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
+def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max, klein_stats=None):
     """Closest-hit sweep in pack order, material merged in: the rects,
     unrolled (for any count: the JAX step's chunked loop above UNROLL_MAX
     gives the unrolled merge's values), then the spheres, then the kleins
-    (each march bounded by the closest hit so far), then the bezier
-    ribbons.  pk is the unbound scene vector, pk_t the tensor itself."""
+    (each march bounded by the closest hit so far; `klein_stats` counts
+    their work, `_klein_march`), then the bezier ribbons.  pk is the
+    unbound scene vector, pk_t the tensor itself."""
     z = torch.zeros_like(o[0])
     best = {
         "hit": torch.zeros_like(o[0], dtype=torch.bool),
@@ -867,7 +887,7 @@ def _intersect(plan, pk, pk_t, o, d, time, t_min, t_max):
         best = _sweep_spheres(plan, pk_t, best, o, d, time, t_min, t_max)
     for k in range(plan.n_kleins):
         b = plan.kl_base + k * KL_SIZE
-        ok, t, wn = _klein_hit(pk, b, o, d, t_min, best["t"])
+        ok, t, wn = _klein_hit(pk, b, o, d, t_min, best["t"], klein_stats)
         # a klein's surface coordinates are (0, 0), as a ribbon's
         best = _merge_rec(pk, best, ok, t, wn, b, K_ALB0, K_ALB1, K_MTYPE,
                           K_TEXK, K_FUZZ, K_REF, K_TEXS,
@@ -1191,10 +1211,11 @@ def _texel(plan, atlas, rec, uv):
 
 
 def hit_record(plan: BouncePlan, pk, gitem, px, py, fresh, depth, o, d,
-               time):
+               time, klein_stats=None):
     """The first half of `step`: regenerate the fresh lanes' camera rays
     (main.scm:452-469), sweep for the closest hit (geometry.scm:33-50) and
-    let the media scatter before it.  pk is the scene vector alone.  Returns
+    let the media scatter before it.  pk is the scene vector alone;
+    `klein_stats` counts the klein marches' work (`_klein_march`).  Returns
     (o, d, time, rec), rec the winner's record: hit, t, wn, mtype, alb0,
     alb1, texk, texs, fuzz, ref."""
     pk_t = pk
@@ -1206,7 +1227,7 @@ def hit_record(plan: BouncePlan, pk, gitem, px, py, fresh, depth, o, d,
     d = where3(fresh, d_f, d)
     time = torch.where(fresh, time_f, time)
     rec = _intersect(plan, pk, pk_t, o, d, time, cfg_mod.SHADOW_EPS,
-                     cfg_mod.BIG)
+                     cfg_mod.BIG, klein_stats)
     if plan.n_media:
         rec = _media_scatter(plan, pk, gitem, depth, o, d, rec)
     return o, d, time, rec
@@ -1223,12 +1244,22 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
     queue and the framebuffer.  With `plan.has_atlas`, pk is `pack`'s
     (pk, atlas) pair: the image texel planes come first in the atlas, and
     its sphere attribute rows are not read (see `_sweep_spheres`).
+
+    While a profiler records, the klein marches of the live lanes add to
+    the traced counters KLEIN_COUNTERS, as the persistent kernel counts
+    them.
     """
     pk, atlas = split_pk(plan, pk)
     dt = px.dtype
+    kstats = (dict(marching=0, steps=0, inversions=0, stuck=0, capped=0,
+                   lanes=alive)
+              if plan.n_kleins and telemetry.tracing() else None)
     # --- regenerate fresh lanes, closest hit, media -------------------------
     o, d, time, rec = hit_record(plan, pk, gitem, px, py, fresh, depth, o, d,
-                                 time)
+                                 time, kstats)
+    if kstats is not None:
+        for name, key in zip(KLEIN_COUNTERS, ("marching", "steps", "capped")):
+            telemetry.add(name, kstats[key])
     pk_t = pk
     pk = pk.unbind(0)
     zero = torch.zeros_like(px)

@@ -24,11 +24,17 @@ around the framebuffer adds (one span a FLUSH_SPAN_ROWS rows, each short
 enough for a trace's idle gaps to be named after it) and the segment sum,
 and `pool.drain_check` around the host sync; the counters `pool.segments`
 and `pool.lane_slots` (iterations times lanes) give the pool's occupancy.
+With kleins, the marches' work adds to the counters bounce.KLEIN_COUNTERS
+and, on the card, KLEIN_WARP_STEPS: K4 adds them into a buffer of the
+frame's (allocated only while a profiler records, a null pointer
+otherwise), handed to the telemetry as 0-d tensors with no host sync;
+`chunk_plain` counts them in `bounce.step`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -45,6 +51,10 @@ ITEM_LIMIT = 2**31 - 1      # the kernel's work items are int32
 # on the card a row is about 25 host events, and rtbench/trace.py names an
 # idle gap after a span only within 64 host events of its start.
 FLUSH_SPAN_ROWS = 2
+# K4's fourth klein counter: for each warp and iteration, 32 times the most
+# march steps any lane of the warp took (the warp's step slots); with
+# `klein.steps`, the share of the slots that do a lane's work.
+KLEIN_WARP_STEPS = "klein.warp_steps"
 
 def chunk_plain(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
                 total_pix, T=CHUNK_T):
@@ -97,7 +107,7 @@ def _kernel(plan):
 
 
 def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
-               total_pix, T=CHUNK_T, tile=None):
+               total_pix, T=CHUNK_T, tile=None, counts=None):
     """`chunk_plain` through the CUDA kernel csrc/bounce_persist.cu (the
     port of the Pallas persistent kernel `_make_call`): one launch for T
     iterations, bitwise equal to T launches of `bounce.step_packed_cuda`.
@@ -105,7 +115,11 @@ def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
     when None; every width gives the same chunk bit for bit.
 
     Takes what `bounce.step_packed_cuda` takes, on one CUDA device, and
-    T >= 1.  Returns (state, flush, segs) as new tensors; launches on the
+    T >= 1.  `counts`, a [4] int64 tensor on the state's device, or None:
+    with kleins in the plan the kernel adds into it the chunk's klein
+    marches, their steps, the marches at the step cap (bounce.KLEIN_COUNTERS)
+    and the warps' step slots (KLEIN_WARP_STEPS); with None it counts
+    nothing.  Returns (state, flush, segs) as new tensors; launches on the
     current stream without synchronising and raises if the launch is
     refused; a launch adds one to the process counter `launches.K4`
     (utils/telemetry)."""
@@ -115,13 +129,21 @@ def chunk_cuda(plan, pk, sample_base, state, m, n_work, n_pix, pix0,
     if T < 1:
         raise ValueError(f"{fn}: T must be at least 1, got {T}")
     dev = state.device
+    if counts is not None and (counts.dtype != torch.int64
+                               or counts.shape != (4,)
+                               or counts.device != dev
+                               or not counts.is_contiguous()):
+        raise ValueError(f"{fn}: counts must be a contiguous [4] int64 "
+                         f"tensor on {dev}, got {tuple(counts.shape)} "
+                         f"{counts.dtype} on {counts.device}")
     out = torch.empty_like(state)
     flush = torch.empty(T, 4, m, dtype=torch.float32, device=dev)
     segs = torch.zeros(T, dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * 7)(pk.data_ptr(), sb.data_ptr(),
+    ptrs = (ctypes.c_void_p * 8)(pk.data_ptr(), sb.data_ptr(),
                                  state.data_ptr(), out.data_ptr(),
                                  flush.data_ptr(), segs.data_ptr(),
-                                 bounce.tensor_ptr(atlas))
+                                 bounce.tensor_ptr(atlas),
+                                 bounce.tensor_ptr(counts))
     kernel = _kernel(plan)
     with torch.cuda.device(dev):
         err = kernel(ptrs, T, w, *bounce.queue_args(plan, m, n_work, n_pix,
@@ -158,6 +180,10 @@ def _render(scene, cam, config, raw0, sample_base, pix0, total_pix):
     pool_fused.LAST_STEP_IMPL["forward"] = (
         "persistent" if chunk is chunk_cuda else "plain")
     plan = bounce.pool_plan(scene, config)
+    counts = None
+    if chunk is chunk_cuda and plan.n_kleins and telemetry.tracing():
+        counts = torch.zeros(4, dtype=torch.int64, device=dev)
+        chunk = functools.partial(chunk_cuda, counts=counts)
     pk = bounce.pack(scene, cam, plan, torch.float32)
     sb = torch.as_tensor(sample_base, device=dev).to(torch.int32).reshape(1)
 
@@ -181,6 +207,10 @@ def _render(scene, cam, config, raw0, sample_base, pix0, total_pix):
                                     < n_work).any())
     telemetry.add("pool.segments", segments)
     telemetry.add("pool.lane_slots", iters * m)
+    if counts is not None:
+        for name, n in zip(bounce.KLEIN_COUNTERS + (KLEIN_WARP_STEPS,),
+                           counts.unbind()):
+            telemetry.add(name, n)
     return fb.image(), segments, iters
 
 

@@ -98,6 +98,12 @@ class _Span:
         return False
 
 
+def tracing() -> bool:
+    """True while a torch profiler records: the gate of `span` and `add`,
+    for a site whose counting needs work of its own (a buffer, a mask)."""
+    return _tracing()
+
+
 def span(name: str, unit: bool = False):
     """A context manager around one named piece of work: a traced span
     while a profiler records, else a shared no-op.  Keep `name` a fixed

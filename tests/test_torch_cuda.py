@@ -14,7 +14,9 @@ bezier scenes (the ribbon probe in K1-K4 and its implicit-root adjoint in
 K2, the fold over tied seeds and the curvature floor's tie among its lanes),
 the config-5 and config-6 goldens, the kernels' per-feature-set builds, and
 the klein scenes (the sphere trace in K1-K4 and its implicit-function
-adjoint in K2, and a variant without the klein flag refusing a klein plan),
+adjoint in K2, a variant without the klein flag refusing a klein plan, and
+K4's klein counters: equal to the plain chunk's, the chunk bitwise the same
+with and without them, a traced frame bitwise the untraced one),
 and K1, K2, K3 and K4 at every tile width of threads a lane bit for bit
 against the one-thread search (w = 1), on the tie plans of chip_smoke.py
 among others, K4 at every width also against 32 K3 launches; and the
@@ -34,6 +36,7 @@ The file imports no JAX, so it also runs where only PyTorch is installed:
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
 
+import contextlib
 import ctypes
 import dataclasses
 import os
@@ -1485,6 +1488,105 @@ def test_a_variant_without_klein_refuses_a_klein_plan(cuda):
         assert err == 1, n_ptrs                    # cudaErrorInvalidValue
 
 
+# --- K4's klein counters (persist.py; bounce.KLEIN_COUNTERS) ---------------
+
+def _klein_chunk_case(cuda, m, name="cornell_klein"):
+    """(plan, pk, sample base, state, queue) of test_packed_kernels_on_the_
+    klein_scenes at m lanes: the packed state with the lanes aimed at the
+    fractal."""
+    plan, pk, ins, _ = _klein_setup(name, torch.float32, cuda, m)
+    n_pix = SPHERE_CFG.n_pixels
+    q = dict(m=m, n_work=n_pix * SPHERE_CFG.spp, n_pix=n_pix, pix0=0,
+             total_pix=n_pix)
+    state = packed_state(m, q["n_work"], plan.max_depth, cuda)
+    state[3:9] = torch.stack([*ins[6], *ins[7]])
+    sb = torch.tensor([5], dtype=torch.int32, device=cuda)
+    return plan, pk, sb, state, q
+
+
+def test_k4_klein_counters_match_chunk_plain(cuda, monkeypatch):
+    # a K4 chunk counts the marches, steps and capped marches that the
+    # plain chunk's step counts on the same state (its live lanes), and
+    # its warps' step slots are whole warps' and hold every step.  One
+    # iteration: the lanes' given rays are the same on both sides; after
+    # it the kernel's contracted FMAs (camera rays, shading) move rays by
+    # an ulp, which a march near the fractal turns into other step counts
+    # (8 iterations on 16,384 lanes: steps 1,550,665 against 1,550,458,
+    # capped 768 against 770, marches equal).  A whole frame's marches
+    # are its segments (test_traced_frame_counts_without_changing_it).
+    plan, pk, sb, state, q = _klein_chunk_case(cuda, 16 * 1024)
+    counts = torch.zeros(4, dtype=torch.int64, device=cuda)
+    persist.chunk_cuda(plan, pk, sb, state, T=1, **q, counts=counts)
+    telemetry.reset()
+    monkeypatch.setattr(telemetry, "_tracing", lambda: True)
+    try:
+        persist.chunk_plain(plan, pk, sb, state, T=1, **q)
+        snap = telemetry.snapshot()["counters"]
+    finally:
+        telemetry.reset()
+    got = counts.tolist()
+    want = [snap[n] for n in bounce.KLEIN_COUNTERS]
+    assert got[:3] == want, (got, want)
+    assert got[1] > got[0] > 0
+    assert got[3] >= got[1] and got[3] % 32 == 0
+
+
+def test_k4_klein_counters_leave_the_chunk_unchanged(cuda):
+    # the counting kernel's state, flush rows and segments are bitwise the
+    # kernel's without the buffer; a second chunk adds to the buffer
+    plan, pk, sb, state, q = _klein_chunk_case(cuda, M_POOL)
+    T = persist.CHUNK_T
+    plain = persist.chunk_cuda(plan, pk, sb, state, T=T, **q)
+    counts = torch.zeros(4, dtype=torch.int64, device=cuda)
+    counted = persist.chunk_cuda(plan, pk, sb, state, T=T, **q, counts=counts)
+    once = counts.clone()
+    persist.chunk_cuda(plan, pk, sb, state, T=T, **q, counts=counts)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, counted):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(counts, 2 * once) and int(once[1]) > 0
+    with pytest.raises(ValueError, match="counts"):
+        persist.chunk_cuda(plan, pk, sb, state, T=T, **q,
+                           counts=counts.to(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell_klein"])
+def test_traced_frame_counts_without_changing_it(cuda, name):
+    # a frame traced by the profiler is bitwise the untraced one, with the
+    # same K4 launches; on cornell_klein it counts the march (the buffer
+    # only while traced), on Cornell nothing
+    from torch.profiler import ProfilerActivity, profile
+    spec = {"cornell": scenes.cornell_box,
+            "cornell_klein": scenes.cornell_klein}[name]()
+    scene = compile_scene(spec.objects, sky=spec.sky, device=cuda)
+    cam = spec.camera(aspect=1.0, device=cuda)
+    cfg = RenderConfig(nx=128, ny=128, spp=4, max_depth=100, seed=3,
+                       light_sampling=True)
+    telemetry.reset()
+    runs = []
+    for traced in (False, True):
+        before = launches("K4")
+        with (profile(activities=[ProfilerActivity.CPU]) if traced
+              else contextlib.nullcontext()):
+            st, segs, iters = render.render_with_stats(
+                scene, cam, cfg, render.init_state(cfg, device=cuda))
+        torch.cuda.synchronize()
+        runs.append((st.raw_sum, int(segs), iters, launches("K4") - before))
+    snap = telemetry.snapshot()["counters"]
+    telemetry.reset()
+    (raw0, seg0, it0, k0), (raw1, seg1, it1, k1) = runs
+    assert torch.equal(raw0, raw1) and (seg0, it0, k0) == (seg1, it1, k1)
+    assert k0 * persist.CHUNK_T == it0 > 0
+    assert snap["pool.calls.persistent"] == snap["pool.calls"] == 1
+    names = bounce.KLEIN_COUNTERS + (persist.KLEIN_WARP_STEPS,)
+    if name == "cornell":
+        assert not set(names) & set(snap)
+        return
+    marches, steps, capped, slots = (snap[n] for n in names)
+    assert marches == seg0 and steps > marches and 0 <= capped < marches
+    assert slots >= steps and slots % 32 == 0
+
+
 # --- the tile of threads a lane (K1, K2; chip_smoke.py's kernel-tile) -----
 
 TILE_CASES = ["cornell_tie", "spheres_tie", "rtow", "bezier", "cornell_klein"]
@@ -1591,7 +1693,7 @@ def test_packed_kernels_refuse_a_tile_width(cuda):
     # past the wrappers, the C side refuses a width too
     plan, pk, q = _packed_plan(cuda)
     for fn, n_ptrs, head in ((bounce._kernel_packed(plan), 5, (3,)),
-                             (persist._kernel(plan), 7, (2, 3))):
+                             (persist._kernel(plan), 8, (2, 3))):
         ptrs = (ctypes.c_void_p * n_ptrs)()
         err = fn(ptrs, *head, *bounce.queue_args(plan, 256, 256, 256, 0, 256),
                  torch.cuda.current_stream().cuda_stream)

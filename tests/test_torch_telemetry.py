@@ -11,8 +11,9 @@ the CPU.
     all-reduce spans, and its `pool.segments` is the count the benchmark
     reads by wrapping the pool.
   * The benchmark's traced run of each cell, at a tiny size, reads the new
-    per-layer metrics as numbers, and the kernel-loading metric leaves
-    nvcc's builds out.
+    per-layer metrics as numbers (on `cornell_klein-fwd-512`, the klein
+    march's steps a segment from the plain step's counters), and the
+    kernel-loading metric leaves nvcc's builds out.
   * Process counters add up from many threads without losing a count, and
     `reset` clears the traced records only.
 
@@ -52,6 +53,11 @@ NEW_METRICS = {
     "steps": {"train.dispatch_us_per_iter", "train.autograd_ms_per_step",
               "train.pool_occupancy_pct", "setup.kernels_s"},
 }
+# a cell's own new metrics, where they are not its loop's: the klein cell
+# reports none of the pools' above, and on the CPU no device metric (it
+# traces one frame: the profiler's trace of the plain march's many small
+# operations takes most of a minute to reduce a frame)
+CELL_METRICS = {"cornell_klein-fwd-512": {"fwd.klein_steps_per_segment"}}
 
 
 @pytest.fixture
@@ -140,7 +146,8 @@ def test_train_step_records_autograd_and_segments(cornell):
 
 
 @pytest.mark.parametrize("cell, over", [
-    ("cornell-fwd-512", {}), ("bezier-train-512", {"checked_steps": 1})])
+    ("cornell-fwd-512", {}), ("bezier-train-512", {"checked_steps": 1}),
+    ("cornell_klein-fwd-512", {"trace_units": 1})])
 def test_traced_cell_reads_the_new_metrics(cell, over):
     bench = run.benchmark()
     w = run.cell_of(bench, cell)
@@ -154,9 +161,15 @@ def test_traced_cell_reads_the_new_metrics(cell, over):
         telemetry.reset()
     assert snap["units"] == tr["trace_units"]
     got = line["metrics"]
-    assert NEW_METRICS[tr["loop"]] <= set(got)
-    for name in NEW_METRICS[tr["loop"]]:
+    new = CELL_METRICS.get(cell, NEW_METRICS[tr["loop"]])
+    assert new <= set(got)
+    for name in new:
         assert math.isfinite(got[name]["value"]), name
+    if cell in CELL_METRICS:
+        # the march's DE evaluations a segment; the warps' share is K4's
+        assert got["fwd.klein_steps_per_segment"]["value"] > 0.0
+        assert "fwd.klein_march_simt_pct" not in got
+        return
     assert got["setup.kernels_s"]["value"] == 0.0        # no kernel on the CPU
     occ = got[("fwd" if tr["loop"] == "frames" else "train")
               + ".pool_occupancy_pct"]["value"]
